@@ -1,0 +1,71 @@
+"""Carry the reference package's state into the port as plain numpy/Python.
+
+A storage system's "weights" are its coding matrices (already numpy) and its
+CRUSH map.  These readers copy a map, or a fast-path rule, out of any object
+that carries the reference's attributes (duck typing: nothing of the
+reference package is imported), so tests can feed both packages the same map.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ceph_tpu_torch.crush.fastpath import FastRule
+from ceph_tpu_torch.crush.types import (
+    Bucket, ChooseArg, CrushMap, Rule, RuleStep, Tunables)
+
+_BUCKET_FIELDS = ("id", "type", "alg", "hash", "items", "weight",
+                  "item_weights", "item_weight", "sum_weights", "straws",
+                  "node_weights")
+_TUNABLE_FIELDS = ("choose_local_tries", "choose_local_fallback_tries",
+                   "choose_total_tries", "chooseleaf_descend_once",
+                   "chooseleaf_vary_r", "chooseleaf_stable",
+                   "straw_calc_version")
+
+
+def _copy(v):
+    return [int(i) for i in v] if isinstance(v, (list, tuple)) else int(v)
+
+
+def _choose_arg(a) -> ChooseArg:
+    return ChooseArg(
+        ids=None if a.ids is None else [int(i) for i in a.ids],
+        weight_set=None if a.weight_set is None
+        else [[int(w) for w in row] for row in a.weight_set])
+
+
+def crush_map_from_reference(obj) -> CrushMap:
+    """The port's CrushMap with the buckets, rules, tunables, devices,
+    choose_args and class buckets of a reference ``CrushMap``."""
+    m = CrushMap(max_devices=int(obj.max_devices),
+                 tunables=Tunables(**{f: int(getattr(obj.tunables, f))
+                                      for f in _TUNABLE_FIELDS}))
+    m.buckets = [None if b is None else
+                 Bucket(**{f: _copy(getattr(b, f)) for f in _BUCKET_FIELDS})
+                 for b in obj.buckets]
+    m.rules = [None if r is None else
+               Rule(ruleset=int(r.ruleset), type=int(r.type),
+                    min_size=int(r.min_size), max_size=int(r.max_size),
+                    steps=[RuleStep(int(s.op), int(s.arg1), int(s.arg2))
+                           for s in r.steps])
+               for r in obj.rules]
+    m.choose_args = {name: {int(i): _choose_arg(a) for i, a in args.items()}
+                     for name, args in getattr(obj, "choose_args", {}).items()}
+    m.class_bucket = dict(getattr(obj, "class_bucket", {}))
+    return m
+
+
+def fast_rule_from_arrays(obj) -> FastRule:
+    """The port's FastRule from any object with the FastRule fields (a
+    reference ``FastRule``): its scalars and numpy arrays, copied."""
+    def arr(v, dtype):
+        return None if v is None else np.array(v, dtype=dtype)
+
+    return FastRule(
+        kind=str(obj.kind), numrep_arg=int(obj.numrep_arg),
+        tries=int(obj.tries), vary_r=int(obj.vary_r),
+        root_ids=arr(obj.root_ids, np.int32),
+        root_w=arr(obj.root_w, np.int64),
+        leaf_ids=arr(obj.leaf_ids, np.int32),
+        leaf_w=arr(obj.leaf_w, np.int64),
+        max_devices=int(obj.max_devices))

@@ -1,0 +1,168 @@
+"""CRUSH map data model.
+
+Mirrors the semantic content of src/crush/crush.h (crush_map, crush_bucket and its
+five algorithm variants, crush_rule) as plain Python dataclasses.  Negative ids are
+buckets (bucket id b lives at index -1-b), non-negative ids are devices, exactly as in
+the reference.  Weights are 16.16 fixed point (0x10000 == weight 1.0).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+CRUSH_BUCKET_UNIFORM = 1
+CRUSH_BUCKET_LIST = 2
+CRUSH_BUCKET_TREE = 3
+CRUSH_BUCKET_STRAW = 4
+CRUSH_BUCKET_STRAW2 = 5
+
+CRUSH_ITEM_UNDEF = 0x7FFFFFFE
+CRUSH_ITEM_NONE = 0x7FFFFFFF
+
+# device classes: shadow-bucket table (CrushWrapper class_bucket) keyed
+# (original bucket id, class name) -> shadow bucket id; built by the
+# reference's crush/classes.py, not ported yet
+
+RULE_NOOP = 0
+RULE_TAKE = 1
+RULE_CHOOSE_FIRSTN = 2
+RULE_CHOOSE_INDEP = 3
+RULE_EMIT = 4
+RULE_CHOOSELEAF_FIRSTN = 6
+RULE_CHOOSELEAF_INDEP = 7
+RULE_SET_CHOOSE_TRIES = 8
+RULE_SET_CHOOSELEAF_TRIES = 9
+RULE_SET_CHOOSE_LOCAL_TRIES = 10
+RULE_SET_CHOOSE_LOCAL_FALLBACK_TRIES = 11
+RULE_SET_CHOOSELEAF_VARY_R = 12
+RULE_SET_CHOOSELEAF_STABLE = 13
+
+S64_MIN = -(1 << 63)
+
+
+@dataclass
+class Tunables:
+    """Default profile is "jewel" with straw_calc_version 1
+    (CrushWrapper.h:186-211 set_tunables_default)."""
+
+    choose_local_tries: int = 0
+    choose_local_fallback_tries: int = 0
+    choose_total_tries: int = 50
+    chooseleaf_descend_once: int = 1
+    chooseleaf_vary_r: int = 1
+    chooseleaf_stable: int = 1
+    straw_calc_version: int = 1
+
+    @classmethod
+    def legacy(cls) -> "Tunables":
+        """The pre-bobtail ("argonaut") profile (CrushWrapper.h set_tunables_legacy)."""
+        return cls(choose_local_tries=2, choose_local_fallback_tries=5,
+                   choose_total_tries=19, chooseleaf_descend_once=0,
+                   chooseleaf_vary_r=0, chooseleaf_stable=0, straw_calc_version=0)
+
+
+@dataclass
+class Bucket:
+    id: int                      # negative
+    type: int                    # user-defined type id (0 = device)
+    alg: int                     # CRUSH_BUCKET_*
+    hash: int = 0                # CRUSH_HASH_RJENKINS1
+    items: list[int] = field(default_factory=list)
+    weight: int = 0              # 16.16 total
+    # straw2 / list: per-item 16.16 weights
+    item_weights: list[int] = field(default_factory=list)
+    # uniform: single shared weight
+    item_weight: int = 0
+    # list: cumulative weights (sum_weights[i] = sum of item_weights[0..i])
+    sum_weights: list[int] = field(default_factory=list)
+    # straw (legacy): 16.16 straw lengths
+    straws: list[int] = field(default_factory=list)
+    # tree: node weights indexed by tree node id
+    node_weights: list[int] = field(default_factory=list)
+
+    @property
+    def size(self) -> int:
+        return len(self.items)
+
+
+@dataclass
+class RuleStep:
+    op: int
+    arg1: int = 0
+    arg2: int = 0
+
+
+@dataclass
+class Rule:
+    ruleset: int
+    type: int
+    min_size: int
+    max_size: int
+    steps: list[RuleStep] = field(default_factory=list)
+
+
+@dataclass
+class ChooseArg:
+    """Per-bucket weight-set override (CrushWrapper choose_args machinery,
+    consumed at mapper.c:309-326)."""
+
+    ids: list[int] | None = None
+    # weight_set[position][i] — per-result-position weight override
+    weight_set: list[list[int]] | None = None
+
+
+@dataclass
+class CrushMap:
+    buckets: list[Bucket | None] = field(default_factory=list)  # index -1-id
+    rules: list[Rule | None] = field(default_factory=list)
+    max_devices: int = 0
+    tunables: Tunables = field(default_factory=Tunables)
+    # choose_args: name -> {bucket_index: ChooseArg}
+    choose_args: dict = field(default_factory=dict)
+    #: device-class shadow buckets: (orig bucket id, class) -> shadow id
+    #: (CrushWrapper class_bucket)
+    class_bucket: dict = field(default_factory=dict)
+
+    @property
+    def max_buckets(self) -> int:
+        return len(self.buckets)
+
+    @property
+    def max_rules(self) -> int:
+        return len(self.rules)
+
+    def bucket(self, id: int) -> Bucket | None:
+        idx = -1 - id
+        if idx < 0 or idx >= len(self.buckets):
+            return None
+        return self.buckets[idx]
+
+    def add_bucket(self, bucket: Bucket) -> int:
+        """Place bucket at index -1-id, growing the array (builder.c:138-188)."""
+        if bucket.id == 0:
+            bucket.id = self.next_bucket_id()
+        pos = -1 - bucket.id
+        while pos >= len(self.buckets):
+            self.buckets.append(None)
+        if self.buckets[pos] is not None:
+            raise ValueError(f"bucket id {bucket.id} already in use")
+        self.buckets[pos] = bucket
+        return bucket.id
+
+    def next_bucket_id(self) -> int:
+        for pos, b in enumerate(self.buckets):
+            if b is None:
+                return -1 - pos
+        return -1 - len(self.buckets)
+
+    def add_rule(self, rule: Rule) -> int:
+        self.rules.append(rule)
+        return len(self.rules) - 1
+
+    def find_rule(self, ruleset: int, type: int, size: int) -> int:
+        """crush_find_rule (mapper.c:41-54)."""
+        for i, r in enumerate(self.rules):
+            if (r is not None and r.ruleset == ruleset and r.type == type
+                    and r.min_size <= size <= r.max_size):
+                return i
+        return -1

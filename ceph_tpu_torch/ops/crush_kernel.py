@@ -1,0 +1,164 @@
+"""Batched CRUSH placement primitives in plain torch.
+
+The reference evaluates placement one x at a time (``crush_do_rule``,
+src/crush/mapper.c:900).  Here the same math is elementwise over a batch of x:
+the rjenkins hashes, ``crush_ln``, the straw2 draws and their first-max winner,
+and the ``is_out`` reweight test.  These are the plain versions the CUDA
+kernels (ops.straw2_cuda) are held against, and the whole CPU path.
+
+Bit-exactness contract: every function here matches the scalar oracle in
+ceph_tpu_torch.crush.mapper_ref exactly, including the 16.16 fixed-point straw2
+draw (``crush_ln`` tables, u64 wrap-around product, truncating s64 division) and
+the first-max-wins tie-break of ``bucket_straw2_choose`` (mapper.c:361-384).
+
+u32 values live in int64 tensors: torch's uint32 lacks most kernels, so every
+subtract and left shift of the hash is masked back to 32 bits by hand.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from ceph_tpu_torch.crush.hashfn import CRUSH_HASH_SEED
+from ceph_tpu_torch.crush.ln_table import lh_table, ll_table, rh_table
+from ceph_tpu_torch.crush.types import S64_MIN
+
+_M32 = 0xFFFFFFFF
+
+
+# ---------------------------------------------------------------------------
+# rjenkins1 hash family (crush/hash.c semantics, elementwise on u32-in-int64)
+# ---------------------------------------------------------------------------
+
+def _mix(a, b, c):
+    a = (a - b - c) & _M32; a = a ^ (c >> 13)
+    b = (b - c - a) & _M32; b = b ^ ((a << 8) & _M32)
+    c = (c - a - b) & _M32; c = c ^ (b >> 13)
+    a = (a - b - c) & _M32; a = a ^ (c >> 12)
+    b = (b - c - a) & _M32; b = b ^ ((a << 16) & _M32)
+    c = (c - a - b) & _M32; c = c ^ (b >> 5)
+    a = (a - b - c) & _M32; a = a ^ (c >> 3)
+    b = (b - c - a) & _M32; b = b ^ ((a << 10) & _M32)
+    c = (c - a - b) & _M32; c = c ^ (b >> 15)
+    return a, b, c
+
+
+def _u32(v) -> torch.Tensor:
+    """Any integer tensor -> int64 holding its value mod 2^32."""
+    return torch.as_tensor(v).to(torch.int64) & _M32
+
+
+def hash32_2(a, b) -> torch.Tensor:
+    """crush_hash32_2 (hash.c:38-50), elementwise over broadcast tensors;
+    returns int64 u32 values."""
+    a, b = torch.broadcast_tensors(_u32(a), _u32(b))
+    h = CRUSH_HASH_SEED ^ a ^ b
+    x = torch.full_like(h, 231232)
+    y = torch.full_like(h, 1232)
+    a, b, h = _mix(a, b, h)
+    x, a, h = _mix(x, a, h)
+    b, y, h = _mix(b, y, h)
+    return h
+
+
+def hash32_3(a, b, c) -> torch.Tensor:
+    """crush_hash32_3 (hash.c:52-66), elementwise over broadcast tensors;
+    returns int64 u32 values."""
+    a, b, c = torch.broadcast_tensors(_u32(a), _u32(b), _u32(c))
+    h = CRUSH_HASH_SEED ^ a ^ b ^ c
+    x = torch.full_like(h, 231232)
+    y = torch.full_like(h, 1232)
+    a, b, h = _mix(a, b, h)
+    c, x, h = _mix(c, x, h)
+    y, a, h = _mix(y, a, h)
+    b, x, h = _mix(b, x, h)
+    y, c, h = _mix(y, c, h)
+    return h
+
+
+# ---------------------------------------------------------------------------
+# crush_ln — 2^44*log2(x+1) in 48-bit fixed point (mapper.c:248-290)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _ln_tables_cpu() -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return (torch.from_numpy(rh_table().copy()),
+            torch.from_numpy(lh_table().copy()),
+            torch.from_numpy(ll_table().copy()))
+
+
+def ln_tables(device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The RH (129,), LH (129,) and LL (256,) int64 tables on ``device``."""
+    return tuple(t.to(device) for t in _ln_tables_cpu())
+
+
+def crush_ln(xin) -> torch.Tensor:
+    """Elementwise crush_ln over 16-bit inputs (the straw2 draws feed
+    ``hash & 0xFFFF``); returns int64."""
+    x = _u32(xin) + 1
+    rh_t, lh_t, ll_t = ln_tables(x.device)
+    low17 = x & 0x1FFFF
+    # bits to normalize the mantissa into [0x8000, 0x18000); the C code
+    # computes this with a shift loop (mapper.c:263-268)
+    # (frexp's exponent of a double is the exact bit length below 2^53)
+    bits = 16 - torch.frexp(low17.double()).exponent.to(torch.int64)
+    needs_norm = (x & 0x18000) == 0
+    xnorm = torch.where(needs_norm, (x << bits.clamp(min=0)) & _M32, x)
+    iexpon = torch.where(needs_norm, 15 - bits, 15)
+    k = (((xnorm >> 8) << 1) - 256) >> 1
+    rh = rh_t[k]
+    lh = lh_t[k]
+    # bits [48, 56) of the u64 wrap-around product xnorm * rh.  xnorm < 2^17
+    # and rh < 2^49 overflow int64, so rh is split at bit 24:
+    # floor(x*rh / 2^48) == (x*rh_hi + floor(x*rh_lo / 2^24)) >> 24
+    xl = ((xnorm * (rh >> 24)) + ((xnorm * (rh & 0xFFFFFF)) >> 24)) >> 24
+    ll = ll_t[xl & 0xFF]
+    return (iexpon << 44) + ((lh + ll) >> 4)
+
+
+_LN_2_48 = 1 << 48
+
+
+def straw2_draws(x, ids, r, weights) -> torch.Tensor:
+    """Per-item straw2 draws (mapper.c:334-359 generate_exponential_distribution).
+
+    x : (...,) u32 inputs       ids : (..., S) item ids (or (S,))
+    r : (...,) replica numbers  weights : like ids, 16.16 fixed point
+    returns (..., S) int64 draws; weight <= 0 items get S64_MIN.
+    """
+    x = _u32(x)
+    r = _u32(r)
+    w = torch.as_tensor(weights).to(torch.int64)
+    u = hash32_3(x[..., None], ids, r[..., None]) & 0xFFFF
+    ln = crush_ln(u) - _LN_2_48
+    # div64_s64 truncates toward zero; torch // floors
+    draw = torch.div(ln, w.clamp(min=1), rounding_mode="trunc")
+    return torch.where(w > 0, draw, S64_MIN)
+
+
+def straw2_choose_index(x, ids, r, weights) -> torch.Tensor:
+    """Winning *position* in the bucket for each (x, r) — first max wins,
+    matching the strict `>` comparison in bucket_straw2_choose
+    (mapper.c:374-380); torch.argmax returns the first maximal index."""
+    return torch.argmax(straw2_draws(x, ids, r, weights), dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# is_out — probabilistic rejection by the reweight vector (mapper.c:424-438)
+# ---------------------------------------------------------------------------
+
+def is_out(reweight: torch.Tensor, item: torch.Tensor, x) -> torch.Tensor:
+    """reweight: (D,) 16.16 per-device; item: (...,) device ids; x: (...,)
+    inputs.  Ids beyond the reweight vector (or negative) are out, like the
+    weight_max guard in mapper.c:424-427."""
+    n = reweight.shape[0]
+    item = item.to(torch.int64)
+    oob = (item < 0) | (item >= n)
+    w = reweight.to(torch.int64)[item.clamp(0, n - 1)]
+    keep_full = w >= 0x10000
+    zero = w == 0
+    h = hash32_2(x, item) & 0xFFFF
+    keep_prob = h < w
+    return oob | ~(keep_full | (~zero & keep_prob))

@@ -1,0 +1,193 @@
+"""CUDA straw2 column kernels for the CRUSH fast path, with plain versions.
+
+The counterpart of ceph_tpu/ops/pallas_straw2.py: the same three column
+functions in the same (R, N) layout — row r holds every input's winner at
+replica number r — so the fast path's schedule (crush.fastpath) reads them as
+it read the Pallas columns.
+
+  CudaColumns(fr).root_columns(xs, reweight, R) -> (pos, id)   csrc/straw2.cu
+  CudaColumns(fr).leaf_columns(xs, root_pos, R) -> leaf id     straw2_root /
+  consume_columns(hw, lw, lb, numrep=, tries=)  -> (oh, ol, ovf) straw2_leaf /
+                                                               firstn_consume
+
+Each takes CUDA tensors to its kernel and CPU tensors to its plain torch
+version (``*_plain`` below); a CUDA tensor never reaches a plain version
+through these wrappers.  Unlike the Pallas wrappers nothing is padded to a
+lane quantum: outputs are exactly (R, N).
+
+is_out verdicts stay outside the kernels, elementwise in torch over the winner
+columns (ops.crush_kernel.is_out), as in the JAX fast path.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ceph_tpu_torch.crush.types import CRUSH_ITEM_NONE
+from ceph_tpu_torch.ops import _build
+from ceph_tpu_torch.ops.crush_kernel import ln_tables, straw2_choose_index
+
+
+def xs_i32(xs: torch.Tensor) -> torch.Tensor:
+    """u32 inputs (int64 values) -> the int32 bit pattern the kernels read
+    as uint32."""
+    v = xs.to(torch.int64) & 0xFFFFFFFF
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def root_columns_plain(xs: torch.Tensor, ids: torch.Tensor, w: torch.Tensor,
+                       R: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """xs (N,) u32 in int64; ids (S,) int32; w (S,) int64 -> (pos, id)
+    each (R, N) int32: the straw2 winner of the bucket for every (r, x)."""
+    pos = torch.stack([
+        straw2_choose_index(xs, ids, torch.full_like(xs, r), w)
+        for r in range(R)])
+    return pos.to(torch.int32), ids[pos].to(torch.int32)
+
+
+def leaf_columns_plain(xs: torch.Tensor, root_pos: torch.Tensor,
+                       leaf_ids: torch.Tensor, leaf_w: torch.Tensor,
+                       vary_r: int, R: int) -> torch.Tensor:
+    """root winner positions (R, N) -> leaf device ids (R, N) int32, drawn
+    in the winning host's row (H, S) with r_leaf = r >> (vary_r - 1), or 0
+    without vary_r (mapper.c:578)."""
+    cols = []
+    for r in range(R):
+        host = root_pos[r].long()
+        rows_id = leaf_ids[host]                              # (N, S)
+        r_leaf = (r >> (vary_r - 1)) if vary_r else 0
+        lpos = straw2_choose_index(xs, rows_id, torch.full_like(xs, r_leaf),
+                                   leaf_w[host])
+        cols.append(torch.gather(rows_id, 1, lpos[:, None])[:, 0])
+    return torch.stack(cols).to(torch.int32)
+
+
+def consume_columns_plain(hw: torch.Tensor, lw: torch.Tensor,
+                          lb: torch.Tensor, *, numrep: int, tries: int
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The firstn ladder over (R, N) winner columns, unrolled as in the
+    kernel: attempt i of replica rep reads row rep + i."""
+    R, n = hw.shape
+    none = torch.full((n,), CRUSH_ITEM_NONE, dtype=torch.int32,
+                      device=hw.device)
+    sel_h = [none.clone() for _ in range(numrep)]
+    sel_l = [none.clone() for _ in range(numrep)]
+    ovf = torch.zeros((n,), dtype=torch.bool, device=hw.device)
+    for rep in range(numrep):
+        done = torch.zeros((n,), dtype=torch.bool, device=hw.device)
+        steps = min(tries, R - rep)
+        for i in range(steps):
+            hb, lf = hw[rep + i], lw[rep + i]
+            bad = lb[rep + i].bool()
+            for j in range(numrep):
+                bad = bad | (sel_h[j] == hb) | (sel_l[j] == lf)
+            place = ~done & ~bad
+            sel_h[rep] = torch.where(place, hb, sel_h[rep])
+            sel_l[rep] = torch.where(place, lf, sel_l[rep])
+            done = done | place
+        if steps < tries:
+            ovf = ovf | ~done
+    return torch.stack(sel_h), torch.stack(sel_l), ovf.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check_cuda(*ts: torch.Tensor) -> None:
+    if not all(t.is_cuda for t in ts):
+        raise ValueError("kernel operands must all lie on the card")
+
+
+class CudaColumns:
+    """Winner columns for one FastRule, its map tables resident on
+    ``device``: (R, N) root positions/ids and leaf ids for r in [0, R)."""
+
+    def __init__(self, fr, device: torch.device):
+        self.fr = fr
+        self.device = torch.device(device)
+        self.root_ids = torch.from_numpy(
+            np.asarray(fr.root_ids, dtype=np.int32)).to(self.device)
+        self.root_w = torch.from_numpy(
+            np.asarray(fr.root_w, dtype=np.int64)).to(self.device)
+        self.ln_tab = torch.cat(ln_tables(self.device)).contiguous()
+        self.leaf_ids = self.leaf_w = None
+        if fr.leaf_ids is not None:
+            self.leaf_ids = torch.from_numpy(np.ascontiguousarray(
+                fr.leaf_ids, dtype=np.int32)).to(self.device)
+            self.leaf_w = torch.from_numpy(np.ascontiguousarray(
+                fr.leaf_w, dtype=np.int64)).to(self.device)
+
+    def root_columns(self, xs: torch.Tensor, reweight, R: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+        """xs (N,) u32 in int64 -> (pos, ids) each (R, N) int32.  is_out
+        verdicts are computed by the caller."""
+        del reweight
+        if not xs.is_cuda:
+            return root_columns_plain(xs, self.root_ids, self.root_w, R)
+        _check_cuda(self.root_ids)
+        n, S = xs.shape[0], self.root_ids.shape[0]
+        pos = torch.empty((R, n), dtype=torch.int32, device=xs.device)
+        ids = torch.empty((R, n), dtype=torch.int32, device=xs.device)
+        if n and R:
+            x32 = xs_i32(xs).contiguous()
+            _build.launch("straw2_root", "straw2_root_launch",
+                          x32.data_ptr(), n, R, self.root_ids.data_ptr(),
+                          self.root_w.data_ptr(), S, self.ln_tab.data_ptr(),
+                          pos.data_ptr(), ids.data_ptr())
+        return pos, ids
+
+    def leaf_columns(self, xs: torch.Tensor, root_pos: torch.Tensor,
+                     R: int) -> torch.Tensor:
+        """root winner positions (R, N) -> leaf device ids (R, N) int32.
+        is_out verdicts are computed by the caller."""
+        if self.leaf_ids is None:
+            raise ValueError("leaf_columns needs a chooseleaf rule")
+        if root_pos.shape != (R, xs.shape[0]):
+            raise ValueError(f"root_pos must be ({R}, {xs.shape[0]})")
+        if not xs.is_cuda:
+            return leaf_columns_plain(xs, root_pos, self.leaf_ids,
+                                      self.leaf_w, self.fr.vary_r, R)
+        _check_cuda(root_pos, self.leaf_ids)
+        n = xs.shape[0]
+        H, S = self.leaf_ids.shape
+        lid = torch.empty((R, n), dtype=torch.int32, device=xs.device)
+        if n and R:
+            x32 = xs_i32(xs).contiguous()
+            rp = root_pos.to(torch.int32).contiguous()
+            _build.launch("straw2_leaf", "straw2_leaf_launch",
+                          x32.data_ptr(), n, R, rp.data_ptr(),
+                          self.leaf_ids.data_ptr(), self.leaf_w.data_ptr(),
+                          H, S, int(self.fr.vary_r), self.ln_tab.data_ptr(),
+                          lid.data_ptr())
+        return lid
+
+
+def consume_columns(hw: torch.Tensor, lw: torch.Tensor, lb: torch.Tensor, *,
+                    numrep: int, tries: int
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(R, N) winner columns -> (out_h, out_l, ovf): (numrep, N) int32
+    selections with NONE holes and an (N,) int32 overflow flag."""
+    if hw.shape != lw.shape or hw.shape != lb.shape or hw.dim() != 2:
+        raise ValueError("hw, lw and lb must be (R, N) columns of one shape")
+    if not hw.is_cuda:
+        return consume_columns_plain(hw, lw, lb, numrep=numrep, tries=tries)
+    _check_cuda(lw, lb)
+    R, n = hw.shape
+    out_h = torch.empty((numrep, n), dtype=torch.int32, device=hw.device)
+    out_l = torch.empty((numrep, n), dtype=torch.int32, device=hw.device)
+    ovf = torch.empty((n,), dtype=torch.int32, device=hw.device)
+    if n:
+        h32 = hw.to(torch.int32).contiguous()
+        l32 = lw.to(torch.int32).contiguous()
+        b8 = lb.to(torch.uint8).contiguous()
+        _build.launch("firstn_consume", "firstn_consume_launch",
+                      h32.data_ptr(), l32.data_ptr(), b8.data_ptr(), R, n,
+                      numrep, tries, out_h.data_ptr(), out_l.data_ptr(),
+                      ovf.data_ptr())
+    return out_h, out_l, ovf

@@ -1,0 +1,88 @@
+"""The port's flagship entry point against the reference's, plus the port's
+package rules: no JAX or reference import, and no silent CPU fallback."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import __graft_entry__
+from ceph_tpu_torch.entry import entry
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs in several worker processes at once: torch's own
+    thread pool in each of them would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_entry_matches_reference_entry():
+    fn, (xs, data) = entry(device="cpu")
+    jfn, (jxs, jdata) = __graft_entry__.entry()
+    np.testing.assert_array_equal(xs.numpy(), np.asarray(jxs).astype(np.int64))
+    np.testing.assert_array_equal(data.numpy(), np.asarray(jdata))
+    placements, parity = fn(xs, data)
+    jplace, jparity = jfn(jxs, jdata)
+    assert placements.shape == (256, 3) and parity.shape == (32, 4, 512)
+    np.testing.assert_array_equal(placements.numpy(), np.asarray(jplace))
+    np.testing.assert_array_equal(parity.numpy(), np.asarray(jparity))
+
+
+def test_import_loads_neither_jax_nor_reference():
+    code = (
+        "import pkgutil, sys, ceph_tpu_torch\n"
+        "for m in pkgutil.walk_packages(ceph_tpu_torch.__path__, "
+        "'ceph_tpu_torch.'):\n"
+        "    __import__(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax' "
+        "or n.startswith('jax.') or n == 'ceph_tpu' "
+        "or n.startswith('ceph_tpu.'))\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def _no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_without_cuda_raises(monkeypatch):
+    from ceph_tpu_torch.crush.builder import build_two_level_map
+    from ceph_tpu_torch.crush.fastpath import FastMapper, detect
+    from ceph_tpu_torch.gf import gen_cauchy1_matrix
+    from ceph_tpu_torch.ops.gf_kernel import ec_decode_batched, make_encoder
+
+    _no_cuda(monkeypatch)
+    m, _root, rid = build_two_level_map(2, 2)
+    calls = [
+        lambda: entry(),
+        lambda: make_encoder(gen_cauchy1_matrix(4, 2)[4:]),
+        lambda: FastMapper(detect(m, rid)),
+        lambda: FastMapper(detect(m, rid), device="cuda"),
+        lambda: ec_decode_batched(np.zeros((1, 32, 16), np.int8), [0],
+                                  np.zeros((1, 4, 8), np.uint8), k=4, t=2),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
+def test_chip_smoke_refuses_without_cuda():
+    """chip_smoke.py is the on-card proof: without a card it must fail and
+    print no result."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
