@@ -1,14 +1,18 @@
-"""CRUSH map construction (src/crush/builder.c semantics) for the straw2 maps
-the fast path serves: the flat and two-level topologies the tests, the entry
-point and chip_smoke.py build.  Maps of any other shape come across from the
-reference package through ceph_tpu_torch.convert.
+"""CRUSH map construction (src/crush/builder.c semantics) plus convenience
+topologies used by tests, benchmarks and the placement layer.
 
 Weights are 16.16 fixed point throughout (0x10000 == 1.0)."""
 
 from __future__ import annotations
 
+import math
+
 from .types import (
+    CRUSH_BUCKET_LIST,
+    CRUSH_BUCKET_STRAW,
     CRUSH_BUCKET_STRAW2,
+    CRUSH_BUCKET_TREE,
+    CRUSH_BUCKET_UNIFORM,
     RULE_CHOOSE_FIRSTN,
     RULE_CHOOSE_INDEP,
     RULE_CHOOSELEAF_FIRSTN,
@@ -22,6 +26,137 @@ from .types import (
 )
 
 
+def make_uniform_bucket(id: int, type: int, items: list[int],
+                        item_weight: int) -> Bucket:
+    """builder.c:190-228."""
+    return Bucket(id=id, type=type, alg=CRUSH_BUCKET_UNIFORM, items=list(items),
+                  item_weight=item_weight, weight=len(items) * item_weight)
+
+
+def make_list_bucket(id: int, type: int, items: list[int],
+                     weights: list[int]) -> Bucket:
+    """builder.c:230-281 — cumulative sums in insertion order."""
+    sums = []
+    w = 0
+    for wi in weights:
+        w += wi
+        sums.append(w)
+    return Bucket(id=id, type=type, alg=CRUSH_BUCKET_LIST, items=list(items),
+                  item_weights=list(weights), sum_weights=sums, weight=w)
+
+
+def _calc_depth(size: int) -> int:
+    """builder.c:307-318."""
+    if size == 0:
+        return 0
+    depth = 1
+    t = size - 1
+    while t:
+        depth += 1
+        t >>= 1
+    return depth
+
+
+def make_tree_bucket(id: int, type: int, items: list[int],
+                     weights: list[int]) -> Bucket:
+    """builder.c:322-394 — leaf i sits at node 2i+1; weights sum upward."""
+    size = len(items)
+    depth = _calc_depth(size)
+    num_nodes = 1 << depth
+    node_weights = [0] * num_nodes
+    total = 0
+    for i, wi in enumerate(weights):
+        node = ((i + 1) << 1) - 1  # crush_calc_tree_node (crush.h:504-507)
+        node_weights[node] = wi
+        total += wi
+        for _ in range(1, depth):
+            # parent: climb one level (builder.c parent())
+            h = 0
+            n = node
+            while not (n & 1):
+                h += 1
+                n >>= 1
+            if node & (1 << (h + 1)):
+                node -= 1 << h
+            else:
+                node += 1 << h
+            node_weights[node] += wi
+    return Bucket(id=id, type=type, alg=CRUSH_BUCKET_TREE, items=list(items),
+                  item_weights=list(weights), node_weights=node_weights,
+                  weight=total)
+
+
+def _calc_straws(items: list[int], weights: list[int],
+                 straw_calc_version: int) -> list[int]:
+    """builder.c:427-546 crush_calc_straw — double-precision straw scaling."""
+    size = len(items)
+    # stable insertion sort ascending by weight (builder.c:436-454)
+    reverse = [0] if size else []
+    for i in range(1, size):
+        for j in range(i):
+            if weights[i] < weights[reverse[j]]:
+                reverse.insert(j, i)
+                break
+        else:
+            reverse.append(i)
+    straws = [0] * size
+    numleft = size
+    straw = 1.0
+    wbelow = 0.0
+    lastw = 0.0
+    i = 0
+    while i < size:
+        if straw_calc_version == 0:
+            if weights[reverse[i]] == 0:
+                straws[reverse[i]] = 0
+                i += 1
+                continue
+            straws[reverse[i]] = int(straw * 0x10000) & 0xFFFFFFFF
+            i += 1
+            if i == size:
+                break
+            if weights[reverse[i]] == weights[reverse[i - 1]]:
+                continue
+            wbelow += (float(weights[reverse[i - 1]]) - lastw) * numleft
+            j = i
+            while j < size:
+                if weights[reverse[j]] == weights[reverse[i]]:
+                    numleft -= 1
+                    j += 1
+                else:
+                    break
+            wnext = numleft * (weights[reverse[i]] - weights[reverse[i - 1]])
+            pbelow = wbelow / (wbelow + wnext)
+            straw *= math.pow(1.0 / pbelow, 1.0 / numleft)
+            lastw = float(weights[reverse[i - 1]])
+        else:
+            if weights[reverse[i]] == 0:
+                straws[reverse[i]] = 0
+                i += 1
+                numleft -= 1
+                continue
+            straws[reverse[i]] = int(straw * 0x10000) & 0xFFFFFFFF
+            i += 1
+            if i == size:
+                break
+            wbelow += (float(weights[reverse[i - 1]]) - lastw) * numleft
+            numleft -= 1
+            wnext = numleft * (weights[reverse[i]] - weights[reverse[i - 1]])
+            pbelow = wbelow / (wbelow + wnext)
+            straw *= math.pow(1.0 / pbelow, 1.0 / numleft)
+            lastw = float(weights[reverse[i - 1]])
+    return straws
+
+
+def make_straw_bucket(id: int, type: int, items: list[int], weights: list[int],
+                      straw_calc_version: int = 1) -> Bucket:
+    """builder.c:548-592 (legacy straw; straw lengths from crush_calc_straw)."""
+    return Bucket(id=id, type=type, alg=CRUSH_BUCKET_STRAW, items=list(items),
+                  item_weights=list(weights),
+                  straws=_calc_straws(items, weights, straw_calc_version),
+                  weight=sum(weights))
+
+
 def make_straw2_bucket(id: int, type: int, items: list[int],
                        weights: list[int]) -> Bucket:
     """builder.c:594-632."""
@@ -29,65 +164,98 @@ def make_straw2_bucket(id: int, type: int, items: list[int],
                   item_weights=list(weights), weight=sum(weights))
 
 
+def make_bucket(id: int, alg: int, type: int, items: list[int],
+                weights: list[int], straw_calc_version: int = 1) -> Bucket:
+    """crush_make_bucket dispatch (builder.c:642-666).  Uniform takes weights[0]
+    as the shared item weight."""
+    if alg == CRUSH_BUCKET_UNIFORM:
+        return make_uniform_bucket(id, type, items, weights[0] if weights else 0)
+    if alg == CRUSH_BUCKET_LIST:
+        return make_list_bucket(id, type, items, weights)
+    if alg == CRUSH_BUCKET_TREE:
+        return make_tree_bucket(id, type, items, weights)
+    if alg == CRUSH_BUCKET_STRAW:
+        return make_straw_bucket(id, type, items, weights, straw_calc_version)
+    if alg == CRUSH_BUCKET_STRAW2:
+        return make_straw2_bucket(id, type, items, weights)
+    raise ValueError(f"unknown bucket alg {alg}")
+
+
+# ---------------------------------------------------------------------------
+# rules (CrushWrapper::add_simple_rule analog, CrushWrapper.cc; "firstn" for
+# replicated pools, "indep" for EC pools — ErasureCode::create_rule uses indep,
+# src/erasure-code/ErasureCode.cc:53-72)
+# ---------------------------------------------------------------------------
+
 def add_simple_rule(map: CrushMap, root_id: int, failure_domain_type: int,
                     mode: str = "firstn", ruleset: int | None = None,
                     rule_type: int = 1) -> int:
-    """CrushWrapper::add_simple_rule analog: "firstn" for replicated pools,
-    "indep" for EC pools."""
     steps = [RuleStep(RULE_TAKE, root_id, 0)]
     if mode == "firstn":
-        op = RULE_CHOOSE_FIRSTN if failure_domain_type == 0 \
-            else RULE_CHOOSELEAF_FIRSTN
+        if failure_domain_type == 0:
+            # device-level failure domain: plain choose, no leaf recursion
+            # (CrushWrapper::add_simple_rule type==0 branch)
+            steps.append(RuleStep(RULE_CHOOSE_FIRSTN, 0, 0))
+        else:
+            steps.append(
+                RuleStep(RULE_CHOOSELEAF_FIRSTN, 0, failure_domain_type))
     elif mode == "indep":
-        op = RULE_CHOOSE_INDEP if failure_domain_type == 0 \
-            else RULE_CHOOSELEAF_INDEP
+        if failure_domain_type == 0:
+            steps.append(RuleStep(RULE_CHOOSE_INDEP, 0, 0))
+        else:
+            steps.append(RuleStep(RULE_CHOOSELEAF_INDEP, 0, failure_domain_type))
     else:
         raise ValueError(f"unknown mode {mode}")
-    steps.append(RuleStep(op, 0, failure_domain_type))
     steps.append(RuleStep(RULE_EMIT, 0, 0))
     rid = ruleset if ruleset is not None else map.max_rules
     return map.add_rule(Rule(ruleset=rid, type=rule_type, min_size=1,
                              max_size=10, steps=steps))
 
 
-def build_flat_map(n_osds: int, weights: list[int] | None = None
-                   ) -> tuple[CrushMap, int, int]:
-    """One straw2 root bucket holding all OSDs.  Returns (map, root_id,
-    rule_id) with a `choose firstn 0 osd` rule at ruleset 0 and a
-    `choose indep 0 osd` EC-style rule at ruleset 1."""
+# ---------------------------------------------------------------------------
+# convenience topologies
+# ---------------------------------------------------------------------------
+
+def build_flat_map(n_osds: int, weights: list[int] | None = None,
+                   alg: int = CRUSH_BUCKET_STRAW2) -> tuple[CrushMap, int, int]:
+    """One root bucket holding all OSDs.  Returns (map, root_id, rule_id) with a
+    `choose indep 0 osd` EC-style rule and a firstn rule at ruleset 0."""
     m = CrushMap()
     m.max_devices = n_osds
     if weights is None:
         weights = [0x10000] * n_osds
-    m.add_bucket(make_straw2_bucket(-1, 1, list(range(n_osds)), weights))
-    m.add_rule(Rule(ruleset=0, type=1, min_size=1, max_size=10, steps=[
+    m.add_bucket(make_bucket(-1, alg, 1, list(range(n_osds)), weights))
+    rule = Rule(ruleset=0, type=1, min_size=1, max_size=10, steps=[
         RuleStep(RULE_TAKE, -1, 0),
         RuleStep(RULE_CHOOSE_FIRSTN, 0, 0),
         RuleStep(RULE_EMIT, 0, 0),
-    ]))
-    m.add_rule(Rule(ruleset=1, type=3, min_size=1, max_size=20, steps=[
+    ])
+    m.add_rule(rule)
+    indep = Rule(ruleset=1, type=3, min_size=1, max_size=20, steps=[
         RuleStep(RULE_TAKE, -1, 0),
         RuleStep(RULE_CHOOSE_INDEP, 0, 0),
         RuleStep(RULE_EMIT, 0, 0),
-    ]))
+    ])
+    m.add_rule(indep)
     return m, -1, 0
 
 
 def build_two_level_map(n_hosts: int, osds_per_host: int,
-                        osd_weight: int = 0x10000
-                        ) -> tuple[CrushMap, int, int]:
-    """root -> hosts -> osds, all straw2.  Types: osd=0, host=1, root=2.
-    Returns (map, root_id, chooseleaf_firstn_rule_id)."""
+                        host_alg: int = CRUSH_BUCKET_STRAW2,
+                        root_alg: int = CRUSH_BUCKET_STRAW2,
+                        osd_weight: int = 0x10000) -> tuple[CrushMap, int, int]:
+    """root -> hosts -> osds.  Types: osd=0, host=1, root=2.  Returns
+    (map, root_id, chooseleaf_firstn_rule_id)."""
     m = CrushMap()
     m.max_devices = n_hosts * osds_per_host
     host_ids = []
     for h in range(n_hosts):
         osds = list(range(h * osds_per_host, (h + 1) * osds_per_host))
         hid = -(h + 2)
-        m.add_bucket(make_straw2_bucket(hid, 1, osds,
-                                        [osd_weight] * osds_per_host))
+        m.add_bucket(make_bucket(hid, host_alg, 1, osds,
+                                 [osd_weight] * osds_per_host))
         host_ids.append(hid)
     host_weights = [m.bucket(h).weight for h in host_ids]
-    m.add_bucket(make_straw2_bucket(-1, 2, host_ids, host_weights))
+    m.add_bucket(make_bucket(-1, root_alg, 2, host_ids, host_weights))
     rid = add_simple_rule(m, -1, 1, "firstn")
     return m, -1, rid

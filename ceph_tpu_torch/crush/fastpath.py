@@ -26,9 +26,10 @@ path therefore:
      is unconditional.
 
 On the card ``FastMapper.run`` takes the column kernels of ops.straw2_cuda
-with the two-stage schedule of the JAX package's ``_run_pallas``; on the CPU
-it runs the plain ``run_plain`` (per-r winner columns, then the masked
-ladder).  Both are held against the scalar oracle (crush.mapper_ref).
+with the two-stage schedule of the JAX package's ``_run_pallas`` (and its
+approx-filter root for 512-1024-item roots); on the CPU it runs the plain
+``run_plain`` (per-r winner columns, then the masked ladder).  Both are held
+against the scalar oracle (crush.mapper_ref).
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ import torch
 from ceph_tpu_torch._device import resolve
 from ceph_tpu_torch.ops.crush_kernel import is_out, straw2_choose_index
 from ceph_tpu_torch.ops.straw2_cuda import CudaColumns, consume_columns
+from ceph_tpu_torch.ops.straw2_filter import KPACK
 
 from .types import (
     CRUSH_BUCKET_STRAW2,
@@ -232,8 +234,15 @@ class FastMapper:
         self.device = resolve(device)
         self.cols = CudaColumns(fr, self.device)
         #: what the last kernel-path run scheduled: lanes sent to stage 2,
-        #: and whether a whole-batch re-run at the full r range fired
-        self.last_schedule = {"stage2_lanes": 0, "full_rerun": False}
+        #: whether a whole-batch re-run at the full r range fired, the
+        #: root-column calls that took the approx filter, and whether its
+        #: certificate sent one of them back to the exact root kernel
+        self.last_schedule = self._schedule()
+
+    @staticmethod
+    def _schedule() -> dict:
+        return {"stage2_lanes": 0, "full_rerun": False, "froot_columns": 0,
+                "froot_fallback": False}
 
     def _winners(self, xs, reweight, R: int):
         """host_win/leaf_win/leaf_bad (N, R) for r in [0, R), one r column
@@ -261,8 +270,22 @@ class FastMapper:
 
     def _winners_cols(self, xs, reweight, R: int):
         """(host_win, leaf_win, leaf_bad) in the (R, N) column layout of
-        the column kernels."""
-        pos, ids = self.cols.root_columns(xs, reweight, R)
+        the column kernels.
+
+        Root columns go through the approx filter under the JAX gate
+        (ceph_tpu/crush/fastpath.py:336): the R columns' candidates fit
+        one 128-lane pack and the padded root is 512-1024 items wide.  If
+        the certificate fails for any x, the whole batch re-runs through
+        the exact root kernel, so the result is exact either way."""
+        c = self.cols
+        if R * KPACK <= 128 and 512 <= c.S_root <= 1024:
+            pos, ids, ovf = c.froot_columns(xs, reweight, R)
+            self.last_schedule["froot_columns"] += 1
+            if bool(ovf.any()):
+                self.last_schedule["froot_fallback"] = True
+                pos, ids = c.root_columns(xs, reweight, R)
+        else:
+            pos, ids = c.root_columns(xs, reweight, R)
         if self.fr.kind == "choose_flat":
             return ids, ids, is_out(reweight, ids, xs[None, :])
         lid = self.cols.leaf_columns(xs, pos, R)
@@ -298,7 +321,7 @@ class FastMapper:
         reweight = _as_reweight(reweight, self.device)
         n = xs.shape[0]
         numrep = self._numrep(result_max)
-        self.last_schedule = {"stage2_lanes": 0, "full_rerun": False}
+        self.last_schedule = self._schedule()
         if numrep <= 0:
             return torch.full((n, result_max), NONE, dtype=torch.int32,
                               device=self.device)

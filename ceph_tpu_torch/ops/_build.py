@@ -1,15 +1,17 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by ONE nvcc call for sm_90a into a
-shared library with a plain C interface, loaded with ctypes — no PyTorch
-headers, so the build takes seconds, not minutes.  The library is built at
-the first CUDA call, keyed by a hash of the sources and flags, into
+Every ``csrc/*.cu`` source is compiled for sm_90a by its own nvcc process,
+all started together, and the objects are linked into one shared library
+with a plain C interface, loaded with ctypes — no PyTorch headers, so the
+build takes seconds, not minutes.  The library is built at the first CUDA
+call, keyed by a hash of the sources, headers and flags, into
 ``ceph_tpu_torch/_build/`` (git-ignored); importing this module needs no nvcc.
 
 Each C launcher takes ``c_void_p`` pointers (``tensor.data_ptr()``), ``c_int``
-sizes and the stream as ``c_void_p`` (``torch.cuda.current_stream().
-cuda_stream``), launches on that stream without synchronising, and returns
-``cudaGetLastError()``; ``launch`` raises when that is not 0.
+sizes, ``c_float`` scalars and the stream as ``c_void_p``
+(``torch.cuda.current_stream().cuda_stream``), launches on that stream
+without synchronising, and returns ``cudaGetLastError()``; ``launch`` raises
+when that is not 0.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made: the one
 place that shows which kernels a run went through.
@@ -29,10 +31,13 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _OUT = os.path.join(_PKG, "_build")
 
+#: compile flags of every source; the link adds -shared.  No
+#: --use_fast_math: the approx filter's certificate (csrc/straw2_filter.cu)
+#: rests on the library's full-precision log2f
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 #: C launcher -> argument types (every launcher returns a cudaError_t int)
 SIGNATURES = {
@@ -45,11 +50,16 @@ SIGNATURES = {
     "straw2_leaf_launch": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     # hw, lw, lb, R, n, numrep, tries, out_h, out_l, ovf, stream
     "firstn_consume_launch": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    # xs, n, R, ids, w, wf, S, D, ln_tab, out_pos, out_id, ovf, stream
+    "straw2_froot_launch": [_P, _I, _I, _P, _P, _P, _I, _F, _P, _P, _P, _P,
+                            _P],
+    # out, n, stream
+    "ln_f32_table_launch": [_P, _I, _P],
 }
 
 #: kernel name -> launches made by its wrapper since the last reset
 LAUNCHES = {"gf_matvec": 0, "straw2_root": 0, "straw2_leaf": 0,
-            "firstn_consume": 0}
+            "firstn_consume": 0, "straw2_froot": 0, "ln_f32_table": 0}
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
@@ -64,6 +74,10 @@ def sources() -> list[str]:
     return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
 
 
+def _headers() -> list[str]:
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cuh")))
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -74,10 +88,18 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _check(proc: subprocess.Popen, what: str) -> None:
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {what} ({proc.returncode}):\n"
+                           f"{out}\n{err}")
+
+
 def build() -> str:
-    """Compile csrc/*.cu into the cached shared library; returns its path."""
+    """Compile csrc/*.cu (one nvcc per source, in parallel) and link them
+    into the cached shared library; returns its path."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + _headers():
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())
@@ -85,12 +107,30 @@ def build() -> str:
     if os.path.exists(out):
         return out
     os.makedirs(_OUT, exist_ok=True)
+    nvcc = _nvcc()
     tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    objs, procs = [], []
+    for src in sources():
+        obj = os.path.join(_OUT, f"{os.path.basename(src)}.{os.getpid()}.o")
+        objs.append(obj)
+        procs.append((src, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    try:
+        for src, proc in procs:
+            _check(proc, os.path.basename(src))
+        _check(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+            "the link")
+    finally:
+        for _src, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, out)
     return out
 

@@ -78,6 +78,22 @@ def hash32_3(a, b, c) -> torch.Tensor:
     return h
 
 
+def hash32_4(a, b, c, d) -> torch.Tensor:
+    """crush_hash32_4 (hash.c:68-84), elementwise over broadcast tensors —
+    the draw hash of tree buckets; returns int64 u32 values."""
+    a, b, c, d = torch.broadcast_tensors(_u32(a), _u32(b), _u32(c), _u32(d))
+    h = CRUSH_HASH_SEED ^ a ^ b ^ c ^ d
+    x = torch.full_like(h, 231232)
+    y = torch.full_like(h, 1232)
+    a, b, h = _mix(a, b, h)
+    c, d, h = _mix(c, d, h)
+    a, x, h = _mix(a, x, h)
+    y, b, h = _mix(y, b, h)
+    c, x, h = _mix(c, x, h)
+    y, d, h = _mix(y, d, h)
+    return h
+
+
 # ---------------------------------------------------------------------------
 # crush_ln — 2^44*log2(x+1) in 48-bit fixed point (mapper.c:248-290)
 # ---------------------------------------------------------------------------

@@ -1,19 +1,25 @@
 """CUDA straw2 column kernels for the CRUSH fast path, with plain versions.
 
-The counterpart of ceph_tpu/ops/pallas_straw2.py: the same three column
+The counterpart of ceph_tpu/ops/pallas_straw2.py: the same four column
 functions in the same (R, N) layout — row r holds every input's winner at
 replica number r — so the fast path's schedule (crush.fastpath) reads them as
 it read the Pallas columns.
 
-  CudaColumns(fr).root_columns(xs, reweight, R) -> (pos, id)   csrc/straw2.cu
-  CudaColumns(fr).leaf_columns(xs, root_pos, R) -> leaf id     straw2_root /
-  consume_columns(hw, lw, lb, numrep=, tries=)  -> (oh, ol, ovf) straw2_leaf /
-                                                               firstn_consume
+  CudaColumns(fr).root_columns(xs, reweight, R)  -> (pos, id)
+        csrc/straw2.cu straw2_root
+  CudaColumns(fr).froot_columns(xs, reweight, R) -> (pos, id, ovf)
+        csrc/straw2_filter.cu straw2_froot (the approx-filter root)
+  CudaColumns(fr).leaf_columns(xs, root_pos, R)  -> leaf id
+        csrc/straw2.cu straw2_leaf
+  consume_columns(hw, lw, lb, numrep=, tries=)   -> (oh, ol, ovf)
+        csrc/straw2.cu firstn_consume
 
 Each takes CUDA tensors to its kernel and CPU tensors to its plain torch
-version (``*_plain`` below); a CUDA tensor never reaches a plain version
-through these wrappers.  Unlike the Pallas wrappers nothing is padded to a
-lane quantum: outputs are exactly (R, N).
+version (``*_plain`` below, and ops.straw2_filter.froot_columns_plain); a
+CUDA tensor never reaches a plain version through these wrappers.  Unlike the
+Pallas wrappers nothing is padded to a lane quantum: outputs are exactly
+(R, N).  Only ``S_root`` keeps the Pallas root's padded width, because the
+fast path's gate on the approx filter reads it.
 
 is_out verdicts stay outside the kernels, elementwise in torch over the winner
 columns (ops.crush_kernel.is_out), as in the JAX fast path.
@@ -26,6 +32,7 @@ import torch
 
 from ceph_tpu_torch.crush.types import CRUSH_ITEM_NONE
 from ceph_tpu_torch.ops import _build
+from ceph_tpu_torch.ops import straw2_filter
 from ceph_tpu_torch.ops.crush_kernel import ln_tables, straw2_choose_index
 
 
@@ -115,6 +122,12 @@ class CudaColumns:
             np.asarray(fr.root_ids, dtype=np.int32)).to(self.device)
         self.root_w = torch.from_numpy(
             np.asarray(fr.root_w, dtype=np.int64)).to(self.device)
+        self.root_wf = torch.from_numpy(np.maximum(
+            np.asarray(fr.root_w, dtype=np.int64), 1).astype(np.float32)
+        ).to(self.device)
+        #: the root's width padded to the 128-lane quantum, as
+        #: pallas_straw2._pad_lanes pads it: the filter gate reads it
+        self.S_root = max(128, -(-len(fr.root_ids) // 128) * 128)
         self.ln_tab = torch.cat(ln_tables(self.device)).contiguous()
         self.leaf_ids = self.leaf_w = None
         if fr.leaf_ids is not None:
@@ -141,6 +154,34 @@ class CudaColumns:
                           self.root_w.data_ptr(), S, self.ln_tab.data_ptr(),
                           pos.data_ptr(), ids.data_ptr())
         return pos, ids
+
+    def froot_columns(self, xs: torch.Tensor, reweight, R: int
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """xs (N,) u32 in int64 -> (pos, ids) each (R, N) int32 through
+        the approx filter, and the (N,) int32 flag of the x whose winner it
+        could not certify (the caller then re-runs root_columns).
+        Requires R * KPACK <= 128, as the Pallas kernel does."""
+        del reweight
+        if R * straw2_filter.KPACK > 128:
+            raise ValueError(f"froot_columns: R={R} exceeds the lane pack")
+        table = straw2_filter.ln_f32_table(self.device)
+        D = straw2_filter.ln_f32_bound(self.device)
+        if not xs.is_cuda:
+            return straw2_filter.froot_columns_plain(
+                xs, self.root_ids, self.root_w, R, table, D)
+        _check_cuda(self.root_ids)
+        n, S = xs.shape[0], self.root_ids.shape[0]
+        pos = torch.empty((R, n), dtype=torch.int32, device=xs.device)
+        ids = torch.empty((R, n), dtype=torch.int32, device=xs.device)
+        ovf = torch.zeros((n,), dtype=torch.int32, device=xs.device)
+        if n and R:
+            x32 = xs_i32(xs).contiguous()
+            _build.launch("straw2_froot", "straw2_froot_launch",
+                          x32.data_ptr(), n, R, self.root_ids.data_ptr(),
+                          self.root_w.data_ptr(), self.root_wf.data_ptr(), S,
+                          D, self.ln_tab.data_ptr(), pos.data_ptr(),
+                          ids.data_ptr(), ovf.data_ptr())
+        return pos, ids, ovf
 
     def leaf_columns(self, xs: torch.Tensor, root_pos: torch.Tensor,
                      R: int) -> torch.Tensor:

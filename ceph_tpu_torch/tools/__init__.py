@@ -1,0 +1,4 @@
+"""CLI tools (reference layer 7: src/tools/).
+
+crush_test      crushtool --test analog (batched, on the card by default)
+"""

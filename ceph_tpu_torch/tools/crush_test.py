@@ -1,0 +1,118 @@
+"""crushtool --test analog (src/tools/crushtool.cc -> CrushTester::test,
+src/crush/CrushTester.cc:472-560) with the per-x loop replaced by one batched
+call of crush.mapper_torch.BatchMapper.
+
+Usage:
+    python -m ceph_tpu_torch.tools.crush_test --num-rep 3 --min-x 0 \
+        --max-x 1023 [--rule N] [--show-utilization] [--show-statistics] \
+        [--show-mappings] [--osds N | --hosts H --per-host P] \
+        [--backend torch|scalar] [--device cpu]
+
+The batched backend runs on the CUDA card unless ``--device cpu`` asks for
+the plain torch path; ``--backend scalar`` runs the scalar oracle per x.
+Output matches the reference's shape: per-rule "rule N num_rep R result
+size == S:\tX/Y" lines, optional per-device mappings and utilization, and
+the batch statistics.  Flat ``--osds N`` maps go through BatchMapper too,
+whose fast path serves ``choose firstn`` over a flat root.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+
+from ceph_tpu_torch.crush import (
+    build_flat_map, build_two_level_map, crush_do_rule)
+from ceph_tpu_torch.crush.types import CRUSH_ITEM_NONE
+
+
+def run_test(m, rules, min_x: int, max_x: int, num_rep: int,
+             backend: str = "torch", reweight=None,
+             show_utilization: bool = False, show_mappings: bool = False,
+             out=None, device=None) -> dict:
+    """Map x in [min_x, max_x] through each rule and print the reference's
+    lines to ``out`` (sys.stdout by default).  Returns per-rule stats:
+    result sizes, per-device utilization, elapsed seconds, mappings/s and
+    the placement rows."""
+    out = sys.stdout if out is None else out
+    n = m.max_devices
+    weight = reweight if reweight is not None else [0x10000] * n
+    xs = np.arange(min_x, max_x + 1, dtype=np.uint32)
+    stats = {}
+    for rid in rules:
+        t0 = time.perf_counter()
+        if backend == "torch":
+            from ceph_tpu_torch.crush.mapper_torch import BatchMapper
+            bm = BatchMapper(m, device=device)
+            res = bm.do_rule(rid, xs, num_rep,
+                             np.asarray(weight, dtype=np.int64))
+            rows = [[v for v in row if v != CRUSH_ITEM_NONE]
+                    for row in res.cpu().tolist()]
+        else:
+            rows = [crush_do_rule(m, rid, int(x), num_rep, list(weight))
+                    for x in xs]
+        dt = time.perf_counter() - t0
+        sizes = {}
+        util = np.zeros(n, dtype=np.int64)
+        for row in rows:
+            sizes[len(row)] = sizes.get(len(row), 0) + 1
+            for o in row:
+                util[o] += 1
+        for size, count in sorted(sizes.items()):
+            print(f"rule {rid} num_rep {num_rep} result size == {size}:\t"
+                  f"{count}/{len(xs)}", file=out)
+        if show_mappings:
+            for x, row in zip(xs, rows):
+                print(f"CRUSH rule {rid} x {x} {row}", file=out)
+        if show_utilization:
+            expected = util.sum() / max((util > 0).sum(), 1)
+            for o in range(n):
+                if util[o] or weight[o]:
+                    print(f"  device {o}:\t\tstored : {util[o]}\t "
+                          f"expected : {expected:.2f}", file=out)
+        stats[rid] = {"sizes": sizes, "util": util.tolist(),
+                      "elapsed_s": dt, "mappings_per_s": len(xs) / dt,
+                      "rows": rows}
+    return stats
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="crush_test")
+    p.add_argument("--num-rep", type=int, default=3)
+    p.add_argument("--min-x", type=int, default=0)
+    p.add_argument("--max-x", type=int, default=1023)
+    p.add_argument("--rule", type=int, default=None)
+    p.add_argument("--osds", type=int, default=None,
+                   help="flat map with N osds")
+    p.add_argument("--hosts", type=int, default=16)
+    p.add_argument("--per-host", type=int, default=4)
+    p.add_argument("--backend", choices=["torch", "scalar"], default="torch")
+    p.add_argument("--device", default=None,
+                   help="torch device of the batched backend (default: the "
+                        "CUDA card; 'cpu' runs the plain torch path)")
+    p.add_argument("--show-utilization", action="store_true")
+    p.add_argument("--show-statistics", action="store_true")
+    p.add_argument("--show-mappings", action="store_true")
+    args = p.parse_args(argv)
+
+    if args.osds is not None:
+        m, _root, rule = build_flat_map(args.osds)
+    else:
+        m, _root, rule = build_two_level_map(args.hosts, args.per_host)
+    rules = [args.rule] if args.rule is not None else [rule]
+    stats = run_test(m, rules, args.min_x, args.max_x, args.num_rep,
+                     backend=args.backend,
+                     show_utilization=args.show_utilization,
+                     show_mappings=args.show_mappings, device=args.device)
+    if args.show_statistics:
+        for rid, s in stats.items():
+            print(f"rule {rid}: {s['mappings_per_s']:.0f} mappings/s "
+                  f"({s['elapsed_s']*1e3:.1f} ms)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -59,8 +59,10 @@ def _no_cuda(monkeypatch):
 def test_default_device_without_cuda_raises(monkeypatch):
     from ceph_tpu_torch.crush.builder import build_two_level_map
     from ceph_tpu_torch.crush.fastpath import FastMapper, detect
+    from ceph_tpu_torch.crush.mapper_torch import BatchMapper
     from ceph_tpu_torch.gf import gen_cauchy1_matrix
     from ceph_tpu_torch.ops.gf_kernel import ec_decode_batched, make_encoder
+    from ceph_tpu_torch.tools import crush_test
 
     _no_cuda(monkeypatch)
     m, _root, rid = build_two_level_map(2, 2)
@@ -71,6 +73,8 @@ def test_default_device_without_cuda_raises(monkeypatch):
         lambda: FastMapper(detect(m, rid), device="cuda"),
         lambda: ec_decode_batched(np.zeros((1, 32, 16), np.int8), [0],
                                   np.zeros((1, 4, 8), np.uint8), k=4, t=2),
+        lambda: BatchMapper(m),
+        lambda: crush_test.main(["--hosts", "2", "--per-host", "2"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
