@@ -7,60 +7,84 @@
 // and keep their (R, N) column layout: row r of every output is one r value
 // of the retry ladder, over the N inputs x.
 //
-// Design.  One thread per (x, r) walks the bucket's items and keeps the winner
-// of bucket_straw2_choose (mapper.c:361-384): the draw is
-// trunc((crush_ln(hash32_3(x, id, r) & 0xffff) - 2^48) / w), which for w > 0 is
-// -(P / w) with P = 2^48 - crush_ln(...) >= 0, so the largest draw is the least
-// unsigned quotient P / w.  A strict '<' keeps the first of equal quotients, as
-// the reference's strict '>' keeps the first maximum; a zero-weight item gets
-// the quotient 2^64-1 and never beats an item with weight.  Hopper has __clz,
-// unsigned compares and 64-bit integers, so crush_ln runs as in mapper.c
-// (RH/LH/LL tables in shared memory, u64 wrap-around product) and the divide is
-// a plain u64 division: none of the TPU kernel's Mosaic workarounds (f32
-// bit-length, sign-biased compares, one-hot table and row lookups, limb magic
-// division) is needed.  The leaf kernel reads the winning host's row with a
-// plain indexed load.  The consume kernel runs the firstn ladder of one x per
-// thread.
+// The draw.  bucket_straw2_choose (mapper.c:361-384) draws
+// trunc((crush_ln(hash32_3(x, id, r) & 0xffff) - 2^48) / w), which for w > 0
+// is -(P / w) with P = 2^48 - crush_ln(...) >= 0, so the largest draw is the
+// least unsigned quotient P / w.  A strict '<' keeps the first of equal
+// quotients, as the reference's strict '>' keeps the first maximum; a
+// zero-weight item gets the quotient 2^64-1 and never beats an item with
+// weight.  crush_ln runs as in mapper.c (RH/LH/LL tables in shared memory,
+// u64 wrap-around product).  None of the TPU kernel's Mosaic workarounds
+// (f32 bit-length, sign-biased compares, one-hot lookups) is needed.
 //
-// Bound on the H100: operations.  Each draw is ~200 32-bit integer operations
-// (the rjenkins mix dominates) plus one 64-bit divide; the columns move only a
-// few bytes per draw.
+// Bound on the H100: operations, and of those the integer pipe.  A draw is
+// the rjenkins hash32_3 (135 instructions, 120 of them IADD3/LOP3/SHF on
+// the integer pipe, 64 lanes an SM), crush_ln and the quotient; the columns
+// move a few bytes per draw.  The root kernel's design removes what used to
+// sit on top of the hash:
+//  * no 64-bit divide: Hopper has no integer divider, and P / w was a
+//    multi-instruction routine per item.  The host turns each item weight
+//    into a magic pair (m, s) once per map (straw2_cuda.magic_tables), and
+//    the quotient is __umul64hi(P, m) >> s (straw2_qm), exact for every
+//    P <= 2^48;
+//  * a full grid at small launches: stage 2 of the fast path (4,096 x 9
+//    columns) and small flat maps are a fraction of a wave at one thread per
+//    (x, r).  A group of G lanes (a power of two <= 32, chosen by the
+//    wrapper to fill one wave, straw2_cuda.group_lanes) shares each (x, r):
+//    lane l draws the items s = l (mod G) and the group merges its first
+//    minima by a shuffle butterfly (merge_least).  G = 1 at stage 1
+//    (65,536 x 4 columns), G = 8 at the stage-2 launch.
+// The leaf kernel is launched at the same shapes but draws only the winning
+// host's row; it keeps one thread per (x, r) and the dividing straw2_q.  The
+// consume kernel runs the firstn ladder of one x per thread.
 
 #include "straw2_common.cuh"
 
 namespace {
 
+// (R, N) root columns: G = 1 << lg lanes per (x, r), see the header
 __global__ void straw2_root_kernel(const uint32_t* __restrict__ xs, int n, int R,
                                    const int32_t* __restrict__ ids,
-                                   const int64_t* __restrict__ w, int S,
+                                   const uint64_t* __restrict__ magic,
+                                   const int32_t* __restrict__ shift, int S, int lg,
                                    const uint64_t* __restrict__ ln_tab,
                                    int32_t* __restrict__ out_pos,
                                    int32_t* __restrict__ out_id) {
   extern __shared__ uint64_t smem[];
   uint64_t* s_tab = smem;
-  int64_t* s_w = reinterpret_cast<int64_t*>(smem + kLnEntries);
-  int32_t* s_ids = reinterpret_cast<int32_t*>(s_w + S);
+  uint64_t* s_m = smem + kLnEntries;
+  int32_t* s_s = reinterpret_cast<int32_t*>(s_m + S);
+  int32_t* s_ids = s_s + S;
   load_ln(s_tab, ln_tab);
   for (int i = threadIdx.x; i < S; i += blockDim.x) {
-    s_w[i] = w[i];
+    s_m[i] = magic[i];
+    s_s[i] = shift[i];
     s_ids[i] = ids[i];
   }
   __syncthreads();
+  // no early return: every lane of a warp takes part in the shuffles
+  const int G = 1 << lg;
   const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= (int64_t)n * R) return;
-  const int r = (int)(tid / n);
-  const uint32_t x = xs[tid - (int64_t)r * n];
-  int best = 0;
-  uint64_t best_q = 0;
-  for (int s = 0; s < S; ++s) {
-    const uint64_t q = straw2_q(x, s_ids[s], (uint32_t)r, s_w[s], s_tab);
-    if (s == 0 || q < best_q) {
+  const int64_t col = tid >> lg;
+  const int lane = (int)(tid & (G - 1));
+  const bool valid = col < (int64_t)n * R;
+  // 32-bit: the wrapper keeps n * R < 2^31, and a 64-bit divide is a routine
+  const int r = valid ? (int)((uint32_t)col / (uint32_t)n) : 0;
+  const uint32_t x = valid ? xs[(int)col - r * n] : 0u;
+  int best = lane;               // G <= S: every lane has an item
+  uint64_t best_q = ~0ull;
+  for (int s = valid ? lane : S; s < S; s += G) {
+    const uint64_t q = straw2_qm(x, s_ids[s], (uint32_t)r, s_m[s], s_s[s], s_tab);
+    if (q < best_q) {
       best_q = q;
       best = s;
     }
   }
-  out_pos[tid] = best;
-  out_id[tid] = s_ids[best];
+  merge_least(best_q, best, G);
+  if (valid && lane == 0) {
+    out_pos[col] = best;
+    out_id[col] = s_ids[best];
+  }
 }
 
 __global__ void straw2_leaf_kernel(const uint32_t* __restrict__ xs, int n, int R,
@@ -139,18 +163,20 @@ __global__ void firstn_consume_kernel(const int32_t* __restrict__ hw,
 }  // namespace
 
 extern "C" int straw2_root_launch(const void* xs, int n, int R, const void* ids,
-                                  const void* w, int S, const void* ln_tab,
-                                  void* out_pos, void* out_id, void* stream) {
-  const size_t smem = kLnEntries * sizeof(uint64_t) + (size_t)S * (8 + 4);
+                                  const void* magic, const void* shift, int S,
+                                  int lg, const void* ln_tab, void* out_pos,
+                                  void* out_id, void* stream) {
+  const size_t smem = kLnEntries * sizeof(uint64_t) + (size_t)S * (8 + 4 + 4);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         straw2_root_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  straw2_root_kernel<<<blocks_for((int64_t)n * R), kThreads, smem,
+  straw2_root_kernel<<<blocks_for(((int64_t)n * R) << lg), kThreads, smem,
                        (cudaStream_t)stream>>>(
-      (const uint32_t*)xs, n, R, (const int32_t*)ids, (const int64_t*)w, S,
-      (const uint64_t*)ln_tab, (int32_t*)out_pos, (int32_t*)out_id);
+      (const uint32_t*)xs, n, R, (const int32_t*)ids, (const uint64_t*)magic,
+      (const int32_t*)shift, S, lg, (const uint64_t*)ln_tab, (int32_t*)out_pos,
+      (int32_t*)out_id);
   return (int)cudaGetLastError();
 }
 

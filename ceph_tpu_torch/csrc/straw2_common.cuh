@@ -1,7 +1,11 @@
 // The exact straw2 draw shared by the straw2 kernels (straw2.cu) and the
 // approx-filter root (straw2_filter.cu): rjenkins hash32_3, crush_ln as
 // 2^48 - ln in u64, and the u64 quotient whose least value is the straw2
-// winner (see straw2.cu for the derivation).
+// winner (see straw2.cu for the derivation).  The quotient comes two ways:
+// straw2_q divides by the weight (the leaf kernel), straw2_qm multiplies by
+// the weight's magic pair (the root kernels: no 64-bit divide), and the
+// group of lanes that shares one (x, r) merges its winners with
+// merge_least.
 
 #pragma once
 
@@ -14,6 +18,12 @@ constexpr int kThreads = 256;
 constexpr uint32_t kHashSeed = 1315423911u;
 constexpr int32_t kItemNone = 0x7FFFFFFF;
 constexpr int kLnEntries = 129 + 129 + 256;   // RH | LH | LL
+constexpr int kNoPos = 0x7FFFFFFF;            // no candidate: loses every tie
+// the magic shift of a zero weight (quotient 2^64-1) and of weight 1
+// (quotient P), as ops/straw2_cuda.magic_tables writes them
+constexpr int kShiftZero = -1;
+constexpr int kShiftOne = 64;
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
 
 __device__ __forceinline__ void mix(uint32_t& a, uint32_t& b, uint32_t& c) {
   a -= b; a -= c; a ^= (c >> 13);
@@ -63,6 +73,32 @@ __device__ __forceinline__ uint64_t straw2_q(uint32_t x, int32_t id, uint32_t r,
   if (w <= 0) return ~0ull;
   const uint32_t u = hash32_3(x, (uint32_t)id, r) & 0xFFFFu;
   return ln_p48(u, tab) / (uint64_t)w;
+}
+
+// the same quotient by magic division: floor(P / w) == __umul64hi(P, m) >> s
+// for every P <= 2^48, with (m, s) from straw2_cuda.magic_tables
+__device__ __forceinline__ uint64_t straw2_qm(uint32_t x, int32_t id, uint32_t r,
+                                              uint64_t m, int s,
+                                              const uint64_t* tab) {
+  if (s == kShiftZero) return ~0ull;
+  const uint32_t u = hash32_3(x, (uint32_t)id, r) & 0xFFFFu;
+  const uint64_t p = ln_p48(u, tab);
+  return s == kShiftOne ? p : __umul64hi(p, m) >> s;
+}
+
+// the lexicographic least (q, pos) over the `width` lanes of a group
+// (width a power of two, the group aligned within its warp): every lane
+// of the group ends with it.  Positions differ, so this is the first
+// minimum by quotient, the tie rule of bucket_straw2_choose.
+__device__ __forceinline__ void merge_least(uint64_t& q, int& pos, int width) {
+  for (int off = width >> 1; off > 0; off >>= 1) {
+    const uint64_t oq = __shfl_xor_sync(kFullMask, q, off);
+    const int op = __shfl_xor_sync(kFullMask, pos, off);
+    if (oq < q || (oq == q && op < pos)) {
+      q = oq;
+      pos = op;
+    }
+  }
 }
 
 __device__ __forceinline__ void load_ln(uint64_t* s_tab, const uint64_t* ln_tab) {

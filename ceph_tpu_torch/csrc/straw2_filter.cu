@@ -11,27 +11,40 @@
 // [q - m, q + m] that holds the exact quotient, with the margin of the TPU
 // kernel: m = (D + 2^25) / w + q * 2^-20 + 4, where D is the measured
 // max |ln_f32(u) - crush_ln(u)| over all 65,536 u.  The exact winner lies in
-// the band of every item whose lower end is at most the least upper end.  One
-// pass keeps the least upper end and the 5 least (lower end, position) pairs
-// in registers, by insertion; the 4 first are verified with the exact u64
+// the band of every item whose lower end is at most the least upper end.  The
+// scan keeps the least upper end and the 5 least (lower end, position) pairs
+// in registers, by insertion; the 4 first are verified with the exact
 // quotient (first minimum by quotient, then position, as _verify_packed keeps
 // it).  If the 5th lower end is still inside the band, more than 4 items may
 // hold the winner: the x's flag is raised (atomicOr into a zeroed (N,) array)
 // and the caller re-runs the exact root kernel on the whole batch.  None of
 // the TPU kernel's 10-bit key packing, sign-biased compares or lane shuffles
-// is needed: a thread owns its (x, r) and its candidates.
+// is needed.
 //
-// The certificate is only sound if D is measured with the very log2 the
-// filter runs.  So both kernels call ONE function, ln_f32, which is kept out
-// of line so that both use one compiled body; the library is built without
-// --use_fast_math, and the band arithmetic uses the _rn intrinsics so that no
-// multiply and add are fused into an FMA.  The plain torch version
-// (ops/straw2_filter.py) reads its ln values from this kernel's table on the
-// card, so its bands and flags equal the kernel's bit for bit.
+// The certificate is only sound if D is measured with the very ln values the
+// filter prices with.  ln_f32_table writes them, once per device, with the one
+// f32 log of this file (ln_f32); the filter reads them back from that table
+// (256 KiB, __ldg through L1/L2), and the plain torch version
+// (ops/straw2_filter.py) reads the same table, so its bands and flags equal
+// the kernel's bit for bit.  The library is built without --use_fast_math,
+// and the band arithmetic uses the _rn intrinsics so that no multiply and
+// add are fused into an FMA.
 //
-// Bound on the H100: operations.  Per item: the rjenkins hash (~183 32-bit
-// operations) and ~17 f32 operations of the band; per (x, r): 4 exact draws.
-// The exact root kernel pays ~200 operations and a 64-bit divide per item.
+// Bound on the H100: operations, and of those the integer pipe.  Per item:
+// the rjenkins hash (135 instructions, 120 on the integer pipe) and ~17 f32
+// operations of the band; per (x, r): 4 exact draws.  The design keeps the
+// hash alone in the item loop:
+//  * no call per item: the ln value is one table load, not an out-of-line
+//    log2f (a call and return of ~33 instructions);
+//  * no 64-bit divide in the 4 verifications: the exact quotient is the
+//    magic multiply of straw2_qm, as in straw2_root;
+//  * a full grid at small launches: G lanes per (x, r) (a power of two
+//    <= 32, chosen by the wrapper to fill one wave) scan the items
+//    s = l (mod G); the group merges the least upper end by fminf and the
+//    5 least (lower end, position) pairs by a shuffle butterfly — the
+//    lexicographic order is the serial insertion's tie rule, so the
+//    candidates are the serial ones — and lanes 0..3 verify one candidate
+//    each.  G = 1 at stage 1 (65,536 x 4 columns), G = 8 at stage 2.
 
 #include "straw2_common.cuh"
 
@@ -45,7 +58,9 @@ constexpr float kTwo25 = 33554432.0f;                  // 2^25
 constexpr float kTwoMinus20 = 9.5367431640625e-07f;    // 2^-20
 constexpr float kBig = 3.0e38f;                        // zero-weight quotient
 
-// 2^44 * log2(u + 1) in f32: the one f32 log of both kernels
+// 2^44 * log2(u + 1) in f32: the one f32 log, kept out of line so that its
+// compiled body is the one D has always been measured on; the filter reads
+// its values from the table
 __device__ __noinline__ float ln_f32(uint32_t u) {
   return __fmul_rn(log2f(__fadd_rn((float)u, 1.0f)), kTwo44);
 }
@@ -55,34 +70,60 @@ __global__ void ln_f32_table_kernel(float* __restrict__ out, int n) {
   if (u < n) out[u] = ln_f32((uint32_t)u);
 }
 
+// put (lo, pos) into the 5 least, kept sorted by (lower end, position)
+__device__ __forceinline__ void keep_least(float (&c_lo)[kKeep], int (&c_pos)[kKeep],
+                                           float lo, int pos) {
+  if (lo < c_lo[kKeep - 1] || (lo == c_lo[kKeep - 1] && pos < c_pos[kKeep - 1])) {
+    c_lo[kKeep - 1] = lo;
+    c_pos[kKeep - 1] = pos;
+#pragma unroll
+    for (int j = kKeep - 1; j > 0; --j) {
+      if (c_lo[j] < c_lo[j - 1] || (c_lo[j] == c_lo[j - 1] && c_pos[j] < c_pos[j - 1])) {
+        const float tl = c_lo[j]; c_lo[j] = c_lo[j - 1]; c_lo[j - 1] = tl;
+        const int tp = c_pos[j]; c_pos[j] = c_pos[j - 1]; c_pos[j - 1] = tp;
+      }
+    }
+  }
+}
+
+// (R, N) filter columns: G = 1 << lg lanes per (x, r), see the header
 __global__ void straw2_froot_kernel(const uint32_t* __restrict__ xs, int n, int R,
                                     const int32_t* __restrict__ ids,
-                                    const int64_t* __restrict__ w,
-                                    const float* __restrict__ wf, int S, float D,
-                                    const uint64_t* __restrict__ ln_tab,
+                                    const uint64_t* __restrict__ magic,
+                                    const int32_t* __restrict__ shift,
+                                    const float* __restrict__ wf, int S, int lg,
+                                    float D, const uint64_t* __restrict__ ln_tab,
+                                    const float* __restrict__ lnf,
                                     int32_t* __restrict__ out_pos,
                                     int32_t* __restrict__ out_id,
                                     int32_t* __restrict__ ovf) {
   extern __shared__ uint64_t smem[];
   uint64_t* s_tab = smem;
-  int64_t* s_w = reinterpret_cast<int64_t*>(smem + kLnEntries);
-  float* s_wf = reinterpret_cast<float*>(s_w + S);
+  uint64_t* s_m = smem + kLnEntries;
+  int32_t* s_s = reinterpret_cast<int32_t*>(s_m + S);
+  float* s_wf = reinterpret_cast<float*>(s_s + S);
   float* s_mb = s_wf + S;                       // (D + 2^25) / w, per item
   int32_t* s_ids = reinterpret_cast<int32_t*>(s_mb + S);
   load_ln(s_tab, ln_tab);
   const float d25 = __fadd_rn(D, kTwo25);
   for (int i = threadIdx.x; i < S; i += blockDim.x) {
-    s_w[i] = w[i];
+    s_m[i] = magic[i];
+    s_s[i] = shift[i];
     s_wf[i] = wf[i];
     s_mb[i] = __fdiv_rn(d25, wf[i]);
     s_ids[i] = ids[i];
   }
   __syncthreads();
+  // no early return: every lane of a warp takes part in the shuffles
+  const int G = 1 << lg;
   const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= (int64_t)n * R) return;
-  const int r = (int)(tid / n);
-  const int xi = (int)(tid - (int64_t)r * n);
-  const uint32_t x = xs[xi];
+  const int64_t col = tid >> lg;
+  const int lane = (int)(tid & (G - 1));
+  const bool valid = col < (int64_t)n * R;
+  // 32-bit: the wrapper keeps n * R < 2^31, and a 64-bit divide is a routine
+  const int r = valid ? (int)((uint32_t)col / (uint32_t)n) : 0;
+  const int xi = valid ? (int)col - r * n : 0;
+  const uint32_t x = valid ? xs[xi] : 0u;
 
   float min_hi = __int_as_float(0x7f800000);    // +inf
   float c_lo[kKeep];
@@ -90,13 +131,13 @@ __global__ void straw2_froot_kernel(const uint32_t* __restrict__ xs, int n, int 
 #pragma unroll
   for (int j = 0; j < kKeep; ++j) {
     c_lo[j] = __int_as_float(0x7f800000);
-    c_pos[j] = 0x7FFFFFFF;
+    c_pos[j] = kNoPos;
   }
-  for (int s = 0; s < S; ++s) {
+  for (int s = valid ? lane : S; s < S; s += G) {
     float lo = kBig, hi = kBig;
-    if (s_w[s] > 0) {
+    if (s_s[s] != kShiftZero) {
       const uint32_t u = hash32_3(x, (uint32_t)s_ids[s], (uint32_t)r) & 0xFFFFu;
-      const float q = __fdiv_rn(__fsub_rn(kTwo48, ln_f32(u)), s_wf[s]);
+      const float q = __fdiv_rn(__fsub_rn(kTwo48, __ldg(lnf + u)), s_wf[s]);
       const float m = __fadd_rn(__fadd_rn(s_mb[s], __fmul_rn(q, kTwoMinus20)), 4.0f);
       lo = __fsub_rn(q, m);
       hi = __fadd_rn(q, m);
@@ -114,22 +155,40 @@ __global__ void straw2_froot_kernel(const uint32_t* __restrict__ xs, int n, int 
       }
     }
   }
+  // the group's least upper end and 5 least (lower end, position) pairs
+  for (int off = G >> 1; off > 0; off >>= 1) {
+    min_hi = fminf(min_hi, __shfl_xor_sync(kFullMask, min_hi, off));
+    float o_lo[kKeep];
+    int o_pos[kKeep];
+#pragma unroll
+    for (int j = 0; j < kKeep; ++j) {
+      o_lo[j] = __shfl_xor_sync(kFullMask, c_lo[j], off);
+      o_pos[j] = __shfl_xor_sync(kFullMask, c_pos[j], off);
+    }
+#pragma unroll
+    for (int j = 0; j < kKeep; ++j) keep_least(c_lo, c_pos, o_lo[j], o_pos[j]);
+  }
 
-  int best = -1;
-  uint64_t best_q = 0;
+  // lane l verifies the candidates k = l (mod G); the group keeps the
+  // first minimum by (quotient, position)
+  int best = kNoPos;
+  uint64_t best_q = ~0ull;
 #pragma unroll
   for (int k = 0; k < kCand; ++k) {
     const int p = c_pos[k];
-    if (p >= S) continue;
-    const uint64_t q = straw2_q(x, s_ids[p], (uint32_t)r, s_w[p], s_tab);
-    if (best < 0 || q < best_q || (q == best_q && p < best)) {
+    if ((k & (G - 1)) != lane || p >= S) continue;
+    const uint64_t q = straw2_qm(x, s_ids[p], (uint32_t)r, s_m[p], s_s[p], s_tab);
+    if (q < best_q || (q == best_q && p < best)) {
       best = p;
       best_q = q;
     }
   }
-  out_pos[tid] = best;
-  out_id[tid] = s_ids[best];
-  if (c_lo[kKeep - 1] <= min_hi) atomicOr(ovf + xi, 1);
+  merge_least(best_q, best, min(G, kCand));
+  if (valid && lane == 0) {
+    out_pos[col] = best;
+    out_id[col] = s_ids[best];
+    if (c_lo[kKeep - 1] <= min_hi) atomicOr(ovf + xi, 1);
+  }
 }
 
 }  // namespace
@@ -141,19 +200,21 @@ extern "C" int ln_f32_table_launch(void* out, int n, void* stream) {
 }
 
 extern "C" int straw2_froot_launch(const void* xs, int n, int R, const void* ids,
-                                   const void* w, const void* wf, int S, float D,
-                                   const void* ln_tab, void* out_pos, void* out_id,
-                                   void* ovf, void* stream) {
-  const size_t smem = kLnEntries * sizeof(uint64_t) + (size_t)S * (8 + 4 + 4 + 4);
+                                   const void* magic, const void* shift,
+                                   const void* wf, int S, int lg, float D,
+                                   const void* ln_tab, const void* lnf,
+                                   void* out_pos, void* out_id, void* ovf,
+                                   void* stream) {
+  const size_t smem = kLnEntries * sizeof(uint64_t) + (size_t)S * (8 + 4 + 4 + 4 + 4);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         straw2_froot_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  straw2_froot_kernel<<<blocks_for((int64_t)n * R), kThreads, smem,
+  straw2_froot_kernel<<<blocks_for(((int64_t)n * R) << lg), kThreads, smem,
                         (cudaStream_t)stream>>>(
-      (const uint32_t*)xs, n, R, (const int32_t*)ids, (const int64_t*)w,
-      (const float*)wf, S, D, (const uint64_t*)ln_tab, (int32_t*)out_pos,
-      (int32_t*)out_id, (int32_t*)ovf);
+      (const uint32_t*)xs, n, R, (const int32_t*)ids, (const uint64_t*)magic,
+      (const int32_t*)shift, (const float*)wf, S, lg, D, (const uint64_t*)ln_tab,
+      (const float*)lnf, (int32_t*)out_pos, (int32_t*)out_id, (int32_t*)ovf);
   return (int)cudaGetLastError();
 }

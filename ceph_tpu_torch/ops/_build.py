@@ -43,16 +43,17 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # data, mul_rows, pidx, out, S, k, t, B, vec, stream
     "gf_matvec_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # xs, n, R, ids, w, S, ln_tab, out_pos, out_id, stream
-    "straw2_root_launch": [_P, _I, _I, _P, _P, _I, _P, _P, _P, _P],
+    # xs, n, R, ids, magic, shift, S, lg, ln_tab, out_pos, out_id, stream
+    "straw2_root_launch": [_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     # xs, n, R, root_pos, leaf_ids, leaf_w, H, S, vary_r, ln_tab, out_id,
     # stream
     "straw2_leaf_launch": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     # hw, lw, lb, R, n, numrep, tries, out_h, out_l, ovf, stream
     "firstn_consume_launch": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
-    # xs, n, R, ids, w, wf, S, D, ln_tab, out_pos, out_id, ovf, stream
-    "straw2_froot_launch": [_P, _I, _I, _P, _P, _P, _I, _F, _P, _P, _P, _P,
-                            _P],
+    # xs, n, R, ids, magic, shift, wf, S, lg, D, ln_tab, lnf, out_pos,
+    # out_id, ovf, stream
+    "straw2_froot_launch": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _F, _P, _P,
+                            _P, _P, _P, _P],
     # out, n, stream
     "ln_f32_table_launch": [_P, _I, _P],
 }

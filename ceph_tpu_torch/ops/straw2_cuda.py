@@ -23,9 +23,15 @@ fast path's gate on the approx filter reads it.
 
 is_out verdicts stay outside the kernels, elementwise in torch over the winner
 columns (ops.crush_kernel.is_out), as in the JAX fast path.
+
+The two root kernels take the root's weights as magic pairs
+(``magic_tables``, built once per map) and run ``group_lanes`` lanes per
+(x, r), so that a small batch still fills the card.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -41,6 +47,89 @@ def xs_i32(xs: torch.Tensor) -> torch.Tensor:
     as uint32."""
     v = xs.to(torch.int64) & 0xFFFFFFFF
     return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# magic division and lane groups of the root kernels
+# ---------------------------------------------------------------------------
+
+#: the exact draw divides P = 2^48 - crush_ln(u) <= 2^48, so P < 2^_P_BITS
+_P_BITS = 49
+#: the magic shift of a zero weight (quotient 2^64-1, the item never wins)
+#: and of weight 1 (quotient P), as csrc/straw2_common.cuh reads them
+SHIFT_ZERO, SHIFT_ONE = -1, 64
+
+
+def magic_for(w: int) -> tuple[int, int]:
+    """(m, s) with floor(P / w) == (P * m) >> (64 + s) for every
+    0 <= P < 2^49, that is __umul64hi(P, m) >> s on the card.
+
+    The checked round-up construction (Granlund-Montgomery): m =
+    floor(2^(49+p) / w) + 1 with the error m*w - 2^(49+p) checked to lie in
+    (0, 2^p], raising p until it does; then the total shift is raised to at
+    least 64 by scaling m, so one high-word product and one right shift
+    remain.  Weight 1 would need m = 2^64 and gets (0, SHIFT_ONE); a weight
+    <= 0 gets (0, SHIFT_ZERO)."""
+    if w <= 0:
+        return 0, SHIFT_ZERO
+    if w == 1:
+        return 0, SHIFT_ONE
+    p = w.bit_length() - 1
+    while True:
+        m = (1 << (_P_BITS + p)) // w + 1
+        err = m * w - (1 << (_P_BITS + p))
+        if 0 < err <= 1 << p:
+            break
+        p += 1
+    # m < 2^(49+p) / w + 1 <= 2^50: scaled to a shift of 64, m < 2^64 / w
+    # + 2^15, which fits 64 bits for every w >= 2
+    shift = _P_BITS + p
+    if shift < 64:
+        m <<= 64 - shift
+        shift = 64
+    return m, shift - 64
+
+
+def magic_tables(weights) -> tuple[np.ndarray, np.ndarray]:
+    """(S,) int64 magic multipliers (the u64 bit pattern) and (S,) int32
+    shifts for an array of straw2 weights: ``magic_for`` of each."""
+    pairs = [magic_for(int(w)) for w in np.asarray(weights).ravel()]
+    m = np.array([p[0] for p in pairs], dtype=np.uint64).view(np.int64)
+    s = np.array([p[1] for p in pairs], dtype=np.int32)
+    return m, s
+
+
+#: threads per SM that one wave of the root kernels holds: 48 warps, 12 per
+#: scheduler, three quarters of an SM's 2,048.  Over G at the stage-2
+#: launch (chip_smoke.py phase 6) both root kernels are fastest at G=8 on
+#: the H100, which this picks; stage 1 (65,536 x 4 columns, 97% of 2,048
+#: threads on every SM) stays at G=1
+WAVE_THREADS_PER_SM = 1536
+#: at most one warp per (x, r): the group's merge is a shuffle butterfly
+MAX_GROUP = 32
+
+
+def group_lanes(columns: int, S: int, sms: int) -> int:
+    """Lanes per (x, r) for ``columns`` = N * R root columns over S items
+    on a card of ``sms`` SMs: the least power of two G <= min(32, S) with
+    columns * G >= one wave (sms * WAVE_THREADS_PER_SM)."""
+    g = 1
+    while (2 * g <= min(MAX_GROUP, S)
+           and columns * g < sms * WAVE_THREADS_PER_SM):
+        g *= 2
+    return g
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def card_group_lanes(columns: int, S: int, device: torch.device) -> int:
+    """``group_lanes`` on the card that holds ``device``."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return group_lanes(columns, S, _sm_count(index))
 
 
 # ---------------------------------------------------------------------------
@@ -125,6 +214,10 @@ class CudaColumns:
         self.root_wf = torch.from_numpy(np.maximum(
             np.asarray(fr.root_w, dtype=np.int64), 1).astype(np.float32)
         ).to(self.device)
+        magic, shift = magic_tables(np.asarray(fr.root_w, dtype=np.int64))
+        #: the root kernels' divisors: floor(P / w) == __umul64hi(P, m) >> s
+        self.root_magic = torch.from_numpy(magic).to(self.device)
+        self.root_shift = torch.from_numpy(shift).to(self.device)
         #: the root's width padded to the 128-lane quantum, as
         #: pallas_straw2._pad_lanes pads it: the filter gate reads it
         self.S_root = max(128, -(-len(fr.root_ids) // 128) * 128)
@@ -135,6 +228,13 @@ class CudaColumns:
                 fr.leaf_ids, dtype=np.int32)).to(self.device)
             self.leaf_w = torch.from_numpy(np.ascontiguousarray(
                 fr.leaf_w, dtype=np.int64)).to(self.device)
+
+    def _group(self, n: int, R: int, device: torch.device) -> int:
+        """Lanes per (x, r) of a root launch; the kernels index the
+        columns in 32 bits."""
+        if n * R >= 1 << 31:
+            raise ValueError(f"root columns: N * R = {n * R} >= 2^31")
+        return card_group_lanes(n * R, self.root_ids.shape[0], device)
 
     def root_columns(self, xs: torch.Tensor, reweight, R: int
                      ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -149,10 +249,13 @@ class CudaColumns:
         ids = torch.empty((R, n), dtype=torch.int32, device=xs.device)
         if n and R:
             x32 = xs_i32(xs).contiguous()
+            G = self._group(n, R, xs.device)
             _build.launch("straw2_root", "straw2_root_launch",
                           x32.data_ptr(), n, R, self.root_ids.data_ptr(),
-                          self.root_w.data_ptr(), S, self.ln_tab.data_ptr(),
-                          pos.data_ptr(), ids.data_ptr())
+                          self.root_magic.data_ptr(),
+                          self.root_shift.data_ptr(), S, G.bit_length() - 1,
+                          self.ln_tab.data_ptr(), pos.data_ptr(),
+                          ids.data_ptr())
         return pos, ids
 
     def froot_columns(self, xs: torch.Tensor, reweight, R: int
@@ -176,11 +279,14 @@ class CudaColumns:
         ovf = torch.zeros((n,), dtype=torch.int32, device=xs.device)
         if n and R:
             x32 = xs_i32(xs).contiguous()
+            G = self._group(n, R, xs.device)
             _build.launch("straw2_froot", "straw2_froot_launch",
                           x32.data_ptr(), n, R, self.root_ids.data_ptr(),
-                          self.root_w.data_ptr(), self.root_wf.data_ptr(), S,
-                          D, self.ln_tab.data_ptr(), pos.data_ptr(),
-                          ids.data_ptr(), ovf.data_ptr())
+                          self.root_magic.data_ptr(),
+                          self.root_shift.data_ptr(), self.root_wf.data_ptr(),
+                          S, G.bit_length() - 1, D, self.ln_tab.data_ptr(),
+                          table.data_ptr(), pos.data_ptr(), ids.data_ptr(),
+                          ovf.data_ptr())
         return pos, ids, ovf
 
     def leaf_columns(self, xs: torch.Tensor, root_pos: torch.Tensor,

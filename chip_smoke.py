@@ -6,7 +6,10 @@
 Runs ceph_tpu_torch (never JAX, never ceph_tpu) at the bench's full size:
 
   1. card    nvidia-smi name and power limit, torch's device name
-  2. build   nvcc builds csrc/*.cu for sm_90a, one process per source (timed)
+  2. build   nvcc builds csrc/*.cu for sm_90a, one process per source (timed);
+             each kernel's registers and the straw2 item loops' SASS per item
+             by pipe (tools.sass_report, where cuobjdump is found): the root
+             kernels call no 64-bit divide and no device function per item
   3. main    with every launch count at 0: EC encode of 2048 stripes x k=8 x
              4 KiB, recovery of erasures [1, 9], a mixed-pattern decode, and
              CRUSH placement of 65,536 PGs on a 10,000-OSD map (250 hosts x 40,
@@ -16,7 +19,11 @@ Runs ceph_tpu_torch (never JAX, never ceph_tpu) at the bench's full size:
              inputs, byte for byte (the tolerance is exact equality: all of it
              is integer arithmetic); parity and decode equal the numpy oracle
              on a sample; recovery and decode rebuild the erased chunks;
-             placements equal the scalar oracle crush_do_rule on 256 PGs
+             placements equal the scalar oracle crush_do_rule on 256 PGs.
+             Both root kernels (exact and filter) are also held at the small
+             launches, where each (x, r) takes a group of G lanes (N = 1, 37,
+             1,928 and 4,096 at R = 9), on roots of S = 1, 3 and 5 items and
+             on a root whose weights include 0, 1, 0xFFFF and 2^32-1
   5. wide    with every launch count at 0 again: tools.crush_test.run_test on
              a 10,000-OSD map of 1,000 hosts x 10 (the same skew and
              reweights; the root is the approx filter's width), chooseleaf
@@ -25,11 +32,14 @@ Runs ceph_tpu_torch (never JAX, never ceph_tpu) at the bench's full size:
              the counts are read.  Checks: placements equal the plain torch
              path and the scalar oracle on a sample; the filter kernel's
              positions, ids and flags equal its plain version exactly, and
-             the exact root where its flag is 0; the f32 ln table equals
+             the exact root where its flag is 0, also at the small launches
+             and on roots of 1,000 and 1,024 items; the f32 ln table equals
              torch.log2 within LN_TOL; a huge bound D flags every x and the
              fast path falls back to the exact root and still matches
   6. times   CUDA events, warm, median of 7: encode/recover MB/s, CRUSH Mpps,
-             each kernel's ms beside its plain version and its bound, and
+             each kernel's ms beside its plain version and its bound; the two
+             root kernels also at the stage-2 launch (STAGE2_CAP x 9 columns)
+             with the lane group G each launch used, and over every G there;
              the filter beside the exact root kernel on the same columns
   7. prints  the {"kernels": [...]} line, then {"ok": true, "device": ...}
 
@@ -83,6 +93,9 @@ EC_PGS, EC_NUMREP, FLAT_OSDS, FLAT_PGS = 4096, 12, 1024, 4096
 #: scalar-oracle samples (~0.1 s a PG on a 1,000-item root), and the
 #: interpreter's CPU comparison
 WIDE_ORACLE, SMALL_ORACLE, EC_CPU_PGS = 64, 32, 128
+#: batch sizes of the root kernels' small launches: one x, a ragged few,
+#: the flagship's stage-2 lanes and the stage-2 capacity (the launch)
+SMALL_NS = (1, 37, 1928, 4096)
 
 
 class SmokeFailure(Exception):
@@ -179,6 +192,69 @@ def bench_map(n_hosts: int = 250, per_host: int = 40):
     return crush_map, rid, reweight
 
 
+def synthetic_root(weights, seed: int):
+    """A FastRule-like root of len(weights) items (ids -2, -3, ...) and no
+    leaf level, for CudaColumns."""
+    import types
+    import numpy as np
+    ids = -2 - np.random.default_rng(seed).permutation(len(weights))
+    return types.SimpleNamespace(
+        root_ids=ids.astype(np.int32), root_w=np.asarray(weights, np.int64),
+        leaf_ids=None, leaf_w=None, vary_r=0)
+
+
+def hold_roots(cols, xs, R: int, what: str, same, kernels) -> None:
+    """The root kernels named in ``kernels`` (straw2_root, straw2_froot)
+    on ``cols``' root against their plain versions, on the card:
+    positions, ids and filter flags exact."""
+    from ceph_tpu_torch.ops import straw2_cuda as sc
+    from ceph_tpu_torch.ops import straw2_filter as sf
+    n, S = xs.shape[0], cols.root_ids.shape[0]
+    G = sc.card_group_lanes(n * R, S, xs.device)
+    shape = f"{what}, N={n} R={R} S={S} G={G}"
+    if "straw2_root" in kernels:
+        pos, ids = cols.root_columns(xs, None, R)
+        ppos, pids = sc.root_columns_plain(xs, cols.root_ids, cols.root_w, R)
+        same("straw2_root", pos, ppos, f"root kernel positions == plain, "
+             f"{shape}")
+        same("straw2_root", ids, pids, f"root kernel ids == plain, {what}")
+    if "straw2_froot" in kernels:
+        fpos, fids, fovf = cols.froot_columns(xs, None, R)
+        qpos, qids, qovf = sf.froot_columns_plain(
+            xs, cols.root_ids, cols.root_w, R, sf.ln_f32_table(xs.device),
+            sf.ln_f32_bound(xs.device))
+        same("straw2_froot", fpos, qpos, f"filter kernel positions == "
+             f"plain, {shape}")
+        same("straw2_froot", fids, qids, f"filter kernel ids == plain, "
+             f"{what}")
+        same("straw2_froot", fovf, qovf, f"filter kernel flags == plain, "
+             f"{what} ({int(fovf.sum())} flagged)")
+
+
+def launch_root(cols, x32, n: int, R: int, G: int, pos, ids) -> None:
+    """One raw straw2_root launch on prepared operands, G lanes per
+    (x, r)."""
+    from ceph_tpu_torch.ops import _build
+    _build.launch("straw2_root", "straw2_root_launch", x32.data_ptr(), n, R,
+                  cols.root_ids.data_ptr(), cols.root_magic.data_ptr(),
+                  cols.root_shift.data_ptr(), cols.root_ids.shape[0],
+                  G.bit_length() - 1, cols.ln_tab.data_ptr(), pos.data_ptr(),
+                  ids.data_ptr())
+
+
+def launch_froot(cols, x32, n: int, R: int, G: int, D: float, table, pos,
+                 ids, ovf) -> None:
+    """One raw straw2_froot launch on prepared operands, G lanes per
+    (x, r)."""
+    from ceph_tpu_torch.ops import _build
+    _build.launch("straw2_froot", "straw2_froot_launch", x32.data_ptr(), n, R,
+                  cols.root_ids.data_ptr(), cols.root_magic.data_ptr(),
+                  cols.root_shift.data_ptr(), cols.root_wf.data_ptr(),
+                  cols.root_ids.shape[0], G.bit_length() - 1, D,
+                  cols.ln_tab.data_ptr(), table.data_ptr(), pos.data_ptr(),
+                  ids.data_ptr(), ovf.data_ptr())
+
+
 def run() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -196,7 +272,7 @@ def run() -> None:
     from ceph_tpu_torch.ops import straw2_cuda as sc
     from ceph_tpu_torch.ops import straw2_filter as sf
     from ceph_tpu_torch.ops.crush_kernel import is_out
-    from ceph_tpu_torch.tools import crush_test
+    from ceph_tpu_torch.tools import crush_test, sass_report
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -213,6 +289,20 @@ def run() -> None:
     _build.lib()
     print(f"built {so} from {len(_build.sources())} sources in "
           f"{time.perf_counter() - t0:.1f} s")
+    try:
+        sass = sass_report.report(so)
+    except (OSError, subprocess.CalledProcessError) as e:
+        sass = {}
+        print(f"SASS and registers: not measured ({e})")
+    if sass:
+        print(sass_report.format_report(sass))
+        for name in ("straw2_root_kernel", "straw2_froot_kernel"):
+            row = sass[name]
+            loop_calls = [c["kind"] for c in row["item_loop"]["calls"]]
+            check("u64 divide" not in row["calls"] and not (
+                set(loop_calls) - {"f32 divide slow path"}),
+                f"{name}: no 64-bit divide in the kernel, no function call "
+                f"per item (item loop calls: {loop_calls or 'none'})")
 
     print("== 3. main path")
     rng = np.random.default_rng(0)
@@ -350,6 +440,24 @@ def run() -> None:
     same("placements", fm_flat.run(xs[:4096], rw_flat, NUMREP),
          fm_flat.run_plain(xs[:4096], rw_flat, NUMREP),
          "flat choose-firstn map (300 OSDs): kernels == plain, 4096 PGs")
+    # the root kernels' lane groups: the flagship root at the small
+    # launches; roots of fewer items than 5 kept lower ends; edge weights.
+    # The exact root here, the filter in phase 5 (after the wide path's
+    # counts: its first launch builds the ln table)
+    small_cases = [(cols, xs[:n_], R0, "flagship root") for n_ in SMALL_NS]
+    small_cases.append((cols, xs[:37], R1, "flagship root"))
+    for S_ in (1, 3, 5):
+        c_ = sc.CudaColumns(synthetic_root(
+            rng.integers(0x8000, 0x20000, S_) * 40, S_), dev)
+        small_cases += [(c_, xs[:n_], R_, f"{S_}-item root")
+                        for n_, R_ in ((1, R0), (37, R1), (4096, R0))]
+    edge_w = rng.integers(0x8000, 0x20000, 64) * 40
+    edge_w[[3, 10, 17, 40]] = [0, 1, 0xFFFF, 2 ** 32 - 1]
+    c_ = sc.CudaColumns(synthetic_root(edge_w, 64), dev)
+    small_cases += [(c_, xs[:n_], R_, "edge-weight root")
+                    for n_, R_ in ((37, R1), (4096, R0), (N_PGS, R1))]
+    for case in small_cases:
+        hold_roots(*case, same, ("straw2_root",))
 
     print("== 5. wide map: crush_test on 1,000 hosts x 10 OSDs")
     wmap, wrid, wrw = bench_map(WIDE_HOSTS, WIDE_PER_HOST)
@@ -454,16 +562,24 @@ def run() -> None:
               and torch.equal(fids[:, clean], eids[:, clean]),
               f"filter kernel == exact root columns where the flag is 0, "
               f"R={R}")
+    both = ("straw2_root", "straw2_froot")
+    for case in small_cases:
+        hold_roots(*case, same, ("straw2_froot",))
+    for n_ in SMALL_NS:
+        hold_roots(wcols, x_all[:n_], R0, "wide root", same, both)
+    hold_roots(fm_flat_w.cols, x_all[:FLAT_PGS], R0, "flat 1,024 root", same,
+               both)
+    skew_w = rng.integers(0x8000, 0x20000, 1024) * 10
+    skew_w[rng.choice(1024, 20, replace=False)] = 0
+    c_ = sc.CudaColumns(synthetic_root(skew_w, 1024), dev)
+    for n_, R_ in ((37, R0), (4096, R0), (N_PGS, R1)):
+        hold_roots(c_, x_all[:n_], R_, "skewed 1,024 root", same, both)
     huge = 1e30
     hpos = torch.empty((R1, N_PGS), dtype=torch.int32, device=dev)
     hids = torch.empty_like(hpos)
     hovf = torch.zeros((N_PGS,), dtype=torch.int32, device=dev)
     wx32 = sc.xs_i32(x_all).contiguous()
-    _build.launch("straw2_froot", "straw2_froot_launch", wx32.data_ptr(),
-                  N_PGS, R1, wcols.root_ids.data_ptr(),
-                  wcols.root_w.data_ptr(), wcols.root_wf.data_ptr(),
-                  wcols.root_ids.shape[0], huge, wcols.ln_tab.data_ptr(),
-                  hpos.data_ptr(), hids.data_ptr(), hovf.data_ptr())
+    launch_froot(wcols, wx32, N_PGS, R1, 1, huge, table, hpos, hids, hovf)
     _hp, _hi, hovf_plain = sf.froot_columns_plain(
         x_all, wcols.root_ids, wcols.root_w, R1, table, huge)
     check(bool((hovf == 1).all()) and torch.equal(hovf, hovf_plain),
@@ -506,15 +622,16 @@ def run() -> None:
     rep_a = torch.empty((NUMREP, N_PGS), dtype=torch.int32, device=dev)
     rep_b = torch.empty_like(rep_a)
     ovf = torch.empty((N_PGS,), dtype=torch.int32, device=dev)
+    S_wide = wcols.root_ids.shape[0]
+    g_root = sc.card_group_lanes(N_PGS * R1, S_root, dev)
+    g_froot = sc.card_group_lanes(N_PGS * R1, S_wide, dev)
     raw = {
         "gf_matvec": lambda: _build.launch(
             "gf_matvec", "gf_matvec_launch", data.data_ptr(),
             rows_enc.data_ptr(), zeros.data_ptr(), enc_out.data_ptr(),
             STRIPES, K, M, CHUNK, 1),
-        "straw2_root": lambda: _build.launch(
-            "straw2_root", "straw2_root_launch", x32.data_ptr(), N_PGS, R1,
-            cols.root_ids.data_ptr(), cols.root_w.data_ptr(), S_root,
-            cols.ln_tab.data_ptr(), col_a.data_ptr(), col_b.data_ptr()),
+        "straw2_root": lambda: launch_root(cols, x32, N_PGS, R1, g_root,
+                                           col_a, col_b),
         "straw2_leaf": lambda: _build.launch(
             "straw2_leaf", "straw2_leaf_launch", x32.data_ptr(), N_PGS, R1,
             pos1.data_ptr(), cols.leaf_ids.data_ptr(), cols.leaf_w.data_ptr(),
@@ -525,11 +642,8 @@ def run() -> None:
             lid1.data_ptr(), lb1.data_ptr(), R1, N_PGS, NUMREP,
             fm.fr.tries, rep_a.data_ptr(), rep_b.data_ptr(), ovf.data_ptr()),
         # the wide map's stage-1 columns: every PG of crush_test, R1
-        "straw2_froot": lambda: _build.launch(
-            "straw2_froot", "straw2_froot_launch", wx32.data_ptr(), N_PGS,
-            R1, wcols.root_ids.data_ptr(), wcols.root_w.data_ptr(),
-            wcols.root_wf.data_ptr(), S_wide, D, wcols.ln_tab.data_ptr(),
-            col_a.data_ptr(), col_b.data_ptr(), ovf.data_ptr()),
+        "straw2_froot": lambda: launch_froot(wcols, wx32, N_PGS, R1, g_froot,
+                                             D, table, col_a, col_b, ovf),
         "ln_f32_table": lambda: _build.launch(
             "ln_f32_table", "ln_f32_table_launch", ln_out.data_ptr(), 65536),
     }
@@ -549,7 +663,6 @@ def run() -> None:
     leaf_nz = (cols.leaf_w > 0).sum(dim=1)
     leaf_draws = int(leaf_nz[pos1.long()].sum())
     rows_read = ladder_rows_read(ids1, lid1, lb1, NUMREP, fm.fr.tries)
-    S_wide = wcols.root_ids.shape[0]
     wide_nz = int((wcols.root_w > 0).sum())
     ln_out = torch.empty((65536,), dtype=torch.float32, device=dev)
     work = {
@@ -573,10 +686,10 @@ def run() -> None:
     }
     shapes = {
         "gf_matvec": f"({STRIPES},{K},{CHUNK}) -> ({STRIPES},{M},{CHUNK})",
-        "straw2_root": f"N={N_PGS} R={R1} S={S_root}",
+        "straw2_root": f"N={N_PGS} R={R1} S={S_root} G={g_root}",
         "straw2_leaf": f"N={N_PGS} R={R1} H={H} S={S_leaf}",
         "firstn_consume": f"N={N_PGS} R={R1} numrep={NUMREP}",
-        "straw2_froot": f"N={N_PGS} R={R1} S={S_wide}",
+        "straw2_froot": f"N={N_PGS} R={R1} S={S_wide} G={g_froot}",
         "ln_f32_table": "65536 -> 65536 f32",
     }
     meta = {
@@ -615,14 +728,46 @@ def run() -> None:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None})
     # the exact root kernel on the filter's columns: which is faster here
-    root_wide = time_ms(lambda: _build.launch(
-        "straw2_root", "straw2_root_launch", wx32.data_ptr(), N_PGS, R1,
-        wcols.root_ids.data_ptr(), wcols.root_w.data_ptr(), S_wide,
-        wcols.ln_tab.data_ptr(), col_a.data_ptr(), col_b.data_ptr()), 20)
+    root_wide = time_ms(lambda: launch_root(wcols, wx32, N_PGS, R1, g_froot,
+                                            col_a, col_b), 20)
     froot_ms = next(k["ms"] for k in kernels if k["name"] == "straw2_froot")
-    print(f"straw2_root     N={N_PGS} R={R1} S={S_wide} (the filter's "
-          f"columns) kernel {root_wide:.4f} ms; straw2_froot / straw2_root "
-          f"= {froot_ms / root_wide:.3f}  {tag}")
+    print(f"straw2_root     N={N_PGS} R={R1} S={S_wide} G={g_froot} (the "
+          f"filter's columns) kernel {root_wide:.4f} ms; straw2_froot / "
+          f"straw2_root = {froot_ms / root_wide:.3f}  {tag}")
+
+    # the root kernels at the stage-2 launch (STAGE2_CAP lanes, the run's
+    # overflowing lanes first, over the full block of R0 columns) and at
+    # the overflowing lanes alone; then every lane group at the stage-2
+    # launch and at stage 1
+    n2 = min(FastMapper.STAGE2_CAP, N_PGS)
+    col_c = torch.empty((R0, n2), dtype=torch.int32, device=dev)
+    col_d = torch.empty_like(col_c)
+    roots = {   # kernel: (launch at (n, R, G), S, items of non-zero weight,
+                #          operations per item, stage-1 G)
+        "straw2_root": (lambda n_, R_, G, out: launch_root(
+            cols, x32, n_, R_, G, *out), S_root, root_nz, OPS_PER_DRAW,
+            g_root),
+        "straw2_froot": (lambda n_, R_, G, out: launch_froot(
+            wcols, wx32, n_, R_, G, D, table, *out, ovf), S_wide, wide_nz,
+            FILTER_OPS_PER_ITEM, g_froot),
+    }
+    for name, (fn, S_, nz_, per_item, g1) in roots.items():
+        row = next(k for k in kernels if k["name"] == name)
+        for n_ in sorted({n2, max(1, min(schedule["stage2_lanes"], n2))},
+                         reverse=True):
+            G = sc.card_group_lanes(n_ * R0, S_, dev)
+            ms = time_ms(lambda: fn(n_, R0, G, (col_c, col_d)), 20)
+            b_ms, _by = bound(8 * R0 * n_, R0 * n_ * nz_ * per_item)
+            print(f"{name:15s} stage 2 N={n_} R={R0} S={S_} G={G}  kernel "
+                  f"{ms:.4f} ms  bound {b_ms:.4f} ms  {tag}")
+            if n_ == n2:
+                row.update(G=g1, stage2_shape=f"N={n_} R={R0}", stage2_G=G,
+                           stage2_ms=ms, stage2_bound_ms=b_ms)
+        for n_, R_, gs, out in ((n2, R0, (1, 2, 4, 8, 16, 32), (col_c, col_d)),
+                                (N_PGS, R1, (1, 2, 4), (col_a, col_b))):
+            sweep = {G: time_ms(lambda: fn(n_, R_, G, out), 10) for G in gs}
+            print(f"{name:15s} N={n_} R={R_} by G: " + "  ".join(
+                f"G={G} {ms:.4f} ms" for G, ms in sweep.items()) + f"  {tag}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
