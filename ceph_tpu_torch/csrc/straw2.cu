@@ -35,8 +35,13 @@
 //    minima by a shuffle butterfly (merge_least).  G = 1 at stage 1
 //    (65,536 x 4 columns), G = 8 at the stage-2 launch.
 // The leaf kernel is launched at the same shapes but draws only the winning
-// host's row; it keeps one thread per (x, r) and the dividing straw2_q.  The
-// consume kernel runs the firstn ladder of one x per thread.
+// host's row, with the same two measures: the host builds one 16-byte record
+// {int32 id, int32 shift, u64 magic} per (host, slot) once per map
+// (straw2_cuda.leaf_records, the TPU kernel's packed [ids | wz | off | magic]
+// host row in u64 form), so an item is one 16-byte read-only load and a
+// magic quotient, and G lanes share each (x, r) (G = 8 at the stage-2
+// launch; the wide map's 10-item rows cap it at 8).  The consume kernel runs
+// the firstn ladder of one x per thread.
 
 #include "straw2_common.cuh"
 
@@ -87,38 +92,47 @@ __global__ void straw2_root_kernel(const uint32_t* __restrict__ xs, int n, int R
   }
 }
 
+// (R, N) leaf columns: the straw2 draw in the winning host's row of records,
+// G = 1 << lg lanes per (x, r) as in the root kernel
 __global__ void straw2_leaf_kernel(const uint32_t* __restrict__ xs, int n, int R,
                                    const int32_t* __restrict__ root_pos,
-                                   const int32_t* __restrict__ leaf_ids,
-                                   const int64_t* __restrict__ leaf_w, int H, int S,
-                                   int vary_r, const uint64_t* __restrict__ ln_tab,
+                                   const int4* __restrict__ rec,
+                                   const int32_t* __restrict__ leaf_ids, int H,
+                                   int S, int lg, int vary_r,
+                                   const uint64_t* __restrict__ ln_tab,
                                    int32_t* __restrict__ out_id) {
   __shared__ uint64_t s_tab[kLnEntries];
   load_ln(s_tab, ln_tab);
   __syncthreads();
+  // no early return: every lane of a warp takes part in the shuffles
+  const int G = 1 << lg;
   const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= (int64_t)n * R) return;
-  const int r = (int)(tid / n);
-  const uint32_t x = xs[tid - (int64_t)r * n];
-  const int host = root_pos[tid];
-  if (host < 0 || host >= H) {     // not a root winner: nothing to descend
-    out_id[tid] = kItemNone;
-    return;
-  }
+  const int64_t col = tid >> lg;
+  const int lane = (int)(tid & (G - 1));
+  const bool valid = col < (int64_t)n * R;
+  // 32-bit: the wrapper keeps n * R < 2^31
+  const int r = valid ? (int)((uint32_t)col / (uint32_t)n) : 0;
+  const uint32_t x = valid ? xs[(int)col - r * n] : 0u;
+  const int host = valid ? root_pos[col] : -1;
+  // a position that is no root winner has nothing to descend: NONE
+  const bool live = host >= 0 && host < H;
   // r_leaf = vary_r ? r >> (vary_r - 1) : 0  (mapper.c:578)
   const uint32_t r_leaf = vary_r ? ((uint32_t)r >> (vary_r - 1)) : 0u;
-  const int32_t* row_ids = leaf_ids + (int64_t)host * S;
-  const int64_t* row_w = leaf_w + (int64_t)host * S;
-  int best = 0;
-  uint64_t best_q = 0;
-  for (int s = 0; s < S; ++s) {
-    const uint64_t q = straw2_q(x, row_ids[s], r_leaf, row_w[s], s_tab);
-    if (s == 0 || q < best_q) {
+  const int4* row = rec + (live ? (int64_t)host * S : 0);
+  int best = lane;               // G <= S: every lane has an item
+  uint64_t best_q = ~0ull;       // all weights zero: position 0 wins
+  for (int s = live ? lane : S; s < S; s += G) {
+    const int4 e = __ldg(row + s);           // {id, shift, magic lo, magic hi}
+    const uint64_t m = (uint64_t)(uint32_t)e.z | ((uint64_t)(uint32_t)e.w << 32);
+    const uint64_t q = straw2_qm(x, e.x, r_leaf, m, e.y, s_tab);
+    if (q < best_q) {
       best_q = q;
       best = s;
     }
   }
-  out_id[tid] = row_ids[best];
+  merge_least(best_q, best, G);
+  if (valid && lane == 0)
+    out_id[col] = live ? leaf_ids[(int64_t)host * S + best] : kItemNone;
 }
 
 // crush_choose_firstn (mapper.c:460-648) over precomputed winner columns:
@@ -181,13 +195,14 @@ extern "C" int straw2_root_launch(const void* xs, int n, int R, const void* ids,
 }
 
 extern "C" int straw2_leaf_launch(const void* xs, int n, int R, const void* root_pos,
-                                  const void* leaf_ids, const void* leaf_w, int H,
-                                  int S, int vary_r, const void* ln_tab, void* out_id,
-                                  void* stream) {
-  straw2_leaf_kernel<<<blocks_for((int64_t)n * R), kThreads, 0,
+                                  const void* rec, const void* leaf_ids, int H,
+                                  int S, int lg, int vary_r, const void* ln_tab,
+                                  void* out_id, void* stream) {
+  straw2_leaf_kernel<<<blocks_for(((int64_t)n * R) << lg), kThreads, 0,
                        (cudaStream_t)stream>>>(
-      (const uint32_t*)xs, n, R, (const int32_t*)root_pos, (const int32_t*)leaf_ids,
-      (const int64_t*)leaf_w, H, S, vary_r, (const uint64_t*)ln_tab, (int32_t*)out_id);
+      (const uint32_t*)xs, n, R, (const int32_t*)root_pos, (const int4*)rec,
+      (const int32_t*)leaf_ids, H, S, lg, vary_r, (const uint64_t*)ln_tab,
+      (int32_t*)out_id);
   return (int)cudaGetLastError();
 }
 

@@ -1,11 +1,9 @@
 // The exact straw2 draw shared by the straw2 kernels (straw2.cu) and the
 // approx-filter root (straw2_filter.cu): rjenkins hash32_3, crush_ln as
 // 2^48 - ln in u64, and the u64 quotient whose least value is the straw2
-// winner (see straw2.cu for the derivation).  The quotient comes two ways:
-// straw2_q divides by the weight (the leaf kernel), straw2_qm multiplies by
-// the weight's magic pair (the root kernels: no 64-bit divide), and the
-// group of lanes that shares one (x, r) merges its winners with
-// merge_least.
+// winner (see straw2.cu for the derivation), taken by multiplying with the
+// weight's magic pair (straw2_qm: no 64-bit divide).  The group of lanes
+// that shares one (x, r) merges its winners with merge_least.
 
 #pragma once
 
@@ -67,16 +65,9 @@ __device__ __forceinline__ uint64_t ln_p48(uint32_t u, const uint64_t* tab) {
   return (uint64_t)((1ll << 48) - ln);
 }
 
-// the straw2 quotient of one item; 2^64-1 for a zero weight
-__device__ __forceinline__ uint64_t straw2_q(uint32_t x, int32_t id, uint32_t r,
-                                             int64_t w, const uint64_t* tab) {
-  if (w <= 0) return ~0ull;
-  const uint32_t u = hash32_3(x, (uint32_t)id, r) & 0xFFFFu;
-  return ln_p48(u, tab) / (uint64_t)w;
-}
-
-// the same quotient by magic division: floor(P / w) == __umul64hi(P, m) >> s
-// for every P <= 2^48, with (m, s) from straw2_cuda.magic_tables
+// the straw2 quotient of one item by magic division: floor(P / w) ==
+// __umul64hi(P, m) >> s for every P <= 2^48, with (m, s) from
+// straw2_cuda.magic_tables; 2^64-1 for a zero weight
 __device__ __forceinline__ uint64_t straw2_qm(uint32_t x, int32_t id, uint32_t r,
                                               uint64_t m, int s,
                                               const uint64_t* tab) {

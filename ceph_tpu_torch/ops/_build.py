@@ -41,13 +41,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 #: C launcher -> argument types (every launcher returns a cudaError_t int)
 SIGNATURES = {
-    # data, mul_rows, pidx, out, S, k, t, B, vec, stream
-    "gf_matvec_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # data, packed table, pidx, out, S, k, t, B, stream
+    "gf_matvec_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # xs, n, R, ids, magic, shift, S, lg, ln_tab, out_pos, out_id, stream
     "straw2_root_launch": [_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P],
-    # xs, n, R, root_pos, leaf_ids, leaf_w, H, S, vary_r, ln_tab, out_id,
-    # stream
-    "straw2_leaf_launch": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    # xs, n, R, root_pos, leaf_rec, leaf_ids, H, S, lg, vary_r, ln_tab,
+    # out_id, stream
+    "straw2_leaf_launch": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P,
+                           _P],
     # hw, lw, lb, R, n, numrep, tries, out_h, out_l, ovf, stream
     "firstn_consume_launch": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     # xs, n, R, ids, magic, shift, wf, S, lg, D, ln_tab, lnf, out_pos,

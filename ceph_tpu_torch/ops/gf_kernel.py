@@ -7,17 +7,19 @@ OSD invokes per 4-64 KiB stripe in a loop (src/osd/ECUtil.cc:120-159).  Here tha
 loop is one batched device call.
 
 One kernel serves encode, recovery and the heterogeneous decode:
-``gf_matvec(rows, pidx, data)`` multiplies each stripe by the matrix of its
+``gf_matvec(tab, pidx, data, t)`` multiplies each stripe by the matrix of its
 pattern ``pidx[s]`` out of a stacked (P, t, k) table.  Encode is P = 1; recovery
 is the same product with a recovery matrix (``gf.recovery_matrix``); a decode
 batch that mixes erasure patterns is still one launch.  The matrix operand is
-the multiply rows ``rows[p, i, j, x] = M_p[i, j] * x`` (``mul_rows``).
+the packed-product table (``pack_rows``): one 32-bit word per (pass of four
+outputs, input, byte value) holding the four products, built on the host once
+per coding matrix (``make_encoder``) or per decode call.
 
 * On a CUDA tensor ``gf_matvec`` launches the hand-written kernel
   (csrc/gf_matvec.cu); it never falls back.
-* On a CPU tensor it runs ``gf_matvec_plain``: the same table lookups as torch
-  gathers, XOR-accumulated over the k inputs and chunked over stripes so the
-  gathered (stripes, t, B) index tensor stays bounded.
+* On a CPU tensor it runs ``gf_matvec_plain``: the same packed lookups as
+  torch gathers, XOR-accumulated over the k inputs, split into bytes, and
+  chunked over stripes so the gathered index tensor stays bounded.
 
 Decode mirrors the reference's structure (ErasureCodeIsa.cc:150-310): a host-side
 inverted k x k sub-matrix, then the same batched product.
@@ -101,76 +103,98 @@ def coeffs_from_bit_table(tables_bits: np.ndarray, k: int,
 
 def mul_rows(mats: np.ndarray) -> np.ndarray:
     """(P, t, k) GF(2^8) matrices -> (P, t, k, 256) uint8 multiply rows,
-    rows[p, i, j, x] = mats[p, i, j] * x: the kernel's table operand."""
+    rows[p, i, j, x] = mats[p, i, j] * x."""
     mats = np.asarray(mats, dtype=np.uint8)
     return np.ascontiguousarray(mul_table()[mats[..., None], np.arange(256)])
+
+
+#: outputs per packed word, one byte each
+PACK = 4
+
+
+def pack_rows(mats: np.ndarray) -> np.ndarray:
+    """(P, t, k) GF(2^8) matrices -> the kernel's (P, ceil(t/4), k, 256)
+    int32 packed-product table: byte ii of word [p, q, j, x] is
+    mats[p, 4q + ii, j] * x, zero past row t."""
+    rows = mul_rows(mats).astype(np.uint32)                # (P, t, k, 256)
+    p, t, k, _ = rows.shape
+    nq = -(-t // PACK)
+    full = np.zeros((p, nq * PACK, k, 256), dtype=np.uint32)
+    full[:, :t] = rows
+    shifts = (8 * np.arange(PACK, dtype=np.uint32))[None, None, :, None, None]
+    packed = np.bitwise_or.reduce(
+        full.reshape(p, nq, PACK, k, 256) << shifts, axis=2)
+    return np.ascontiguousarray(packed).view(np.int32)
 
 
 # ---------------------------------------------------------------------------
 # the kernel and its plain version
 # ---------------------------------------------------------------------------
 
-#: elements of the gathered (stripes, t, B) index tensor per plain chunk
+#: elements of the gathered (stripes, t, B) outputs per plain chunk
 _PLAIN_CHUNK = 1 << 22
 
 
-def gf_matvec_plain(rows: torch.Tensor, pidx: torch.Tensor,
-                    data: torch.Tensor) -> torch.Tensor:
-    """The kernel's function in torch: (P, t, k, 256) rows, (S,) pattern
-    indices, (S, k, B) uint8 data -> (S, t, B) uint8."""
-    _, t, k, _ = rows.shape
+def gf_matvec_plain(tab: torch.Tensor, pidx: torch.Tensor,
+                    data: torch.Tensor, t: int) -> torch.Tensor:
+    """The kernel's function in torch: (P, ceil(t/4), k, 256) int32 packed
+    table, (S,) pattern indices, (S, k, B) uint8 data -> (S, t, B) uint8."""
+    _, nq, k, _ = tab.shape
     s, _, b = data.shape
     out = torch.empty((s, t, b), dtype=torch.uint8, device=data.device)
+    shifts = 8 * torch.arange(PACK, device=data.device)[None, None, :, None]
     step = max(1, _PLAIN_CHUNK // max(1, t * b))
     for lo in range(0, s, step):
         hi = min(s, lo + step)
-        tab = rows[pidx[lo:hi].long()]                    # (cs, t, k, 256)
-        acc = torch.zeros((hi - lo, t, b), dtype=torch.uint8,
+        tb = tab[pidx[lo:hi].long()]                      # (cs, nq, k, 256)
+        acc = torch.zeros((hi - lo, nq, b), dtype=torch.int32,
                           device=data.device)
         for j in range(k):
-            idx = data[lo:hi, j].long()[:, None, :].expand(-1, t, -1)
-            acc ^= torch.gather(tab[:, :, j, :], 2, idx)
-        out[lo:hi] = acc
+            idx = data[lo:hi, j].long()[:, None, :].expand(-1, nq, -1)
+            acc ^= torch.gather(tb[:, :, j, :], 2, idx)
+        outs = (acc[:, :, None, :] >> shifts) & 0xFF      # (cs, nq, 4, B)
+        out[lo:hi] = outs.reshape(hi - lo, nq * PACK, b)[:, :t]
     return out
 
 
-def gf_matvec(rows: torch.Tensor, pidx: torch.Tensor,
-              data: torch.Tensor) -> torch.Tensor:
+def gf_matvec(tab: torch.Tensor, pidx: torch.Tensor, data: torch.Tensor,
+              t: int) -> torch.Tensor:
     """Per-stripe GF(2^8) matrix product: the CUDA kernel for CUDA tensors,
     the plain version for CPU tensors.
 
-    rows : (P, t, k, 256) uint8 multiply rows (``mul_rows``)
+    tab  : (P, ceil(t/4), k, 256) int32 packed-product table (``pack_rows``)
     pidx : (S,) int32 pattern index per stripe, each in [0, P)
     data : (S, k, B) uint8
+    t    : outputs per stripe
     returns (S, t, B) uint8
     """
     if data.dtype != torch.uint8 or data.dim() != 3:
         raise ValueError("data must be (S, k, B) uint8")
-    if rows.dtype != torch.uint8 or rows.dim() != 4 or rows.shape[3] != 256:
-        raise ValueError("rows must be (P, t, k, 256) uint8")
+    if tab.dtype != torch.int32 or tab.dim() != 4 or tab.shape[3] != 256:
+        raise ValueError("tab must be (P, ceil(t/4), k, 256) int32")
     s, k, b = data.shape
-    p, t, rk, _ = rows.shape
-    if rk != k:
-        raise ValueError(f"rows are for k={rk}, data has k={k}")
+    _, nq, tk, _ = tab.shape
+    if tk != k:
+        raise ValueError(f"tab is for k={tk}, data has k={k}")
+    if nq != -(-t // PACK):
+        raise ValueError(f"tab holds {nq} passes of {PACK}, t={t}")
     if pidx.shape != (s,):
         raise ValueError(f"pidx must be ({s},), got {tuple(pidx.shape)}")
     if not data.is_cuda:
-        return gf_matvec_plain(rows, pidx, data)
-    if t * k * 256 > 227 * 1024:
-        raise ValueError(f"t*k={t * k} multiply rows exceed shared memory")
-    if not (rows.is_cuda and pidx.is_cuda):
-        raise ValueError("rows, pidx and data must all lie on the card")
+        return gf_matvec_plain(tab, pidx, data, t)
+    if nq * k * 1024 > 227 * 1024:
+        raise ValueError(f"{nq * k} KiB of packed table exceed shared memory")
+    if not (tab.is_cuda and pidx.is_cuda):
+        raise ValueError("tab, pidx and data must all lie on the card")
     data = data.contiguous()
-    rows = rows.contiguous()
+    tab = tab.contiguous()
     pidx = pidx.to(torch.int32).contiguous()
     out = torch.empty((s, t, b), dtype=torch.uint8, device=data.device)
     if s == 0 or b == 0 or t == 0:
         return out
-    vec = int(b % 16 == 0 and data.data_ptr() % 16 == 0
-              and out.data_ptr() % 16 == 0)
     _build.launch("gf_matvec", "gf_matvec_launch",
-                  data.data_ptr(), rows.data_ptr(), pidx.data_ptr(),
-                  out.data_ptr(), s, k, t, b, vec)
+                  data.data_ptr(), tab.data_ptr(), pidx.data_ptr(),
+                  out.data_ptr(), s, k, t, b)
     return out
 
 
@@ -189,17 +213,18 @@ def _as_u8(data, device: torch.device) -> torch.Tensor:
 
 def make_encoder(coeff: np.ndarray, device=None):
     """Return encode(data (S, k, B) uint8) -> (S, m, B) uint8 with the coding
-    matrix's multiply rows resident on ``device`` (the card by default).
-    ``coeff`` is the (m, k) coding matrix — or a (t, k) recovery matrix,
-    which makes the same call a recovery."""
+    matrix's packed-product table resident on ``device`` (the card by
+    default).  ``coeff`` is the (m, k) coding matrix — or a (t, k) recovery
+    matrix, which makes the same call a recovery."""
     dev = resolve(device)
     coeff = np.asarray(coeff, dtype=np.uint8)
-    rows = torch.from_numpy(mul_rows(coeff[None])).to(dev)
+    tab = torch.from_numpy(pack_rows(coeff[None])).to(dev)
+    t = coeff.shape[0]
 
     def encode(data) -> torch.Tensor:
         d = _as_u8(data, dev)
         pidx = torch.zeros((d.shape[0],), dtype=torch.int32, device=dev)
-        return gf_matvec(rows, pidx, d)
+        return gf_matvec(tab, pidx, d, t)
 
     return encode
 
@@ -221,6 +246,6 @@ def ec_decode_batched(tables_bits: np.ndarray, pidx, data, *,
     if pidx_np.size and (pidx_np.min() < 0
                          or pidx_np.max() >= coeffs.shape[0]):
         raise ValueError("pattern index out of range of the table")
-    rows = torch.from_numpy(mul_rows(coeffs)).to(dev)
+    tab = torch.from_numpy(pack_rows(coeffs)).to(dev)
     pidx_t = torch.from_numpy(pidx_np.astype(np.int32)).to(dev)
-    return gf_matvec(rows, pidx_t, _as_u8(data, dev))
+    return gf_matvec(tab, pidx_t, _as_u8(data, dev), t)

@@ -25,8 +25,10 @@ is_out verdicts stay outside the kernels, elementwise in torch over the winner
 columns (ops.crush_kernel.is_out), as in the JAX fast path.
 
 The two root kernels take the root's weights as magic pairs
-(``magic_tables``, built once per map) and run ``group_lanes`` lanes per
-(x, r), so that a small batch still fills the card.
+(``magic_tables``, built once per map), the leaf kernel the host rows as
+16-byte records of id, shift and magic (``leaf_records``, once per map);
+all three run ``group_lanes`` lanes per (x, r), so that a small batch still
+fills the card.
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ def xs_i32(xs: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# magic division and lane groups of the root kernels
+# magic division and lane groups of the straw2 kernels
 # ---------------------------------------------------------------------------
 
 #: the exact draw divides P = 2^48 - crush_ln(u) <= 2^48, so P < 2^_P_BITS
@@ -99,7 +101,21 @@ def magic_tables(weights) -> tuple[np.ndarray, np.ndarray]:
     return m, s
 
 
-#: threads per SM that one wave of the root kernels holds: 48 warps, 12 per
+def leaf_records(leaf_ids, leaf_w) -> np.ndarray:
+    """(H, S) leaf ids and weights -> the leaf kernel's (H, S, 2) int64
+    records: word 0 holds the id in its low and the magic shift in its high
+    32 bits, word 1 the magic multiplier, so that each record reads as
+    {int32 id, int32 shift, u64 magic} in one 16-byte load."""
+    ids = np.asarray(leaf_ids, dtype=np.int32)
+    magic, shift = magic_tables(np.asarray(leaf_w, dtype=np.int64))
+    rec = np.empty(ids.shape + (2,), dtype=np.int64)
+    rec[..., 0] = ((ids.astype(np.int64) & 0xFFFFFFFF)
+                   | (shift.reshape(ids.shape).astype(np.int64) << 32))
+    rec[..., 1] = magic.reshape(ids.shape)
+    return rec
+
+
+#: threads per SM that one wave of the straw2 kernels holds: 48 warps, 12 per
 #: scheduler, three quarters of an SM's 2,048.  Over G at the stage-2
 #: launch (chip_smoke.py phase 6) both root kernels are fastest at G=8 on
 #: the H100, which this picks; stage 1 (65,536 x 4 columns, 97% of 2,048
@@ -151,15 +167,18 @@ def leaf_columns_plain(xs: torch.Tensor, root_pos: torch.Tensor,
                        vary_r: int, R: int) -> torch.Tensor:
     """root winner positions (R, N) -> leaf device ids (R, N) int32, drawn
     in the winning host's row (H, S) with r_leaf = r >> (vary_r - 1), or 0
-    without vary_r (mapper.c:578)."""
+    without vary_r (mapper.c:578); NONE where the position is no host."""
     cols = []
     for r in range(R):
         host = root_pos[r].long()
+        live = (host >= 0) & (host < leaf_ids.shape[0])
+        host = torch.where(live, host, 0)
         rows_id = leaf_ids[host]                              # (N, S)
         r_leaf = (r >> (vary_r - 1)) if vary_r else 0
         lpos = straw2_choose_index(xs, rows_id, torch.full_like(xs, r_leaf),
                                    leaf_w[host])
-        cols.append(torch.gather(rows_id, 1, lpos[:, None])[:, 0])
+        lid = torch.gather(rows_id, 1, lpos[:, None])[:, 0]
+        cols.append(torch.where(live, lid, CRUSH_ITEM_NONE))
     return torch.stack(cols).to(torch.int32)
 
 
@@ -222,19 +241,23 @@ class CudaColumns:
         #: pallas_straw2._pad_lanes pads it: the filter gate reads it
         self.S_root = max(128, -(-len(fr.root_ids) // 128) * 128)
         self.ln_tab = torch.cat(ln_tables(self.device)).contiguous()
-        self.leaf_ids = self.leaf_w = None
+        self.leaf_ids = self.leaf_w = self.leaf_rec = None
         if fr.leaf_ids is not None:
             self.leaf_ids = torch.from_numpy(np.ascontiguousarray(
                 fr.leaf_ids, dtype=np.int32)).to(self.device)
             self.leaf_w = torch.from_numpy(np.ascontiguousarray(
                 fr.leaf_w, dtype=np.int64)).to(self.device)
+            #: the leaf kernel's (H, S, 2) records {id, shift, magic}
+            self.leaf_rec = torch.from_numpy(
+                leaf_records(fr.leaf_ids, fr.leaf_w)).to(self.device)
 
-    def _group(self, n: int, R: int, device: torch.device) -> int:
-        """Lanes per (x, r) of a root launch; the kernels index the
-        columns in 32 bits."""
+    @staticmethod
+    def _group(n: int, R: int, S: int, device: torch.device) -> int:
+        """Lanes per (x, r) of a launch over S items; the kernels index
+        the columns in 32 bits."""
         if n * R >= 1 << 31:
-            raise ValueError(f"root columns: N * R = {n * R} >= 2^31")
-        return card_group_lanes(n * R, self.root_ids.shape[0], device)
+            raise ValueError(f"straw2 columns: N * R = {n * R} >= 2^31")
+        return card_group_lanes(n * R, S, device)
 
     def root_columns(self, xs: torch.Tensor, reweight, R: int
                      ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -249,7 +272,7 @@ class CudaColumns:
         ids = torch.empty((R, n), dtype=torch.int32, device=xs.device)
         if n and R:
             x32 = xs_i32(xs).contiguous()
-            G = self._group(n, R, xs.device)
+            G = self._group(n, R, S, xs.device)
             _build.launch("straw2_root", "straw2_root_launch",
                           x32.data_ptr(), n, R, self.root_ids.data_ptr(),
                           self.root_magic.data_ptr(),
@@ -279,7 +302,7 @@ class CudaColumns:
         ovf = torch.zeros((n,), dtype=torch.int32, device=xs.device)
         if n and R:
             x32 = xs_i32(xs).contiguous()
-            G = self._group(n, R, xs.device)
+            G = self._group(n, R, S, xs.device)
             _build.launch("straw2_froot", "straw2_froot_launch",
                           x32.data_ptr(), n, R, self.root_ids.data_ptr(),
                           self.root_magic.data_ptr(),
@@ -300,18 +323,19 @@ class CudaColumns:
         if not xs.is_cuda:
             return leaf_columns_plain(xs, root_pos, self.leaf_ids,
                                       self.leaf_w, self.fr.vary_r, R)
-        _check_cuda(root_pos, self.leaf_ids)
+        _check_cuda(root_pos, self.leaf_rec)
         n = xs.shape[0]
         H, S = self.leaf_ids.shape
         lid = torch.empty((R, n), dtype=torch.int32, device=xs.device)
         if n and R:
             x32 = xs_i32(xs).contiguous()
             rp = root_pos.to(torch.int32).contiguous()
+            G = self._group(n, R, S, xs.device)
             _build.launch("straw2_leaf", "straw2_leaf_launch",
                           x32.data_ptr(), n, R, rp.data_ptr(),
-                          self.leaf_ids.data_ptr(), self.leaf_w.data_ptr(),
-                          H, S, int(self.fr.vary_r), self.ln_tab.data_ptr(),
-                          lid.data_ptr())
+                          self.leaf_rec.data_ptr(), self.leaf_ids.data_ptr(),
+                          H, S, G.bit_length() - 1, int(self.fr.vary_r),
+                          self.ln_tab.data_ptr(), lid.data_ptr())
         return lid
 
 

@@ -9,7 +9,11 @@ the registers, shared memory and spills that ptxas assigned
 (``cuobjdump -res-usage``, the numbers of ``nvcc -Xptxas -v``), and for the
 straw2 kernels their item loop: the innermost loop that holds the rjenkins
 hash, with its instructions per item (per hash32_3 in the loop body)
-grouped by the pipe that issues them, and the routines it calls.
+grouped by the pipe that issues them, and the routines it calls.  For each
+instance of the GF kernel (``gf_matvec_kernel<k>``, k = 0 for the run-time
+k loop) its lookup loop: the innermost loop with the most shared-memory
+loads, its instructions per lookup (per LDS) and per byte column, which
+takes k packed lookups for up to four outputs (k = 8, the encode).
 
 Pipe groups (Hopper; an approximation from NVIDIA's architecture documents,
 which do not list every opcode):
@@ -44,6 +48,10 @@ LOOP_KERNELS = ("straw2_root_kernel", "straw2_froot_kernel",
                 "straw2_leaf_kernel")
 #: the immediate 231232 of hash32_3 (its constant x), once per hash
 HASH_MARK = "0x38740"
+#: the GF kernel's name, before its template argument
+GF_KERNEL = "gf_matvec_kernel"
+#: packed lookups per byte column in the GF report: k at the encode
+GF_LOOKUPS_PER_COLUMN = 8
 
 _PIPES = {
     "alu": {"IADD3", "LOP3", "SHF", "ISETP", "LEA", "SEL", "PRMT", "FLO",
@@ -75,7 +83,8 @@ def pipe_of(op: str) -> str:
 
 def _kernel_name(mangled: str) -> str:
     """The last component of an Itanium-mangled nested name
-    (_ZN<len><name>...<len><name>E...), else the name itself."""
+    (_ZN<len><name>...<len><name>E...), with an integer template argument
+    as ``name<8>`` (I Li8 E), else the name itself."""
     if not mangled.startswith("_ZN"):
         return mangled
     rest, last = mangled[3:], mangled
@@ -83,7 +92,8 @@ def _kernel_name(mangled: str) -> str:
         digits = re.match(r"\d+", rest).group(0)
         n = int(digits)
         last, rest = rest[len(digits):len(digits) + n], rest[len(digits) + n:]
-    return last
+    arg = re.match(r"ILi(\d+)E", rest)
+    return f"{last}<{arg.group(1)}>" if arg else last
 
 
 def parse_sass(text: str) -> dict[str, list[tuple[int, str, str]]]:
@@ -175,6 +185,30 @@ def item_loop(ins) -> dict | None:
     }
 
 
+def lookup_loop(ins) -> dict | None:
+    """The innermost loop with the most shared-memory loads (the GF
+    kernel's lookups), counted per lookup and per byte column."""
+    best = None
+    for lo, hi in loops(ins):
+        inner = any(lo <= a and b <= hi and (a, b) != (lo, hi)
+                    for a, b in loops(ins))
+        lds = sum(op.startswith("LDS") for _a, op, _r in ins[lo:hi + 1])
+        if not inner and lds and (best is None or lds > best[2]):
+            best = (lo, hi, lds)
+    if best is None:
+        return None
+    lo, hi, lds = best
+    body = ins[lo:hi + 1]
+    pipes = collections.Counter(pipe_of(op) for _a, op, _r in body)
+    return {
+        "address": f"{ins[lo][0]:#06x}-{ins[hi][0]:#06x}",
+        "instructions": len(body), "lookups": lds,
+        "per_lookup": round(len(body) / lds, 2),
+        "per_byte_column": round(len(body) * GF_LOOKUPS_PER_COLUMN / lds, 2),
+        "by_pipe": dict(sorted(pipes.items())),
+    }
+
+
 def report(lib: str) -> dict[str, dict]:
     """Registers and item-loop counts of every kernel in ``lib``."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -190,6 +224,8 @@ def report(lib: str) -> dict[str, dict]:
         row = dict(usage.get(name, {}), instructions=len(ins), calls=calls)
         if name in LOOP_KERNELS:
             row["item_loop"] = item_loop(ins)
+        if name.startswith(GF_KERNEL):
+            row["lookup_loop"] = lookup_loop(ins)
         out[name] = row
     return out
 
@@ -211,6 +247,15 @@ def format_report(rep: dict[str, dict]) -> str:
                 f"instructions, {loop['hashes']} item(s) per iteration; per "
                 f"item {loop['per_item_total']:g}: {per}; calls in the loop: "
                 f"{calls or 'none'}")
+        gf = row.get("lookup_loop")
+        if gf:
+            per = "  ".join(f"{p} {n}" for p, n in gf["by_pipe"].items())
+            lines.append(
+                f"  lookup loop {gf['address']}: {gf['instructions']} "
+                f"instructions, {gf['lookups']} lookups; per lookup "
+                f"{gf['per_lookup']:g}, per byte column (k = "
+                f"{GF_LOOKUPS_PER_COLUMN}) {gf['per_byte_column']:g}; by pipe: "
+                f"{per}")
     return "\n".join(lines)
 
 

@@ -7,9 +7,11 @@ Runs ceph_tpu_torch (never JAX, never ceph_tpu) at the bench's full size:
 
   1. card    nvidia-smi name and power limit, torch's device name
   2. build   nvcc builds csrc/*.cu for sm_90a, one process per source (timed);
-             each kernel's registers and the straw2 item loops' SASS per item
-             by pipe (tools.sass_report, where cuobjdump is found): the root
-             kernels call no 64-bit divide and no device function per item
+             each kernel's registers, the straw2 item loops' SASS per item
+             by pipe and gf_matvec's instructions per byte column
+             (tools.sass_report, where cuobjdump is found): none of the three
+             straw2 kernels (root, filter, leaf) calls a 64-bit divide or a
+             device function per item
   3. main    with every launch count at 0: EC encode of 2048 stripes x k=8 x
              4 KiB, recovery of erasures [1, 9], a mixed-pattern decode, and
              CRUSH placement of 65,536 PGs on a 10,000-OSD map (250 hosts x 40,
@@ -20,10 +22,17 @@ Runs ceph_tpu_torch (never JAX, never ceph_tpu) at the bench's full size:
              is integer arithmetic); parity and decode equal the numpy oracle
              on a sample; recovery and decode rebuild the erased chunks;
              placements equal the scalar oracle crush_do_rule on 256 PGs.
-             Both root kernels (exact and filter) are also held at the small
-             launches, where each (x, r) takes a group of G lanes (N = 1, 37,
-             1,928 and 4,096 at R = 9), on roots of S = 1, 3 and 5 items and
-             on a root whose weights include 0, 1, 0xFFFF and 2^32-1
+             GF is also held at t = 1, 2, 3, 4, 5, 8 outputs x k = 2, 4, 8, 10
+             inputs x B = 1, 15, 17, 4,096 bytes with 3 mixed patterns, on a
+             data pointer one byte off, and at more stripes than the grid's
+             1,024.  Both root kernels (exact and filter) and the leaf are
+             also held at the small launches, where each (x, r) takes a group
+             of G lanes (N = 1, 37, 1,928 and 4,096 at R = 9): the roots on
+             roots of S = 1, 3 and 5 items and on a root whose weights include
+             0, 1, 0xFFFF and 2^32-1; the leaf in the flagship's 40-item rows
+             (and the wide map's 10-item rows in phase 5) and in host rows
+             holding those weights and a row of zeros, with root positions
+             -1 and NONE among the winners
   5. wide    with every launch count at 0 again: tools.crush_test.run_test on
              a 10,000-OSD map of 1,000 hosts x 10 (the same skew and
              reweights; the root is the approx filter's width), chooseleaf
@@ -37,9 +46,13 @@ Runs ceph_tpu_torch (never JAX, never ceph_tpu) at the bench's full size:
              torch.log2 within LN_TOL; a huge bound D flags every x and the
              fast path falls back to the exact root and still matches
   6. times   CUDA events, warm, median of 7: encode/recover MB/s, CRUSH Mpps,
-             each kernel's ms beside its plain version and its bound; the two
-             root kernels also at the stage-2 launch (STAGE2_CAP x 9 columns)
-             with the lane group G each launch used, and over every G there;
+             each kernel's ms beside its plain version and its bound (and,
+             for the straw2 kernels, the integer-pipe floor: ALU instructions
+             per item from phase 2 x items / (64 lanes x SMs x clock)); the
+             three straw2 kernels also at the stage-2 launch (STAGE2_CAP x 9
+             columns) with the lane group G each launch used, and over every G
+             there; GF at the encode, the recovery and the mixed decode, and
+             the encode on all-zero data (no shared-memory bank conflicts);
              the filter beside the exact root kernel on the same columns
   7. prints  the {"kernels": [...]} line, then {"ok": true, "device": ...}
 
@@ -65,6 +78,10 @@ PEAK_OPS32_S = 67e12
 #: of 36 operations plus 3 seed XORs = 183), crush_ln (~12), mask, divide,
 #: compare (~5)
 OPS_PER_DRAW = 200
+
+#: 32-bit integer lanes per SM (Hopper: 16 a scheduler) for the
+#: integer-pipe floor of the straw2 kernels
+INT_LANES_PER_SM = 64
 
 #: f32 operations of the approx filter's band per item, beside its hash32_3
 #: (183): mask, convert, +1, log2, scale, 2^48 - ln, divide, margin (multiply,
@@ -114,6 +131,18 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0].strip()
+
+
+def sm_clock_hz() -> float | None:
+    """The card's maximum SM clock from nvidia-smi, or None."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=60, check=True).stdout
+        return float(out.strip().splitlines()[0]) * 1e6
+    except (OSError, ValueError, IndexError, subprocess.SubprocessError):
+        return None
 
 
 def time_ms(fn, iters: int, reps: int = 7) -> float:
@@ -203,6 +232,37 @@ def synthetic_root(weights, seed: int):
         leaf_ids=None, leaf_w=None, vary_r=0)
 
 
+def synthetic_leaf(rows_w, seed: int, vary_r: int):
+    """A FastRule-like chooseleaf rule whose (H, S) host rows hold
+    ``rows_w`` (device ids 0 .. H*S-1, shuffled), under a root of H hosts
+    weighted by their rows' sums (1 for a row of zeros)."""
+    import types
+    import numpy as np
+    rows_w = np.asarray(rows_w, np.int64)
+    H, S = rows_w.shape
+    rng = np.random.default_rng(seed)
+    return types.SimpleNamespace(
+        root_ids=(-2 - rng.permutation(H)).astype(np.int32),
+        root_w=np.maximum(rows_w.sum(axis=1), 1),
+        leaf_ids=rng.permutation(H * S).reshape(H, S).astype(np.int32),
+        leaf_w=rows_w, vary_r=vary_r)
+
+
+def hold_leaf(cols, xs, R: int, what: str, same, root_pos=None) -> None:
+    """The leaf kernel on ``cols``' host rows against its plain version,
+    on the card, on the root kernel's positions unless ``root_pos`` is
+    given: leaf ids exact."""
+    from ceph_tpu_torch.ops import straw2_cuda as sc
+    n, S = xs.shape[0], cols.leaf_ids.shape[1]
+    if root_pos is None:
+        root_pos = cols.root_columns(xs, None, R)[0]
+    G = sc.card_group_lanes(n * R, S, xs.device)
+    same("straw2_leaf", cols.leaf_columns(xs, root_pos, R),
+         sc.leaf_columns_plain(xs, root_pos, cols.leaf_ids, cols.leaf_w,
+                               cols.fr.vary_r, R),
+         f"leaf kernel == plain, {what}, N={n} R={R} S={S} G={G}")
+
+
 def hold_roots(cols, xs, R: int, what: str, same, kernels) -> None:
     """The root kernels named in ``kernels`` (straw2_root, straw2_froot)
     on ``cols``' root against their plain versions, on the card:
@@ -240,6 +300,17 @@ def launch_root(cols, x32, n: int, R: int, G: int, pos, ids) -> None:
                   cols.root_shift.data_ptr(), cols.root_ids.shape[0],
                   G.bit_length() - 1, cols.ln_tab.data_ptr(), pos.data_ptr(),
                   ids.data_ptr())
+
+
+def launch_leaf(cols, x32, n: int, R: int, G: int, root_pos, out) -> None:
+    """One raw straw2_leaf launch on prepared operands, G lanes per
+    (x, r)."""
+    from ceph_tpu_torch.ops import _build
+    H, S = cols.leaf_ids.shape
+    _build.launch("straw2_leaf", "straw2_leaf_launch", x32.data_ptr(), n, R,
+                  root_pos.data_ptr(), cols.leaf_rec.data_ptr(),
+                  cols.leaf_ids.data_ptr(), H, S, G.bit_length() - 1,
+                  int(cols.fr.vary_r), cols.ln_tab.data_ptr(), out.data_ptr())
 
 
 def launch_froot(cols, x32, n: int, R: int, G: int, D: float, table, pos,
@@ -296,7 +367,8 @@ def run() -> None:
         print(f"SASS and registers: not measured ({e})")
     if sass:
         print(sass_report.format_report(sass))
-        for name in ("straw2_root_kernel", "straw2_froot_kernel"):
+        for name in ("straw2_root_kernel", "straw2_froot_kernel",
+                     "straw2_leaf_kernel"):
             row = sass[name]
             loop_calls = [c["kind"] for c in row["item_loop"]["calls"]]
             check("u64 divide" not in row["calls"] and not (
@@ -360,22 +432,24 @@ def run() -> None:
         errs[name] = max(errs.get(name, 0), err)
         check(got.shape == want.shape and err == 0, what)
 
-    rows_enc = torch.from_numpy(gk.mul_rows(coding[None])).to(dev)
+    tab_enc = torch.from_numpy(gk.pack_rows(coding[None])).to(dev)
     zeros = torch.zeros((STRIPES,), dtype=torch.int32, device=dev)
-    same("gf_matvec", parity, gk.gf_matvec_plain(rows_enc, zeros, data),
+    same("gf_matvec", parity, gk.gf_matvec_plain(tab_enc, zeros, data, M),
          f"encode kernel == plain torch, all {STRIPES} stripes")
     sample = rng.choice(STRIPES, 16, replace=False)
     check(np.array_equal(parity[sample].cpu().numpy(),
                          gk.ec_encode_ref(coding, data[sample].cpu().numpy())),
           "encode == numpy ec_encode_ref on 16 sampled stripes")
-    rows_rec = torch.from_numpy(gk.mul_rows(rmat[None])).to(dev)
-    same("gf_matvec", rebuilt, gk.gf_matvec_plain(rows_rec, zeros, surv),
+    tab_rec = torch.from_numpy(gk.pack_rows(rmat[None])).to(dev)
+    same("gf_matvec", rebuilt,
+         gk.gf_matvec_plain(tab_rec, zeros, surv, len(ERASURES)),
          "recovery kernel == plain torch")
     check(torch.equal(rebuilt, full[:, ERASURES]),
           f"recovery rebuilds erased chunks {ERASURES} exactly")
-    rows_dec = torch.from_numpy(gk.mul_rows(np.stack(mats))).to(dev)
+    tab_dec = torch.from_numpy(gk.pack_rows(np.stack(mats))).to(dev)
+    pidx_d32 = pidx_d.to(torch.int32)
     same("gf_matvec", decoded,
-         gk.gf_matvec_plain(rows_dec, pidx_d.to(torch.int32), dec_in),
+         gk.gf_matvec_plain(tab_dec, pidx_d32, dec_in, len(ERASURES)),
          f"mixed decode ({len(mats)} patterns) kernel == plain torch")
     check(torch.equal(decoded, dec_want),
           "mixed decode rebuilds every stripe's erased chunks")
@@ -421,18 +495,33 @@ def run() -> None:
         if stage1 is None:
             stage1 = (pos, ids, lid, lbad)
 
-    # off the main path: the GF kernel's ragged-byte path, a second column
-    # block and more outputs than one register pass; the flat-rule columns
-    for s_, k_, t_, b_ in ((5, 10, 6, 100), (3, 8, 4, 4112)):
-        mats_ = np.random.default_rng(b_).integers(0, 256, (2, t_, k_),
-                                                   dtype=np.uint8)
-        rows_ = torch.from_numpy(gk.mul_rows(mats_)).to(dev)
-        d_ = torch.from_numpy(np.random.default_rng(s_).integers(
-            0, 256, (s_, k_, b_), dtype=np.uint8)).to(dev)
-        p_ = torch.arange(s_, dtype=torch.int32, device=dev) % 2
-        same("gf_matvec", gk.gf_matvec(rows_, p_, d_),
-             gk.gf_matvec_plain(rows_, p_, d_),
-             f"kernel == plain at S={s_} k={k_} t={t_} B={b_}")
+    # off the main path: the GF kernel at other widths (several passes of
+    # four outputs, k off the k=8 instance, the ragged-byte path, a second
+    # block of columns), a data pointer one byte off (the byte path), more
+    # stripes than the grid; then the flat-rule columns
+    def hold_gf(s_, k_, t_, b_, off=0):
+        g_rng = np.random.default_rng(1000 * t_ + 10 * k_ + b_)
+        mats_ = g_rng.integers(0, 256, (3, t_, k_), dtype=np.uint8)
+        tab_ = torch.from_numpy(gk.pack_rows(mats_)).to(dev)
+        raw_ = torch.from_numpy(g_rng.integers(
+            0, 256, (s_ * k_ * b_ + off,), dtype=np.uint8)).to(dev)
+        d_ = raw_[off:].view(s_, k_, b_)
+        p_ = torch.from_numpy(g_rng.integers(0, 3, s_).astype(np.int32)
+                              ).to(dev)
+        same("gf_matvec", gk.gf_matvec(tab_, p_, d_, t_),
+             gk.gf_matvec_plain(tab_, p_, d_, t_),
+             f"kernel == plain at S={s_} k={k_} t={t_} B={b_}"
+             + (f", data {off} byte off" if off else ""))
+
+    for t_ in (1, 2, 3, 4, 5, 8):
+        for k_ in (2, 4, 8, 10):
+            for b_ in (1, 15, 17, 4096):
+                hold_gf(5, k_, t_, b_)
+    hold_gf(5, 10, 6, 100)              # two passes, ragged
+    hold_gf(3, K, M, CHUNK + 16)        # a second block of columns
+    hold_gf(7, K, M, CHUNK, off=1)
+    hold_gf(1500, K, M, CHUNK)
+    hold_gf(1500, 10, 5, 17)
     flat_map, _root, flat_rid = build_flat_map(
         300, [int(w) for w in rng.integers(0x8000, 0x20000, 300)])
     fm_flat = FastMapper(detect(flat_map, flat_rid))
@@ -458,6 +547,31 @@ def run() -> None:
                     for n_, R_ in ((37, R1), (4096, R0), (N_PGS, R1))]
     for case in small_cases:
         hold_roots(*case, same, ("straw2_root",))
+    # the leaf's lane groups: the flagship's 40-item rows at the small
+    # launches; host rows with the edge weights and a row of zeros, with
+    # root positions that are no host (-1, NONE) among the winners
+    for n_ in SMALL_NS:
+        hold_leaf(cols, xs[:n_], R0, "flagship rows", same)
+    rows_w = rng.integers(0x8000, 0x20000, (16, 12))
+    rows_w[3, [0, 4, 7, 11]] = [0, 1, 0xFFFF, 2 ** 32 - 1]
+    rows_w[5] = 0
+    rows_w[9, ::2] = 1
+    rows_w[9, 1::2] = 0
+    c_ = sc.CudaColumns(synthetic_leaf(rows_w, 16, vary_r=2), dev)
+    for n_, R_ in ((37, R0), (4096, R0), (N_PGS, R1)):
+        rp_ = c_.root_columns(xs[:n_], None, R_)[0].clone()
+        rp_[0, ::7] = -1
+        rp_[R_ - 1, 3::11] = NONE
+        rp_[1, ::5] = 5                 # the row of zeros
+        rp_[2, ::6] = 3                 # the edge weights
+        rp_[2, 1::6] = 9                # weights 1 and 0
+        hold_leaf(c_, xs[:n_], R_, "edge-weight rows, -1 and NONE "
+                  "positions", same, root_pos=rp_)
+        got_ = c_.leaf_columns(xs[:n_], rp_, R_)
+        check(bool((got_[rp_ == 5] == c_.leaf_ids[5, 0]).all())
+              and bool((got_[(rp_ < 0) | (rp_ == NONE)] == NONE).all()),
+              f"leaf: a row of zeros gives its position 0, -1 and NONE "
+              f"positions give NONE, N={n_} R={R_}")
 
     print("== 5. wide map: crush_test on 1,000 hosts x 10 OSDs")
     wmap, wrid, wrw = bench_map(WIDE_HOSTS, WIDE_PER_HOST)
@@ -567,6 +681,7 @@ def run() -> None:
         hold_roots(*case, same, ("straw2_froot",))
     for n_ in SMALL_NS:
         hold_roots(wcols, x_all[:n_], R0, "wide root", same, both)
+        hold_leaf(wcols, x_all[:n_], R0, "wide rows", same)
     hold_roots(fm_flat_w.cols, x_all[:FLAT_PGS], R0, "flat 1,024 root", same,
                both)
     skew_w = rng.integers(0x8000, 0x20000, 1024) * 10
@@ -624,19 +739,20 @@ def run() -> None:
     ovf = torch.empty((N_PGS,), dtype=torch.int32, device=dev)
     S_wide = wcols.root_ids.shape[0]
     g_root = sc.card_group_lanes(N_PGS * R1, S_root, dev)
+    g_leaf = sc.card_group_lanes(N_PGS * R1, S_leaf, dev)
     g_froot = sc.card_group_lanes(N_PGS * R1, S_wide, dev)
+
+    def launch_gf(tab_, pidx_, src, out):
+        _build.launch("gf_matvec", "gf_matvec_launch", src.data_ptr(),
+                      tab_.data_ptr(), pidx_.data_ptr(), out.data_ptr(),
+                      src.shape[0], src.shape[1], out.shape[1], src.shape[2])
+
     raw = {
-        "gf_matvec": lambda: _build.launch(
-            "gf_matvec", "gf_matvec_launch", data.data_ptr(),
-            rows_enc.data_ptr(), zeros.data_ptr(), enc_out.data_ptr(),
-            STRIPES, K, M, CHUNK, 1),
+        "gf_matvec": lambda: launch_gf(tab_enc, zeros, data, enc_out),
         "straw2_root": lambda: launch_root(cols, x32, N_PGS, R1, g_root,
                                            col_a, col_b),
-        "straw2_leaf": lambda: _build.launch(
-            "straw2_leaf", "straw2_leaf_launch", x32.data_ptr(), N_PGS, R1,
-            pos1.data_ptr(), cols.leaf_ids.data_ptr(), cols.leaf_w.data_ptr(),
-            H, S_leaf, int(fm.fr.vary_r), cols.ln_tab.data_ptr(),
-            col_a.data_ptr()),
+        "straw2_leaf": lambda: launch_leaf(cols, x32, N_PGS, R1, g_leaf, pos1,
+                                           col_a),
         "firstn_consume": lambda: _build.launch(
             "firstn_consume", "firstn_consume_launch", ids1.data_ptr(),
             lid1.data_ptr(), lb1.data_ptr(), R1, N_PGS, NUMREP,
@@ -648,7 +764,7 @@ def run() -> None:
             "ln_f32_table", "ln_f32_table_launch", ln_out.data_ptr(), 65536),
     }
     plain = {
-        "gf_matvec": lambda: gk.gf_matvec_plain(rows_enc, zeros, data),
+        "gf_matvec": lambda: gk.gf_matvec_plain(tab_enc, zeros, data, M),
         "straw2_root": lambda: sc.root_columns_plain(
             xs, cols.root_ids, cols.root_w, R1),
         "straw2_leaf": lambda: sc.leaf_columns_plain(
@@ -661,20 +777,37 @@ def run() -> None:
     }
     root_nz = int((cols.root_w > 0).sum())
     leaf_nz = (cols.leaf_w > 0).sum(dim=1)
-    leaf_draws = int(leaf_nz[pos1.long()].sum())
     rows_read = ladder_rows_read(ids1, lid1, lb1, NUMREP, fm.fr.tries)
     wide_nz = int((wcols.root_w > 0).sum())
     ln_out = torch.empty((65536,), dtype=torch.float32, device=dev)
+    # the straw2 kernels' root positions at the stage-2 launch
+    # (STAGE2_CAP lanes), at the run's overflowing lanes alone, and at
+    # stage 1; and the items each launch draws (non-zero weights only; the
+    # leaf only the winning host's row)
+    n2 = min(FastMapper.STAGE2_CAP, N_PGS)
+    n_lanes = max(1, min(schedule["stage2_lanes"], n2))
+    leaf_pos = {(N_PGS, R1): pos1}
+    for n_ in (n2, n_lanes):
+        leaf_pos[n_, R0] = cols.root_columns(xs[:n_], None, R0)[0]
+    items = {
+        "straw2_root": lambda n_, R_: R_ * n_ * root_nz,
+        "straw2_leaf": lambda n_, R_: int(
+            leaf_nz[leaf_pos[n_, R_].long()].sum()),
+        "straw2_froot": lambda n_, R_: R_ * n_ * wide_nz,
+    }
+
+    def gf_bound(t_, tab_):
+        return bound(STRIPES * (K + t_) * CHUNK + 4 * tab_.numel()
+                     + 4 * STRIPES, 2 * STRIPES * CHUNK * K * t_)
+
     work = {
-        "gf_matvec": bound(
-            STRIPES * (K + M) * CHUNK + rows_enc.numel() + 4 * STRIPES,
-            2 * STRIPES * CHUNK * K * M),
+        "gf_matvec": gf_bound(M, tab_enc),
         "straw2_root": bound(
             4 * N_PGS + 12 * S_root + 8 * 514 + 8 * R1 * N_PGS,
-            R1 * N_PGS * root_nz * OPS_PER_DRAW),
+            items["straw2_root"](N_PGS, R1) * OPS_PER_DRAW),
         "straw2_leaf": bound(
-            4 * N_PGS + 4 * R1 * N_PGS + 12 * H * S_leaf + 8 * 514
-            + 4 * R1 * N_PGS, leaf_draws * OPS_PER_DRAW),
+            4 * N_PGS + 4 * R1 * N_PGS + 16 * H * S_leaf + 8 * 514
+            + 4 * R1 * N_PGS, items["straw2_leaf"](N_PGS, R1) * OPS_PER_DRAW),
         "firstn_consume": bound(
             9 * rows_read + 8 * NUMREP * N_PGS + 4 * N_PGS,
             rows_read * (2 * NUMREP + 2)),
@@ -684,10 +817,22 @@ def run() -> None:
                           + sf.K * OPS_PER_DRAW)),
         "ln_f32_table": bound(4 * 65536, 65536 * LN_OPS),
     }
+    # the integer-pipe floor of the straw2 kernels: ALU instructions per
+    # item (phase 2's SASS) x items / (64 lanes x SMs x clock)
+    clock = sm_clock_hz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def int_floor_ms(name, n_, R_):
+        loop = (sass.get(f"{name}_kernel") or {}).get("item_loop")
+        if not loop or not clock:
+            return None
+        return (loop["per_item"].get("alu", 0) * items[name](n_, R_)
+                / (INT_LANES_PER_SM * sms * clock) * 1e3)
+
     shapes = {
         "gf_matvec": f"({STRIPES},{K},{CHUNK}) -> ({STRIPES},{M},{CHUNK})",
         "straw2_root": f"N={N_PGS} R={R1} S={S_root} G={g_root}",
-        "straw2_leaf": f"N={N_PGS} R={R1} H={H} S={S_leaf}",
+        "straw2_leaf": f"N={N_PGS} R={R1} H={H} S={S_leaf} G={g_leaf}",
         "firstn_consume": f"N={N_PGS} R={R1} numrep={NUMREP}",
         "straw2_froot": f"N={N_PGS} R={R1} S={S_wide} G={g_froot}",
         "ln_f32_table": "65536 -> 65536 f32",
@@ -727,42 +872,71 @@ def run() -> None:
             "matches_plain": errs[name] <= tolerance.get(name, 0),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None})
+        if name in items:
+            floor = int_floor_ms(name, N_PGS, R1)
+            kernels[-1]["int_floor_ms"] = floor
+            print(f"{name:15s} integer-pipe floor "
+                  + (f"{floor:.4f} ms" if floor is not None
+                     else "not measured") + f"  {tag}")
+    row_of = {k["name"]: k for k in kernels}
+    # GF at the path's other two products: recovery (t = 2) and the mixed
+    # decode (three patterns, t = 2)
+    for what, tab_, p_, src_ in (("recover", tab_rec, zeros, surv),
+                                 ("decode", tab_dec, pidx_d32, dec_in)):
+        out_ = torch.empty((STRIPES, len(ERASURES), CHUNK), dtype=torch.uint8,
+                           device=dev)
+        ms = time_ms(lambda: launch_gf(tab_, p_, src_, out_), 20)
+        b_ms, _by = gf_bound(len(ERASURES), tab_)
+        print(f"gf_matvec       {what:8s} ({STRIPES},{K},{CHUNK}) -> "
+              f"({STRIPES},{len(ERASURES)},{CHUNK}) kernel {ms:.4f} ms  bound "
+              f"{b_ms:.4f} ms  {tag}")
+        row_of["gf_matvec"].update({f"{what}_ms": ms,
+                                    f"{what}_bound_ms": b_ms})
+    # the encode on all-zero data: every lookup of a warp reads one word (a
+    # broadcast), so the gap to the random-data time is what the random
+    # lookups' shared-memory bank conflicts cost
+    zero_data = torch.zeros_like(data)
+    ms = time_ms(lambda: launch_gf(tab_enc, zeros, zero_data, enc_out), 20)
+    print(f"gf_matvec       encode on zero data (no bank conflicts) kernel "
+          f"{ms:.4f} ms  {tag}")
+    row_of["gf_matvec"]["encode_zero_data_ms"] = ms
     # the exact root kernel on the filter's columns: which is faster here
     root_wide = time_ms(lambda: launch_root(wcols, wx32, N_PGS, R1, g_froot,
                                             col_a, col_b), 20)
-    froot_ms = next(k["ms"] for k in kernels if k["name"] == "straw2_froot")
+    froot_ms = row_of["straw2_froot"]["ms"]
     print(f"straw2_root     N={N_PGS} R={R1} S={S_wide} G={g_froot} (the "
           f"filter's columns) kernel {root_wide:.4f} ms; straw2_froot / "
           f"straw2_root = {froot_ms / root_wide:.3f}  {tag}")
 
-    # the root kernels at the stage-2 launch (STAGE2_CAP lanes, the run's
+    # the straw2 kernels at the stage-2 launch (STAGE2_CAP lanes, the run's
     # overflowing lanes first, over the full block of R0 columns) and at
     # the overflowing lanes alone; then every lane group at the stage-2
     # launch and at stage 1
-    n2 = min(FastMapper.STAGE2_CAP, N_PGS)
     col_c = torch.empty((R0, n2), dtype=torch.int32, device=dev)
     col_d = torch.empty_like(col_c)
-    roots = {   # kernel: (launch at (n, R, G), S, items of non-zero weight,
-                #          operations per item, stage-1 G)
+    straw2 = {   # kernel: (launch at (n, R, G) into out, S, operations per
+                 #          item, stage-1 G)
         "straw2_root": (lambda n_, R_, G, out: launch_root(
-            cols, x32, n_, R_, G, *out), S_root, root_nz, OPS_PER_DRAW,
-            g_root),
+            cols, x32, n_, R_, G, *out), S_root, OPS_PER_DRAW, g_root),
+        "straw2_leaf": (lambda n_, R_, G, out: launch_leaf(
+            cols, x32, n_, R_, G, leaf_pos[n_, R_], out[0]), S_leaf,
+            OPS_PER_DRAW, g_leaf),
         "straw2_froot": (lambda n_, R_, G, out: launch_froot(
-            wcols, wx32, n_, R_, G, D, table, *out, ovf), S_wide, wide_nz,
+            wcols, wx32, n_, R_, G, D, table, *out, ovf), S_wide,
             FILTER_OPS_PER_ITEM, g_froot),
     }
-    for name, (fn, S_, nz_, per_item, g1) in roots.items():
-        row = next(k for k in kernels if k["name"] == name)
-        for n_ in sorted({n2, max(1, min(schedule["stage2_lanes"], n2))},
-                         reverse=True):
+    for name, (fn, S_, per_item, g1) in straw2.items():
+        row = row_of[name]
+        for n_ in sorted({n2, n_lanes}, reverse=True):
             G = sc.card_group_lanes(n_ * R0, S_, dev)
             ms = time_ms(lambda: fn(n_, R0, G, (col_c, col_d)), 20)
-            b_ms, _by = bound(8 * R0 * n_, R0 * n_ * nz_ * per_item)
+            b_ms, _by = bound(8 * R0 * n_, items[name](n_, R0) * per_item)
             print(f"{name:15s} stage 2 N={n_} R={R0} S={S_} G={G}  kernel "
                   f"{ms:.4f} ms  bound {b_ms:.4f} ms  {tag}")
             if n_ == n2:
                 row.update(G=g1, stage2_shape=f"N={n_} R={R0}", stage2_G=G,
-                           stage2_ms=ms, stage2_bound_ms=b_ms)
+                           stage2_ms=ms, stage2_bound_ms=b_ms,
+                           stage2_int_floor_ms=int_floor_ms(name, n_, R0))
         for n_, R_, gs, out in ((n2, R0, (1, 2, 4, 8, 16, 32), (col_c, col_d)),
                                 (N_PGS, R1, (1, 2, 4), (col_a, col_b))):
             sweep = {G: time_ms(lambda: fn(n_, R_, G, out), 10) for G in gs}

@@ -2,7 +2,9 @@
 
 Every function here is integer, so every comparison is exact equality.  The
 port runs its plain torch path (device="cpu"); the JAX side runs on the CPU,
-its Pallas encode kernel in interpret mode as tests/test_gf.py runs it.
+its Pallas encode kernel in interpret mode as tests/test_gf.py runs it.  The
+CUDA kernel's packed-product table (``pack_rows``) and its lookups and byte
+transpose are modelled in numpy and held against both.
 """
 
 import os
@@ -171,3 +173,120 @@ def test_mul_rows_are_products():
     for i in range(2):
         for j in range(4):
             np.testing.assert_array_equal(rows[0, i, j], mt[mats[0, i, j]])
+
+
+# ---------------------------------------------------------------------------
+# the kernel's packed-product table, lookups and byte transpose, in numpy
+# ---------------------------------------------------------------------------
+
+def test_pack_rows_words_are_products():
+    """Byte ii of word [p, q, j, x] is M_p[4q + ii, j] * x, zero past t."""
+    mats = _data(3, (2, 6, 5))
+    tab = tgf.pack_rows(mats)
+    assert tab.dtype == np.int32 and tab.shape == (2, 2, 5, 256)
+    words = tab.view(np.uint32)
+    mt = tables.mul_table()
+    for q in range(2):
+        for ii in range(4):
+            got = (words[:, q] >> np.uint32(8 * ii)) & np.uint32(0xFF)
+            i = 4 * q + ii
+            want = (mt[mats[:, i, :, None], np.arange(256)] if i < 6
+                    else np.zeros((2, 5, 256), dtype=np.uint8))
+            np.testing.assert_array_equal(got, want)
+
+
+def _byte_perm(x, y, sel: int):
+    """__byte_perm(x, y, sel) on uint32 arrays: byte n of the result is
+    byte (sel >> 4n) & 7 of the eight bytes y:x."""
+    src = [(v >> np.uint32(8 * i)) & np.uint32(0xFF) for v in (x, y)
+           for i in range(4)]
+    out = np.zeros_like(x)
+    for n in range(4):
+        out |= src[(sel >> (4 * n)) & 7] << np.uint32(8 * n)
+    return out
+
+
+def kernel_model(tab, pidx, data, t):
+    """gf_matvec_kernel (csrc/gf_matvec.cu) in numpy: per byte column and
+    pass of four outputs, the k packed lookups XORed into one word; where
+    B % 16 == 0 each thread's 16 words are transposed 4 x 4 bytes by the
+    kernel's __byte_perm selectors into its 16-byte output rows, else each
+    word is split into its bytes (the byte path)."""
+    words = np.asarray(tab).view(np.uint32)
+    s, k, b = data.shape
+    nq = words.shape[1]
+    acc = np.zeros((s, nq, b), dtype=np.uint32)
+    for j in range(k):
+        acc ^= words[pidx[:, None, None], np.arange(nq)[None, :, None], j,
+                     data[:, j][:, None, :]]
+    out = np.zeros((s, nq, tgf.PACK, b), dtype=np.uint8)
+    if b % 16 == 0:
+        a = acc.reshape(s, nq, b // 16, 4, 4)        # [..., group, column]
+        lo01 = _byte_perm(a[..., 0], a[..., 1], 0x5140)
+        hi01 = _byte_perm(a[..., 0], a[..., 1], 0x7362)
+        lo23 = _byte_perm(a[..., 2], a[..., 3], 0x5140)
+        hi23 = _byte_perm(a[..., 2], a[..., 3], 0x7362)
+        rows = [_byte_perm(lo01, lo23, 0x5410), _byte_perm(lo01, lo23, 0x7632),
+                _byte_perm(hi01, hi23, 0x5410), _byte_perm(hi01, hi23, 0x7632)]
+        for ii, row in enumerate(rows):            # word g: columns 4g..4g+3
+            out[:, :, ii] = row.astype("<u4").view(np.uint8).reshape(s, nq, b)
+    else:
+        for ii in range(tgf.PACK):
+            out[:, :, ii] = (acc >> np.uint32(8 * ii)) & np.uint32(0xFF)
+    return out.reshape(s, nq * tgf.PACK, b)[:, :t]
+
+
+@pytest.mark.parametrize("t", [1, 2, 3, 4, 5, 6])
+@pytest.mark.parametrize("b", [96, 100])
+def test_packed_lookup_model_matches_reference_and_pallas(t, b):
+    """The kernel model == ec_encode_ref == the Pallas encode (interpret)
+    == the plain version, for t = 1..6 outputs, B with and without the
+    16-column groups."""
+    k, s = 8, 3
+    coeff = _data(t, (t, k))
+    data = _data(10 * t + b, (s, k, b))
+    zeros = np.zeros(s, dtype=np.int64)
+    tab = tgf.pack_rows(coeff[None])
+    got = kernel_model(tab, zeros, data, t)
+    np.testing.assert_array_equal(got, jgf.ec_encode_ref(coeff, data))
+    pad = np.zeros(((-s) % jgf._SB, k, b), dtype=np.uint8)
+    w_blk = jnp.asarray(jgf._blockdiag(jtables.bit_matrix(coeff), jgf._G))
+    want = np.asarray(jgf._encode_pallas(
+        w_blk, jnp.asarray(np.concatenate([data, pad])), k=k, m=t, bc=b,
+        interpret=True))[:s]
+    np.testing.assert_array_equal(got, want)
+    plain = tgf.gf_matvec_plain(torch.from_numpy(tab),
+                                torch.from_numpy(zeros),
+                                torch.from_numpy(data), t)
+    np.testing.assert_array_equal(plain.numpy(), got)
+
+
+@pytest.mark.parametrize("t,k,b", [(5, 10, 48), (8, 3, 17), (2, 8, 32)])
+def test_packed_lookup_model_mixed_patterns(t, k, b):
+    """Three patterns mixed per stripe, several passes of four outputs:
+    the kernel model == ec_decode_ref == the plain version."""
+    mats = _data(t * k, (3, t, k))
+    s = 7
+    pidx = np.random.default_rng(b).integers(0, 3, s)
+    data = _data(b, (s, k, b))
+    tab = tgf.pack_rows(mats)
+    got = kernel_model(tab, pidx, data, t)
+    np.testing.assert_array_equal(got, jgf.ec_decode_ref(mats, pidx, data))
+    plain = tgf.gf_matvec_plain(torch.from_numpy(tab), torch.from_numpy(pidx),
+                                torch.from_numpy(data), t)
+    np.testing.assert_array_equal(plain.numpy(), got)
+
+
+def test_gf_matvec_checks_its_table():
+    tab = torch.from_numpy(tgf.pack_rows(_data(1, (1, 5, 4))))
+    data = torch.from_numpy(_data(2, (2, 4, 16)))
+    pidx = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="passes"):
+        tgf.gf_matvec(tab, pidx, data, 9)
+    with pytest.raises(ValueError, match="k=4"):
+        tgf.gf_matvec(tab, pidx, data[:, :3].contiguous(), 5)
+    with pytest.raises(ValueError, match="int32"):
+        tgf.gf_matvec(tab.to(torch.int64), pidx, data, 5)
+    np.testing.assert_array_equal(
+        tgf.gf_matvec(tab, pidx, data, 5).numpy(),
+        jgf.ec_encode_ref(_data(1, (1, 5, 4))[0], data.numpy()))

@@ -1,7 +1,8 @@
 """tools.sass_report on hand-written cuobjdump text: the parser that
-chip_smoke.py's build phase uses to check that the root kernels call no
-64-bit divide and no function per item (cuobjdump itself runs only where
-the CUDA toolkit is)."""
+chip_smoke.py's build phase uses to check that the straw2 kernels call no
+64-bit divide and no function per item, and to count the GF kernel's
+instructions per lookup (cuobjdump itself runs only where the CUDA toolkit
+is)."""
 
 import pytest
 
@@ -83,3 +84,35 @@ def test_filter_loop_counts_two_items_and_the_fchk_slow_path():
     ("VIADD", "viadd"), ("S2UR", "other")])
 def test_pipe_groups(op, pipe):
     assert sr.pipe_of(op) == pipe
+
+
+GF8 = ("_ZN45_GLOBAL__N__a0827642_12_gf_matvec_cu_23a4928f16gf_matvec_kernel"
+       "ILi8EEEvPKhPKjPKiPhiiiii")
+GF0 = GF8.replace("ILi8EE", "ILi0EE")
+
+GF_SASS = f"""
+		Function : {GF8}
+        /*0000*/                   LDG.E.128.CONSTANT R4, desc[UR4][R2.64] ;
+        /*0010*/                   PRMT R9, R4, 0x7770, RZ ;
+        /*0020*/                   LDS R10, [R9.X4+0x400] ;
+        /*0030*/                   PRMT R11, R4, 0x7771, RZ ;
+        /*0040*/                   LDS R12, [R11.X4+0x400] ;
+        /*0050*/                   LOP3.LUT R20, R20, R10, R12, 0x96, !PT ;
+        /*0060*/               @!P0 BRA 0x10 ;
+        /*0070*/               @!P1 BRA 0x0 ;
+        /*0080*/                   EXIT ;
+		Function : {GF0}
+        /*0000*/                   EXIT ;
+"""
+
+
+def test_gf_template_instances_and_lookup_loop():
+    kernels = sr.parse_sass(GF_SASS)
+    assert set(kernels) == {"gf_matvec_kernel<8>", "gf_matvec_kernel<0>"}
+    loop = sr.lookup_loop(kernels["gf_matvec_kernel<8>"])
+    assert loop["address"] == "0x0010-0x0060"
+    assert loop["instructions"] == 6 and loop["lookups"] == 2
+    assert loop["per_lookup"] == 3.0
+    assert loop["per_byte_column"] == 3.0 * sr.GF_LOOKUPS_PER_COLUMN
+    assert loop["by_pipe"] == {"alu": 3, "control": 1, "mio": 2}
+    assert sr.lookup_loop(kernels["gf_matvec_kernel<0>"]) is None
