@@ -23,6 +23,11 @@ called raw on the same operands at the paths' shapes:
   gf    gf_matvec    at the EC encode (2048 x k=8 x 4 KiB -> 4 parity
         chunks), the recovery of erasures [1, 9] (t = 2) and the mixed
         decode of three erasure patterns (t = 2, P = 3)
+  consume firstn_consume on the flagship's stage-1 columns (N = 65,536,
+        R = 4), its stage-2 launch (the stage-1 overflowing lanes first,
+        4,096 x, R = 9) and the wide map's stage-1 columns (through the
+        filter root), numrep 3, with the maps' reweights
+  ln    ln_f32_table, the table of 65,536 f32 ln values and its bound D
 
 Launcher forms are known by their argument count: the root kernels' dividing
 form (root: xs, n, R, ids, w, S, ln_tab, pos, id; filter: xs, n, R, ids, w,
@@ -33,11 +38,22 @@ form (xs, n, R, root_pos, leaf_ids, leaf_w, H, S, vary_r, ln_tab, out) and
 its record form with lane groups (xs, n, R, root_pos, leaf_rec, leaf_ids, H,
 S, lg, vary_r, ln_tab, out); GF's byte-row form (data, mul_rows, pidx, out,
 S, k, t, B, vec) and its packed form (data, pack_rows, pidx, out, S, k, t,
-B).  Every checkout's outputs must equal this one's; times are CUDA events,
-median of 7 runs of 20 launches, taken in turns (this, others..., others
-reversed, this) and averaged per checkout.  Prints each library's registers
-and item-loop counts (ceph_tpu_torch.tools.sass_report) and one JSON line
-of the times, with the card's name and power limit.
+B); the consume kernel's form on precomputed is_out verdicts (hw, lw, lb,
+R, n, numrep, tries, out_h, out_l, ovf) and its fused form (hw, lw, xs,
+reweight, n_rw, R, n, numrep, tries, out_h, out_l, ovf, threads); the ln
+table's form without D (out, n) and its fused form (ln_tab, out, d_bits, n).
+Every checkout's outputs must equal this one's (for the ln table: the table,
+and D, which an unfused checkout reduces in torch).  Times are CUDA events,
+median of 7 runs of 20 launches, by graph replay (``ms``: the launches
+captured once into a CUDA graph, the card's time) and issued one by one from
+Python (``host_ms``), taken in turns (this, others..., others reversed,
+this) and averaged per checkout.  For consume and ln the steps a caller pays
+are also timed from Python, in turns: this checkout's wrapper
+(``consume_columns``; the fused launch and reading D) against an unfused
+checkout's launch with torch's is_out before it, or with torch's reduction
+of D after it.  Prints each library's registers and item-loop counts
+(ceph_tpu_torch.tools.sass_report) and one JSON line of the times, with the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -62,9 +78,14 @@ SHAPES = {
                     ("wide stage 1", "wide", 65536, 4)],
     "gf_matvec": [("encode", "enc", 0, 0), ("recover", "rec", 0, 0),
                   ("mixed decode", "dec", 0, 0)],
+    "firstn_consume": [("stage 1", "flag", 65536, 4),
+                       ("stage 2", "flag", 4096, 9),
+                       ("wide stage 1", "wide", 65536, 4)],
+    "ln_f32_table": [("table and D", "ln", 65536, 0)],
 }
 LAUNCHERS = ("straw2_root_launch", "straw2_froot_launch", "straw2_leaf_launch",
-             "gf_matvec_launch")
+             "gf_matvec_launch", "firstn_consume_launch",
+             "ln_f32_table_launch")
 
 
 def load_build(root: str, tag: str):
@@ -141,6 +162,36 @@ class Lib:
                        c.leaf_ids.data_ptr(), H, S, G.bit_length() - 1,
                        vary_r, c.ln_tab.data_ptr(), out.data_ptr())
 
+    def fuses_is_out(self) -> bool:
+        return self._argc("firstn_consume_launch") != 11
+
+    def fuses_bound(self) -> bool:
+        return self._argc("ln_f32_table_launch") != 3
+
+    def consume(self, o, lb, out):
+        """The consume launch on operands ``o``; ``lb`` (uint8 verdicts)
+        only for a checkout whose kernel takes them."""
+        oh, ol, ovf = out
+        R, n = o["hw"].shape
+        if not self.fuses_is_out():
+            self._call("firstn_consume_launch", o["hw"].data_ptr(),
+                       o["lw"].data_ptr(), lb.data_ptr(), R, n, o["numrep"],
+                       o["tries"], oh.data_ptr(), ol.data_ptr(),
+                       ovf.data_ptr())
+        else:
+            self._call("firstn_consume_launch", o["hw"].data_ptr(),
+                       o["lw"].data_ptr(), o["x32"].data_ptr(),
+                       o["rw"].data_ptr(), o["rw"].shape[0], R, n,
+                       o["numrep"], o["tries"], oh.data_ptr(), ol.data_ptr(),
+                       ovf.data_ptr(), o["threads"])
+
+    def ln(self, ln_tab, out, d_bits):
+        if not self.fuses_bound():
+            self._call("ln_f32_table_launch", out.data_ptr(), out.shape[0])
+        else:
+            self._call("ln_f32_table_launch", ln_tab.data_ptr(),
+                       out.data_ptr(), d_bits.data_ptr(), out.shape[0])
+
     def gf(self, op, data, pidx, out):
         S, k, B = data.shape
         t = out.shape[1]
@@ -199,6 +250,7 @@ def main() -> int:
     from ceph_tpu_torch.crush.fastpath import FastMapper, detect
     from ceph_tpu_torch.ops import straw2_cuda as sc
     from ceph_tpu_torch.ops import straw2_filter as sf
+    from ceph_tpu_torch.ops.crush_kernel import is_out
     from ceph_tpu_torch.tools import sass_report
 
     kernels = args.kernels.split(",")
@@ -218,13 +270,15 @@ def main() -> int:
         except (OSError, subprocess.CalledProcessError) as e:
             print(f"SASS: not measured ({e})")
 
-    m_flag, rid_flag, _ = cs.bench_map()
-    m_wide, rid_wide, _ = cs.bench_map(cs.WIDE_HOSTS, cs.WIDE_PER_HOST)
+    m_flag, rid_flag, rw_flag = cs.bench_map()
+    m_wide, rid_wide, rw_wide = cs.bench_map(cs.WIDE_HOSTS, cs.WIDE_PER_HOST)
     m_flat, _r, rid_flat = build_flat_map(cs.FLAT_OSDS)
     fms = {"flag": FastMapper(detect(m_flag, rid_flag)),
            "wide": FastMapper(detect(m_wide, rid_wide)),
            "flat": FastMapper(detect(m_flat, rid_flat))}
     cols = {which: fm.cols for which, fm in fms.items()}
+    reweights = {"flag": torch.from_numpy(rw_flag).to(dev),
+                 "wide": torch.from_numpy(rw_wide).to(dev)}
     rng = np.random.default_rng(0)
     xs = torch.from_numpy(rng.integers(0, 2 ** 32, (65536,),
                                        dtype=np.uint32).astype(np.int64))
@@ -233,14 +287,41 @@ def main() -> int:
     table = sf.ln_f32_table(dev)
     D = sf.ln_f32_bound(dev)
     data, gf_ops = gf_operands(dev, rng)
-    order = libs + libs[::-1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def consume_operands(which, n, R):
+        """The consume launch's columns as the fast path makes them: stage
+        1 over every x, or the stage-2 launch (stage 1's overflowing lanes
+        first, then fillers, n of them)."""
+        c, rw, fm = cols[which], reweights[which], fms[which]
+        x_ = xs
+        if n < xs.shape[0]:
+            R1 = cs.NUMREP + 1
+            pos, ids = c.root_columns(xs, rw, R1)
+            lid = c.leaf_columns(xs, pos, R1)
+            need = sc.consume_columns(ids, lid, xs, rw, numrep=cs.NUMREP,
+                                      tries=fm.fr.tries)[2] != 0
+            x_ = xs[torch.argsort((~need).to(torch.int8), stable=True)[:n]]
+        if which == "wide":
+            pos, ids, _ovf = c.froot_columns(x_, rw, R)
+        else:
+            pos, ids = c.root_columns(x_, rw, R)
+        lid = c.leaf_columns(x_, pos, R)
+        return {"hw": ids, "lw": lid, "xs": x_,
+                "x32": sc.xs_i32(x_).contiguous(), "rw": rw,
+                "numrep": cs.NUMREP,
+                "tries": fm.fr.tries, "threads": sc.consume_threads(n, sms),
+                "lb": is_out(rw, lid, x_[None, :]).to(torch.uint8)
+                .contiguous()}
+
     results = []
     for kernel in kernels:
         for what, which, n, R in SHAPES[kernel]:
             outs = {}
+            steps = {}      # what a caller pays, issued from Python
+            S = G = None
             if kernel == "gf_matvec":
                 op = gf_ops[which]
-                S = G = None
 
                 def fn(lib, outs=outs, op=op):
                     if lib.tag not in outs:
@@ -248,6 +329,51 @@ def main() -> int:
                             (cs.STRIPES, op["t"], cs.CHUNK),
                             dtype=torch.uint8, device=dev),)
                     lib.gf(op, data, op["pidx"], outs[lib.tag][0])
+            elif kernel == "firstn_consume":
+                o = consume_operands(which, n, R)
+
+                def fn(lib, outs=outs, o=o, n=n):
+                    if lib.tag not in outs:
+                        outs[lib.tag] = tuple(torch.zeros(
+                            shape, dtype=torch.int32, device=dev)
+                            for shape in ((cs.NUMREP, n), (cs.NUMREP, n),
+                                          (n,)))
+                    lib.consume(o, o["lb"], outs[lib.tag])
+
+                for lib in libs:
+                    if lib.fuses_is_out():
+                        steps[f"{lib.tag} wrapper"] = \
+                            lambda o=o: sc.consume_columns(
+                                o["hw"], o["lw"], o["xs"], o["rw"],
+                                numrep=o["numrep"], tries=o["tries"])
+                    else:
+                        steps[f"{lib.tag} with torch is_out"] = \
+                            lambda lib=lib, o=o, outs=outs: lib.consume(
+                                o, is_out(o["rw"], o["lw"], o["xs"][None, :])
+                                .to(torch.uint8).contiguous(), outs[lib.tag])
+            elif kernel == "ln_f32_table":
+                ln_tab = cols["flag"].ln_tab
+
+                def fn(lib, outs=outs, ln_tab=ln_tab):
+                    if lib.tag not in outs:
+                        outs[lib.tag] = (
+                            torch.zeros((65536,), dtype=torch.float32,
+                                        device=dev),
+                            torch.zeros((1,), dtype=torch.int32, device=dev))
+                    lib.ln(ln_tab, *outs[lib.tag])
+
+                def d_of(lib, outs=outs):
+                    """D as the checkout's path gets it, on the host."""
+                    out, d_bits = outs[lib.tag]
+                    if lib.fuses_bound():
+                        return float(d_bits.view(torch.float32)[0])
+                    return float(sf.ln_bound_plain(out))
+
+                for lib in libs:
+                    label = "launch, read D" if lib.fuses_bound() \
+                        else "launch, torch D"
+                    steps[f"{lib.tag} {label}"] = \
+                        lambda lib=lib, fn=fn, d_of=d_of: (fn(lib), d_of(lib))
             else:
                 c = cols[which]
                 S = c.leaf_ids.shape[1] if kernel == "straw2_leaf" \
@@ -278,18 +404,33 @@ def main() -> int:
             torch.cuda.synchronize()
             ref = outs["this"]
             for lib in libs[1:]:
-                cs.check(all(torch.equal(a, b) for a, b in
-                              zip(ref, outs[lib.tag])),
-                         f"{kernel} {what}: {lib.tag} == this (every output)")
-            times = {lib.tag: [] for lib in libs}
-            for lib in order:
-                times[lib.tag].append(cs.time_ms(lambda: fn(lib), 20))
+                if kernel == "ln_f32_table":
+                    same = torch.equal(ref[0], outs[lib.tag][0]) \
+                        and d_of(libs[0]) == d_of(lib)
+                else:
+                    same = all(torch.equal(a, b) for a, b in
+                               zip(ref, outs[lib.tag]))
+                cs.check(same, f"{kernel} {what}: {lib.tag} == this (every "
+                         f"output)")
+            graph = {lib.tag: [] for lib in libs}
+            host = {tag: [] for tag in [lib.tag for lib in libs] + list(steps)}
+            for lib in libs + libs[::-1]:
+                graph[lib.tag].append(cs.graph_ms(lambda: fn(lib), 20))
+                host[lib.tag].append(cs.time_ms(lambda: fn(lib), 20))
+            order = list(steps.items())
+            for tag, step in order + order[::-1]:
+                host[tag].append(cs.time_ms(step, 20))
             row = {"kernel": kernel, "shape": what, "N": n, "R": R, "S": S,
-                   "G": G, "ms": {t: sum(v) / len(v) for t, v in times.items()},
-                   "runs": times}
+                   "G": G,
+                   "ms": {t: sum(v) / len(v) for t, v in graph.items()},
+                   "host_ms": {t: sum(v) / len(v) for t, v in host.items()},
+                   "runs": graph, "host_runs": host}
             results.append(row)
-            print(f"{kernel:13s} {what:15s} N={n} R={R} S={S} G={G}  " +
-                  "  ".join(f"{t} {ms:.4f} ms" for t, ms in row["ms"].items())
+            print(f"{kernel:14s} {what:14s} N={n} R={R} S={S} G={G}  graph: "
+                  + "  ".join(f"{t} {ms:.4f} ms"
+                              for t, ms in row["ms"].items())
+                  + "  issued: " + "  ".join(
+                      f"{t} {ms:.4f} ms" for t, ms in row["host_ms"].items())
                   + f"  [{card}]")
     line = {"card": card, "results": results}
     if args.out:

@@ -17,9 +17,10 @@ ever consumes root/leaf winners at r in [0, numrep + max_ftotal).  The fast
 path therefore:
 
   1. precomputes straw2 winners for a block of r values (root draw -> winner;
-     that host's row -> leaf draw -> device + its is_out verdict);
-  2. consumes them with the firstn ladder — no redraws, and reps 1..n-1 reuse
-     the winners rep 0 already paid for;
+     that host's row -> leaf draw -> device);
+  2. consumes them with the firstn ladder, judging each device it reads with
+     is_out — no redraws, and reps 1..n-1 reuse the winners rep 0 already
+     paid for;
   3. if any lane's ftotal walks past the precomputed block (rare: needs many
      consecutive collisions/rejections), re-runs with the full r range
      R = tries + numrep, which by construction cannot overflow — bit-exactness
@@ -269,8 +270,8 @@ class FastMapper:
                 torch.stack(lw, 1).to(torch.int32), torch.stack(lb, 1))
 
     def _winners_cols(self, xs, reweight, R: int):
-        """(host_win, leaf_win, leaf_bad) in the (R, N) column layout of
-        the column kernels.
+        """(host_win, leaf_win) in the (R, N) column layout of the column
+        kernels; the consume kernel decides is_out itself.
 
         Root columns go through the approx filter under the JAX gate
         (ceph_tpu/crush/fastpath.py:336): the R columns' candidates fit
@@ -287,9 +288,8 @@ class FastMapper:
         else:
             pos, ids = c.root_columns(xs, reweight, R)
         if self.fr.kind == "choose_flat":
-            return ids, ids, is_out(reweight, ids, xs[None, :])
-        lid = self.cols.leaf_columns(xs, pos, R)
-        return ids, lid, is_out(reweight, lid, xs[None, :])
+            return ids, ids
+        return ids, self.cols.leaf_columns(xs, pos, R)
 
     def _numrep(self, result_max: int) -> int:
         numrep = self.fr.numrep_arg
@@ -329,8 +329,8 @@ class FastMapper:
         R0 = min(numrep + block, Rf)
 
         def attempt(xv, R):
-            hw, lw, lb = self._winners_cols(xv, reweight, R)
-            return consume_columns(hw, lw, lb, numrep=numrep,
+            hw, lw = self._winners_cols(xv, reweight, R)
+            return consume_columns(hw, lw, xv, reweight, numrep=numrep,
                                    tries=fr.tries)
 
         def attempt_full(xv, R):

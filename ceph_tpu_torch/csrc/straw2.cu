@@ -40,8 +40,23 @@
 // (straw2_cuda.leaf_records, the TPU kernel's packed [ids | wz | off | magic]
 // host row in u64 form), so an item is one 16-byte read-only load and a
 // magic quotient, and G lanes share each (x, r) (G = 8 at the stage-2
-// launch; the wide map's 10-item rows cap it at 8).  The consume kernel runs
-// the firstn ladder of one x per thread.
+// launch; the wide map's 10-item rows cap it at 8).
+//
+// The consume kernel runs the firstn ladder of one x per thread and decides
+// is_out itself (mapper.c:424-438, ops/crush_kernel.is_out): the TPU kernel
+// takes the verdicts as a column computed outside it (a Mosaic miscompile,
+// ceph_tpu/crush/fastpath.py:358-363), which in torch is ~170 eager
+// operations over every (r, x); here only the rows the ladder reads are
+// judged, and only those that collide with no earlier replica are hashed
+// (hash32_2 and one 8-byte reweight load).  Its bound is the rows it reads
+// and, beyond the launch, the chain of dependent steps of one x: the design
+// keeps that chain out of memory.  A template instance per numrep (1..8)
+// keeps the selections in registers (fully unrolled over replicas, written
+// once at the end, never read back) and loads the first numrep + 1 rows
+// (all of stage 1's columns) before the ladder starts; a generic instance
+// serves larger numrep from a local array.  The wrapper picks the block size
+// so that the stage-2 launch (4,096 x) spreads over the SMs
+// (straw2_cuda.consume_threads).
 
 #include "straw2_common.cuh"
 
@@ -135,41 +150,98 @@ __global__ void straw2_leaf_kernel(const uint32_t* __restrict__ xs, int n, int R
     out_id[col] = live ? leaf_ids[(int64_t)host * S + best] : kItemNone;
 }
 
+// is_out (mapper.c:424-438) of device id `id` for input x, as
+// ops/crush_kernel.is_out decides it, on the int64 reweight vector: an id
+// outside [0, n_rw) (NONE included) is out; a weight >= 0x10000 keeps, 0
+// rejects, any other keeps when hash32_2(x, id) & 0xFFFF < w.  The compares
+// are on int64, so a negative or oversized weight takes torch's branch.
+__device__ __forceinline__ bool is_out(uint32_t x, int32_t id,
+                                       const long long* __restrict__ rw, int n_rw) {
+  if (id < 0 || id >= n_rw) return true;
+  const long long w = __ldg(rw + id);
+  if (w >= 0x10000) return false;
+  if (w == 0) return true;
+  return (long long)(hash32_2(x, (uint32_t)id) & 0xFFFFu) >= w;
+}
+
+// v[r] of a register array for a run-time r < P, by selects (an indexed
+// read would put the array in local memory)
+template <int P>
+__device__ __forceinline__ int32_t pick(const int32_t (&v)[P], int r) {
+  int32_t out = v[0];
+#pragma unroll
+  for (int k = 1; k < P; ++k) out = r == k ? v[k] : out;
+  return out;
+}
+
+// selection slots of the generic instance (numrep above 8)
+constexpr int kMaxRep = 64;
+
 // crush_choose_firstn (mapper.c:460-648) over precomputed winner columns:
-// replica rep draws with r = rep + ftotal, so an active lane at attempt i of
-// replica rep reads row rep + i.  A candidate is rejected if its host or device
-// equals any slot placed so far (unfilled slots hold NONE, which never equals a
-// real id) or if it is out.  A lane still active when the rows run out before
-// `tries` attempts raises its overflow flag.
+// replica rep draws with r = rep + ftotal, so an active lane at attempt a of
+// replica rep reads row rep + a.  A candidate is rejected if its host or
+// device equals any slot placed so far (unfilled slots hold NONE, which never
+// equals a real id) or if it is out.  A lane still active when the rows run
+// out before `tries` attempts raises its overflow flag.  NR = numrep for the
+// unrolled instances, 0 for the generic one.
+template <int NR>
 __global__ void firstn_consume_kernel(const int32_t* __restrict__ hw,
                                       const int32_t* __restrict__ lw,
-                                      const uint8_t* __restrict__ lb, int R, int n,
-                                      int numrep, int tries, int32_t* out_h,
-                                      int32_t* out_l, int32_t* __restrict__ ovf) {
+                                      const uint32_t* __restrict__ xs,
+                                      const long long* __restrict__ rw, int n_rw,
+                                      int R, int n, int numrep, int tries,
+                                      int32_t* __restrict__ out_h,
+                                      int32_t* __restrict__ out_l,
+                                      int32_t* __restrict__ ovf) {
+  constexpr int kCap = NR ? NR : kMaxRep;       // selection slots
+  constexpr int P = NR + 1;                     // rows loaded up front
+  const int nrep = NR ? NR : numrep;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  for (int rep = 0; rep < numrep; ++rep) {
-    out_h[(int64_t)rep * n + i] = kItemNone;
-    out_l[(int64_t)rep * n + i] = kItemNone;
+  const uint32_t x = __ldg(xs + i);
+  int32_t ph[P], pl[P];
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    const bool in = NR && k < R;
+    ph[k] = in ? __ldg(hw + (int64_t)k * n + i) : kItemNone;
+    pl[k] = in ? __ldg(lw + (int64_t)k * n + i) : kItemNone;
+  }
+  int32_t sh[kCap], sl[kCap];
+#pragma unroll
+  for (int j = 0; j < kCap; ++j) {
+    sh[j] = kItemNone;
+    sl[j] = kItemNone;
   }
   int flag = 0;
-  for (int rep = 0; rep < numrep; ++rep) {
+#pragma unroll
+  for (int rep = 0; rep < nrep; ++rep) {
     const int steps = min(tries, R - rep);
     bool done = false;
     for (int a = 0; a < steps && !done; ++a) {
-      const int64_t off = (int64_t)(rep + a) * n + i;
-      const int32_t hb = hw[off];
-      const int32_t lf = lw[off];
-      bool bad = lb[off] != 0;
-      for (int j = 0; j < numrep; ++j)
-        bad = bad || out_h[(int64_t)j * n + i] == hb || out_l[(int64_t)j * n + i] == lf;
-      if (!bad) {
-        out_h[(int64_t)rep * n + i] = hb;
-        out_l[(int64_t)rep * n + i] = lf;
+      const int r = rep + a;
+      int32_t hb, lf;
+      if (NR && r < P) {
+        hb = pick(ph, r);
+        lf = pick(pl, r);
+      } else {
+        hb = __ldg(hw + (int64_t)r * n + i);
+        lf = __ldg(lw + (int64_t)r * n + i);
+      }
+      bool bad = false;
+#pragma unroll
+      for (int j = 0; j < nrep; ++j) bad = bad || sh[j] == hb || sl[j] == lf;
+      if (!bad && !is_out(x, lf, rw, n_rw)) {
+        sh[rep] = hb;
+        sl[rep] = lf;
         done = true;
       }
     }
     if (steps < tries && !done) flag = 1;
+  }
+#pragma unroll
+  for (int rep = 0; rep < nrep; ++rep) {
+    out_h[(int64_t)rep * n + i] = sh[rep];
+    out_l[(int64_t)rep * n + i] = sl[rep];
   }
   ovf[i] = flag;
 }
@@ -206,12 +278,26 @@ extern "C" int straw2_leaf_launch(const void* xs, int n, int R, const void* root
   return (int)cudaGetLastError();
 }
 
-extern "C" int firstn_consume_launch(const void* hw, const void* lw, const void* lb,
-                                     int R, int n, int numrep, int tries,
-                                     void* out_h, void* out_l, void* ovf,
+using ConsumeKernel = void (*)(const int32_t*, const int32_t*, const uint32_t*,
+                              const long long*, int, int, int, int, int, int32_t*,
+                              int32_t*, int32_t*);
+
+extern "C" int firstn_consume_launch(const void* hw, const void* lw, const void* xs,
+                                     const void* rw, int n_rw, int R, int n,
+                                     int numrep, int tries, void* out_h,
+                                     void* out_l, void* ovf, int threads,
                                      void* stream) {
-  firstn_consume_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)hw, (const int32_t*)lw, (const uint8_t*)lb, R, n, numrep, tries,
-      (int32_t*)out_h, (int32_t*)out_l, (int32_t*)ovf);
+  static const ConsumeKernel kInstances[] = {
+      firstn_consume_kernel<0>, firstn_consume_kernel<1>, firstn_consume_kernel<2>,
+      firstn_consume_kernel<3>, firstn_consume_kernel<4>, firstn_consume_kernel<5>,
+      firstn_consume_kernel<6>, firstn_consume_kernel<7>, firstn_consume_kernel<8>};
+  if (numrep < 1 || numrep > kMaxRep || threads < 32 || threads > kThreads ||
+      (threads & (threads - 1)))
+    return (int)cudaErrorInvalidValue;
+  const ConsumeKernel k = kInstances[numrep <= 8 ? numrep : 0];
+  k<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)hw, (const int32_t*)lw, (const uint32_t*)xs,
+      (const long long*)rw, n_rw, R, n, numrep, tries, (int32_t*)out_h,
+      (int32_t*)out_l, (int32_t*)ovf);
   return (int)cudaGetLastError();
 }

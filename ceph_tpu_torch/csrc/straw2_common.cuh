@@ -3,7 +3,8 @@
 // 2^48 - ln in u64, and the u64 quotient whose least value is the straw2
 // winner (see straw2.cu for the derivation), taken by multiplying with the
 // weight's magic pair (straw2_qm: no 64-bit divide).  The group of lanes
-// that shares one (x, r) merges its winners with merge_least.
+// that shares one (x, r) merges its winners with merge_least.  hash32_2 is
+// the is_out hash that the consume kernel (straw2.cu) computes itself.
 
 #pragma once
 
@@ -33,6 +34,16 @@ __device__ __forceinline__ void mix(uint32_t& a, uint32_t& b, uint32_t& c) {
   a -= b; a -= c; a ^= (c >> 3);
   b -= c; b -= a; b ^= (a << 10);
   c -= a; c -= b; c ^= (b >> 15);
+}
+
+// crush_hash32_2 (hash.c:38-50): the is_out hash of the consume kernel
+__device__ __forceinline__ uint32_t hash32_2(uint32_t a, uint32_t b) {
+  uint32_t h = kHashSeed ^ a ^ b;
+  uint32_t x = 231232u, y = 1232u;
+  mix(a, b, h);
+  mix(x, a, h);
+  mix(b, y, h);
+  return h;
 }
 
 // crush_hash32_3 (hash.c:52-66)

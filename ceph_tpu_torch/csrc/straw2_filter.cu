@@ -23,7 +23,16 @@
 //
 // The certificate is only sound if D is measured with the very ln values the
 // filter prices with.  ln_f32_table writes them, once per device, with the one
-// f32 log of this file (ln_f32); the filter reads them back from that table
+// f32 log of this file (ln_f32), and in the same launch reduces D itself, as
+// the TPU's _ln_bound_kernel does: each thread also computes the exact
+// crush_ln(u) (ln_p48 on the RH|LH|LL tables in shared memory, as the root
+// kernels do), rounds it to f32 as torch does (round to nearest even) and
+// takes |table - exact|; non-negative floats order as their bit patterns,
+// so the maximum is a u32 maximum: __reduce_max_sync in the warp, shared
+// memory in the block, one atomicMax per block into a word the launcher
+// zeroes.  Its bound is the 65,536 log2f and crush_ln evaluations, a few
+// microseconds; it runs once per device and process.  The filter reads the
+// ln values back from that table
 // (256 KiB, __ldg through L1/L2), and the plain torch version
 // (ops/straw2_filter.py) reads the same table, so its bands and flags equal
 // the kernel's bit for bit.  The library is built without --use_fast_math,
@@ -65,9 +74,32 @@ __device__ __noinline__ float ln_f32(uint32_t u) {
   return __fmul_rn(log2f(__fadd_rn((float)u, 1.0f)), kTwo44);
 }
 
-__global__ void ln_f32_table_kernel(float* __restrict__ out, int n) {
+// the table for u < n (n <= 65,536) and, in *d_bits, the bit pattern of
+// max |table - f32(crush_ln(u))| (the launcher zeroes it first)
+__global__ void ln_f32_table_kernel(const uint64_t* __restrict__ ln_tab,
+                                    float* __restrict__ out,
+                                    unsigned* __restrict__ d_bits, int n) {
+  __shared__ uint64_t s_tab[kLnEntries];
+  __shared__ unsigned s_max[kThreads / 32];
+  load_ln(s_tab, ln_tab);
+  __syncthreads();
   const int u = blockIdx.x * blockDim.x + threadIdx.x;
-  if (u < n) out[u] = ln_f32((uint32_t)u);
+  unsigned gap = 0u;
+  if (u < n) {
+    const float t = ln_f32((uint32_t)u);
+    out[u] = t;
+    const long long exact = (1ll << 48) - (long long)ln_p48((uint32_t)u, s_tab);
+    gap = __float_as_uint(fabsf(__fsub_rn(t, __ll2float_rn(exact))));
+  }
+  gap = __reduce_max_sync(kFullMask, gap);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) s_max[warp] = gap;
+  __syncthreads();
+  if (warp == 0) {
+    gap = lane < (int)(blockDim.x >> 5) ? s_max[lane] : 0u;
+    gap = __reduce_max_sync(kFullMask, gap);
+    if (lane == 0) atomicMax(d_bits, gap);
+  }
 }
 
 // put (lo, pos) into the 5 least, kept sorted by (lower end, position)
@@ -193,9 +225,13 @@ __global__ void straw2_froot_kernel(const uint32_t* __restrict__ xs, int n, int 
 
 }  // namespace
 
-extern "C" int ln_f32_table_launch(void* out, int n, void* stream) {
+extern "C" int ln_f32_table_launch(const void* ln_tab, void* out, void* d_bits,
+                                   int n, void* stream) {
+  if (n < 1 || n > 65536) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaMemsetAsync(d_bits, 0, sizeof(unsigned), (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
   ln_f32_table_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (float*)out, n);
+      (const uint64_t*)ln_tab, (float*)out, (unsigned*)d_bits, n);
   return (int)cudaGetLastError();
 }
 

@@ -49,14 +49,16 @@ SIGNATURES = {
     # out_id, stream
     "straw2_leaf_launch": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P,
                            _P],
-    # hw, lw, lb, R, n, numrep, tries, out_h, out_l, ovf, stream
-    "firstn_consume_launch": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    # hw, lw, xs, reweight, n_rw, R, n, numrep, tries, out_h, out_l, ovf,
+    # threads, stream
+    "firstn_consume_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P,
+                              _I, _P],
     # xs, n, R, ids, magic, shift, wf, S, lg, D, ln_tab, lnf, out_pos,
     # out_id, ovf, stream
     "straw2_froot_launch": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _F, _P, _P,
                             _P, _P, _P, _P],
-    # out, n, stream
-    "ln_f32_table_launch": [_P, _I, _P],
+    # ln_tab, out, d_bits, n, stream
+    "ln_f32_table_launch": [_P, _P, _P, _I, _P],
 }
 
 #: kernel name -> launches made by its wrapper since the last reset

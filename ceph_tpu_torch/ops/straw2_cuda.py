@@ -11,7 +11,7 @@ it read the Pallas columns.
         csrc/straw2_filter.cu straw2_froot (the approx-filter root)
   CudaColumns(fr).leaf_columns(xs, root_pos, R)  -> leaf id
         csrc/straw2.cu straw2_leaf
-  consume_columns(hw, lw, lb, numrep=, tries=)   -> (oh, ol, ovf)
+  consume_columns(hw, lw, xs, reweight, numrep=, tries=) -> (oh, ol, ovf)
         csrc/straw2.cu firstn_consume
 
 Each takes CUDA tensors to its kernel and CPU tensors to its plain torch
@@ -21,8 +21,11 @@ Pallas wrappers nothing is padded to a lane quantum: outputs are exactly
 (R, N).  Only ``S_root`` keeps the Pallas root's padded width, because the
 fast path's gate on the approx filter reads it.
 
-is_out verdicts stay outside the kernels, elementwise in torch over the winner
-columns (ops.crush_kernel.is_out), as in the JAX fast path.
+The straw2 kernels leave is_out to the consume kernel, which decides it for
+the rows its ladder reads (the JAX fast path computes it in XLA over every
+winner column, ops/crush_kernel.is_out, and hands the Pallas ladder the
+verdicts); its plain version computes the column with ops.crush_kernel.is_out
+and runs the same ladder.
 
 The two root kernels take the root's weights as magic pairs
 (``magic_tables``, built once per map), the leaf kernel the host rows as
@@ -41,7 +44,8 @@ import torch
 from ceph_tpu_torch.crush.types import CRUSH_ITEM_NONE
 from ceph_tpu_torch.ops import _build
 from ceph_tpu_torch.ops import straw2_filter
-from ceph_tpu_torch.ops.crush_kernel import ln_tables, straw2_choose_index
+from ceph_tpu_torch.ops.crush_kernel import is_out, ln_tables, \
+    straw2_choose_index
 
 
 def xs_i32(xs: torch.Tensor) -> torch.Tensor:
@@ -141,11 +145,30 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def card_group_lanes(columns: int, S: int, device: torch.device) -> int:
-    """``group_lanes`` on the card that holds ``device``."""
+def _card_sms(device: torch.device) -> int:
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
-    return group_lanes(columns, S, _sm_count(index))
+    return _sm_count(index)
+
+
+def card_group_lanes(columns: int, S: int, device: torch.device) -> int:
+    """``group_lanes`` on the card that holds ``device``."""
+    return group_lanes(columns, S, _card_sms(device))
+
+
+#: selection slots of the consume kernel's generic instance (numrep > 8)
+MAX_NUMREP = 64
+
+
+def consume_threads(n: int, sms: int) -> int:
+    """Threads per block of the consume kernel (one thread per x) for n
+    inputs on a card of ``sms`` SMs: the largest power of two in [32, 256]
+    that still gives every SM a block, else 32 — 256 at stage 1 (65,536 x),
+    32 at the stage-2 launch (4,096 x: 128 blocks instead of 16)."""
+    t = 256
+    while t > 32 and -(-n // t) < sms:
+        t //= 2
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -183,10 +206,14 @@ def leaf_columns_plain(xs: torch.Tensor, root_pos: torch.Tensor,
 
 
 def consume_columns_plain(hw: torch.Tensor, lw: torch.Tensor,
-                          lb: torch.Tensor, *, numrep: int, tries: int
+                          xs: torch.Tensor, reweight: torch.Tensor, *,
+                          numrep: int, tries: int
                           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The firstn ladder over (R, N) winner columns, unrolled as in the
-    kernel: attempt i of replica rep reads row rep + i."""
+    """The plain version of the consume kernel: is_out over the whole leaf
+    column (xs (N,) u32 in int64, reweight (D,) int64), then the firstn
+    ladder, unrolled as in the kernel: attempt i of replica rep reads row
+    rep + i."""
+    lb = is_out(reweight, lw, xs[None, :])
     R, n = hw.shape
     none = torch.full((n,), CRUSH_ITEM_NONE, dtype=torch.int32,
                       device=hw.device)
@@ -339,16 +366,24 @@ class CudaColumns:
         return lid
 
 
-def consume_columns(hw: torch.Tensor, lw: torch.Tensor, lb: torch.Tensor, *,
-                    numrep: int, tries: int
+def consume_columns(hw: torch.Tensor, lw: torch.Tensor, xs: torch.Tensor,
+                    reweight: torch.Tensor, *, numrep: int, tries: int
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(R, N) winner columns -> (out_h, out_l, ovf): (numrep, N) int32
-    selections with NONE holes and an (N,) int32 overflow flag."""
-    if hw.shape != lw.shape or hw.shape != lb.shape or hw.dim() != 2:
-        raise ValueError("hw, lw and lb must be (R, N) columns of one shape")
+    """(R, N) winner columns (host, device), the (N,) inputs x (u32 in
+    int64) and the (D,) int64 reweight vector -> (out_h, out_l, ovf):
+    (numrep, N) int32 selections with NONE holes and an (N,) int32 overflow
+    flag.  The kernel decides is_out for the rows its ladder reads."""
+    if hw.shape != lw.shape or hw.dim() != 2:
+        raise ValueError("hw and lw must be (R, N) columns of one shape")
+    if xs.shape != (hw.shape[1],) or reweight.dim() != 1:
+        raise ValueError("xs must be (N,) and reweight (D,)")
     if not hw.is_cuda:
-        return consume_columns_plain(hw, lw, lb, numrep=numrep, tries=tries)
-    _check_cuda(lw, lb)
+        return consume_columns_plain(hw, lw, xs, reweight, numrep=numrep,
+                                     tries=tries)
+    _check_cuda(lw, xs, reweight)
+    if not 1 <= numrep <= MAX_NUMREP:
+        raise ValueError(f"consume_columns: numrep={numrep} outside "
+                         f"[1, {MAX_NUMREP}]")
     R, n = hw.shape
     out_h = torch.empty((numrep, n), dtype=torch.int32, device=hw.device)
     out_l = torch.empty((numrep, n), dtype=torch.int32, device=hw.device)
@@ -356,9 +391,11 @@ def consume_columns(hw: torch.Tensor, lw: torch.Tensor, lb: torch.Tensor, *,
     if n:
         h32 = hw.to(torch.int32).contiguous()
         l32 = lw.to(torch.int32).contiguous()
-        b8 = lb.to(torch.uint8).contiguous()
+        x32 = xs_i32(xs).contiguous()
+        rw = reweight.to(torch.int64).contiguous()
         _build.launch("firstn_consume", "firstn_consume_launch",
-                      h32.data_ptr(), l32.data_ptr(), b8.data_ptr(), R, n,
-                      numrep, tries, out_h.data_ptr(), out_l.data_ptr(),
-                      ovf.data_ptr())
+                      h32.data_ptr(), l32.data_ptr(), x32.data_ptr(),
+                      rw.data_ptr(), rw.shape[0], R, n, numrep, tries,
+                      out_h.data_ptr(), out_l.data_ptr(), ovf.data_ptr(),
+                      consume_threads(n, _card_sms(hw.device)))
     return out_h, out_l, ovf

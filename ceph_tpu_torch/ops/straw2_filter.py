@@ -7,7 +7,10 @@ ceph_tpu/ops/pallas_straw2.py's ``_ln_f32_bound`` and ``_froot_kernel``:
 
   ln_f32_table(device)  (65536,) f32 2^44*log2(u+1); on the card from
                         csrc/straw2_filter.cu ln_f32_table
-  ln_f32_bound(device)  D = max |table - f32(crush_ln(u))|
+  ln_f32_bound(device)  D = max |table - f32(crush_ln(u))|, on the card
+                        reduced by the same launch that writes the table
+  ln_f32_table_plain    the plain version of that launch: torch.log2 and
+                        the bound reduced in torch (ln_bound_plain)
   froot_columns_plain   the plain version of csrc/straw2_filter.cu
                         straw2_froot (CudaColumns.froot_columns launches it)
 
@@ -29,7 +32,8 @@ import functools
 import torch
 
 from ceph_tpu_torch.ops import _build
-from ceph_tpu_torch.ops.crush_kernel import crush_ln, hash32_3, straw2_draws
+from ceph_tpu_torch.ops.crush_kernel import crush_ln, hash32_3, ln_tables, \
+    straw2_draws
 
 #: candidates verified exactly per (x, r)
 K = 4
@@ -49,35 +53,55 @@ def _key(device) -> torch.device:
     return dev
 
 
+def ln_bound_plain(table: torch.Tensor) -> torch.Tensor:
+    """max |table - crush_ln(u)| over every 16-bit u, as a 0-d f32 tensor
+    on the table's device: crush_ln rounded to f32, the gaps and their
+    maximum in f32, as pallas_straw2._ln_f32_bound reduces them."""
+    exact = crush_ln(torch.arange(65536, device=table.device)
+                     ).to(torch.float32)
+    return (table - exact).abs().max()
+
+
+def ln_f32_table_plain(device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the ln_f32_table kernel: the (65536,) f32
+    table from torch.log2 and its bound D (0-d f32)."""
+    u = torch.arange(65536, dtype=torch.float32, device=device)
+    table = torch.log2(u + 1.0) * torch.tensor(2.0 ** 44)
+    return table, ln_bound_plain(table)
+
+
 @functools.lru_cache(maxsize=None)
-def _table(device: torch.device) -> torch.Tensor:
+def _table(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(table, D) on ``device``: on the card one ln_f32_table launch writes
+    both, D as the bit pattern of an f32 in an int32 word."""
     if device.type != "cuda":
-        u = torch.arange(65536, dtype=torch.float32, device=device)
-        return torch.log2(u + 1.0) * torch.tensor(2.0 ** 44)
+        return ln_f32_table_plain(device)
     out = torch.empty((65536,), dtype=torch.float32, device=device)
+    d_bits = torch.empty((1,), dtype=torch.int32, device=device)
+    ln_tab = torch.cat(ln_tables(device)).contiguous()
     with torch.cuda.device(device):
-        _build.launch("ln_f32_table", "ln_f32_table_launch", out.data_ptr(),
+        _build.launch("ln_f32_table", "ln_f32_table_launch",
+                      ln_tab.data_ptr(), out.data_ptr(), d_bits.data_ptr(),
                       65536)
-    return out
+    return out, d_bits.view(torch.float32)[0]
 
 
 def ln_f32_table(device) -> torch.Tensor:
     """The (65536,) f32 values 2^44*log2(u+1) on ``device``: from the
     ln_f32_table kernel on the card (one launch per device and process),
     from torch.log2 on the CPU."""
-    return _table(_key(device))
+    return _table(_key(device))[0]
 
 
 @functools.lru_cache(maxsize=None)
 def _bound(device: torch.device) -> float:
-    table = _table(device)
-    exact = crush_ln(torch.arange(65536, device=device)).to(torch.float32)
-    return float((table - exact).abs().max())
+    return float(_table(device)[1])
 
 
 def ln_f32_bound(device) -> float:
     """The certificate's D: max |ln_f32_table(device) - crush_ln(u)| over
-    every 16-bit u, reduced in f32 as pallas_straw2._ln_f32_bound does."""
+    every 16-bit u, reduced in f32 as pallas_straw2._ln_f32_bound does; on
+    the card the table's own launch reduces it (one sync to read it)."""
     return _bound(_key(device))
 
 

@@ -11,7 +11,9 @@ Runs ceph_tpu_torch (never JAX, never ceph_tpu) at the bench's full size:
              by pipe and gf_matvec's instructions per byte column
              (tools.sass_report, where cuobjdump is found): none of the three
              straw2 kernels (root, filter, leaf) calls a 64-bit divide or a
-             device function per item
+             device function per item, and the consume kernel's unrolled
+             instances (numrep 1..8) keep their selections in registers (no
+             local memory)
   3. main    with every launch count at 0: EC encode of 2048 stripes x k=8 x
              4 KiB, recovery of erasures [1, 9], a mixed-pattern decode, and
              CRUSH placement of 65,536 PGs on a 10,000-OSD map (250 hosts x 40,
@@ -32,7 +34,15 @@ Runs ceph_tpu_torch (never JAX, never ceph_tpu) at the bench's full size:
              0, 1, 0xFFFF and 2^32-1; the leaf in the flagship's 40-item rows
              (and the wide map's 10-item rows in phase 5) and in host rows
              holding those weights and a row of zeros, with root positions
-             -1 and NONE among the winners
+             -1 and NONE among the winners.  The consume kernel, which
+             decides is_out itself, is held over every lane and bit against
+             its plain version (is_out in torch, then the same ladder) at the
+             stage-1 columns, at the stage-2 launch (the run's overflowing
+             lanes first, 4,096 x 9 columns), at numrep 1..9 and 12 (every
+             unrolled instance and the generic one), and on adversarial
+             reweights (all 0, all 0x10000, all 0xFFFF, above 0x10000 and
+             negative, random partial) and columns holding ids -1, the
+             reweight vector's length and NONE
   5. wide    with every launch count at 0 again: tools.crush_test.run_test on
              a 10,000-OSD map of 1,000 hosts x 10 (the same skew and
              reweights; the root is the approx filter's width), chooseleaf
@@ -42,18 +52,29 @@ Runs ceph_tpu_torch (never JAX, never ceph_tpu) at the bench's full size:
              path and the scalar oracle on a sample; the filter kernel's
              positions, ids and flags equal its plain version exactly, and
              the exact root where its flag is 0, also at the small launches
-             and on roots of 1,000 and 1,024 items; the f32 ln table equals
-             torch.log2 within LN_TOL; a huge bound D flags every x and the
-             fast path falls back to the exact root and still matches
-  6. times   CUDA events, warm, median of 7: encode/recover MB/s, CRUSH Mpps,
-             each kernel's ms beside its plain version and its bound (and,
+             and on roots of 1,000 and 1,024 items; the consume kernel
+             against its plain version on the wide map's firstn and flat
+             columns; the ln table kernel's own bound D equals the torch
+             reduction over its table exactly and the value 771,751,936, and
+             the table equals torch.log2 within LN_TOL; a huge bound D flags
+             every x and the fast path falls back to the exact root and
+             still matches
+  6. times   CUDA events, warm, median of 7: encode/recover MB/s, CRUSH Mpps;
+             a torch.profiler window over the flagship CRUSH call (device busy
+             share, kernels by device time); each kernel's ms by graph replay
+             (its launches captured once into a CUDA graph: the card's time,
+             not the host's launch rate; at or above its bound) beside
+             host_ms (the same launches issued one by one from Python, timed
+             in turns with the replays), its plain version and its bound
+             (and,
              for the straw2 kernels, the integer-pipe floor: ALU instructions
              per item from phase 2 x items / (64 lanes x SMs x clock)); the
              three straw2 kernels also at the stage-2 launch (STAGE2_CAP x 9
              columns) with the lane group G each launch used, and over every G
              there; GF at the encode, the recovery and the mixed decode, and
              the encode on all-zero data (no shared-memory bank conflicts);
-             the filter beside the exact root kernel on the same columns
+             the filter beside the exact root kernel on the same columns; the
+             consume kernel at the stage-2 launch and over its block sizes
   7. prints  the {"kernels": [...]} line, then {"ok": true, "device": ...}
 
 Exits non-zero, printing no result, without a card or without the package.
@@ -87,8 +108,16 @@ INT_LANES_PER_SM = 64
 #: (183): mask, convert, +1, log2, scale, 2^48 - ln, divide, margin (multiply,
 #: two adds), the two band ends, the running minimum and the insertion test
 FILTER_OPS_PER_ITEM = 183 + 14
-#: operations per entry of the f32 ln table: convert, add, log2, scale
-LN_OPS = 4
+#: operations per entry of the ln table kernel: the f32 table (convert, add,
+#: log2, scale), the exact crush_ln (~12), its rounding to f32, the gap
+#: (subtract, abs) and the running maximum
+LN_OPS = 4 + 12 + 4
+#: 32-bit integer operations of the consume kernel's is_out hash: hash32_2
+#: (3 mixes of 36 operations plus 2 seed XORs), its mask and the compare
+HASH2_OPS = 3 * 36 + 2 + 2
+#: the certificate's bound D on the H100 (every run since the filter's
+#: first, and the JAX package's value)
+LN_BOUND_D = 771751936.0
 #: ln_f32_table against torch.log2 on the card: two f32 ulps at the top of
 #: the range (2^48).  Both are full-precision log2f, so they agree to the
 #: last bit or nearly; the filter's certificate rests on the kernel's own
@@ -145,23 +174,126 @@ def sm_clock_hz() -> float | None:
         return None
 
 
-def time_ms(fn, iters: int, reps: int = 7) -> float:
-    """Median over ``reps`` of the per-call time of ``iters`` back-to-back
-    calls, by CUDA events, after one warm call."""
+def _event_times(run, per: int, reps: int) -> list[float]:
+    """``reps`` CUDA-event times of ``run()``, each over ``per``."""
     import torch
-    fn()
-    torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        for _ in range(iters):
-            fn()
+        run()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b) / iters)
-    return statistics.median(times)
+        times.append(a.elapsed_time(b) / per)
+    return times
+
+
+def host_times(fn, iters: int, reps: int = 7) -> list[float]:
+    """Per-call times of ``iters`` back-to-back calls issued from Python,
+    by CUDA events, after one warm call: for a launch shorter than the host's
+    own cost per call, the host's launch rate."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(iters):
+            fn()
+    return _event_times(run, iters, reps)
+
+
+def _capture(fn, iters: int):
+    """``iters`` launches of ``fn`` captured once into a CUDA graph, after
+    one warm call outside the capture, and replayed once.  A capture that
+    fails raises."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    return g
+
+
+def graph_times(fn, iters: int, reps: int = 7) -> list[float]:
+    """Per-launch times of ``iters`` launches of ``fn`` captured into a CUDA
+    graph and replayed, by CUDA events: the card's time, without the host's
+    cost per launch."""
+    return _event_times(_capture(fn, iters).replay, iters, reps)
+
+
+def paired_times(fn, iters: int, reps: int = 7
+                 ) -> tuple[list[float], list[float]]:
+    """``graph_times`` and ``host_times`` of ``fn`` taken in turns, one rep
+    of each at a time, so that a drift of the card's state during the
+    measurement falls on both alike."""
+    g = _capture(fn, iters)
+
+    def issue():
+        for _ in range(iters):
+            fn()
+    graph, host = [], []
+    for _ in range(reps):
+        graph += _event_times(g.replay, iters, 1)
+        host += _event_times(issue, iters, 1)
+    return graph, host
+
+
+def time_ms(fn, iters: int, reps: int = 7) -> float:
+    """Median of ``host_times``."""
+    return statistics.median(host_times(fn, iters, reps))
+
+
+def graph_ms(fn, iters: int, reps: int = 7) -> float:
+    """Median of ``graph_times``."""
+    return statistics.median(graph_times(fn, iters, reps))
+
+
+def profile_window(fn, calls: int = 3) -> dict:
+    """torch.profiler (CPU and CUDA activities) over ``calls`` warm calls of
+    ``fn``: the window's length, the card's busy time (the union of its
+    kernel, copy and fill intervals), their share, and device time by kernel
+    name; ``device_ms`` is 0 when the trace holds no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CUDA)
+    by_name: dict[str, float] = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + (e.time_range.end - e.time_range.start) / 1e3
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    window = (max(e.time_range.end for e in events)
+              - min(e.time_range.start for e in events)) if events else 0.0
+    avg = prof.key_averages()
+    device_ms = sum(getattr(e, "self_device_time_total", None)
+                    or getattr(e, "self_cuda_time_total", 0)
+                    for e in avg) / 1e3
+    return {"calls": calls, "window_ms": window / 1e3, "busy_ms": busy / 1e3,
+            "busy_share": busy / window if window else 0.0,
+            "device_ms": device_ms,
+            "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:8]}
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -170,31 +302,62 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def ladder_rows_read(hw, lw, lb, numrep: int, tries: int):
-    """Rows of the (R, N) winner columns the firstn ladder reads, summed
-    over inputs: replica rep reads rows rep .. rep + attempts - 1, so an
-    input reads rows 0 .. the furthest attempt of any replica."""
+def ladder_work(hw, lw, xs, rw, numrep: int, tries: int) -> dict:
+    """What the consume kernel's ladder needs on these columns, summed over
+    inputs: ``rows`` — the distinct rows read (an input reads rows 0 .. its
+    furthest attempt); ``attempts`` — rows read, a row read by two replicas
+    twice; ``judged`` — attempts free of collisions, whose reweight is
+    loaded, and ``ids_judged`` the distinct devices among them; ``hashed``
+    — judged attempts with a weight in (0, 0x10000).  Replica rep reads rows
+    rep .. rep + attempts - 1."""
     import torch
     from ceph_tpu_torch.crush.types import CRUSH_ITEM_NONE
+    from ceph_tpu_torch.ops.crush_kernel import is_out
     R, n = hw.shape
-    none = torch.full((n,), CRUSH_ITEM_NONE, dtype=torch.int32,
-                      device=hw.device)
+    dev = hw.device
+    lb = is_out(rw, lw, xs[None, :])
+    lid = lw.long()
+    inside = (lid >= 0) & (lid < rw.shape[0])
+    w = torch.where(inside, rw[lid.clamp(0, rw.shape[0] - 1)], 0)
+    partial = inside & (w > 0) & (w < 0x10000)
+    none = torch.full((n,), CRUSH_ITEM_NONE, dtype=torch.int32, device=dev)
     sel_h = [none.clone() for _ in range(numrep)]
     sel_l = [none.clone() for _ in range(numrep)]
-    last = torch.zeros((n,), dtype=torch.int64, device=hw.device)
+    last = torch.zeros((n,), dtype=torch.int64, device=dev)
+    attempts = judged = hashed = 0
+    seen = torch.zeros((rw.shape[0],), dtype=torch.bool, device=dev)
     for rep in range(numrep):
-        done = torch.zeros((n,), dtype=torch.bool, device=hw.device)
+        done = torch.zeros((n,), dtype=torch.bool, device=dev)
         for i in range(min(tries, R - rep)):
             r = rep + i
-            last = torch.where(~done, last.clamp(min=r), last)
-            bad = lb[r].bool()
+            coll = torch.zeros((n,), dtype=torch.bool, device=dev)
             for j in range(numrep):
-                bad = bad | (sel_h[j] == hw[r]) | (sel_l[j] == lw[r])
-            place = ~done & ~bad
+                coll = coll | (sel_h[j] == hw[r]) | (sel_l[j] == lw[r])
+            act = ~done
+            last = torch.where(act, last.clamp(min=r), last)
+            judge = act & ~coll & inside[r]
+            attempts += int(act.sum())
+            judged += int(judge.sum())
+            hashed += int((judge & partial[r]).sum())
+            seen[lid[r][judge]] = True
+            place = act & ~coll & ~lb[r]
             sel_h[rep] = torch.where(place, hw[r], sel_h[rep])
             sel_l[rep] = torch.where(place, lw[r], sel_l[rep])
             done = done | place
-    return int((last + 1).sum())
+    return {"rows": int((last + 1).sum()), "attempts": attempts,
+            "judged": judged, "ids_judged": int(seen.sum()),
+            "hashed": hashed}
+
+
+def consume_bound(work: dict, n: int, numrep: int) -> tuple[float, str]:
+    """The consume kernel's bound from ``ladder_work``: bytes — x, the rows
+    read, the reweights of the devices judged, the selections and the flag
+    —, operations — the collision compares of every attempt, the verdict's
+    compares of every judged one and hash32_2 of every hashed one."""
+    return bound(4 * n + 8 * work["rows"] + 8 * work["ids_judged"]
+                 + 8 * numrep * n + 4 * n,
+                 work["attempts"] * (2 * numrep + 2) + work["judged"] * 4
+                 + work["hashed"] * HASH2_OPS)
 
 
 def bench_map(n_hosts: int = 250, per_host: int = 40):
@@ -326,6 +489,25 @@ def launch_froot(cols, x32, n: int, R: int, G: int, D: float, table, pos,
                   ids.data_ptr(), ovf.data_ptr())
 
 
+def launch_ln(ln_tab, out, d_bits) -> None:
+    """One raw ln_f32_table launch: the table into ``out`` and D's bit
+    pattern into ``d_bits``."""
+    from ceph_tpu_torch.ops import _build
+    _build.launch("ln_f32_table", "ln_f32_table_launch", ln_tab.data_ptr(),
+                  out.data_ptr(), d_bits.data_ptr(), out.shape[0])
+
+
+def launch_consume(hw, lw, x32, rw, numrep: int, tries: int, threads: int,
+                   out_h, out_l, ovf) -> None:
+    """One raw firstn_consume launch on prepared operands."""
+    from ceph_tpu_torch.ops import _build
+    R, n = hw.shape
+    _build.launch("firstn_consume", "firstn_consume_launch", hw.data_ptr(),
+                  lw.data_ptr(), x32.data_ptr(), rw.data_ptr(), rw.shape[0],
+                  R, n, numrep, tries, out_h.data_ptr(), out_l.data_ptr(),
+                  ovf.data_ptr(), threads)
+
+
 def run() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -342,7 +524,6 @@ def run() -> None:
     from ceph_tpu_torch.ops import gf_kernel as gk
     from ceph_tpu_torch.ops import straw2_cuda as sc
     from ceph_tpu_torch.ops import straw2_filter as sf
-    from ceph_tpu_torch.ops.crush_kernel import is_out
     from ceph_tpu_torch.tools import crush_test, sass_report
 
     dev = torch.device("cuda")
@@ -375,6 +556,11 @@ def run() -> None:
                 set(loop_calls) - {"f32 divide slow path"}),
                 f"{name}: no 64-bit divide in the kernel, no function call "
                 f"per item (item loop calls: {loop_calls or 'none'})")
+        for k in range(1, 9):
+            row = sass.get(f"firstn_consume_kernel<{k}>", {})
+            check(row.get("stack") == 0 and row.get("local") == 0,
+                  f"firstn_consume_kernel<{k}>: selections in registers (no "
+                  f"stack, no local memory; {row.get('registers')} registers)")
 
     print("== 3. main path")
     rng = np.random.default_rng(0)
@@ -472,7 +658,20 @@ def run() -> None:
                          np.array(want)),
           f"placements == scalar crush_do_rule on {ORACLE_PGS} PGs")
 
+    def hold_consume(hw_, lw_, x_, rw_, numrep_, tries_, what):
+        # the fused kernel (is_out decided inside) against is_out in torch
+        # and the same ladder: every lane, every bit
+        outs = sc.consume_columns(hw_, lw_, x_, rw_, numrep=numrep_,
+                                  tries=tries_)
+        pouts = sc.consume_columns_plain(hw_, lw_, x_, rw_, numrep=numrep_,
+                                         tries=tries_)
+        for o, p, part in zip(outs, pouts, ("hosts", "devices", "overflow")):
+            same("firstn_consume", o, p,
+                 f"consume kernel {part} == plain, {what}")
+        return outs
+
     cols = fm.cols
+    tries = fm.fr.tries
     R1, R0 = NUMREP + 1, NUMREP + 6     # stage-1 columns; the full block
     stage1 = None
     for R in (R1, R0):
@@ -484,16 +683,53 @@ def run() -> None:
         plid = sc.leaf_columns_plain(xs, pos, cols.leaf_ids, cols.leaf_w,
                                      fm.fr.vary_r, R)
         same("straw2_leaf", lid, plid, f"leaf kernel == plain, R={R}")
-        lbad = is_out(rw, lid, xs[None, :]).to(torch.uint8).contiguous()
-        outs = sc.consume_columns(ids, lid, lbad, numrep=NUMREP,
-                                  tries=fm.fr.tries)
-        pouts = sc.consume_columns_plain(ids, lid, lbad, numrep=NUMREP,
-                                         tries=fm.fr.tries)
-        for o, p, what in zip(outs, pouts, ("hosts", "devices", "overflow")):
-            same("firstn_consume", o, p,
-                 f"consume kernel {what} == plain, R={R}")
+        outs = hold_consume(ids, lid, xs, rw, NUMREP, tries,
+                            f"N={N_PGS} R={R}")
         if stage1 is None:
-            stage1 = (pos, ids, lid, lbad)
+            stage1 = (pos, ids, lid, outs[2])
+    # the stage-2 launch as FastMapper.run_columns makes it: the stage-1
+    # overflowing lanes first, then fillers, STAGE2_CAP of them, R0 columns
+    n2 = min(FastMapper.STAGE2_CAP, N_PGS)
+    need = stage1[3] != 0
+    x2 = xs[torch.argsort((~need).to(torch.int8), stable=True)[:n2]]
+    pos2, ids2 = cols.root_columns(x2, rw, R0)
+    lid2 = cols.leaf_columns(x2, pos2, R0)
+    hold_consume(ids2, lid2, x2, rw, NUMREP, tries,
+                 f"the stage-2 launch, N={n2} R={R0} "
+                 f"({int(need.sum())} overflowing lanes first)")
+    # adversarial reweights and ids at the stage-1 columns; every unrolled
+    # instance (numrep 1..8) and the generic one at the stage-2 columns
+    _pos1, ids1, lid1, _ovf1 = stage1
+    n_rw = rw.shape[0]
+    partial_rw = torch.from_numpy(rng.integers(1, 0x10000, n_rw)).to(dev)
+    adversarial = {
+        "reweight all 0": torch.zeros_like(rw),
+        "reweight all 0x10000": torch.full_like(rw, 0x10000),
+        "reweight all 0xFFFF": torch.full_like(rw, 0xFFFF),
+        "reweights above 0x10000 and negative": torch.from_numpy(rng.choice(
+            [0x10001, 0x20000, 2 ** 40, -1, -0x10000, -(2 ** 40)], n_rw)
+        ).to(dev),
+        "random partial reweights": partial_rw,
+    }
+    for what, rw_ in adversarial.items():
+        hold_consume(ids1, lid1, xs, rw_, NUMREP, tries, f"stage 1, {what}")
+    oh0, ol0, ov0 = sc.consume_columns(ids1, lid1, xs, adversarial[
+        "reweight all 0"], numrep=NUMREP, tries=tries)
+    check(bool((oh0 == NONE).all()) and bool((ol0 == NONE).all())
+          and bool((ov0 == 1).all()),
+          "consume kernel, reweight all 0: every lane NONE and overflowing")
+    odd_ids = lid1.clone()
+    odd_ids[0, ::5] = -1
+    odd_ids[1, 1::7] = n_rw
+    odd_ids[2, 2::3] = NONE
+    odd_ids[R1 - 1, ::11] = -1
+    for what, rw_ in (("bench reweights", rw), ("random partial", partial_rw)):
+        hold_consume(ids1, odd_ids, xs, rw_, NUMREP, tries,
+                     f"stage 1, ids -1, {n_rw} and NONE, {what}")
+    for nr in (1, 2, 4, 5, 6, 7, 8, 9, 12):
+        hold_consume(ids2, lid2, x2, partial_rw, nr, tries,
+                     f"numrep={nr}, the stage-2 columns, random partial "
+                     f"reweights")
 
     # off the main path: the GF kernel at other widths (several passes of
     # four outputs, k off the k=8 instance, the ragged-byte path, a second
@@ -653,13 +889,42 @@ def run() -> None:
     table = sf.ln_f32_table(dev)
     D = sf.ln_f32_bound(dev)
     print(f"f32 ln bound D = {D!r} (S_root padded {wcols.S_root})")
-    u_all = torch.arange(65536, dtype=torch.float32, device=dev)
-    ln_plain = torch.log2(u_all + 1.0) * 2.0 ** 44
-    ln_err = float((table - ln_plain).abs().max())
+    # the table kernel reduces D itself: a fresh launch, its D against the
+    # torch reduction over the very table it wrote, and the card's value
+    ln_out = torch.empty((65536,), dtype=torch.float32, device=dev)
+    d_bits = torch.empty((1,), dtype=torch.int32, device=dev)
+    launch_ln(wcols.ln_tab, ln_out, d_bits)
+    d_kernel = float(d_bits.view(torch.float32)[0])
+    d_torch = float(sf.ln_bound_plain(ln_out))
+    check(d_kernel == d_torch,
+          f"ln_f32_table kernel's D {d_kernel!r} == torch reduction over its "
+          f"table {d_torch!r}")
+    check(d_kernel == D == LN_BOUND_D and torch.equal(ln_out, table),
+          f"ln_f32_table: D == {LN_BOUND_D:.0f}, as ln_f32_bound and every "
+          f"run so far; the table as the cached one")
+    plain_table, plain_D = sf.ln_f32_table_plain(dev)
+    ln_err = float((table - plain_table).abs().max())
     errs["ln_f32_table"] = ln_err
     check(ln_err <= LN_TOL,
           f"ln_f32_table kernel == torch.log2 on the card within "
-          f"{LN_TOL:g} (max abs err {ln_err:g})")
+          f"{LN_TOL:g} (max abs err {ln_err:g}; the plain version's own D "
+          f"{float(plain_D):.0f})")
+    # the consume kernel on the wide map's firstn columns (through the
+    # filter root) and the flat map's
+    wrw_t = torch.from_numpy(wrw).to(dev)
+    wpos1, wids1, _wovf = wcols.froot_columns(x_all, wrw_t, R1)
+    wlid1 = wcols.leaf_columns(x_all, wpos1, R1)
+    hold_consume(wids1, wlid1, x_all, wrw_t, NUMREP, fmw.fr.tries,
+                 f"wide firstn, N={N_PGS} R={R1}")
+    fids = fm_flat_w.cols.root_columns(x_all[:FLAT_PGS], None, R0)[1]
+    flat_rw = torch.full((FLAT_OSDS,), 0x10000, dtype=torch.int64,
+                         device=dev)
+    for what, rw_ in (("reweights 0x10000", flat_rw),
+                      ("random partial reweights", torch.from_numpy(
+                          rng.integers(0, 0x10001, FLAT_OSDS)).to(dev))):
+        hold_consume(fids, fids, x_all[:FLAT_PGS], rw_, NUMREP,
+                     fm_flat_w.fr.tries,
+                     f"flat {FLAT_OSDS}, N={FLAT_PGS} R={R0}, {what}")
     for R in (R1, R0):
         fpos, fids, fovf = wcols.froot_columns(x_all, wrw, R)
         ppos, pids, povf = sf.froot_columns_plain(
@@ -723,12 +988,30 @@ def run() -> None:
           f"({t_rec:.4f} ms per {data_bytes >> 20} MiB call) {tag}")
     print(f"CRUSH      {N_PGS / t_crush / 1e3:.4f} Mpps "
           f"({t_crush:.4f} ms per {N_PGS}-PG call) {tag}")
+    # where the flagship CRUSH call's time goes: the card's busy share
+    prof = profile_window(lambda: fm.run(xs, rw, NUMREP))
+    if prof["busy_ms"] > 0 and prof["device_ms"] > 0:
+        calls = prof["calls"]
+        print(f"CRUSH call under torch.profiler ({calls} calls): window "
+              f"{prof['window_ms'] / calls:.4f} ms a call, device busy "
+              f"{prof['busy_ms'] / calls:.4f} ms a call (key_averages: "
+              f"{prof['device_ms'] / calls:.4f}), busy share "
+              f"{prof['busy_share']:.4f}, idle share "
+              f"{1 - prof['busy_share']:.4f}; the profiler slows the host, "
+              f"so beside the call's own {t_crush:.4f} ms the busy time is a "
+              f"share of {prof['busy_ms'] / calls / t_crush:.4f}  {tag}")
+        for name, ms in prof["top"]:
+            print(f"  {ms / calls:.4f} ms a call  {name[:100]}")
+    else:
+        print("CRUSH call under torch.profiler: device busy share not "
+              "measured (the trace holds no device time)")
 
     # each kernel at its main-path shape: the EC encode, and the stage-1
     # columns (R = numrep + 1) over every PG.  Kernel times are raw launches
-    # of prepared operands; plain times are the plain torch versions.
+    # of prepared operands, by graph replay (ms) and issued one by one
+    # (host_ms); plain times are the plain torch versions.
     x32 = sc.xs_i32(xs).contiguous()
-    pos1, ids1, lid1, lb1 = stage1
+    pos1 = stage1[0]
     H, S_leaf = cols.leaf_ids.shape
     S_root = cols.root_ids.shape[0]
     enc_out = torch.empty((STRIPES, M, CHUNK), dtype=torch.uint8, device=dev)
@@ -741,6 +1024,8 @@ def run() -> None:
     g_root = sc.card_group_lanes(N_PGS * R1, S_root, dev)
     g_leaf = sc.card_group_lanes(N_PGS * R1, S_leaf, dev)
     g_froot = sc.card_group_lanes(N_PGS * R1, S_wide, dev)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    threads1 = sc.consume_threads(N_PGS, sms)
 
     def launch_gf(tab_, pidx_, src, out):
         _build.launch("gf_matvec", "gf_matvec_launch", src.data_ptr(),
@@ -753,15 +1038,12 @@ def run() -> None:
                                            col_a, col_b),
         "straw2_leaf": lambda: launch_leaf(cols, x32, N_PGS, R1, g_leaf, pos1,
                                            col_a),
-        "firstn_consume": lambda: _build.launch(
-            "firstn_consume", "firstn_consume_launch", ids1.data_ptr(),
-            lid1.data_ptr(), lb1.data_ptr(), R1, N_PGS, NUMREP,
-            fm.fr.tries, rep_a.data_ptr(), rep_b.data_ptr(), ovf.data_ptr()),
+        "firstn_consume": lambda: launch_consume(
+            ids1, lid1, x32, rw, NUMREP, tries, threads1, rep_a, rep_b, ovf),
         # the wide map's stage-1 columns: every PG of crush_test, R1
         "straw2_froot": lambda: launch_froot(wcols, wx32, N_PGS, R1, g_froot,
                                              D, table, col_a, col_b, ovf),
-        "ln_f32_table": lambda: _build.launch(
-            "ln_f32_table", "ln_f32_table_launch", ln_out.data_ptr(), 65536),
+        "ln_f32_table": lambda: launch_ln(wcols.ln_tab, ln_out, d_bits),
     }
     plain = {
         "gf_matvec": lambda: gk.gf_matvec_plain(tab_enc, zeros, data, M),
@@ -770,21 +1052,20 @@ def run() -> None:
         "straw2_leaf": lambda: sc.leaf_columns_plain(
             xs, pos1, cols.leaf_ids, cols.leaf_w, fm.fr.vary_r, R1),
         "firstn_consume": lambda: sc.consume_columns_plain(
-            ids1, lid1, lb1, numrep=NUMREP, tries=fm.fr.tries),
+            ids1, lid1, xs, rw, numrep=NUMREP, tries=tries),
         "straw2_froot": lambda: sf.froot_columns_plain(
             x_all, wcols.root_ids, wcols.root_w, R1, table, D),
-        "ln_f32_table": lambda: torch.log2(u_all + 1.0) * 2.0 ** 44,
+        "ln_f32_table": lambda: sf.ln_f32_table_plain(dev),
     }
     root_nz = int((cols.root_w > 0).sum())
     leaf_nz = (cols.leaf_w > 0).sum(dim=1)
-    rows_read = ladder_rows_read(ids1, lid1, lb1, NUMREP, fm.fr.tries)
+    work1 = ladder_work(ids1, lid1, xs, rw, NUMREP, tries)
+    print(f"consume ladder, stage 1: {work1}")
     wide_nz = int((wcols.root_w > 0).sum())
-    ln_out = torch.empty((65536,), dtype=torch.float32, device=dev)
     # the straw2 kernels' root positions at the stage-2 launch
     # (STAGE2_CAP lanes), at the run's overflowing lanes alone, and at
     # stage 1; and the items each launch draws (non-zero weights only; the
     # leaf only the winning host's row)
-    n2 = min(FastMapper.STAGE2_CAP, N_PGS)
     n_lanes = max(1, min(schedule["stage2_lanes"], n2))
     leaf_pos = {(N_PGS, R1): pos1}
     for n_ in (n2, n_lanes):
@@ -808,19 +1089,17 @@ def run() -> None:
         "straw2_leaf": bound(
             4 * N_PGS + 4 * R1 * N_PGS + 16 * H * S_leaf + 8 * 514
             + 4 * R1 * N_PGS, items["straw2_leaf"](N_PGS, R1) * OPS_PER_DRAW),
-        "firstn_consume": bound(
-            9 * rows_read + 8 * NUMREP * N_PGS + 4 * N_PGS,
-            rows_read * (2 * NUMREP + 2)),
+        "firstn_consume": consume_bound(work1, N_PGS, NUMREP),
         "straw2_froot": bound(
             4 * N_PGS + 16 * S_wide + 8 * 514 + 8 * R1 * N_PGS + 4 * N_PGS,
             R1 * N_PGS * (wide_nz * FILTER_OPS_PER_ITEM
                           + sf.K * OPS_PER_DRAW)),
-        "ln_f32_table": bound(4 * 65536, 65536 * LN_OPS),
+        # the ln tables read, the f32 table and D written
+        "ln_f32_table": bound(8 * 514 + 4 * 65536 + 4, 65536 * LN_OPS),
     }
     # the integer-pipe floor of the straw2 kernels: ALU instructions per
     # item (phase 2's SASS) x items / (64 lanes x SMs x clock)
     clock = sm_clock_hz()
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def int_floor_ms(name, n_, R_):
         loop = (sass.get(f"{name}_kernel") or {}).get("item_loop")
@@ -829,13 +1108,18 @@ def run() -> None:
         return (loop["per_item"].get("alu", 0) * items[name](n_, R_)
                 / (INT_LANES_PER_SM * sms * clock) * 1e3)
 
+    def both(fn, iters=20):
+        """(graph-replay ms, host-launched ms, the two lists of reps)"""
+        g_, h_ = paired_times(fn, iters)
+        return statistics.median(g_), statistics.median(h_), g_, h_
+
     shapes = {
         "gf_matvec": f"({STRIPES},{K},{CHUNK}) -> ({STRIPES},{M},{CHUNK})",
         "straw2_root": f"N={N_PGS} R={R1} S={S_root} G={g_root}",
         "straw2_leaf": f"N={N_PGS} R={R1} H={H} S={S_leaf} G={g_leaf}",
-        "firstn_consume": f"N={N_PGS} R={R1} numrep={NUMREP}",
+        "firstn_consume": f"N={N_PGS} R={R1} numrep={NUMREP} T={threads1}",
         "straw2_froot": f"N={N_PGS} R={R1} S={S_wide} G={g_froot}",
-        "ln_f32_table": "65536 -> 65536 f32",
+        "ln_f32_table": "65536 -> 65536 f32 and D",
     }
     meta = {
         "gf_matvec": ("ceph_tpu_torch/csrc/gf_matvec.cu",
@@ -858,10 +1142,11 @@ def run() -> None:
     tolerance = {"ln_f32_table": LN_TOL}
     kernels = []
     for name in raw:
-        ms = time_ms(raw[name], 20)
+        ms, host, g_reps, h_reps = both(raw[name])
         plain_ms = time_ms(plain[name], 1, reps=5)
         bound_ms, bound_by = work[name]
-        print(f"{name:15s} {shapes[name]:34s} kernel {ms:.4f} ms  plain "
+        print(f"{name:15s} {shapes[name]:34s} kernel {ms:.4f} ms (graph "
+              f"replay; {host:.4f} issued from Python)  plain "
               f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})  "
               f"launches/step {path_launches[name]}  {tag}")
         src, replaces = meta[name]
@@ -870,8 +1155,20 @@ def run() -> None:
             "replaces": replaces, "launches": path_launches[name],
             "max_abs_err": errs[name],
             "matches_plain": errs[name] <= tolerance.get(name, 0),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None})
+            "ms": ms, "host_ms": host, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+        # a graph that replayed less than the work would read below the
+        # least time the card can take for it
+        check(ms >= bound_ms, f"{name}: graph replay {ms:.4f} ms at or above "
+              f"its bound {bound_ms:.4f} ms")
+        if name == "gf_matvec":
+            # a kernel longer than the host's cost per launch: the two ways
+            # of timing it differ by about the gap between two launches on
+            # the card, which a graph shortens
+            print(f"gf_matvec       encode: issued - graph replay = "
+                  f"{(host - ms) * 1e3:.2f} us ({(host - ms) / host:.1%}); "
+                  f"reps: graph {min(g_reps):.4f}-{max(g_reps):.4f}, issued "
+                  f"{min(h_reps):.4f}-{max(h_reps):.4f} ms  {tag}")
         if name in items:
             floor = int_floor_ms(name, N_PGS, R1)
             kernels[-1]["int_floor_ms"] = floor
@@ -885,24 +1182,24 @@ def run() -> None:
                                  ("decode", tab_dec, pidx_d32, dec_in)):
         out_ = torch.empty((STRIPES, len(ERASURES), CHUNK), dtype=torch.uint8,
                            device=dev)
-        ms = time_ms(lambda: launch_gf(tab_, p_, src_, out_), 20)
+        ms, host, _g, _h = both(lambda: launch_gf(tab_, p_, src_, out_))
         b_ms, _by = gf_bound(len(ERASURES), tab_)
         print(f"gf_matvec       {what:8s} ({STRIPES},{K},{CHUNK}) -> "
-              f"({STRIPES},{len(ERASURES)},{CHUNK}) kernel {ms:.4f} ms  bound "
-              f"{b_ms:.4f} ms  {tag}")
-        row_of["gf_matvec"].update({f"{what}_ms": ms,
+              f"({STRIPES},{len(ERASURES)},{CHUNK}) kernel {ms:.4f} ms (graph "
+              f"replay; {host:.4f} issued)  bound {b_ms:.4f} ms  {tag}")
+        row_of["gf_matvec"].update({f"{what}_ms": ms, f"{what}_host_ms": host,
                                     f"{what}_bound_ms": b_ms})
     # the encode on all-zero data: every lookup of a warp reads one word (a
     # broadcast), so the gap to the random-data time is what the random
     # lookups' shared-memory bank conflicts cost
     zero_data = torch.zeros_like(data)
-    ms = time_ms(lambda: launch_gf(tab_enc, zeros, zero_data, enc_out), 20)
+    ms = graph_ms(lambda: launch_gf(tab_enc, zeros, zero_data, enc_out), 20)
     print(f"gf_matvec       encode on zero data (no bank conflicts) kernel "
-          f"{ms:.4f} ms  {tag}")
+          f"{ms:.4f} ms (graph replay)  {tag}")
     row_of["gf_matvec"]["encode_zero_data_ms"] = ms
     # the exact root kernel on the filter's columns: which is faster here
-    root_wide = time_ms(lambda: launch_root(wcols, wx32, N_PGS, R1, g_froot,
-                                            col_a, col_b), 20)
+    root_wide = graph_ms(lambda: launch_root(wcols, wx32, N_PGS, R1, g_froot,
+                                             col_a, col_b), 20)
     froot_ms = row_of["straw2_froot"]["ms"]
     print(f"straw2_root     N={N_PGS} R={R1} S={S_wide} G={g_froot} (the "
           f"filter's columns) kernel {root_wide:.4f} ms; straw2_froot / "
@@ -929,19 +1226,51 @@ def run() -> None:
         row = row_of[name]
         for n_ in sorted({n2, n_lanes}, reverse=True):
             G = sc.card_group_lanes(n_ * R0, S_, dev)
-            ms = time_ms(lambda: fn(n_, R0, G, (col_c, col_d)), 20)
+            ms, host, _g, _h = both(lambda: fn(n_, R0, G, (col_c, col_d)))
             b_ms, _by = bound(8 * R0 * n_, items[name](n_, R0) * per_item)
             print(f"{name:15s} stage 2 N={n_} R={R0} S={S_} G={G}  kernel "
-                  f"{ms:.4f} ms  bound {b_ms:.4f} ms  {tag}")
+                  f"{ms:.4f} ms (graph replay; {host:.4f} issued)  bound "
+                  f"{b_ms:.4f} ms  {tag}")
             if n_ == n2:
                 row.update(G=g1, stage2_shape=f"N={n_} R={R0}", stage2_G=G,
-                           stage2_ms=ms, stage2_bound_ms=b_ms,
+                           stage2_ms=ms, stage2_host_ms=host,
+                           stage2_bound_ms=b_ms,
                            stage2_int_floor_ms=int_floor_ms(name, n_, R0))
         for n_, R_, gs, out in ((n2, R0, (1, 2, 4, 8, 16, 32), (col_c, col_d)),
                                 (N_PGS, R1, (1, 2, 4), (col_a, col_b))):
-            sweep = {G: time_ms(lambda: fn(n_, R_, G, out), 10) for G in gs}
-            print(f"{name:15s} N={n_} R={R_} by G: " + "  ".join(
-                f"G={G} {ms:.4f} ms" for G, ms in sweep.items()) + f"  {tag}")
+            sweep = {G: graph_ms(lambda: fn(n_, R_, G, out), 10) for G in gs}
+            print(f"{name:15s} N={n_} R={R_} by G (graph replay): "
+                  + "  ".join(f"G={G} {ms:.4f} ms" for G, ms in sweep.items())
+                  + f"  {tag}")
+    # the consume kernel at the stage-2 launch (the run's overflowing lanes
+    # first, R0 columns), and over its block sizes there and at stage 1
+    x2_32 = sc.xs_i32(x2).contiguous()
+    rep_c = torch.empty((NUMREP, n2), dtype=torch.int32, device=dev)
+    rep_d = torch.empty_like(rep_c)
+    ovf2 = torch.empty((n2,), dtype=torch.int32, device=dev)
+    threads2 = sc.consume_threads(n2, sms)
+    work2 = ladder_work(ids2, lid2, x2, rw, NUMREP, tries)
+    b_ms, _by = consume_bound(work2, n2, NUMREP)
+    consume_at = {
+        (n2, R0): lambda th: launch_consume(ids2, lid2, x2_32, rw, NUMREP,
+                                            tries, th, rep_c, rep_d, ovf2),
+        (N_PGS, R1): lambda th: launch_consume(ids1, lid1, x32, rw, NUMREP,
+                                               tries, th, rep_a, rep_b, ovf),
+    }
+    ms, host, _g, _h = both(lambda: consume_at[n2, R0](threads2))
+    print(f"firstn_consume  stage 2 N={n2} R={R0} T={threads2} {work2}  "
+          f"kernel {ms:.4f} ms (graph replay; {host:.4f} issued)  bound "
+          f"{b_ms:.4f} ms  {tag}")
+    row_of["firstn_consume"].update(
+        threads=threads1, stage2_shape=f"N={n2} R={R0}",
+        stage2_threads=threads2, stage2_ms=ms, stage2_host_ms=host,
+        stage2_bound_ms=b_ms)
+    for (n_, R_), fn in consume_at.items():
+        sweep = {th: graph_ms(lambda: fn(th), 20) for th in (32, 64, 128, 256)}
+        print(f"firstn_consume  N={n_} R={R_} by threads a block (graph "
+              f"replay): " + "  ".join(f"T={th} {ms:.4f} ms"
+                                       for th, ms in sweep.items())
+              + f"  {tag}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

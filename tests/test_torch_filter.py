@@ -9,6 +9,8 @@ certificate makes the winners exact either way, since each side measures D
 with its own log.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +27,7 @@ from ceph_tpu_torch.ops import straw2_cuda as tcols
 from ceph_tpu_torch.ops import straw2_filter as sf
 
 CPU = torch.device("cpu")
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -87,6 +90,38 @@ def test_ln_table_and_bound_against_pallas():
     exact = crush_ln(torch.arange(65536)).to(torch.float32)
     assert D == float((table - exact).abs().max()) > 0
     assert sf.ln_f32_table(CPU) is table                # cached per device
+
+
+def test_plain_bound_is_the_tables_largest_gap():
+    """The plain version of the bound that the ln_f32_table kernel now
+    reduces itself, against the same maximum taken in numpy: the golden
+    crush_ln values rounded to f32 (to nearest even, as torch and the
+    kernel's __ll2float_rn round), the gaps in f32.  One ulp added at the u
+    of the largest gap, away from crush_ln, moves D to exactly that u's new
+    gap; one ulp at the u of the least gap leaves D as it was.  Exact
+    equality throughout: every step is one correctly rounded f32
+    operation."""
+    golden = np.load(os.path.join(GOLDEN, "crush_golden.npz"))
+    exact = golden["ln_all"].astype(np.float32)
+    table, D = sf.ln_f32_table_plain(CPU)
+    assert D.dtype == torch.float32 and D.dim() == 0
+    tab = table.numpy()
+    gaps = np.abs(tab - exact)
+    assert gaps.dtype == np.float32
+    assert float(D) == float(gaps.max()) == sf.ln_f32_bound(CPU) > 0
+    u = int(gaps.argmax())
+    bumped = tab.copy()
+    bumped[u] = np.nextafter(tab[u], np.float32(np.inf if tab[u] > exact[u]
+                                                else -np.inf))
+    new_gap = np.abs(bumped[u] - exact[u])
+    assert new_gap > gaps.max()
+    assert float(sf.ln_bound_plain(torch.from_numpy(bumped))) \
+        == float(new_gap)
+    v = int(gaps.argmin())
+    bumped = tab.copy()
+    bumped[v] = np.nextafter(tab[v], np.float32(np.inf))
+    assert np.abs(bumped[v] - exact[v]) < gaps.max()
+    assert float(sf.ln_bound_plain(torch.from_numpy(bumped))) == float(D)
 
 
 def test_froot_columns_match_pallas_and_exact():
