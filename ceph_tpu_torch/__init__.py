@@ -1,13 +1,18 @@
 """ceph_tpu_torch — the PyTorch and CUDA port of ceph_tpu's numeric data path.
 
-The slice ported so far is the flagship pipeline: batched GF(2^8) erasure
-encode and recovery (ops.gf_kernel) and bulk straw2 CRUSH placement by the
+Ported so far: the flagship pipeline — batched GF(2^8) erasure encode and
+recovery (ops.gf_kernel) and bulk straw2 CRUSH placement by the
 chooseleaf-firstn fast path (crush.fastpath), each running hand-written CUDA
 kernels for sm_90a (csrc/) on the card, with a plain torch version of every
-kernel beside it.  ``entry.entry()`` drives both halves.
+kernel beside it; ``entry.entry()`` drives both halves.  Around them: the
+torch rule interpreter (crush.mapper_torch), the erasure-code plugin layer
+(ec: jerasure, isa, shec, lrc, clay) with its C yardstick (native), the
+EC stripe math (osd.ec_util), named locks (common.lockdep) and the tools
+(crush_test, ec_benchmark, ec_non_regression).
 
 Importing the package sets no global configuration and builds nothing: the
 kernels are compiled with nvcc at their first CUDA call (ops._build).
 """
 
-__all__ = ["convert", "crush", "entry", "gf", "ops"]
+__all__ = ["common", "convert", "crush", "ec", "entry", "gf", "native", "ops",
+           "osd", "tools"]

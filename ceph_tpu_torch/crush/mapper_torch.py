@@ -321,15 +321,20 @@ def _leaf_indep(a: _Arrays, x, host_item, rep: int, parent_r, numrep_mult,
 def _choose_indep(a: _Arrays, x, start, left, numrep_mult, want_type, tries,
                   recurse_tries, recurse_to_leaf, reweight, active):
     """Batched crush_choose_indep (mapper.c:655-843): breadth-first over
-    ``left`` positions, r = rep + numrep*ftotal with the *step's* numrep as
-    multiplier even when left < numrep; failures leave CRUSH_ITEM_NONE."""
+    each lane's ``left`` positions ((N,) tensor; the row is as wide as the
+    largest), r = rep + numrep*ftotal with the *step's* numrep as multiplier
+    even when left < numrep; failures leave CRUSH_ITEM_NONE.  A lane's
+    positions at or past its own ``left`` are never drawn and stay NONE, so
+    its collision scan covers only the positions the reference fills."""
     n = x.shape[0]
-    out = torch.full((n, left), NONE, dtype=_I64, device=x.device)
+    width = int(left.max()) if n else 0
+    out = torch.full((n, width), NONE, dtype=_I64, device=x.device)
     leaf_out = out.clone()
-    undef = active[:, None].expand(n, left).clone()
+    cols = torch.arange(width, dtype=_I64, device=x.device)
+    undef = active[:, None] & (cols[None, :] < left[:, None])
     ftotal = 0
     while ftotal < tries and bool(undef.any()):
-        for rep in range(left):
+        for rep in range(width):
             live = undef[:, rep].clone()
             base = torch.full((n,), rep, dtype=_I64, device=x.device)
             item, perm, retry, host_r = _descend(
@@ -358,6 +363,19 @@ def _choose_indep(a: _Arrays, x, start, left, numrep_mult, want_type, tries,
 
 def _full_none(n: int, width: int, device) -> torch.Tensor:
     return torch.full((n, width), NONE, dtype=_I64, device=device)
+
+
+def _append(rows, count, vals, nvals, cap: int):
+    """Per lane, write the first ``nvals`` of ``vals`` (N, W) into ``rows``
+    (N, cap + 1) at column ``count`` onwards, at most up to column ``cap``;
+    returns the new counts.  Column ``cap`` takes the values that do not
+    fit and is never read."""
+    take = torch.minimum(nvals, cap - count)
+    j = torch.arange(vals.shape[1], dtype=_I64, device=vals.device)[None, :]
+    keep = j < take[:, None]
+    rows.scatter_(1, torch.where(keep, count[:, None] + j, cap),
+                  torch.where(keep, vals, NONE))
+    return count + take
 
 
 class BatchMapper:
@@ -416,10 +434,12 @@ class BatchMapper:
         choose_tries = self.compiled.tunables_tries
         choose_leaf_tries = 0
         vary_r = t.chooseleaf_vary_r
-        # working set: per-lane item ids, NONE-padded; starts empty
-        w = _full_none(n, result_max, xs.device)
-        wsize = 0
-        results = []
+        # the working set: per lane, its first ``wcount`` columns of ``w``
+        # (column result_max takes what does not fit and is never read);
+        # ``wmax`` bounds wcount over the lanes.  The result is kept alike.
+        zero = torch.zeros((n,), dtype=_I64, device=xs.device)
+        w, wcount, wmax = _full_none(n, result_max + 1, xs.device), zero, 0
+        res, rcount = _full_none(n, result_max + 1, xs.device), zero
 
         for step in rule.steps:
             if step.op == RULE_TAKE:
@@ -429,7 +449,8 @@ class BatchMapper:
                       self.map.bucket(step.arg1) is not None)
                 if ok:
                     w[:, 0] = step.arg1
-                    wsize = 1
+                    wcount = torch.ones_like(zero)
+                    wmax = 1
             elif step.op == RULE_SET_CHOOSE_TRIES:
                 if step.arg1 > 0:
                     choose_tries = step.arg1
@@ -449,58 +470,62 @@ class BatchMapper:
                     raise ValueError("batched mapper requires stable=1")
             elif step.op in (RULE_CHOOSE_FIRSTN, RULE_CHOOSELEAF_FIRSTN,
                              RULE_CHOOSE_INDEP, RULE_CHOOSELEAF_INDEP):
-                if wsize == 0:
+                if wmax == 0:
                     continue
                 firstn = step.op in (RULE_CHOOSE_FIRSTN,
                                      RULE_CHOOSELEAF_FIRSTN)
                 leafy = step.op in (RULE_CHOOSELEAF_FIRSTN,
                                     RULE_CHOOSELEAF_INDEP)
-                # numrep <= 0 means result_max + numrep (mapper.c:1009-1014)
+                # numrep <= 0 means result_max + numrep (mapper.c:1009-1014);
+                # where that is still <= 0 every entry is skipped and the
+                # working set ends empty
                 numrep = step.arg1
                 if numrep <= 0:
                     numrep += result_max
-                    if numrep <= 0:
-                        continue
                 if firstn:
                     recurse = (choose_leaf_tries or
                                (1 if t.chooseleaf_descend_once
                                 else choose_tries))
                 else:
                     recurse = choose_leaf_tries if choose_leaf_tries else 1
-                outs = []
-                for i in range(wsize):
+                # each entry i of a lane fills the lane's next slots, at
+                # most result_max - osize of them (mapper.c:1036-1073)
+                new_w = _full_none(n, result_max + 1, xs.device)
+                osize = zero
+                for i in range(wmax if numrep > 0 else 0):
                     src = w[:, i]
-                    # a TAKE of a device id (src >= 0) is degenerate; treat
-                    # as inactive like the reference's type check would
-                    active = (src != NONE) & (src < 0)
+                    # only a bucket entry is chosen from: a device id (a
+                    # TAKE of a device) or an indep NONE hole is skipped
+                    # and fills no slot
+                    active = (i < wcount) & (src != NONE) & (src < 0)
                     start = _widx(a, src)
+                    room = result_max - osize
                     if firstn:
-                        # all numrep reps are attempted (count limiting in
-                        # the reference only caps kept successes —
-                        # equivalent to post-compaction truncation)
+                        # all numrep reps are attempted: the reference's
+                        # count limit only stops it once ``room`` items are
+                        # placed, so the first ``room`` of the compacted
+                        # row are its items
                         o, leaf = _choose_firstn(
                             a, xs, start, numrep, step.arg2, choose_tries,
                             recurse, vary_r, leafy, reweight, active)
+                        got = fastpath._compact_rows(leaf if leafy else o)
+                        placed = (got != NONE).sum(dim=1)
                     else:
+                        left = torch.where(active,
+                                           room.clamp(max=numrep), zero)
                         o, leaf = _choose_indep(
-                            a, xs, start, min(numrep, result_max), numrep,
-                            step.arg2, choose_tries, recurse,
-                            leafy, reweight, active)
-                    outs.append(leaf if leafy else o)
-                new_w = torch.cat(outs, dim=1)[:, :result_max]
-                if firstn:
-                    new_w = fastpath._compact_rows(new_w)
-                w = _full_none(n, result_max, xs.device)
-                w[:, :new_w.shape[1]] = new_w
-                wsize = new_w.shape[1]
+                            a, xs, start, left, numrep, step.arg2,
+                            choose_tries, recurse, leafy, reweight, active)
+                        got = leaf if leafy else o
+                        placed = left
+                    osize = _append(new_w, osize, got, placed, result_max)
+                w, wcount = new_w, osize
+                wmax = min(result_max, wmax * max(numrep, 0))
             elif step.op == RULE_EMIT:
-                results.append(w[:, :wsize])
-                w = _full_none(n, result_max, xs.device)
-                wsize = 0
-        if not results:
-            return _full_none(n, result_max, xs.device)
-        res = torch.cat(results, dim=1)[:, :result_max]
-        pad = result_max - res.shape[1]
-        if pad > 0:
-            res = torch.cat([res, _full_none(n, pad, xs.device)], dim=1)
-        return res
+                # only the working set's entries: a firstn row's NONE tail
+                # is not part of it (mapper.c:1086-1093)
+                rcount = _append(res, rcount, w[:, :wmax], wcount,
+                                 result_max)
+                w, wcount, wmax = _full_none(n, result_max + 1,
+                                             xs.device), zero, 0
+        return res[:, :result_max]

@@ -54,7 +54,8 @@
 // keeps the selections in registers (fully unrolled over replicas, written
 // once at the end, never read back) and loads the first numrep + 1 rows
 // (all of stage 1's columns) before the ladder starts; a generic instance
-// serves larger numrep from a local array.  The wrapper picks the block size
+// serves any larger numrep, keeping its selections in its own output
+// columns and reading them back.  The wrapper picks the block size
 // so that the stage-2 launch (4,096 x) spreads over the SMs
 // (straw2_cuda.consume_threads).
 
@@ -174,16 +175,13 @@ __device__ __forceinline__ int32_t pick(const int32_t (&v)[P], int r) {
   return out;
 }
 
-// selection slots of the generic instance (numrep above 8)
-constexpr int kMaxRep = 64;
-
 // crush_choose_firstn (mapper.c:460-648) over precomputed winner columns:
 // replica rep draws with r = rep + ftotal, so an active lane at attempt a of
 // replica rep reads row rep + a.  A candidate is rejected if its host or
 // device equals any slot placed so far (unfilled slots hold NONE, which never
 // equals a real id) or if it is out.  A lane still active when the rows run
-// out before `tries` attempts raises its overflow flag.  NR = numrep for the
-// unrolled instances, 0 for the generic one.
+// out before `tries` attempts raises its overflow flag.  One instance per
+// numrep NR in 1..8; NR = 0 is the generic instance below.
 template <int NR>
 __global__ void firstn_consume_kernel(const int32_t* __restrict__ hw,
                                       const int32_t* __restrict__ lw,
@@ -193,34 +191,32 @@ __global__ void firstn_consume_kernel(const int32_t* __restrict__ hw,
                                       int32_t* __restrict__ out_h,
                                       int32_t* __restrict__ out_l,
                                       int32_t* __restrict__ ovf) {
-  constexpr int kCap = NR ? NR : kMaxRep;       // selection slots
   constexpr int P = NR + 1;                     // rows loaded up front
-  const int nrep = NR ? NR : numrep;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const uint32_t x = __ldg(xs + i);
   int32_t ph[P], pl[P];
 #pragma unroll
   for (int k = 0; k < P; ++k) {
-    const bool in = NR && k < R;
+    const bool in = k < R;
     ph[k] = in ? __ldg(hw + (int64_t)k * n + i) : kItemNone;
     pl[k] = in ? __ldg(lw + (int64_t)k * n + i) : kItemNone;
   }
-  int32_t sh[kCap], sl[kCap];
+  int32_t sh[NR], sl[NR];
 #pragma unroll
-  for (int j = 0; j < kCap; ++j) {
+  for (int j = 0; j < NR; ++j) {
     sh[j] = kItemNone;
     sl[j] = kItemNone;
   }
   int flag = 0;
 #pragma unroll
-  for (int rep = 0; rep < nrep; ++rep) {
+  for (int rep = 0; rep < NR; ++rep) {
     const int steps = min(tries, R - rep);
     bool done = false;
     for (int a = 0; a < steps && !done; ++a) {
       const int r = rep + a;
       int32_t hb, lf;
-      if (NR && r < P) {
+      if (r < P) {
         hb = pick(ph, r);
         lf = pick(pl, r);
       } else {
@@ -229,7 +225,7 @@ __global__ void firstn_consume_kernel(const int32_t* __restrict__ hw,
       }
       bool bad = false;
 #pragma unroll
-      for (int j = 0; j < nrep; ++j) bad = bad || sh[j] == hb || sl[j] == lf;
+      for (int j = 0; j < NR; ++j) bad = bad || sh[j] == hb || sl[j] == lf;
       if (!bad && !is_out(x, lf, rw, n_rw)) {
         sh[rep] = hb;
         sl[rep] = lf;
@@ -239,9 +235,53 @@ __global__ void firstn_consume_kernel(const int32_t* __restrict__ hw,
     if (steps < tries && !done) flag = 1;
   }
 #pragma unroll
-  for (int rep = 0; rep < nrep; ++rep) {
+  for (int rep = 0; rep < NR; ++rep) {
     out_h[(int64_t)rep * n + i] = sh[rep];
     out_l[(int64_t)rep * n + i] = sl[rep];
+  }
+  ovf[i] = flag;
+}
+
+// The generic instance: the same ladder for any numrep.  Slot j of input i
+// is the output cell j * n + i itself: the one thread that owns input i
+// fills it with NONE, places into it and reads it back, so the slots need no
+// room in the thread.  While replica rep draws, slots rep and above still
+// hold NONE, which only a NONE candidate equals: that test stands in for
+// reading them.
+template <>
+__global__ void firstn_consume_kernel<0>(const int32_t* __restrict__ hw,
+                                         const int32_t* __restrict__ lw,
+                                         const uint32_t* __restrict__ xs,
+                                         const long long* __restrict__ rw,
+                                         int n_rw, int R, int n, int numrep,
+                                         int tries, int32_t* __restrict__ out_h,
+                                         int32_t* __restrict__ out_l,
+                                         int32_t* __restrict__ ovf) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const uint32_t x = __ldg(xs + i);
+  for (int j = 0; j < numrep; ++j) {
+    out_h[(int64_t)j * n + i] = kItemNone;
+    out_l[(int64_t)j * n + i] = kItemNone;
+  }
+  int flag = 0;
+  for (int rep = 0; rep < numrep; ++rep) {
+    const int steps = min(tries, R - rep);
+    bool done = false;
+    for (int a = 0; a < steps && !done; ++a) {
+      const int r = rep + a;
+      const int32_t hb = __ldg(hw + (int64_t)r * n + i);
+      const int32_t lf = __ldg(lw + (int64_t)r * n + i);
+      bool bad = hb == kItemNone || lf == kItemNone;
+      for (int j = 0; j < rep && !bad; ++j)
+        bad = out_h[(int64_t)j * n + i] == hb || out_l[(int64_t)j * n + i] == lf;
+      if (!bad && !is_out(x, lf, rw, n_rw)) {
+        out_h[(int64_t)rep * n + i] = hb;
+        out_l[(int64_t)rep * n + i] = lf;
+        done = true;
+      }
+    }
+    if (steps < tries && !done) flag = 1;
   }
   ovf[i] = flag;
 }
@@ -291,8 +331,7 @@ extern "C" int firstn_consume_launch(const void* hw, const void* lw, const void*
       firstn_consume_kernel<0>, firstn_consume_kernel<1>, firstn_consume_kernel<2>,
       firstn_consume_kernel<3>, firstn_consume_kernel<4>, firstn_consume_kernel<5>,
       firstn_consume_kernel<6>, firstn_consume_kernel<7>, firstn_consume_kernel<8>};
-  if (numrep < 1 || numrep > kMaxRep || threads < 32 || threads > kThreads ||
-      (threads & (threads - 1)))
+  if (numrep < 1 || threads < 32 || threads > kThreads || (threads & (threads - 1)))
     return (int)cudaErrorInvalidValue;
   const ConsumeKernel k = kInstances[numrep <= 8 ? numrep : 0];
   k<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(

@@ -25,7 +25,8 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
+
+from ceph_tpu_torch.common import lockdep
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -65,7 +66,7 @@ SIGNATURES = {
 LAUNCHES = {"gf_matvec": 0, "straw2_root": 0, "straw2_leaf": 0,
             "firstn_consume": 0, "straw2_froot": 0, "ln_f32_table": 0}
 
-_LOCK = threading.Lock()
+_LOCK = lockdep.make_lock("ops._build")
 _LIB: ctypes.CDLL | None = None
 
 

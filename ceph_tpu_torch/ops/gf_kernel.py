@@ -134,6 +134,10 @@ def pack_rows(mats: np.ndarray) -> np.ndarray:
 #: elements of the gathered (stripes, t, B) outputs per plain chunk
 _PLAIN_CHUNK = 1 << 22
 
+#: bytes of packed table one launch may hold: the kernel keeps its whole
+#: table in shared memory, at most 227 KiB a block on the H100
+TABLE_LIMIT = 227 * 1024
+
 
 def gf_matvec_plain(tab: torch.Tensor, pidx: torch.Tensor,
                     data: torch.Tensor, t: int) -> torch.Tensor:
@@ -182,7 +186,7 @@ def gf_matvec(tab: torch.Tensor, pidx: torch.Tensor, data: torch.Tensor,
         raise ValueError(f"pidx must be ({s},), got {tuple(pidx.shape)}")
     if not data.is_cuda:
         return gf_matvec_plain(tab, pidx, data, t)
-    if nq * k * 1024 > 227 * 1024:
+    if nq * k * PACK * 256 > TABLE_LIMIT:
         raise ValueError(f"{nq * k} KiB of packed table exceed shared memory")
     if not (tab.is_cuda and pidx.is_cuda):
         raise ValueError("tab, pidx and data must all lie on the card")
@@ -211,22 +215,90 @@ def _as_u8(data, device: torch.device) -> torch.Tensor:
                             ).to(device)
 
 
-def make_encoder(coeff: np.ndarray, device=None):
-    """Return encode(data (S, k, B) uint8) -> (S, m, B) uint8 with the coding
-    matrix's packed-product table resident on ``device`` (the card by
-    default).  ``coeff`` is the (m, k) coding matrix — or a (t, k) recovery
-    matrix, which makes the same call a recovery."""
+def cut_tables(coeff: np.ndarray, device: torch.device,
+               table_limit: int | None = None) -> list:
+    """The packed tables of the (t, k) matrix ``coeff`` on ``device``, each
+    at most ``table_limit`` bytes (``TABLE_LIMIT`` by default):
+    [(r0, r1, [(j0, j1, table), ...]), ...], a group of rows [r0, r1) and,
+    in it, a table per group of inputs [j0, j1).  A group takes all k
+    inputs and as many passes of four rows as fit, or, where k alone is
+    over the limit, one pass and as many inputs as fit."""
+    coeff = np.asarray(coeff, dtype=np.uint8)
+    t, k = coeff.shape
+    kib = (TABLE_LIMIT if table_limit is None else table_limit) // 1024
+    if kib < 1:
+        raise ValueError("table_limit must be at least 1 KiB")
+    inputs = min(k, kib)
+    rows = max(1, min(t, PACK * (kib // inputs)))
+    return [(r0, min(t, r0 + rows),
+             [(j0, min(k, j0 + inputs), torch.from_numpy(pack_rows(
+                 coeff[None, r0:r0 + rows, j0:j0 + inputs])).to(device))
+              for j0 in range(0, k, inputs)])
+            for r0 in range(0, max(t, 1), rows)]
+
+
+def apply_tables(groups: list, data: torch.Tensor, t: int,
+                 matvec=None) -> torch.Tensor:
+    """(S, k, B) uint8 data times the matrix ``cut_tables`` cut into
+    ``groups`` -> (S, t, B): one ``matvec`` call (``gf_matvec`` by default;
+    its plain version, say) per table, a group's partial products over its
+    inputs XOR-accumulated into its rows of the output."""
+    matvec = matvec or gf_matvec
+    pidx = torch.zeros((data.shape[0],), dtype=torch.int32,
+                       device=data.device)
+    if len(groups) == 1 and len(groups[0][2]) == 1:
+        return matvec(groups[0][2][0][2], pidx, data, t)
+    out = torch.empty((data.shape[0], t, data.shape[2]), dtype=torch.uint8,
+                      device=data.device)
+    for r0, r1, parts in groups:
+        for i, (j0, j1, tab) in enumerate(parts):
+            part = matvec(tab, pidx, data if len(parts) == 1
+                          else data[:, j0:j1], r1 - r0)
+            if i == 0:
+                out[:, r0:r1] = part
+            else:
+                out[:, r0:r1] ^= part
+    return out
+
+
+def make_encoder(coeff: np.ndarray, device=None, *,
+                 table_limit: int | None = None):
+    """Return encode(data (S, k, B) uint8) -> (S, t, B) uint8 with the
+    packed-product tables of the (t, k) matrix ``coeff`` resident on
+    ``device`` (the card by default).  ``coeff`` is a coding matrix, or a
+    recovery matrix, which makes the same call a recovery.
+
+    A matrix whose packed table exceeds ``table_limit`` bytes is cut above
+    the kernel (``cut_tables``): groups of rows, a launch each, and where k
+    alone is over the limit also groups of inputs, whose partial products
+    are XOR-accumulated into the output.  Every group goes through
+    ``gf_matvec``."""
     dev = resolve(device)
     coeff = np.asarray(coeff, dtype=np.uint8)
-    tab = torch.from_numpy(pack_rows(coeff[None])).to(dev)
-    t = coeff.shape[0]
+    t, k = coeff.shape
+    groups = cut_tables(coeff, dev, table_limit)
 
     def encode(data) -> torch.Tensor:
         d = _as_u8(data, dev)
-        pidx = torch.zeros((d.shape[0],), dtype=torch.int32, device=dev)
-        return gf_matvec(tab, pidx, d, t)
+        if d.dim() != 3 or d.shape[1] != k:
+            raise ValueError(f"data must be (S, {k}, B), got "
+                             f"{tuple(d.shape)}")
+        return apply_tables(groups, d, t)
 
     return encode
+
+
+def ec_encode(coeff: np.ndarray, data, device=None, *,
+              table_limit: int | None = None) -> torch.Tensor:
+    """One-shot GF(2^8) product: (t, k) uint8 matrix, (S, k, B) or (k, B)
+    uint8 data -> (S, t, B) or (t, B) uint8 on ``device`` (the card by
+    default).  Builds and uploads the tables each call (``make_encoder``
+    keeps them resident); cuts them to ``table_limit`` as it does."""
+    encode = make_encoder(coeff, device, table_limit=table_limit)
+    squeeze = (data.dim() if isinstance(data, torch.Tensor)
+               else np.ndim(data)) == 2
+    out = encode(data[None] if squeeze else data)
+    return out[0] if squeeze else out
 
 
 def ec_decode_batched(tables_bits: np.ndarray, pidx, data, *,

@@ -156,10 +156,6 @@ def card_group_lanes(columns: int, S: int, device: torch.device) -> int:
     return group_lanes(columns, S, _card_sms(device))
 
 
-#: selection slots of the consume kernel's generic instance (numrep > 8)
-MAX_NUMREP = 64
-
-
 def consume_threads(n: int, sms: int) -> int:
     """Threads per block of the consume kernel (one thread per x) for n
     inputs on a card of ``sms`` SMs: the largest power of two in [32, 256]
@@ -381,9 +377,8 @@ def consume_columns(hw: torch.Tensor, lw: torch.Tensor, xs: torch.Tensor,
         return consume_columns_plain(hw, lw, xs, reweight, numrep=numrep,
                                      tries=tries)
     _check_cuda(lw, xs, reweight)
-    if not 1 <= numrep <= MAX_NUMREP:
-        raise ValueError(f"consume_columns: numrep={numrep} outside "
-                         f"[1, {MAX_NUMREP}]")
+    if numrep < 1:
+        raise ValueError(f"consume_columns: numrep={numrep} < 1")
     R, n = hw.shape
     out_h = torch.empty((numrep, n), dtype=torch.int32, device=hw.device)
     out_l = torch.empty((numrep, n), dtype=torch.int32, device=hw.device)

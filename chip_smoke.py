@@ -75,15 +75,39 @@ Runs ceph_tpu_torch (never JAX, never ceph_tpu) at the bench's full size:
              the encode on all-zero data (no shared-memory bank conflicts);
              the filter beside the exact root kernel on the same columns; the
              consume kernel at the stage-2 launch and over its block sizes
-  7. prints  the {"kernels": [...]} line, then {"ok": true, "device": ...}
+  7. ec      with every launch count at 0 again: the erasure-code plugin
+             layer on the card (ceph_tpu_torch.ec, runtime cuda): the 14
+             corpus profiles of tools.ec_non_regression encoded and compared
+             byte for byte with tests/golden/ec_corpus, and every pattern of
+             up to m erasures the code recovers decoded back; then
+             tools.ec_benchmark's bench_encode/bench_decode at EC_BENCH's
+             shapes (BASELINE.json's configurations and two bitmatrix codes
+             whose tables are cut to fit shared memory), 16 sampled stripes
+             of each against the numpy oracle; then the counts are read.  At
+             each shape, gf_matvec's launches of one call are held against
+             the plain version on the card and timed by graph replay beside
+             their bound, with the codec's call on card data and the native C
+             encode (ceph_tpu_torch.native) on the same host data.  Last, a
+             fast-path rule of 65 replicas runs on the card with the counts
+             reset, launches the consume kernel's generic instance and equals
+             crush_do_rule, and that kernel is held against its plain version
+             on the rule's columns at R = numrep + 1 and tries + numrep.
+             It runs after the times, so
+             that phase 6 times the flagship calls in the same process state
+             as the runs before this phase existed
+  8. prints  the {"kernels": [...]} line (gf_matvec's row also carries the EC
+             shapes of phase 7 as "ec_shapes"), then {"ok": true,
+             "device": ...}
 
 Exits non-zero, printing no result, without a card or without the package.
 """
 
 from __future__ import annotations
 
+import gc
 import io
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -142,6 +166,36 @@ WIDE_ORACLE, SMALL_ORACLE, EC_CPU_PGS = 64, 32, 128
 #: batch sizes of the root kernels' small launches: one x, a ragged few,
 #: the flagship's stage-2 lanes and the stage-2 capacity (the launch)
 SMALL_NS = (1, 37, 1928, 4096)
+#: the EC codec phase's ec_benchmark runs at full width: (label, plugin,
+#: profile, --size, --batch, workload, --erasures).  BASELINE.json's
+#: configurations (isa cauchy k=8 m=4 over 4 KiB chunks, encode and 2-erasure
+#: decode; isa k=10 m=4 on a 64 KiB stripe, 1,024 objects; jerasure
+#: reed_sol_van k=4 m=2 on 4 KiB objects), and two bitmatrix codes whose
+#: packed tables exceed the kernel's shared memory and are cut (blaum_roth
+#: k=7 at its w=10, 350 KiB; liberation k=8 w=11, 528 KiB)
+EC_BENCH = [
+    ("isa cauchy k=8 m=4 encode", "isa",
+     {"k": "8", "m": "4", "technique": "cauchy"}, 32768, 2048, "encode", 0),
+    ("isa cauchy k=8 m=4 decode, 2 erased", "isa",
+     {"k": "8", "m": "4", "technique": "cauchy"}, 32768, 2048, "decode", 2),
+    ("isa cauchy k=10 m=4 encode", "isa",
+     {"k": "10", "m": "4", "technique": "cauchy"}, 65536, 1024, "encode", 0),
+    ("jerasure reed_sol_van k=4 m=2 encode", "jerasure",
+     {"k": "4", "m": "2", "technique": "reed_sol_van"}, 4096, 8192, "encode",
+     0),
+    ("jerasure blaum_roth k=7 encode", "jerasure",
+     {"k": "7", "technique": "blaum_roth"}, 32768, 2048, "encode", 0),
+    ("jerasure blaum_roth k=7 decode, 2 erased", "jerasure",
+     {"k": "7", "technique": "blaum_roth"}, 32768, 2048, "decode", 2),
+    ("jerasure liberation k=8 w=11 encode", "jerasure",
+     {"k": "8", "w": "11", "technique": "liberation"}, 32768, 2048, "encode",
+     0),
+]
+#: calls of each ec_benchmark run (--iterations = EC_CALLS x --batch)
+EC_CALLS = 5
+#: a fast-path rule of more replicas than the consume kernel unrolls (its
+#: generic instance): flat OSDs, replicas, PGs held against the oracle
+WIDE_NUMREP_OSDS, WIDE_NUMREP, WIDE_NUMREP_PGS = 256, 65, 64
 
 
 class SmokeFailure(Exception):
@@ -508,6 +562,227 @@ def launch_consume(hw, lw, x32, rw, numrep: int, tries: int, threads: int,
                   ovf.data_ptr(), threads)
 
 
+def launch_gf(tab, pidx, src, out) -> None:
+    """One raw gf_matvec launch: ``src`` (S, k, B) times the packed table
+    ``tab`` into ``out`` (S, t, B)."""
+    from ceph_tpu_torch.ops import _build
+    _build.launch("gf_matvec", "gf_matvec_launch", src.data_ptr(),
+                  tab.data_ptr(), pidx.data_ptr(), out.data_ptr(),
+                  src.shape[0], src.shape[1], out.shape[1], src.shape[2])
+
+
+def gf_work(s: int, k: int, t: int, b: int, table_bytes: int
+            ) -> tuple[float, str]:
+    """The bound of an (S, k, B) x (t, k) product: data read and output
+    written once, tables and pattern indices read once; 2 operations (a
+    multiply and an add) per (stripe, output, input, byte)."""
+    return bound(s * (k + t) * b + table_bytes + 4 * s, 2 * s * b * k * t)
+
+
+def _ec_operand(codec, workload: str, data, lost):
+    """The (t, k') matrix and the (S, k', B') device operand of one
+    encode_chunks or decode_chunks call: chunks, or a bitmatrix code's
+    packet rows; and the call itself on device data."""
+    import torch
+    from ceph_tpu_torch.ec.bitmatrix import BitmatrixCode
+    k, n = codec.get_data_chunk_count(), codec.get_chunk_count()
+    w = codec.w if isinstance(codec, BitmatrixCode) else 1
+    if workload == "encode":
+        mat, src = codec._coding(), data
+
+        def call():
+            return codec.encode_chunks(data)
+    else:
+        full = torch.cat([data, codec.encode_chunks(data)], dim=1)
+        chosen = [i for i in range(n) if i not in lost][:k]
+        src = full[:, chosen].contiguous()
+        mat = codec._recovery(tuple(chosen), tuple(lost))
+
+        def call():
+            return codec.decode_chunks(chosen, src, list(lost))
+    s, kk, b = src.shape
+    return mat, src.reshape(s, kk * w, b // w).contiguous(), call
+
+
+def ec_phase(dev, tag: str, same, check_rng) -> list[dict]:
+    """The EC codec phase: (a) the corpus on the card, every recoverable
+    erasure pattern decoded; (b) tools.ec_benchmark's encode and decode at
+    EC_BENCH's shapes, sampled stripes against the numpy oracle; with the
+    launch counts at 0 before (a) and read after (b).  Then (c) at each
+    shape the gf_matvec launches of one call by graph replay, held against
+    the plain version on the card, beside their bound, the codec call on
+    device data, and the native C encode on the same host data.  Returns
+    one row per shape."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from ceph_tpu_torch.ec import registry_instance
+    from ceph_tpu_torch.native import ec_encode_native
+    from ceph_tpu_torch.ops import _build
+    from ceph_tpu_torch.ops import gf_kernel as gk
+    from ceph_tpu_torch.tools import ec_benchmark as eb
+    from ceph_tpu_torch.tools import ec_non_regression as enr
+
+    reg = registry_instance()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    for name, plugin, profile in enr.CONFIGS:
+        codec = enr.codec_for(plugin, profile, "cuda", dev)
+        before = _build.LAUNCHES["gf_matvec"]
+        enc = enr.encode_all(codec)
+        n, m = codec.get_chunk_count(), codec.get_coding_chunk_count()
+        stored = np.load(os.path.join(enr.DEFAULT_DIR, f"{name}.npz"))
+        check(all(enc[i] == stored[f"chunk_{i}"].tobytes()
+                  for i in range(n)),
+              f"corpus {name}: {n} chunks byte-equal to the golden corpus, "
+              f"encoded on the card in "
+              f"{_build.LAUNCHES['gf_matvec'] - before} gf_matvec launches")
+        done, refused, wrong = 0, 0, []
+        for e in range(1, m + 1):
+            for lost in itertools.combinations(range(n), e):
+                try:
+                    dec = codec.decode(set(range(n)), {
+                        i: enc[i] for i in range(n) if i not in lost})
+                except IOError:
+                    refused += 1
+                    continue
+                done += 1
+                if any(dec[i] != enc[i] for i in range(n)):
+                    wrong.append(lost)
+        check(not wrong and done > 0
+              and (refused == 0 or plugin in ("shec", "lrc")),
+              f"corpus {name}: {done} erasure patterns of 1..{m} chunks "
+              f"decoded on the card to the original chunks ({refused} "
+              f"reported unrecoverable)")
+    runs = []
+    for label, plugin, profile, size, batch, workload, erasures in EC_BENCH:
+        codec = reg.factory(plugin, dict(profile), dev)
+        oracle = reg.factory(plugin, dict(profile, runtime="cpu"))
+        if workload == "encode":
+            run_ = eb.bench_encode(codec, size, EC_CALLS * batch, batch)
+        else:
+            run_ = eb.bench_decode(codec, size, EC_CALLS * batch, batch,
+                                   erasures, False)
+        sample = check_rng.choice(run_.out.shape[0], 16, replace=False)
+        want = oracle.encode_chunks(run_.data[sample])
+        if workload == "decode":
+            want = np.concatenate([run_.data[sample], want],
+                                  axis=1)[:, list(run_.lost)]
+        check(np.array_equal(run_.out[sample], want),
+              f"ec_benchmark {label}: 16 sampled stripes of the last call "
+              f"== the numpy oracle")
+        runs.append((label, codec, run_, workload, size, batch))
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"launches on the EC codec path: {launches}")
+    check(launches["gf_matvec"] > 0,
+          f"gf_matvec launched {launches['gf_matvec']} times on the EC "
+          f"codec path")
+
+    rows = []
+    for label, codec, run_, workload, size, batch in runs:
+        data = torch.from_numpy(run_.data).to(dev)
+        mat, src, call = _ec_operand(codec, workload, data, run_.lost)
+        s, kk, b = src.shape
+        t = mat.shape[0]
+        groups = gk.cut_tables(mat, dev)
+        check(all(len(parts) == 1 for _r0, _r1, parts in groups),
+              f"{label}: every table holds all {kk} inputs")
+        pidx = torch.zeros((s,), dtype=torch.int32, device=dev)
+        outs = [torch.empty((s, r1 - r0, b), dtype=torch.uint8, device=dev)
+                for r0, r1, _parts in groups]
+
+        def raw():
+            for (_r0, _r1, parts), o in zip(groups, outs):
+                launch_gf(parts[0][2], pidx, src, o)
+        raw()
+        plain = gk.apply_tables(groups, src, t, gk.gf_matvec_plain)
+        same("gf_matvec", torch.cat(outs, dim=1), plain,
+             f"{label}: gf_matvec on ({s},{kk},{b}) x ({t},{kk}), "
+             f"{len(groups)} launches == plain torch")
+        got = call()
+        check(torch.equal(got.reshape(plain.shape), plain),
+              f"{label}: the codec's call on card data == plain torch")
+        before = _build.LAUNCHES["gf_matvec"]
+        call()
+        per_call = _build.LAUNCHES["gf_matvec"] - before
+        g_, h_ = paired_times(raw, 10)
+        ms, host = statistics.median(g_), statistics.median(h_)
+        call_ms = graph_ms(call, 10)
+        table_bytes = sum(4 * parts[0][2].numel()
+                          for _r0, _r1, parts in groups)
+        b_ms, by = gf_work(s, kk, t, b, table_bytes)
+        check(ms >= b_ms, f"{label}: graph replay {ms:.4f} ms at or above "
+              f"its bound {b_ms:.4f} ms")
+        host_src = src.cpu().numpy()
+        nat = ec_encode_native(mat, host_src)
+        check(np.array_equal(nat, plain.cpu().numpy()),
+              f"{label}: native C encode == plain torch")
+        nat_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            ec_encode_native(mat, host_src)
+            nat_ms.append((time.perf_counter() - t0) * 1e3)
+        nat_ms = statistics.median(nat_ms)
+        host_parts = _tool_host_parts(codec, run_, workload, got)
+        mib = run_.data.nbytes / 2 ** 20
+        tool_mbs = run_.kib / 1024 / run_.elapsed
+        row = {"label": label, "shape": f"({s},{kk},{b}) x ({t},{kk})",
+               "tables": len(groups), "launches_per_call": per_call,
+               "ms": ms, "host_ms": host, "bound_ms": b_ms, "bound_by": by,
+               "call_ms": call_ms, "tool_mb_s": tool_mbs,
+               "tool_s": run_.elapsed, "tool_kib": run_.kib,
+               "native_ms": nat_ms, "native_mb_s": mib / nat_ms * 1e3,
+               **host_parts}
+        rows.append(row)
+        print(f"{label:34s} {row['shape']:26s} gf_matvec x{len(groups)} "
+              f"{ms:.4f} ms (graph replay; {host:.4f} issued)  bound "
+              f"{b_ms:.4f} ms ({by})  codec call on card data {call_ms:.4f}"
+              f" ms, {per_call} launches a call  {tag}")
+        print(f"{label:34s} ec_benchmark {tool_mbs:.1f} MB/s ({run_.kib} "
+              f"KiB in {run_.elapsed:.4f} s, {EC_CALLS} calls of {batch} "
+              f"stripes, host copies included)  native C encode "
+              f"{row['native_mb_s']:.1f} MB/s ({nat_ms:.3f} ms on "
+              f"{mib:.0f} MiB, one core)  {tag}")
+        print(f"{label:34s} a tool call, {run_.elapsed / EC_CALLS * 1e3:.3f}"
+              f" ms: host gather {host_parts['gather_ms']:.3f} ms, copy to "
+              f"the card {host_parts['h2d_ms']:.3f}, the call on card data "
+              f"{call_ms:.3f}; the last call's copy back "
+              f"{host_parts['d2h_ms']:.3f} ms  {tag}")
+    return rows
+
+
+def _tool_host_parts(codec, run_, workload: str, out) -> dict:
+    """What an ec_benchmark call spends outside the card, by the host clock
+    (median of 3): the decode's host gather of the survivors
+    (``full[:n, chosen]``, 0 for an encode), the copy of the call's input
+    to the card, and the copy of its output (``out``, on the card) back."""
+    import numpy as np
+    import torch
+
+    data = run_.data
+    k, n = codec.get_data_chunk_count(), codec.get_chunk_count()
+    full = np.concatenate([data, data[:, :n - k]], axis=1)
+    chosen = [i for i in range(n) if i not in run_.lost][:k]
+
+    def med(fn):
+        ts = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ts)
+    return {
+        "gather_ms": med(lambda: full[:, chosen]) if workload == "decode"
+        else 0.0,
+        "h2d_ms": med(lambda: torch.from_numpy(data).to(out.device)),
+        "d2h_ms": med(lambda: out.cpu())}
+
+
 def run() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -519,6 +794,8 @@ def run() -> None:
     from ceph_tpu_torch.crush.mapper_torch import BatchMapper
     from ceph_tpu_torch.crush.mapper_ref import crush_do_rule
     from ceph_tpu_torch.crush.types import CRUSH_ITEM_NONE as NONE
+    from ceph_tpu_torch.crush.types import (
+        RULE_CHOOSE_FIRSTN, RULE_EMIT, RULE_TAKE, Rule, RuleStep)
     from ceph_tpu_torch.gf.matrix import gen_cauchy1_matrix, recovery_matrix
     from ceph_tpu_torch.ops import _build
     from ceph_tpu_torch.ops import gf_kernel as gk
@@ -1005,6 +1282,20 @@ def run() -> None:
     else:
         print("CRUSH call under torch.profiler: device busy share not "
               "measured (the trace holds no device time)")
+    # the call's host time in this process: its spread over more reps, the
+    # same with the garbage collector off, and the host's state
+    crush_on = sorted(host_times(lambda: fm.run(xs, rw, NUMREP), 3, 31))
+    gc.disable()
+    try:
+        crush_off = sorted(host_times(lambda: fm.run(xs, rw, NUMREP), 3, 31))
+    finally:
+        gc.enable()
+    print(f"CRUSH call, 31 reps of 3: min {crush_on[0]:.4f} median "
+          f"{crush_on[15]:.4f} max {crush_on[-1]:.4f} ms; gc off: min "
+          f"{crush_off[0]:.4f} median {crush_off[15]:.4f} max "
+          f"{crush_off[-1]:.4f} ms; {len(gc.get_objects())} objects tracked "
+          f"by gc; load average {' '.join(f'{v:.2f}' for v in os.getloadavg())}"
+          f" on {len(os.sched_getaffinity(0))} cores  {tag}")
 
     # each kernel at its main-path shape: the EC encode, and the stage-1
     # columns (R = numrep + 1) over every PG.  Kernel times are raw launches
@@ -1026,11 +1317,6 @@ def run() -> None:
     g_froot = sc.card_group_lanes(N_PGS * R1, S_wide, dev)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     threads1 = sc.consume_threads(N_PGS, sms)
-
-    def launch_gf(tab_, pidx_, src, out):
-        _build.launch("gf_matvec", "gf_matvec_launch", src.data_ptr(),
-                      tab_.data_ptr(), pidx_.data_ptr(), out.data_ptr(),
-                      src.shape[0], src.shape[1], out.shape[1], src.shape[2])
 
     raw = {
         "gf_matvec": lambda: launch_gf(tab_enc, zeros, data, enc_out),
@@ -1078,8 +1364,7 @@ def run() -> None:
     }
 
     def gf_bound(t_, tab_):
-        return bound(STRIPES * (K + t_) * CHUNK + 4 * tab_.numel()
-                     + 4 * STRIPES, 2 * STRIPES * CHUNK * K * t_)
+        return gf_work(STRIPES, K, t_, CHUNK, 4 * tab_.numel())
 
     work = {
         "gf_matvec": gf_bound(M, tab_enc),
@@ -1271,6 +1556,48 @@ def run() -> None:
               f"replay): " + "  ".join(f"T={th} {ms:.4f} ms"
                                        for th, ms in sweep.items())
               + f"  {tag}")
+    print("== 7. EC codecs; a fast-path rule of 65 replicas")
+    # GF at the EC codec path's shapes, in gf_matvec's row
+    row_of["gf_matvec"]["ec_shapes"] = ec_phase(dev, tag, same, rng)
+    # numrep 65, past the consume kernel's unrolled instances: driven
+    # through BatchMapper with the counts at 0, it launches the consume
+    # kernel (the generic instance) and agrees with crush_do_rule; the
+    # kernel is held against its plain version on that rule's own columns
+    nmap, _nroot, _nrid = build_flat_map(WIDE_NUMREP_OSDS)
+    nrid = nmap.add_rule(Rule(
+        ruleset=nmap.max_rules, type=1, min_size=1, max_size=WIDE_NUMREP,
+        steps=[RuleStep(RULE_TAKE, -1, 0),
+               RuleStep(RULE_CHOOSE_FIRSTN, WIDE_NUMREP, 0),
+               RuleStep(RULE_EMIT, 0, 0)]))
+    nrw = np.full(WIDE_NUMREP_OSDS, 0x10000, dtype=np.int64)
+    nrw[rng.choice(WIDE_NUMREP_OSDS, 8, replace=False)] = 0
+    nrw[rng.choice(WIDE_NUMREP_OSDS, 8, replace=False)] = 0x8000
+    nxs_np = xs_np[:WIDE_NUMREP_PGS]
+    _build.reset_launches()
+    wide_rows = BatchMapper(nmap).do_rule(nrid, nxs_np, WIDE_NUMREP, nrw)
+    torch.cuda.synchronize()
+    numrep_launches = dict(_build.LAUNCHES)
+    print(f"choose firstn {WIDE_NUMREP}: launches {numrep_launches}")
+    check(wide_rows.is_cuda and numrep_launches["firstn_consume"] >= 1
+          and numrep_launches["straw2_root"]
+          + numrep_launches["straw2_froot"] >= 1,
+          f"choose firstn {WIDE_NUMREP} runs on the card through the root "
+          f"and consume kernels")
+    check(np.array_equal(wide_rows.cpu().numpy(), rows_array(
+        [crush_do_rule(nmap, nrid, int(x), WIDE_NUMREP,
+                       [int(v) for v in nrw])
+         for x in nxs_np], WIDE_NUMREP)),
+          f"choose firstn {WIDE_NUMREP} on {WIDE_NUMREP_OSDS} OSDs == "
+          f"crush_do_rule on {WIDE_NUMREP_PGS} PGs")
+    fm_n = FastMapper(detect(nmap, nrid))
+    nxs = torch.from_numpy(nxs_np.astype(np.int64)).to(dev)
+    nrw_t = torch.from_numpy(nrw).to(dev)
+    for R_ in (WIDE_NUMREP + 1, fm_n.fr.tries + WIDE_NUMREP):
+        _pos_n, ids_n = fm_n.cols.root_columns(nxs, nrw_t, R_)
+        hold_consume(ids_n, ids_n, nxs, nrw_t, WIDE_NUMREP, fm_n.fr.tries,
+                     f"numrep={WIDE_NUMREP} (the generic instance), "
+                     f"N={WIDE_NUMREP_PGS} R={R_}")
+
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -163,3 +163,32 @@ def test_consume_kernel_source_matches_plain(host_kernel, numrep, kind):
         np.testing.assert_array_equal(oh, ph.numpy())
         np.testing.assert_array_equal(ol, pl.numpy())
         np.testing.assert_array_equal(ovf, pov.numpy())
+
+
+@pytest.mark.parametrize("kind", ["partial", "flat"])
+@pytest.mark.parametrize("numrep", [65, 100])
+def test_consume_generic_instance_past_64_matches_plain(host_kernel, numrep,
+                                                        kind):
+    """The generic instance keeps its selections in its output columns, so
+    it takes any numrep: at 65 and 100, equal to the plain version's
+    selections and overflow flags over 3 random shapes each, with fewer
+    tries than the test above so that the plain ladder stays quick."""
+    for seed in range(3):
+        hw, lw, xs, rw, _tries = _case(1000 * numrep + seed, numrep, kind)
+        tries = (2, 5, 12)[seed]
+        R, n = hw.shape
+        x32 = sc.xs_i32(torch.from_numpy(xs)).numpy()
+        oh = np.empty((numrep, n), np.int32)
+        ol = np.empty_like(oh)
+        ovf = np.empty(n, np.int32)
+        host_kernel.run_consume(
+            0, hw.ctypes.data, lw.ctypes.data, x32.ctypes.data,
+            rw.ctypes.data, rw.shape[0], R, n, numrep, tries,
+            oh.ctypes.data, ol.ctypes.data, ovf.ctypes.data,
+            sc.consume_threads(n, 132))
+        ph, pl, pov = sc.consume_columns_plain(
+            torch.from_numpy(hw), torch.from_numpy(lw), torch.from_numpy(xs),
+            torch.from_numpy(rw), numrep=numrep, tries=tries)
+        np.testing.assert_array_equal(oh, ph.numpy())
+        np.testing.assert_array_equal(ol, pl.numpy())
+        np.testing.assert_array_equal(ovf, pov.numpy())

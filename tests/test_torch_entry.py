@@ -37,12 +37,27 @@ def test_entry_matches_reference_entry():
     np.testing.assert_array_equal(parity.numpy(), np.asarray(jparity))
 
 
+#: modules the import check must reach, among every module it walks: one
+#: of each subpackage, the EC plugins and tools included
+PORT_MODULES = [
+    "ceph_tpu_torch.common.lockdep", "ceph_tpu_torch.ec.base",
+    "ceph_tpu_torch.ec.bitmatrix", "ceph_tpu_torch.ec.clay",
+    "ceph_tpu_torch.ec.isa", "ceph_tpu_torch.ec.jerasure",
+    "ceph_tpu_torch.ec.lrc", "ceph_tpu_torch.ec.registry",
+    "ceph_tpu_torch.ec.shec", "ceph_tpu_torch.native",
+    "ceph_tpu_torch.osd.ec_util", "ceph_tpu_torch.tools.ec_benchmark",
+    "ceph_tpu_torch.tools.ec_non_regression",
+    "ceph_tpu_torch.crush.mapper_torch", "ceph_tpu_torch.ops.gf_kernel"]
+
+
 def test_import_loads_neither_jax_nor_reference():
     code = (
         "import pkgutil, sys, ceph_tpu_torch\n"
         "for m in pkgutil.walk_packages(ceph_tpu_torch.__path__, "
         "'ceph_tpu_torch.'):\n"
         "    __import__(m.name)\n"
+        f"missing = sorted(set({PORT_MODULES!r}) - set(sys.modules))\n"
+        "assert not missing, missing\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' "
         "or n.startswith('jax.') or n == 'ceph_tpu' "
         "or n.startswith('ceph_tpu.'))\n"
@@ -60,9 +75,12 @@ def test_default_device_without_cuda_raises(monkeypatch):
     from ceph_tpu_torch.crush.builder import build_two_level_map
     from ceph_tpu_torch.crush.fastpath import FastMapper, detect
     from ceph_tpu_torch.crush.mapper_torch import BatchMapper
+    from ceph_tpu_torch.ec import registry_instance
     from ceph_tpu_torch.gf import gen_cauchy1_matrix
-    from ceph_tpu_torch.ops.gf_kernel import ec_decode_batched, make_encoder
-    from ceph_tpu_torch.tools import crush_test
+    from ceph_tpu_torch.ops.gf_kernel import (
+        ec_decode_batched, ec_encode, make_encoder)
+    from ceph_tpu_torch.tools import crush_test, ec_benchmark
+    from ceph_tpu_torch.tools import ec_non_regression
 
     _no_cuda(monkeypatch)
     m, _root, rid = build_two_level_map(2, 2)
@@ -75,6 +93,11 @@ def test_default_device_without_cuda_raises(monkeypatch):
                                   np.zeros((1, 4, 8), np.uint8), k=4, t=2),
         lambda: BatchMapper(m),
         lambda: crush_test.main(["--hosts", "2", "--per-host", "2"]),
+        lambda: ec_encode(gen_cauchy1_matrix(4, 2)[4:],
+                          np.zeros((1, 4, 8), np.uint8)),
+        lambda: registry_instance().factory("jerasure", {}),
+        lambda: ec_benchmark.main(["--iterations", "1"]),
+        lambda: ec_non_regression.main(["--check"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -245,3 +245,143 @@ def test_builder_copy_matches_reference():
             tb_ = tb.make_bucket(-1, alg, 1, items, wts, ver)
             jb_ = jb.make_bucket(-1, alg, 1, items, wts, ver)
             assert vars(tb_) == vars(jb_), (alg, ver)
+
+
+def _racks(n_racks):
+    """root -> n_racks racks -> 2 hosts -> 2 OSDs each, straw2, unit
+    weights (types: 0 osd, 1 host, 2 rack, 3 root); returns the map and
+    the rack ids."""
+    m = jt.CrushMap()
+    racks, osd, bid = [], 0, -2
+    for _r in range(n_racks):
+        hosts = []
+        for _h in range(2):
+            m.add_bucket(jb.make_bucket(bid, jt.CRUSH_BUCKET_STRAW2, 1,
+                                        [osd, osd + 1], [0x10000] * 2))
+            hosts.append(bid)
+            osd, bid = osd + 2, bid - 1
+        m.add_bucket(jb.make_bucket(bid, jt.CRUSH_BUCKET_STRAW2, 2, hosts,
+                                    [0x20000] * 2))
+        racks.append(bid)
+        bid -= 1
+    m.add_bucket(jb.make_bucket(-1, jt.CRUSH_BUCKET_STRAW2, 3, racks,
+                                [0x40000] * n_racks))
+    m.max_devices = osd
+    return m, racks
+
+
+def _probe(name):
+    """(reference map, rule, result_max, reweight, number of x) for the
+    rule-engine probes where a CHOOSE step runs over several working-set
+    entries or a rule has several take/emit blocks."""
+    if name == "firstn_over_racks":
+        m, _racks_ = _racks(2)
+        rid = _rule(m, 1, 1, [(jt.RULE_TAKE, -1, 0),
+                              (jt.RULE_CHOOSE_FIRSTN, 2, 2),
+                              (jt.RULE_CHOOSELEAF_FIRSTN, 0, 1),
+                              (jt.RULE_EMIT, 0, 0)])
+        return m, rid, 3, [0x10000] * 8, 16
+    if name == "indep_over_racks":
+        m, _racks_ = _racks(3)
+        rid = _rule(m, 1, 3, [(jt.RULE_TAKE, -1, 0),
+                              (jt.RULE_CHOOSE_INDEP, 2, 2),
+                              (jt.RULE_CHOOSELEAF_INDEP, 2, 1),
+                              (jt.RULE_EMIT, 0, 0)])
+        rw = [0x10000] * 12
+        rw[0] = rw[1] = rw[6] = 0
+        return m, rid, 3, rw, 512
+    if name == "emit_per_rack":
+        m, racks = _racks(2)
+        rid = _rule(m, 1, 1, [(jt.RULE_TAKE, racks[0], 0),
+                              (jt.RULE_CHOOSELEAF_FIRSTN, 0, 1),
+                              (jt.RULE_EMIT, 0, 0),
+                              (jt.RULE_TAKE, racks[1], 0),
+                              (jt.RULE_CHOOSELEAF_FIRSTN, 0, 1),
+                              (jt.RULE_EMIT, 0, 0)])
+        return m, rid, 3, [0x10000] * 8, 64
+    if name == "indep_hole":
+        # three positions over two racks: one position of the first step
+        # is a NONE hole, which the second step must skip
+        m, racks = _racks(2)
+        rid = _rule(m, 1, 3, [(jt.RULE_TAKE, -1, 0),
+                              (jt.RULE_CHOOSE_INDEP, 3, 2),
+                              (jt.RULE_CHOOSELEAF_INDEP, 1, 1),
+                              (jt.RULE_EMIT, 0, 0),
+                              (jt.RULE_TAKE, racks[1], 0),
+                              (jt.RULE_CHOOSELEAF_INDEP, 1, 1),
+                              (jt.RULE_EMIT, 0, 0)])
+        return m, rid, 4, [0x10000] * 8, 64
+    if name == "numrep_below_zero":
+        # numrep -5 with result_max 3: the step chooses nothing and leaves
+        # the working set empty, so the emit that follows emits nothing
+        m, racks = _racks(2)
+        rid = _rule(m, 1, 1, [(jt.RULE_TAKE, -1, 0),
+                              (jt.RULE_CHOOSE_FIRSTN, -5, 2),
+                              (jt.RULE_EMIT, 0, 0),
+                              (jt.RULE_TAKE, racks[0], 0),
+                              (jt.RULE_CHOOSELEAF_FIRSTN, 0, 1),
+                              (jt.RULE_EMIT, 0, 0)])
+        return m, rid, 3, [0x10000] * 8, 32
+    raise KeyError(name)
+
+
+PROBES = ["firstn_over_racks", "indep_over_racks", "emit_per_rack",
+          "indep_hole", "numrep_below_zero"]
+
+
+@pytest.mark.parametrize("probe", PROBES)
+def test_multi_entry_rules_match_oracle(probe):
+    """Every x of each probe, row for row against the scalar oracle: each
+    working-set entry fills at most result_max - osize slots, firstn holes
+    are compacted before the row is cut, an indep NONE entry fills no
+    position, and EMIT appends only the placed items.  Held against
+    crush_do_rule, not the JAX BatchMapper."""
+    jmap, rid, result_max, rw, n_x = _probe(probe)
+    tmap = crush_map_from_reference(jmap)
+    xs = np.arange(n_x, dtype=np.uint32)
+    got = BatchMapper(tmap, device="cpu").do_rule(
+        rid, xs, result_max, np.asarray(rw, dtype=np.int64)).numpy()
+    for row, x in zip(got, xs):
+        oracle = tref.crush_do_rule(tmap, rid, int(x), result_max, rw)
+        assert oracle == jref_do_rule(jmap, rid, int(x), result_max, rw)
+        want = oracle + [CRUSH_ITEM_NONE] * (result_max - len(oracle))
+        assert [int(v) for v in row] == want, (x, list(row), oracle)
+
+
+def jref_do_rule(jmap, rid, x, result_max, rw):
+    from ceph_tpu.crush.mapper_ref import crush_do_rule
+    return crush_do_rule(jmap, rid, x, result_max, rw)
+
+
+def test_fast_path_numrep_65_runs_the_consume_ladder(monkeypatch):
+    """A fast-path rule of 65 replicas (past the consume kernel's eight
+    unrolled instances) goes through consume_columns like any other numrep
+    and equals crush_do_rule, as the reference computes any numrep;
+    run_columns is called directly on CPU tensors, so the wrapper runs its
+    plain version here."""
+    from ceph_tpu_torch.crush import fastpath
+    numrep = 65
+    jmap, _root, _rid = jb.build_flat_map(256)
+    rid = _rule(jmap, 3, 1, [(jt.RULE_TAKE, -1, 0),
+                             (jt.RULE_CHOOSE_FIRSTN, numrep, 0),
+                             (jt.RULE_EMIT, 0, 0)])
+    tmap = crush_map_from_reference(jmap)
+    rw = [0x10000] * 256
+    rw[3], rw[40] = 0, 0x8000
+    fm = fastpath.FastMapper(fastpath.detect(tmap, rid), device="cpu")
+    calls = []
+    consume = fastpath.consume_columns
+
+    def counted(*a, **k):
+        calls.append(k["numrep"])
+        return consume(*a, **k)
+    monkeypatch.setattr(fastpath, "consume_columns", counted)
+    xs = _xs(65, 8)
+    got = fm.run_columns(xs, np.asarray(rw, dtype=np.int64), 70).numpy()
+    assert calls and set(calls) == {numrep}
+    assert got.shape == (8, 70)
+    for row, x in zip(got, xs):
+        oracle = tref.crush_do_rule(tmap, rid, int(x), 70, rw)
+        assert len(oracle) > 64
+        want = oracle + [CRUSH_ITEM_NONE] * (70 - len(oracle))
+        assert [int(v) for v in row] == want
