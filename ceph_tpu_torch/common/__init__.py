@@ -1,5 +1,12 @@
-"""Foundation pieces the port's layers share.
+"""Foundation pieces the port's layers share (copies of the reference's
+common/ modules, pure Python, with their imports rewired):
 
-lockdep  named locks and runtime lock-order checking (a copy of the
-         reference's common/lockdep.py: pure Python, no device code).
+lockdep        named locks and runtime lock-order checking
+logging        per-subsystem leveled dout
+failpoint      named fault-injection points of the device boundary
+tracing        span trees, sampling and slow-trace retention
+config         the option table the ported modules read, with observers
+perf_counters  counter sets, admin_socket  named admin commands
+context        CephTpuContext: config, counters, admin socket and the two
+               dispatch engines on one torch device; default_context()
 """

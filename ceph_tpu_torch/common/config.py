@@ -1,0 +1,227 @@
+"""Typed configuration registry with observers.
+
+The reference keeps one declarative option table (src/common/options.cc, 7510
+lines of Option{name, type, level, default, description, flags}) consumed by
+md_config_t (common/config.h:152-223) with observer-based hot reload
+(common/config_obs.h).  Sources are layered: compiled defaults < config file <
+mon config-db < env < CLI < runtime `config set`.  This module mirrors that:
+a declarative OPTIONS table, a Config object with layered sources, and
+observers notified on runtime changes.
+
+The port's table holds the options its modules read: the dispatch engine's
+coalescing, depth and fault knobs, the failpoint spec, telemetry's and
+tracing's knobs.  A later slice adds the options of the layers it ports.
+"""
+
+from __future__ import annotations
+
+import json
+from dataclasses import dataclass
+
+from ceph_tpu_torch.common import lockdep
+
+OPT_INT = "int"
+OPT_STR = "str"
+OPT_BOOL = "bool"
+OPT_FLOAT = "float"
+
+LEVEL_BASIC = "basic"
+LEVEL_ADVANCED = "advanced"
+LEVEL_DEV = "dev"
+
+_CASTS = {
+    OPT_INT: int,
+    OPT_FLOAT: float,
+    OPT_STR: str,
+    OPT_BOOL: lambda v: (v if isinstance(v, bool)
+                         else str(v).lower() in ("true", "1", "yes", "on")),
+}
+
+
+@dataclass(frozen=True)
+class Option:
+    name: str
+    type: str
+    default: object
+    description: str = ""
+    level: str = LEVEL_ADVANCED
+    runtime: bool = True      # changeable without restart (flag RUNTIME)
+    see_also: tuple = ()
+
+    def cast(self, value):
+        try:
+            return _CASTS[self.type](value)
+        except (TypeError, ValueError):
+            raise ValueError(
+                f"option {self.name}: {value!r} is not a valid {self.type}")
+
+
+#: The central option table (options.cc analog).  Components register theirs
+#: at import via register_options().
+OPTIONS: dict[str, Option] = {}
+
+
+def register_options(opts: list[Option]) -> None:
+    for o in opts:
+        if o.name in OPTIONS and OPTIONS[o.name] != o:
+            raise ValueError(f"conflicting re-registration of {o.name}")
+        OPTIONS[o.name] = o
+
+
+register_options([
+    Option("tracing_sample_rate", OPT_FLOAT, 0.0,
+           "head-sampling probability for client ops (0 = trace only "
+           "explicitly opened traces; 1 = trace everything)"),
+    Option("tracing_slow_threshold", OPT_FLOAT, 0.5,
+           "root-span seconds at/above which a completed trace is "
+           "promoted into the slow-trace ring (tail retention) instead "
+           "of aging out with the rest"),
+    Option("tracing_slow_ring", OPT_INT, 64,
+           "completed slow traces retained per process"),
+    Option("kernel_coalesce_max_stripes", OPT_INT, 2048,
+           "stripes per coalesced device call: the dispatch engine "
+           "stacks concurrent EC/CRUSH requests on the batch axis and "
+           "flushes when the batch reaches this many rows"),
+    Option("kernel_coalesce_max_delay_us", OPT_FLOAT, 250.0,
+           "microseconds a queued kernel request may wait for "
+           "coalescing company while the pipeline is busy; an idle "
+           "engine always flushes immediately, so single-op latency "
+           "never pays this"),
+    Option("kernel_dispatch_depth", OPT_INT, 2,
+           "device calls in flight per dispatch engine (2 = double "
+           "buffering: h2d of batch N+1 overlaps compute of batch N)"),
+    Option("kernel_failpoints", OPT_STR, "",
+           "armed device-runtime failpoints (common/failpoint.py): "
+           "'name=mode[;name=mode...]' where name is a boundary site "
+           "optionally channel-qualified (dispatch.launch:ec_encode) "
+           "and mode is always|prob:P|oneshot|nth:K|off; empty "
+           "disarms everything; the failpoint set/clear/ls admin "
+           "commands drive the same registry"),
+    Option("kernel_fault_max_retries", OPT_INT, 2,
+           "device re-attempts per coalesced batch after a transient "
+           "device failure before the batch fails over to the host "
+           "oracle (or fans its error); each retry waits an "
+           "exponentially growing jittered backoff"),
+    Option("kernel_fault_backoff_ms", OPT_FLOAT, 5.0,
+           "base retry backoff in milliseconds: attempt i waits "
+           "base * 2^i scaled by uniform jitter in [0.5, 1.0)"),
+    Option("kernel_fault_backoff_max_ms", OPT_FLOAT, 200.0,
+           "cap on a single retry backoff wait"),
+    Option("kernel_fault_breaker_threshold", OPT_INT, 3,
+           "consecutive device-path batch failures (retries "
+           "exhausted) on one kernel channel before its circuit "
+           "breaker opens and batches route through the bit-exact "
+           "host oracle while a background probe retries the device"),
+    Option("kernel_fault_probe_interval", OPT_FLOAT, 0.5,
+           "seconds between background device-path probes while a "
+           "channel breaker is open; a successful probe closes the "
+           "breaker and traffic returns to the device"),
+    Option("kernel_fault_thread_restarts", OPT_INT, 4,
+           "times a dead dispatch/completion thread is restarted "
+           "per engine (in-flight batches re-fan to the replacement); "
+           "past the budget the engine is wedged: every waiter gets "
+           "a loud EngineWedgedError and flush() raises"),
+    Option("kernel_profile_ring", OPT_INT, 256,
+           "recent per-batch pipeline-profile records retained per "
+           "dispatch engine (the dump_pipeline_profile ring); "
+           "aggregated phase histograms are unbounded-time regardless"),
+    Option("kernel_fence_for_timing", OPT_BOOL, False,
+           "fence (synchronize a CUDA event) each instrumented kernel "
+           "call so telemetry latency samples are real device time; "
+           "serializes the dispatch pipeline, so keep off on hot paths"),
+    Option("kernel_tenant_ledger_enabled", OPT_BOOL, True,
+           "apportion each coalesced batch's device busy integral "
+           "(compute x devices) to its requests' cost_tags by stripe "
+           "share and accumulate the per-tenant x engine x channel "
+           "device-time ledger (dump_tenant_usage / the MMgrReport "
+           "tenant_usage tail / ceph_tenant_* prometheus families); "
+           "measurement-only — scheduling never reads it"),
+    Option("kernel_tenant_ledger_max_tenants", OPT_INT, 1024,
+           "distinct tenants the device-time ledger tracks before new "
+           "tenants fold into the _overflow bucket (a tenant-name "
+           "flood cannot grow the table without bound; overflow work "
+           "stays counted, so conservation holds)"),
+    Option("log_level", OPT_INT, 1, "default subsystem log level"),
+])
+
+
+class Config:
+    """Layered config with observers (md_config_t analog)."""
+
+    #: source precedence, low to high (config.h "sources" semantics)
+    SOURCES = ("default", "file", "mon", "env", "cli", "runtime")
+
+    def __init__(self, options: dict[str, Option] | None = None):
+        self._options = options if options is not None else OPTIONS
+        # re-entrant: set() and rm() read the effective value under it
+        self._lock = lockdep.make_lock("Config::lock")
+        self._values: dict[str, dict[str, object]] = {}  # name -> src -> val
+        self._observers: dict[str, list] = {}            # name -> callbacks
+
+    def get(self, name: str):
+        with self._lock:
+            opt = self._lookup(name)
+            layers = self._values.get(name, {})
+            for src in reversed(self.SOURCES):
+                if src in layers:
+                    return layers[src]
+            return opt.default
+
+    def set(self, name: str, value, source: str = "runtime") -> None:
+        if source not in self.SOURCES:
+            raise ValueError(f"unknown config source {source!r}")
+        with self._lock:
+            opt = self._lookup(name)
+            if source == "runtime" and not opt.runtime:
+                raise ValueError(
+                    f"option {name} cannot change at runtime (STARTUP flag)")
+            old = self.get(name)
+            self._values.setdefault(name, {})[source] = opt.cast(value)
+            new = self.get(name)
+            observers = list(self._observers.get(name, []))
+        if new != old:
+            for cb in observers:
+                cb(name, new)
+
+    def rm(self, name: str, source: str) -> None:
+        """Retract a layer's value (the mon config-db analog of
+        `ceph config rm`); observers fire if the effective value moves."""
+        with self._lock:
+            self._lookup(name)
+            old = self.get(name)
+            layers = self._values.get(name, {})
+            layers.pop(source, None)
+            new = self.get(name)
+            observers = list(self._observers.get(name, []))
+        if new != old:
+            for cb in observers:
+                cb(name, new)
+
+    def load_file(self, path: str) -> None:
+        """JSON config file (the ceph.conf layer)."""
+        with open(path) as f:
+            for k, v in json.load(f).items():
+                self.set(k, v, source="file")
+
+    def add_observer(self, name: str, callback) -> None:
+        """callback(name, new_value) on effective-value change
+        (config_obs.h analog)."""
+        with self._lock:
+            self._lookup(name)
+            self._observers.setdefault(name, []).append(callback)
+
+    def show(self) -> dict:
+        """Effective config (admin `config show`)."""
+        with self._lock:
+            return {name: self.get(name) for name in sorted(self._options)}
+
+    def diff(self) -> dict:
+        """Only values differing from defaults (admin `config diff`)."""
+        with self._lock:
+            return {name: self.get(name) for name in sorted(self._values)
+                    if self.get(name) != self._options[name].default}
+
+    def _lookup(self, name: str) -> Option:
+        if name not in self._options:
+            raise KeyError(f"unknown config option {name!r}")
+        return self._options[name]

@@ -1,9 +1,10 @@
 """Carry the reference package's state into the port as plain numpy/Python.
 
 A storage system's "weights" are its coding matrices (already numpy) and its
-CRUSH map.  These readers copy a map, or a fast-path rule, out of any object
-that carries the reference's attributes (duck typing: nothing of the
-reference package is imported), so tests can feed both packages the same map.
+CRUSH map.  These readers copy a map, a fast-path rule, a codec's generator or
+a flat map's bucket operands out of any object that carries the reference's
+attributes (duck typing: nothing of the reference package is imported), so
+tests can feed both packages, and both dispatch engines, the same state.
 """
 
 from __future__ import annotations
@@ -69,3 +70,30 @@ def fast_rule_from_arrays(obj) -> FastRule:
         leaf_ids=arr(obj.leaf_ids, np.int32),
         leaf_w=arr(obj.leaf_w, np.int64),
         max_devices=int(obj.max_devices))
+
+
+def generator_from_reference(codec) -> np.ndarray:
+    """A copy of a reference codec's (k+m, k) uint8 generator matrix (its
+    ``generator``): the state the dispatch engine's encode and decode
+    channels compute with, so a test can hold the port's codec to it."""
+    g = np.array(codec.generator, dtype=np.uint8)
+    if g.ndim != 2 or g.shape[0] <= g.shape[1]:
+        raise ValueError(f"not a (k+m, k) generator: shape {g.shape}")
+    return g
+
+
+def flat_operands_from_reference(m, bucket_id: int):
+    """(ids int32, weights int64) of a straw2 bucket of devices in any map
+    carrying the reference's ``buckets`` list (``bucket(id)`` lookup by
+    -1-id): the operands of ``submit_flat_firstn``."""
+    b = m.buckets[-1 - int(bucket_id)]
+    if b is None or any(int(i) < 0 for i in b.items):
+        raise ValueError(f"bucket {bucket_id} is not a bucket of devices")
+    return (np.array([int(i) for i in b.items], dtype=np.int32),
+            np.array([int(w) for w in b.item_weights], dtype=np.int64))
+
+
+def reweight_vector(weights) -> np.ndarray:
+    """A reweight vector (16.16 per device; a list, numpy or JAX array) as
+    the int64 numpy the crush channels take."""
+    return np.array(np.asarray(weights), dtype=np.int64).reshape(-1)

@@ -307,7 +307,26 @@ class FastMapper:
                     block: int = DEFAULT_BLOCK) -> torch.Tensor:
         """``run`` through the column wrappers (the kernels, for tensors on
         the card): winner columns and the consume ladder in their (R, N)
-        layout.
+        layout (``ladder_columns``), then the rows NONE-compacted."""
+        xs = _as_xs(xs, self.device)
+        reweight = _as_reweight(reweight, self.device)
+        n = xs.shape[0]
+        numrep = self._numrep(result_max)
+        self.last_schedule = self._schedule()
+        if numrep <= 0:
+            return torch.full((n, result_max), NONE, dtype=torch.int32,
+                              device=self.device)
+        out_h, out_l = self.ladder_columns(xs, reweight, numrep, block)
+        res = out_l if self.fr.kind == "chooseleaf" else out_h
+        return self._finish(res.T, numrep, result_max)
+
+    def ladder_columns(self, xs: torch.Tensor, reweight: torch.Tensor,
+                       numrep: int, block: int = DEFAULT_BLOCK):
+        """The firstn ladder of ``numrep`` replicas over the winner
+        columns: (out_h, out_l), each (numrep, N) int32 in replica order
+        with NONE where a replica was abandoned after ``tries`` (not
+        compacted).  ``xs`` and ``reweight`` are int64 tensors on the
+        mapper's device.
 
         Bulk batches run a two-stage schedule: stage 1 computes only
         numrep+1 columns for every lane (covers lanes whose firstn ladder
@@ -317,14 +336,7 @@ class FastMapper:
         for a given x is identical either way — the ladder is
         deterministic in (x, columns) — so this is pure scheduling."""
         fr = self.fr
-        xs = _as_xs(xs, self.device)
-        reweight = _as_reweight(reweight, self.device)
         n = xs.shape[0]
-        numrep = self._numrep(result_max)
-        self.last_schedule = self._schedule()
-        if numrep <= 0:
-            return torch.full((n, result_max), NONE, dtype=torch.int32,
-                              device=self.device)
         Rf = fr.tries + numrep
         R0 = min(numrep + block, Rf)
 
@@ -342,27 +354,24 @@ class FastMapper:
 
         R1 = numrep + 1
         if n < self.TWO_STAGE_MIN or R1 >= R0:
-            out_h, out_l = attempt_full(xs, R0)
-        else:
-            oh1, ol1, ovf1 = attempt(xs, R1)
-            need = ovf1 != 0
-            n_need = int(need.sum())
-            self.last_schedule["stage2_lanes"] = n_need
-            if n_need > self.STAGE2_CAP:
-                out_h, out_l = attempt_full(xs, R0)
-            elif n_need == 0:
-                out_h, out_l = oh1, ol1
-            else:
-                # overflowing lanes first, stable, then fillers
-                order = torch.argsort((~need).to(torch.int8), stable=True)
-                idx_c = order[:self.STAGE2_CAP]
-                oh2, ol2 = attempt_full(xs[idx_c], R0)
-                sel = need[idx_c][None, :]
-                out_h, out_l = oh1.clone(), ol1.clone()
-                out_h[:, idx_c] = torch.where(sel, oh2, oh1[:, idx_c])
-                out_l[:, idx_c] = torch.where(sel, ol2, ol1[:, idx_c])
-        res = out_l if fr.kind == "chooseleaf" else out_h
-        return self._finish(res.T, numrep, result_max)
+            return attempt_full(xs, R0)
+        oh1, ol1, ovf1 = attempt(xs, R1)
+        need = ovf1 != 0
+        n_need = int(need.sum())
+        self.last_schedule["stage2_lanes"] = n_need
+        if n_need > self.STAGE2_CAP:
+            return attempt_full(xs, R0)
+        if n_need == 0:
+            return oh1, ol1
+        # overflowing lanes first, stable, then fillers
+        order = torch.argsort((~need).to(torch.int8), stable=True)
+        idx_c = order[:self.STAGE2_CAP]
+        oh2, ol2 = attempt_full(xs[idx_c], R0)
+        sel = need[idx_c][None, :]
+        out_h, out_l = oh1.clone(), ol1.clone()
+        out_h[:, idx_c] = torch.where(sel, oh2, oh1[:, idx_c])
+        out_l[:, idx_c] = torch.where(sel, ol2, ol1[:, idx_c])
+        return out_h, out_l
 
     def run_plain(self, xs, reweight, result_max: int,
                   block: int = DEFAULT_BLOCK) -> torch.Tensor:

@@ -493,3 +493,58 @@ def crush_do_rule(map: CrushMap, ruleno: int, x: int, result_max: int,
             wsize = 0
     return result
 
+
+# ---------------------------------------------------------------------------
+# flat firstn scalar oracle (ops.crush_kernel.flat_firstn twin)
+# ---------------------------------------------------------------------------
+
+def flat_firstn_ref(xs, ids, weights, reweight, *, numrep: int,
+                    tries: int = 51):
+    """Scalar twin of ``ops.crush_kernel.flat_firstn`` — the host-path
+    CRUSH oracle the dispatch engine's circuit breaker degrades to
+    when the device path is out.  Same semantics, same retry ladder
+    (r = rep + ftotal, abandon after ``tries`` failures), bit-for-bit:
+    returns ``[[osd, ...numrep] per x]`` with CRUSH_ITEM_NONE on
+    failure, matching the kernel's (N, numrep) int32 rows.
+
+    Pure stdlib scalars (the straw2 draw reuses
+    ``_bucket_straw2_choose``); no numpy, no torch — runnable while the
+    device runtime is exactly what failed.
+    """
+    ids = [int(i) for i in ids]
+    weights = [int(w) for w in weights]
+    reweight = [int(w) for w in reweight]
+    bucket = Bucket(id=-1, type=1, alg=CRUSH_BUCKET_STRAW2,
+                    items=ids, item_weights=weights)
+    n_rw = len(reweight)
+
+    def out_of(item: int, x: int) -> bool:
+        # the kernel's is_out: ids beyond the reweight vector (or
+        # negative) are out, full weight always in, zero always out,
+        # else the 16-bit hash coin flip
+        if item < 0 or item >= n_rw:
+            return True
+        w = reweight[item]
+        if w >= 0x10000:
+            return False
+        if w == 0:
+            return True
+        return not (crush_hash32_2(x, item) & 0xFFFF) < w
+
+    rows = []
+    for x in xs:
+        x = int(x) & 0xFFFFFFFF
+        row = [CRUSH_ITEM_NONE] * numrep
+        for rep in range(numrep):
+            ftotal = 0
+            while True:
+                item = _bucket_straw2_choose(
+                    bucket, x, rep + ftotal, None, 0)
+                if item not in row and not out_of(item, x):
+                    row[rep] = item
+                    break
+                ftotal += 1
+                if ftotal >= tries:
+                    break
+        rows.append(row)
+    return rows

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ceph_tpu_torch._device import resolve
+from ceph_tpu_torch.ops import telemetry
 from ceph_tpu_torch.ops.crush_kernel import (
     hash32_3, hash32_4, is_out, straw2_draws)
 
@@ -420,8 +421,21 @@ class BatchMapper:
                 torch.int32)
         fast = self._fastpath(ruleno)
         if fast is not None:
-            return fast.run(xs, reweight, result_max)
-        return self._run(ruleno, result_max, xs, reweight).to(torch.int32)
+            def run():
+                return fast.run(xs, reweight, result_max)
+        else:
+            def run():
+                return self._run(ruleno, result_max, xs, reweight).to(
+                    torch.int32)
+        # timed like the reference's jitted call ("crush_map"); x counts
+        # as the u32 it is, and the first call of a (rule, size, batch)
+        # signature counts as its miss
+        n = xs.shape[0]
+        return telemetry.timed_kernel(
+            "crush_map", run, batch=n,
+            bytes_in=n * 4 + reweight.shape[0] * 8,
+            bytes_out=n * result_max * 4,
+            signature=("crush", id(self), ruleno, result_max, n))
 
     # -- the rule interpreter (mapper.c:900-1105) -----------------------------
 

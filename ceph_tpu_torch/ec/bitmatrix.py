@@ -156,6 +156,11 @@ class BitmatrixCode(ErasureCode):
     """RAID-6 code defined by a (2w, k*w) GF(2) coding bitmatrix; chunks are
     reshaped into w packet rows and run through the byte-code product."""
 
+    #: recovery matrices here are PACKET-level ((t*w, k*w) over GF(2)
+    #: rows), incompatible with the base pattern table's (t, k) chunk
+    #: geometry — decodes stay on the synchronous path
+    supports_submit_decode = False
+
     TECHNIQUE = ""
     FIXED_W: int | None = None
 

@@ -1,8 +1,12 @@
-"""Device kernels of the port and their plain torch versions.
+"""Device kernels of the port, their plain torch versions, and the engine
+that batches calls to them.
 
 gf_kernel    GF(2^8) encode / recovery / heterogeneous decode (gf_matvec),
              tables cut to fit its shared memory (make_encoder, ec_encode).
-crush_kernel rjenkins hashes, crush_ln, straw2 draws, is_out (plain torch).
+crush_kernel rjenkins hashes, crush_ln, straw2 draws, is_out (plain torch);
+             flat_firstn (the plain loop, or the column kernels on the card).
 straw2_cuda  the CRUSH fast path's root, leaf and consume column kernels.
+dispatch     the coalescing dispatch engine and its EC/CRUSH channels.
+telemetry    kernel, dispatch, phase and tenant ledgers.
 _build       nvcc build of csrc/*.cu, ctypes binding, launch counts.
 """

@@ -11,7 +11,9 @@ Each C launcher takes ``c_void_p`` pointers (``tensor.data_ptr()``), ``c_int``
 sizes, ``c_float`` scalars and the stream as ``c_void_p``
 (``torch.cuda.current_stream().cuda_stream``), launches on that stream
 without synchronising, and returns ``cudaGetLastError()``; ``launch`` raises
-when that is not 0.
+``KernelLaunchError`` when that is not 0.  A failed build raises
+``KernelBuildError``.  The dispatch engine treats both as permanent: no
+retry, no host fallback.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made: the one
 place that shows which kernels a run went through.
@@ -67,6 +69,15 @@ LAUNCHES = {"gf_matvec": 0, "straw2_root": 0, "straw2_leaf": 0,
             "firstn_consume": 0, "straw2_froot": 0, "ln_f32_table": 0}
 
 _LOCK = lockdep.make_lock("ops._build")
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or refused a source, or the link failed."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A C launcher returned a CUDA error instead of launching."""
+
 _LIB: ctypes.CDLL | None = None
 
 
@@ -90,13 +101,14 @@ def _nvcc() -> str:
     cand = "/usr/local/cuda/bin/nvcc"
     if os.path.exists(cand):
         return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    raise KernelBuildError(
+        "nvcc not found: the CUDA kernels cannot be built")
 
 
 def _check(proc: subprocess.Popen, what: str) -> None:
     out, err = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {what} ({proc.returncode}):\n"
+        raise KernelBuildError(f"nvcc failed on {what} ({proc.returncode}):\n"
                            f"{out}\n{err}")
 
 
@@ -145,7 +157,11 @@ def lib() -> ctypes.CDLL:
     global _LIB
     with _LOCK:
         if _LIB is None:
-            so = ctypes.CDLL(build())
+            path = build()
+            try:
+                so = ctypes.CDLL(path)
+            except OSError as e:
+                raise KernelBuildError(f"cannot load {path}: {e}") from e
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(so, name)
                 fn.argtypes = argtypes
@@ -162,5 +178,6 @@ def launch(kernel: str, launcher: str, *args) -> None:
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(lib(), launcher)(*args, stream)
     if err != 0:
-        raise RuntimeError(f"{kernel}: CUDA launch failed with error {err}")
+        raise KernelLaunchError(
+            f"{kernel}: CUDA launch failed with error {err}")
     LAUNCHES[kernel] += 1

@@ -5,6 +5,8 @@ src/crush/mapper.c:900).  Here the same math is elementwise over a batch of x:
 the rjenkins hashes, ``crush_ln``, the straw2 draws and their first-max winner,
 and the ``is_out`` reweight test.  These are the plain versions the CUDA
 kernels (ops.straw2_cuda) are held against, and the whole CPU path.
+``flat_firstn`` (the dispatch engine's crush channel) runs them in the
+reference's while-loop on the CPU and the column kernels on the card.
 
 Bit-exactness contract: every function here matches the scalar oracle in
 ceph_tpu_torch.crush.mapper_ref exactly, including the 16.16 fixed-point straw2
@@ -19,10 +21,14 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
+from ceph_tpu_torch._device import resolve
+from ceph_tpu_torch.common import lockdep
 from ceph_tpu_torch.crush.hashfn import CRUSH_HASH_SEED
 from ceph_tpu_torch.crush.ln_table import lh_table, ll_table, rh_table
+from ceph_tpu_torch.crush.types import CRUSH_ITEM_NONE as NONE
 from ceph_tpu_torch.crush.types import S64_MIN
 
 _M32 = 0xFFFFFFFF
@@ -178,3 +184,103 @@ def is_out(reweight: torch.Tensor, item: torch.Tensor, x) -> torch.Tensor:
     h = hash32_2(x, item) & 0xFFFF
     keep_prob = h < w
     return oob | ~(keep_full | (~zero & keep_prob))
+
+
+# ---------------------------------------------------------------------------
+# flat firstn select: one straw2 bucket, n distinct replicas, retry ladder
+# ---------------------------------------------------------------------------
+
+
+def flat_firstn_plain(x: torch.Tensor, ids: torch.Tensor, weights: torch.Tensor,
+                      reweight: torch.Tensor, *, numrep: int,
+                      tries: int = 51) -> torch.Tensor:
+    """``flat_firstn`` in plain torch on x's device, step for step the
+    reference's while-loop (ceph_tpu/ops/crush_kernel.py:245): for replica
+    ``rep`` the draw uses r = rep + ftotal, a collision with an earlier
+    replica or an is_out rejection retries, and the replica is abandoned
+    after ``tries`` failures."""
+    n = x.shape[0]
+    out = torch.full((n, numrep), NONE, dtype=torch.int32, device=x.device)
+    for rep in range(numrep):
+        sel = torch.full((n,), NONE, dtype=torch.int32, device=x.device)
+        ftotal = torch.zeros((n,), dtype=torch.int64, device=x.device)
+        active = torch.ones((n,), dtype=torch.bool, device=x.device)
+        while bool(active.any()):
+            r = rep + ftotal
+            pos = straw2_choose_index(x, ids, r, weights)
+            item = ids[pos].to(torch.int32)
+            collide = (out == item[:, None]).any(dim=1)
+            bad = collide | is_out(reweight, item, x)
+            sel = torch.where(active & ~bad, item, sel)
+            ftotal = torch.where(active & bad, ftotal + 1, ftotal)
+            active = active & bad & (ftotal < tries)
+        out[:, rep] = sel
+    return out
+
+
+def _flat_mapper(ids: np.ndarray, weights: np.ndarray, tries: int,
+                 device: torch.device):
+    """The column mapper (crush.fastpath.FastMapper) of a flat straw2 root,
+    its tables on ``device``."""
+    from ceph_tpu_torch.crush.fastpath import FastMapper, FastRule
+    return FastMapper(FastRule(
+        kind="choose_flat", numrep_arg=0, tries=tries, vary_r=0,
+        root_ids=ids, root_w=weights, leaf_ids=None, leaf_w=None,
+        max_devices=0), device)
+
+
+def flat_firstn_columns(x: torch.Tensor, ids, weights, reweight, *,
+                        numrep: int, tries: int = 51) -> torch.Tensor:
+    """``flat_firstn`` through the winner columns of the flat root and the
+    consume ladder (``FastMapper.ladder_columns``): on the card, the
+    ``straw2_root`` kernel (or ``straw2_froot`` for 512-1024-item roots)
+    and ``firstn_consume``; on the CPU their plain versions.  The root's
+    tables and the reweight vector stay resident on x's device in the
+    CRUSH operand cache (``ops.dispatch.resident``), keyed by content.
+    The ladder's rows are not compacted: an abandoned replica stays a
+    NONE hole."""
+    from ceph_tpu_torch.ops.dispatch import resident
+    ids = np.asarray(ids, dtype=np.int32)
+    weights = np.asarray(weights, dtype=np.int64)
+    reweight = np.asarray(reweight, dtype=np.int64)
+    fm = resident(x.device, ("flat_root", tries, ids.tobytes(),
+                             weights.tobytes()),
+                  lambda: _flat_mapper(ids, weights, tries, x.device))
+    rw = resident(x.device, ("reweight", reweight.tobytes()), reweight)
+    xs = x.to(torch.int64) & 0xFFFFFFFF
+    out_h, _out_l = fm.ladder_columns(xs, rw, numrep)
+    return out_h.T.contiguous()
+
+
+def flat_firstn(x, ids, weights, reweight, *, numrep: int, tries: int = 51,
+                device=None) -> torch.Tensor:
+    """Batched CHOOSE_FIRSTN of ``numrep`` distinct devices from one straw2
+    bucket (the reference's ``ops.crush_kernel.flat_firstn``, mapper.c:460-648
+    on a flat map with modern tunables: r = rep + ftotal, abandoned after
+    ``tries`` failures).
+
+    x        : (N,) inputs (pps values), a tensor or host array
+    ids      : (S,) device ids in the bucket
+    weights  : (S,) 16.16 straw2 weights
+    reweight : (D,) 16.16 per-device reweight vector (is_out test)
+    returns  : (N, numrep) int32 device ids, NONE (0x7fffffff) on failure,
+               on x's device (a host array goes to ``device``, the card by
+               default).  A card tensor runs the column kernels
+               (``flat_firstn_columns``), a CPU tensor the plain loop.
+    """
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.asarray(x).astype(np.int64) & 0xFFFFFFFF
+                             ).to(resolve(device))
+    if numrep <= 0:
+        return torch.full((x.shape[0], max(numrep, 0)), NONE,
+                          dtype=torch.int32, device=x.device)
+    if x.is_cuda:
+        return flat_firstn_columns(x, ids, weights, reweight,
+                                   numrep=numrep, tries=tries)
+    dev = x.device
+    return flat_firstn_plain(
+        x.to(torch.int64) & 0xFFFFFFFF,
+        torch.as_tensor(np.asarray(ids, dtype=np.int32)).to(dev),
+        torch.as_tensor(np.asarray(weights, dtype=np.int64)).to(dev),
+        torch.as_tensor(np.asarray(reweight, dtype=np.int64)).to(dev),
+        numrep=numrep, tries=tries)

@@ -23,6 +23,14 @@ per coding matrix (``make_encoder``) or per decode call.
 
 Decode mirrors the reference's structure (ErasureCodeIsa.cc:150-310): a host-side
 inverted k x k sub-matrix, then the same batched product.
+
+Every encode and decode call is timed under ``ops.telemetry`` ("ec_encode",
+"ec_decode").  The reference counts jit retraces per call; eager torch
+compiles nothing per shape, so the counterpart is the set of distinct launch
+signatures each entry point has seen — (kernel instance, stripe count,
+trailing shape), ``_jit_entries`` for encode and ``_decode_jit_entries`` for
+decode (which adds the pattern table's rows).  The dispatch engine's pow-2
+stripe buckets bound both sets by the bucket table.
 """
 
 from __future__ import annotations
@@ -31,8 +39,9 @@ import numpy as np
 import torch
 
 from ceph_tpu_torch._device import resolve
+from ceph_tpu_torch.common import lockdep
 from ceph_tpu_torch.gf.tables import bit_matrix, mul_table
-from ceph_tpu_torch.ops import _build
+from ceph_tpu_torch.ops import _build, telemetry
 
 
 # ---------------------------------------------------------------------------
@@ -203,6 +212,40 @@ def gf_matvec(tab: torch.Tensor, pidx: torch.Tensor, data: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# launch signatures (the reference's jit compile-cache counts)
+# ---------------------------------------------------------------------------
+
+_SIG_LOCK = lockdep.make_lock("gf_kernel::signatures")
+_ENCODE_SIGS: set = set()
+_DECODE_SIGS: set = set()
+
+
+def _instance(k: int) -> str:
+    """The kernel instance a launch of k inputs runs (csrc/gf_matvec.cu:
+    a template instance for k = 8, a run-time-k loop otherwise)."""
+    return "gf_matvec<8>" if k == 8 else "gf_matvec<0>"
+
+
+def _note(sigs: set, sig) -> None:
+    with _SIG_LOCK:
+        sigs.add(sig)
+
+
+def _jit_entries() -> int:
+    """Distinct encode launch signatures seen by this process — the
+    telemetry miss counter differences this around each call."""
+    with _SIG_LOCK:
+        return len(_ENCODE_SIGS)
+
+
+def _decode_jit_entries() -> int:
+    """Distinct decode launch signatures (kept separate from
+    _jit_entries so encode-side accounting is untouched)."""
+    with _SIG_LOCK:
+        return len(_DECODE_SIGS)
+
+
+# ---------------------------------------------------------------------------
 # public API
 # ---------------------------------------------------------------------------
 
@@ -283,7 +326,16 @@ def make_encoder(coeff: np.ndarray, device=None, *,
         if d.dim() != 3 or d.shape[1] != k:
             raise ValueError(f"data must be (S, {k}, B), got "
                              f"{tuple(d.shape)}")
-        return apply_tables(groups, d, t)
+        s, _, b = d.shape
+
+        def run():
+            _note(_ENCODE_SIGS, (_instance(k), s, k, t, b))
+            return apply_tables(groups, d, t)
+
+        return telemetry.timed_kernel(
+            "ec_encode", run, batch=s, bytes_in=s * k * b,
+            bytes_out=s * t * b, cache_entries=_jit_entries,
+            signature=("ec", k, t, s, b))
 
     return encode
 
@@ -299,6 +351,35 @@ def ec_encode(coeff: np.ndarray, data, device=None, *,
                else np.ndim(data)) == 2
     out = encode(data[None] if squeeze else data)
     return out[0] if squeeze else out
+
+
+def ec_decode_packed(tab: torch.Tensor, pidx: torch.Tensor,
+                     data: torch.Tensor, t: int) -> torch.Tensor:
+    """Heterogeneous-matrix decode with a resident packed table: one
+    ``gf_matvec`` launch for stripes spanning MIXED erasure patterns.
+
+    tab  : (P, ceil(t/4), k, 256) int32 packed table on data's device
+           (``pack_rows`` of the stacked (P, t, k) recovery matrices; P
+           pow-2 padded by the caller so the signatures stay bounded by
+           the table bucket, not the pattern population)
+    pidx : (S,) int pattern index per stripe
+    data : (S, k, B) uint8 surviving chunks
+    returns (S, t, B) uint8 (padded target rows are zeros).
+    """
+    s, k, b = data.shape
+    p = tab.shape[0]
+
+    def run():
+        _note(_DECODE_SIGS, (_instance(k), p, s, k, t, b))
+        return gf_matvec(tab, pidx, data, t)
+
+    # the table operand is device-resident across calls (the codec
+    # caches it per snapshot), so only the per-call operands count as
+    # h2d traffic
+    return telemetry.timed_kernel(
+        "ec_decode", run, batch=s, bytes_in=s * k * b + s * 4,
+        bytes_out=s * t * b, cache_entries=_decode_jit_entries,
+        signature=("ec_decode", k, t, s, b, p))
 
 
 def ec_decode_batched(tables_bits: np.ndarray, pidx, data, *,
@@ -320,4 +401,4 @@ def ec_decode_batched(tables_bits: np.ndarray, pidx, data, *,
         raise ValueError("pattern index out of range of the table")
     tab = torch.from_numpy(pack_rows(coeffs)).to(dev)
     pidx_t = torch.from_numpy(pidx_np.astype(np.int32)).to(dev)
-    return gf_matvec(tab, pidx_t, _as_u8(data, dev), t)
+    return ec_decode_packed(tab, pidx_t, _as_u8(data, dev), t)

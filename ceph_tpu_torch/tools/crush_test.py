@@ -12,8 +12,11 @@ The batched backend runs on the CUDA card unless ``--device cpu`` asks for
 the plain torch path; ``--backend scalar`` runs the scalar oracle per x.
 Output matches the reference's shape: per-rule "rule N num_rep R result
 size == S:\tX/Y" lines, optional per-device mappings and utilization, and
-the batch statistics.  Flat ``--osds N`` maps go through BatchMapper too,
-whose fast path serves ``choose firstn`` over a flat root.
+the batch statistics.  A flat map's ``choose firstn`` rule (``--osds N``)
+rides the device dispatch engine of ``default_context(device)`` through
+``ops.dispatch.submit_flat_firstn``, in chunks of the engine's
+``max_stripes``, as the reference tool does; every other rule goes through
+``BatchMapper``.
 """
 
 from __future__ import annotations
@@ -26,7 +29,50 @@ import numpy as np
 
 from ceph_tpu_torch.crush import (
     build_flat_map, build_two_level_map, crush_do_rule)
-from ceph_tpu_torch.crush.types import CRUSH_ITEM_NONE
+from ceph_tpu_torch.crush.types import (
+    CRUSH_BUCKET_STRAW2, CRUSH_ITEM_NONE, RULE_CHOOSE_FIRSTN, RULE_EMIT,
+    RULE_TAKE)
+
+
+def _flat_firstn_operands(m, rid: int):
+    """(ids, item_weights) when rule ``rid`` is the shape
+    ``ops.crush_kernel.flat_firstn`` computes — ``take <straw2 root of
+    devices> / choose firstn 0 osd / emit`` with stock tunables — else
+    None and the caller uses the generic rule engine."""
+    rule = m.rules[rid] if 0 <= rid < m.max_rules else None
+    if rule is None or len(rule.steps) != 3:
+        return None
+    take, choose, emit = rule.steps
+    if (take.op != RULE_TAKE or choose.op != RULE_CHOOSE_FIRSTN
+            or choose.arg1 != 0 or choose.arg2 != 0
+            or emit.op != RULE_EMIT):
+        return None
+    root = m.bucket(take.arg1)
+    if (root is None or root.alg != CRUSH_BUCKET_STRAW2
+            or any(i < 0 for i in root.items)
+            or m.tunables != type(m.tunables)()
+            or m.choose_args or m.class_bucket):
+        return None
+    return (np.asarray(root.items, dtype=np.int32),
+            np.asarray(root.item_weights, dtype=np.int64))
+
+
+def _dispatch_flat_firstn(flat, xs, num_rep: int, weight,
+                          device=None) -> list[list[int]]:
+    """Bulk remap through the device dispatch engine: the x range rides
+    ``submit_flat_firstn`` in engine-sized chunks, so chunk N+1's copy to
+    the card overlaps chunk N's compute and concurrent callers against
+    the same map coalesce into shared device calls."""
+    from ceph_tpu_torch.common.context import default_context
+    from ceph_tpu_torch.ops.dispatch import submit_flat_firstn
+    ids, weights = flat
+    reweight = np.asarray(weight, dtype=np.int64)
+    eng = default_context(device).dispatch_engine()
+    futs = [submit_flat_firstn(eng, xs[i:i + eng.max_stripes], ids,
+                               weights, reweight, numrep=num_rep)
+            for i in range(0, len(xs), eng.max_stripes)]
+    out = np.concatenate([f.result(timeout=600) for f in futs], axis=0)
+    return [[int(v) for v in row if v != CRUSH_ITEM_NONE] for row in out]
 
 
 def run_test(m, rules, min_x: int, max_x: int, num_rep: int,
@@ -44,7 +90,11 @@ def run_test(m, rules, min_x: int, max_x: int, num_rep: int,
     stats = {}
     for rid in rules:
         t0 = time.perf_counter()
-        if backend == "torch":
+        flat = _flat_firstn_operands(m, rid) if backend == "torch" \
+            else None
+        if flat is not None:
+            rows = _dispatch_flat_firstn(flat, xs, num_rep, weight, device)
+        elif backend == "torch":
             from ceph_tpu_torch.crush.mapper_torch import BatchMapper
             bm = BatchMapper(m, device=device)
             res = bm.do_rule(rid, xs, num_rep,

@@ -95,9 +95,34 @@ Runs ceph_tpu_torch (never JAX, never ceph_tpu) at the bench's full size:
              It runs after the times, so
              that phase 6 times the flagship calls in the same process state
              as the runs before this phase existed
-  8. prints  the {"kernels": [...]} line (gf_matvec's row also carries the EC
-             shapes of phase 7 as "ec_shapes"), then {"ok": true,
-             "device": ...}
+  8. engine  default_context()'s dispatch engines on the card at the knobs'
+             defaults (max_stripes 2048, max_delay_us 250, depth 2), the
+             OSD's EC write and read at the flagship profile from 16
+             submitter threads (Ceph's SSD op queue: 8 shards x 2 threads),
+             each with the launch counts at 0 first: (a) submit_chunks of
+             256 MiB of isa cauchy k=8 m=4 data in requests of 1-64
+             stripes of 4 KiB chunks; (b) submit_decode_chunks of the same
+             bytes mixing erasure patterns [1, 9], [0, 3] and [11]; (c)
+             crush_test --osds 1024 on 65,536 PGs (submit_flat_firstn, in
+             chunks of max_stripes); (d) submit_do_rule on the flagship
+             10k-OSD map, chooseleaf firstn 3, 65,536 PGs in requests of
+             256-2,048.  Each: every delivered row against one direct call
+             per request from one thread, a sample against the numpy oracle
+             (ec_encode_ref, the recovery matrix, flat_firstn_ref,
+             crush_do_rule), the kernels' launches against the engine's
+             calls, fault_digest() zero; then a timed run (host clock, first
+             submit to last delivery) with its phase ledger (calls, stripes a
+             call, buckets, padding, phase medians) and a torch.profiler
+             run (the card's busy share), beside the direct calls' rate.
+             (e) the ladder armed on purpose: dispatch.block_until_ready
+             fails once (one retry, bit-exact), then always (the breaker
+             opens after kernel_fault_breaker_threshold batches of
+             kernel_fault_max_retries retries; the host oracle serves
+             bit-exact), is disarmed, and the probe re-closes the breaker;
+             the exact counts are held
+  9. prints  the {"engine": ...} line, the {"kernels": [...]} line
+             (gf_matvec's row also carries the EC shapes of phase 7 as
+             "ec_shapes"), then {"ok": true, "device": ...}
 
 Exits non-zero, printing no result, without a card or without the package.
 """
@@ -198,6 +223,31 @@ EC_CALLS = 5
 WIDE_NUMREP_OSDS, WIDE_NUMREP, WIDE_NUMREP_PGS = 256, 65, 64
 
 
+#: the engine phase (8): the OSD's EC write and degraded read at the
+#: flagship profile through default_context()'s engines at the knobs'
+#: defaults, from Ceph's SSD op-queue threads (osd_op_num_shards_ssd 8 x
+#: osd_op_num_threads_per_shard_ssd 2); 256 MiB of data a channel in
+#: requests of 1-64 stripes; remaps of 65,536 PGs
+ENGINE_THREADS = 16
+ENGINE_STRIPES = 8192                 # 8192 x 8 x 4 KiB = 256 MiB
+ENGINE_MAX_REQ = 64
+ENGINE_PATTERNS = [(1, 9), (0, 3), (11,)]
+ENGINE_RULE_REQ = (256, 2048)         # PGs a submit_do_rule request
+ENGINE_ORACLE = 16                    # requests sampled against the oracle
+ENGINE_RULE_ORACLE = 4                # PGs of each against crush_do_rule
+NONE_ID = 0x7FFFFFFF
+
+
+def rows_of(m, rid: int, xs, rw_list) -> "np.ndarray":
+    """crush_do_rule's rows for ``xs``, NONE-padded to NUMREP."""
+    import numpy as np
+    from ceph_tpu_torch.crush.mapper_ref import crush_do_rule
+    rows = [crush_do_rule(m, rid, int(x), NUMREP, rw_list) for x in xs]
+    return np.array([r + [NONE_ID] * (NUMREP - len(r)) for r in rows],
+                    dtype=np.int32).reshape(-1, NUMREP)
+
+
+
 class SmokeFailure(Exception):
     pass
 
@@ -206,6 +256,448 @@ def check(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
     print(f"  ok  {what}")
+
+
+def assert_no_faults(where: str) -> None:
+    """The ladder must not hide the card: outside the armed sub-phase no
+    retry, no fallback batch, no probe, no thread death, every breaker
+    closed."""
+    from ceph_tpu_torch.ops import telemetry
+    for eng, d in telemetry.fault_digest().items():
+        moved = {k: v for k, v in d.items()
+                 if k != "breaker_states" and v}
+        open_ = {c: s for c, s in d["breaker_states"].items()
+                 if s != telemetry.BREAKER_CLOSED}
+        check(not moved and not open_,
+              f"{where}: {eng} engine fault digest zero, every breaker "
+              f"closed ({moved or 'no counters'}, {open_ or 'no breakers'})")
+
+
+def _split(rng, total: int, lo: int, hi: int) -> list[int]:
+    sizes = []
+    while sum(sizes) < total:
+        sizes.append(min(int(rng.integers(lo, hi + 1)), total - sum(sizes)))
+    return sizes
+
+
+def _drive(reqs, submit) -> tuple[list, float]:
+    """``reqs`` round-robin over ENGINE_THREADS submitter threads, each
+    submitting its share without waiting (submit-and-continue), released
+    together; returns (results in request order, seconds from the first
+    submit to the last delivery)."""
+    import threading
+    futs = [None] * len(reqs)
+    start = threading.Barrier(ENGINE_THREADS + 1)
+    errs: list = []
+
+    def worker(w):
+        try:
+            start.wait(60)
+            for i in range(w, len(reqs), ENGINE_THREADS):
+                futs[i] = submit(reqs[i])
+        except Exception as e:
+            errs.append(e)
+
+    threads = [threading.Thread(target=worker, args=(w,))
+               for w in range(ENGINE_THREADS)]
+    for t in threads:
+        t.start()
+    start.wait(60)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(300)
+    if errs or any(t.is_alive() for t in threads):
+        raise SmokeFailure(f"engine submitters failed: {errs}")
+    out = [f.result(timeout=300) for f in futs]
+    return out, time.perf_counter() - t0
+
+
+def _ledger(stats) -> dict:
+    """Calls, stripes per call, buckets, padding and phase medians of the
+    batches the stats' phase ring recorded."""
+    from ceph_tpu_torch.ops import telemetry
+    recs = stats.phases.dump()["recent"]
+    stripes = [r["stripes"] for r in recs]
+    buckets: dict = {}
+    for r in recs:
+        buckets[r["bucket"]] = buckets.get(r["bucket"], 0) + 1
+    hist: dict = {}
+    for s in stripes:
+        b = 1 << max(0, (s - 1).bit_length())
+        hist[f"<={b}"] = hist.get(f"<={b}", 0) + 1
+    padded = sum(r["bucket"] - r["stripes"] for r in recs)
+    return {
+        "calls": len(recs),
+        "requests": sum(r["requests"] for r in recs),
+        "stripes_per_call_mean": (statistics.mean(stripes)
+                                  if stripes else 0.0),
+        "stripes_per_call_hist": dict(sorted(
+            hist.items(), key=lambda kv: int(kv[0][2:]))),
+        "buckets": dict(sorted(buckets.items())),
+        "padding_share": (padded / sum(r["bucket"] for r in recs)
+                          if recs else 0.0),
+        "phase_median_ms": {
+            ph: statistics.median(r["phases"][ph] for r in recs) * 1e3
+            for ph in telemetry.PHASES} if recs else {},
+        "e2e_median_ms": (statistics.median(r["e2e_s"] for r in recs) * 1e3
+                          if recs else 0.0),
+    }
+
+
+def _trace_spans(prof):
+    """(name, is_device, start_us, end_us) of every activity of a trace:
+    the raw Kineto activity list where torch exposes it (it keeps device
+    events the event tree can drop), else the event tree."""
+    from torch.autograd import DeviceType
+    try:
+        raw = prof.profiler.kineto_results.events()
+        return [(e.name(), e.device_type() == DeviceType.CUDA,
+                 e.start_ns() / 1e3, e.end_ns() / 1e3) for e in raw]
+    except AttributeError:
+        return [(e.name, e.device_type == DeviceType.CUDA,
+                 e.time_range.start, e.time_range.end)
+                for e in prof.events()]
+
+
+def _busy(run, reset, tries: int = 3) -> dict:
+    """torch.profiler (CPU and CUDA activities) over one run: the card's
+    busy time (the union of its kernel, copy and fill intervals) over the
+    window, and the pinned copies' time by direction.  A trace is taken
+    only when it holds every kernel launch the run made (a second profiler
+    session in one process has dropped device events); after ``tries``
+    incomplete traces the share is reported as not measured."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ceph_tpu_torch.ops import _build
+    for _ in range(tries):
+        reset()
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        launched = sum(_build.LAUNCHES.values())
+        spans_all = _trace_spans(prof)
+        dev_ev = [(n, a, b) for n, dev_, a, b in spans_all if dev_]
+        captured = sum(1 for n, _a, _b in dev_ev
+                       if any(k in n for k in _build.LAUNCHES))
+        if captured == launched:
+            break
+    busy = _union(a_b for _n, *a_b in dev_ev)
+    by_name: dict = {}
+    for n, a, b in dev_ev:
+        by_name[n] = by_name.get(n, 0.0) + (b - a) / 1e3
+    window = (max(b for *_x, b in spans_all)
+              - min(a for *_x, a, _b in spans_all)) if spans_all else 0.0
+    h2d = sum(t for n, t in by_name.items() if n.startswith("Memcpy HtoD"))
+    d2h = sum(t for n, t in by_name.items() if n.startswith("Memcpy DtoH"))
+    complete = captured == launched
+    return {"complete": complete, "captured": captured,
+            "launched": launched, "window_ms": window / 1e3,
+            "busy_ms": busy / 1e3 if complete else None,
+            "busy_share": busy / window if window and complete else None,
+            "h2d_ms": h2d if complete else None,
+            "d2h_ms": d2h if complete else None,
+            "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:6]}
+
+
+def engine_phase(dev, tag: str, xs_np) -> dict:
+    """Phase 8: the dispatch engine carrying the EC encode, EC decode and
+    CRUSH channels (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from ceph_tpu_torch.common import failpoint
+    from ceph_tpu_torch.common.context import default_context
+    from ceph_tpu_torch.crush.builder import build_flat_map
+    from ceph_tpu_torch.crush.mapper_ref import flat_firstn_ref
+    from ceph_tpu_torch.crush.mapper_torch import BatchMapper
+    from ceph_tpu_torch.ec import registry_instance
+    from ceph_tpu_torch.ec.base import to_host
+    from ceph_tpu_torch.gf.matrix import recovery_matrix
+    from ceph_tpu_torch.ops import _build, telemetry
+    from ceph_tpu_torch.ops import crush_kernel as ck
+    from ceph_tpu_torch.ops.dispatch import submit_do_rule
+    from ceph_tpu_torch.ops.gf_kernel import ec_encode_ref
+    from ceph_tpu_torch.tools import crush_test
+
+    rng = np.random.default_rng(8)
+    ctx = default_context()
+    enc_eng, dec_eng = ctx.dispatch_engine(), ctx.decode_dispatch_engine()
+    print(f"engines: max_stripes {enc_eng.max_stripes}, max_delay_us "
+          f"{enc_eng.max_delay_us}, depth {enc_eng.max_in_flight}, device "
+          f"{enc_eng.device}")
+    check(enc_eng.device.type == "cuda" and dec_eng.device.type == "cuda"
+          and enc_eng.max_stripes == 2048 and enc_eng.max_in_flight == 2,
+          "the context's engines run on the card at the knobs' defaults")
+    codec = registry_instance().factory(
+        "isa", {"k": str(K), "m": str(M), "technique": "cauchy"})
+    coding = codec.generator[K:]
+    data = rng.integers(0, 256, (ENGINE_STRIPES, K, CHUNK), dtype=np.uint8)
+    sizes = _split(rng, ENGINE_STRIPES, 1, ENGINE_MAX_REQ)
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    reqs = [data[offs[i]:offs[i + 1]] for i in range(len(sizes))]
+    nbytes = data.nbytes
+    result: dict = {}
+
+    def channel(name, eng, reqs_, submit, direct, expect_kernels, oracle,
+                unit, amount, io_bytes):
+        """One channel: a checked run (launch counts against its calls),
+        every delivered row against the direct call, a sample against the
+        oracle; a timed run; a profiled run; the direct calls timed."""
+        torch.cuda.synchronize()
+        b0 = eng.stats.batches
+        eng.stats.phases.clear()
+        _build.reset_launches()
+        got, _ = _drive(reqs_, submit)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        calls = eng.stats.batches - b0
+        print(f"{name}: {len(reqs_)} requests in {calls} device calls; "
+              f"launches {launches}")
+        for kname, per_call in expect_kernels.items():
+            want = calls * per_call
+            ok = (launches[kname] == want if per_call == 1
+                  else launches[kname] >= calls)
+            check(ok, f"{name}: {kname} launched {launches[kname]} times "
+                  f"for {calls} engine calls (expected "
+                  f"{'exactly ' + str(want) if per_call == 1 else '>= ' + str(calls)})")
+        want_rows = [direct(r) for r in reqs_]
+        check(all(g.shape == w.shape and np.array_equal(g, w)
+                  for g, w in zip(got, want_rows)),
+              f"{name}: every delivered row == the direct call "
+              f"({len(reqs_)} requests)")
+        pick = rng.choice(len(reqs_), min(ENGINE_ORACLE, len(reqs_)),
+                          replace=False)
+        exp = [oracle(reqs_[i]) for i in pick]
+        check(all(np.array_equal(got[i][:len(e)], e)
+                  for i, e in zip(pick, exp)),
+              f"{name}: {len(pick)} sampled requests == the numpy oracle "
+              f"({sum(len(e) for e in exp)} rows)")
+        assert_no_faults(name)
+        # the timed runs come warm, with the checked run's results dropped
+        # (a consumer keeps a delivered row only until it has used it, and
+        # their pinned blocks go back to the host allocator's cache)
+        del got, want_rows
+        gc.collect()
+        t0 = time.perf_counter()
+        for r in reqs_:
+            direct(r)
+        torch.cuda.synchronize()
+        direct_s = time.perf_counter() - t0
+        gc.collect()
+        eng.stats.phases.clear()
+        _got2, secs = _drive(reqs_, submit)
+        led = _ledger(eng.stats)
+        del _got2
+        gc.collect()
+        prof = _busy(lambda: _drive(reqs_, submit), eng.stats.phases.clear)
+        assert_no_faults(f"{name} (timed, profiled)")
+        recs = eng.stats.phases.dump()["recent"]
+        moved = {"h2d": sum(r["bucket"] for r in recs) * io_bytes[0],
+                 "d2h": sum(r["bucket"] for r in recs) * io_bytes[1]}
+        rate = amount / secs
+        direct_rate = amount / direct_s
+        print(f"{name}: engine {rate:,.1f} {unit} ({secs * 1e3:.1f} ms, "
+              f"first submit to last delivery)  direct one call a request "
+              f"from one thread {direct_rate:,.1f} {unit} "
+              f"({direct_s * 1e3:.1f} ms)  {tag}")
+        print(f"{name}: calls {led['calls']} (requests {led['requests']}), "
+              f"stripes a call mean {led['stripes_per_call_mean']:.1f} "
+              f"{led['stripes_per_call_hist']}, buckets {led['buckets']}, "
+              f"padding {led['padding_share']:.4f}")
+        print(f"{name}: phase medians ms " + "  ".join(
+            f"{k} {v:.4f}" for k, v in led["phase_median_ms"].items())
+            + f"  (batch e2e {led['e2e_median_ms']:.3f})")
+        if prof["complete"]:
+            rates = "  ".join(
+                f"{d} {moved[d] / 1e6:.1f} MB in {prof[d + '_ms']:.3f} ms "
+                f"({moved[d] / prof[d + '_ms'] / 1e6:.1f} GB/s)"
+                for d in ("h2d", "d2h") if prof[d + "_ms"])
+            print(f"{name}: profiled run: card busy {prof['busy_ms']:.2f} of "
+                  f"{prof['window_ms']:.2f} ms ({prof['busy_share']:.4f}); "
+                  f"pinned copies {rates or 'none'}; top "
+                  f"{[(n[:40], round(t, 3)) for n, t in prof['top']]}  {tag}")
+        else:
+            print(f"{name}: profiled run: busy share not measured (the trace "
+                  f"held {prof['captured']} of {prof['launched']} launches)")
+        result[name] = {"engine_rate": rate, "direct_rate": direct_rate,
+                        "unit": unit, "engine_ms": secs * 1e3,
+                        "direct_ms": direct_s * 1e3, "launches": launches,
+                        "engine_calls": calls, "requests": len(reqs_),
+                        **led, "busy_share": prof["busy_share"],
+                        "busy_ms": prof["busy_ms"],
+                        "window_ms": prof["window_ms"],
+                        "h2d_ms": prof["h2d_ms"], "d2h_ms": prof["d2h_ms"],
+                        "h2d_bytes": moved["h2d"], "d2h_bytes": moved["d2h"]}
+
+    print("-- 8a. EC writes: submit_chunks, isa cauchy k=8 m=4, 4 KiB chunks")
+    channel("ec_encode", enc_eng, reqs,
+            lambda d: codec.submit_chunks(enc_eng, d),
+            lambda d: to_host(codec.encode_chunks(d)),
+            {"gf_matvec": 1},
+            lambda d: ec_encode_ref(coding, d), "MB/s", nbytes / 1e6,
+            (K * CHUNK, M * CHUNK))
+    check(enc_eng._staging.allocated < enc_eng.stats.batches,
+          f"pinned staging reused its buffers: {enc_eng._staging.allocated} "
+          f"buffers for {enc_eng.stats.batches} batches at depth "
+          f"{enc_eng.max_in_flight}, every row held")
+
+    print("-- 8b. degraded reads: submit_decode_chunks, patterns "
+          f"{ENGINE_PATTERNS}")
+    pats = []
+    for erased in ENGINE_PATTERNS:
+        chosen = tuple(i for i in range(K + M) if i not in erased)[:K]
+        pats.append((chosen, tuple(erased)))
+    dreqs = [(r, pats[i % len(pats)]) for i, r in enumerate(reqs)]
+    channel("ec_decode", dec_eng, dreqs,
+            lambda q: codec.submit_decode_chunks(dec_eng, q[1][0], q[0],
+                                                 q[1][1]),
+            lambda q: to_host(codec.decode_chunks(q[1][0], q[0], q[1][1])),
+            {"gf_matvec": 1},
+            lambda q: ec_encode_ref(recovery_matrix(
+                codec.generator, list(q[1][0]), list(q[1][1])), q[0]),
+            "MB/s", nbytes / 1e6, (K * CHUNK + 4, M * CHUNK))
+    dstats = dec_eng.stats.summary()
+    print(f"decode: mean patterns a call {dstats['mean_patterns']}, pattern "
+          f"table {dstats['pattern_table_size']}")
+    check(dstats["mean_patterns"] > 1.0,
+          "decode calls mixed erasure patterns in one launch")
+
+    print("-- 8c. remaps: crush_test --osds 1024 (submit_flat_firstn), "
+          "65,536 PGs")
+    fmap, _froot, frid = build_flat_map(FLAT_OSDS)
+    fids = np.asarray(fmap.bucket(-1).items, dtype=np.int32)
+    fw = np.asarray(fmap.bucket(-1).item_weights, dtype=np.int64)
+    frw = np.full(FLAT_OSDS, 0x10000, dtype=np.int64)
+    torch.cuda.synchronize()
+    runs_ = []
+    for cold in (True, False):
+        quiet = io.StringIO()
+        _build.reset_launches()
+        b0 = enc_eng.stats.batches
+        enc_eng.stats.phases.clear()
+        t0 = time.perf_counter()
+        st = crush_test.run_test(fmap, [frid], 0, N_PGS - 1, NUMREP,
+                                 out=quiet)[frid]
+        secs_ = time.perf_counter() - t0
+        runs_.append((st, secs_, dict(_build.LAUNCHES),
+                      enc_eng.stats.batches - b0, _ledger(enc_eng.stats)))
+        when = ("cold: the flat root's tables built in the first call"
+                if cold else "warm")
+        print(f"crush_test --osds {FLAT_OSDS} ({when}): "
+              f"{N_PGS / secs_:,.0f} mappings/s ({secs_ * 1e3:.1f} ms, "
+              f"the rows and counts on the host included), "
+              f"{runs_[-1][3]} engine calls, launches {runs_[-1][2]}  {tag}")
+    print(quiet.getvalue().rstrip())
+    st_cold = runs_[0][0]
+    st, flat_s, flat_launch, flat_calls, led = runs_[1]
+    check(st_cold["rows"] == st["rows"],
+          "crush_test --osds: the cold and the warm run agree")
+    print(f"crush_test --osds {FLAT_OSDS}: calls {led['calls']}, phase "
+          f"medians ms " + "  ".join(f"{k} {v:.4f}" for k, v in
+                                     led["phase_median_ms"].items()))
+    check(flat_launch["firstn_consume"] >= flat_calls > 0
+          and flat_launch["straw2_froot"] + flat_launch["straw2_root"]
+          >= flat_calls,
+          f"crush_test --osds: {flat_calls} engine calls launched the root "
+          f"(filter) and consume kernels")
+    x_all = torch.arange(N_PGS, dtype=torch.int64, device=dev)
+    t0 = time.perf_counter()
+    direct = np.concatenate([ck.flat_firstn(x_all[i:i + 2048], fids, fw, frw,
+                                            numrep=NUMREP).cpu().numpy()
+                             for i in range(0, N_PGS, 2048)])
+    flat_direct_s = time.perf_counter() - t0
+    rows = [[v for v in r if v != NONE_ID] for r in direct.tolist()]
+    check(rows == st["rows"], f"crush_test --osds {FLAT_OSDS}: every row == "
+          f"the direct flat_firstn call, {N_PGS} PGs")
+    check(np.array_equal(direct[:ORACLE_PGS], np.asarray(flat_firstn_ref(
+        np.arange(ORACLE_PGS), fids, fw, frw, numrep=NUMREP))),
+          f"flat firstn: {ORACLE_PGS} PGs == flat_firstn_ref")
+    assert_no_faults("crush_test --osds")
+    print(f"flat firstn direct, one call a 2048-PG chunk from one thread: "
+          f"{N_PGS / flat_direct_s:,.0f} mappings/s  {tag}")
+    result["crush_firstn"] = {
+        "engine_rate": N_PGS / flat_s, "cold_rate": N_PGS / runs_[0][1],
+        "direct_rate": N_PGS / flat_direct_s, "unit": "mappings/s",
+        "engine_calls": flat_calls, "launches": flat_launch, **led}
+
+    print("-- 8d. remaps: submit_do_rule on the flagship 10k-OSD map, "
+          "chooseleaf firstn 3, 65,536 PGs")
+    bmap, brid, brw = bench_map()
+    mapper = BatchMapper(bmap)
+    psizes = _split(rng, N_PGS, *ENGINE_RULE_REQ)
+    poffs = np.concatenate([[0], np.cumsum(psizes)])
+    preqs = [xs_np[poffs[i]:poffs[i + 1]] for i in range(len(psizes))]
+    brw_list = [int(v) for v in brw]
+    channel("crush_rule", enc_eng, preqs,
+            lambda x: submit_do_rule(enc_eng, mapper, brid, x, NUMREP, brw),
+            lambda x: mapper.do_rule(brid, x, NUMREP, brw).cpu().numpy(),
+            {"straw2_root": 0, "straw2_leaf": 0, "firstn_consume": 0},
+            lambda x: rows_of(bmap, brid, x[:ENGINE_RULE_ORACLE], brw_list),
+            "mappings/s", N_PGS, (8, NUMREP * 4))
+
+    print("-- 8e. the ladder, armed on purpose: dispatch.block_until_ready"
+          ":ec_encode")
+    assert_no_faults("before the armed sub-phase")
+    fst = enc_eng.stats
+    one = reqs[0]
+    want = to_host(codec.encode_chunks(one))
+
+    def faults():
+        return fst.fault_dump()
+
+    failpoint.set("dispatch.block_until_ready:ec_encode", "oneshot")
+    got = codec.submit_chunks(enc_eng, one).result(timeout=60)
+    f1 = faults()
+    check(np.array_equal(got, want) and f1["retries"] == 1
+          and f1["retry_successes"] == 1 and f1["fallback_batches"] == 0
+          and f1["breaker_opens"] == 0,
+          f"one failed synchronize: the batch retried once and came out "
+          f"bit-exact ({f1['retries']} retry, {f1['retry_successes']} "
+          f"healed, 0 fallback)")
+    failpoint.set("dispatch.block_until_ready:ec_encode", "always")
+    retries = enc_eng.fault_max_retries
+    threshold = enc_eng.breaker_threshold
+    for i in range(threshold + 2):
+        got = codec.submit_chunks(enc_eng, reqs[i]).result(timeout=60)
+        check(np.array_equal(got, to_host(codec.encode_chunks(reqs[i])))
+              if i else np.array_equal(got, want),
+              f"persistent fault, batch {i + 1}: bit-exact from the host "
+              f"oracle")
+    f2 = faults()
+    check(f2["retries"] == 1 + threshold * retries
+          and f2["retry_successes"] == 1
+          and f2["fallback_batches"] == threshold + 2
+          and f2["breaker_opens"] == 1
+          and enc_eng.breaker_states()["ec_encode"]
+          != telemetry.BREAKER_CLOSED,
+          f"persistent fault: {threshold} batches each retried {retries} "
+          f"times, then the breaker opened; {threshold + 2} batches served "
+          f"by the host oracle (retries {f2['retries']}, fallback "
+          f"{f2['fallback_batches']}, opens {f2['breaker_opens']})")
+    failpoint.clear()
+    deadline = time.monotonic() + 30
+    while (enc_eng.breaker_states()["ec_encode"] != telemetry.BREAKER_CLOSED
+           and time.monotonic() < deadline):
+        time.sleep(0.02)
+    f3 = faults()
+    check(enc_eng.breaker_states()["ec_encode"] == telemetry.BREAKER_CLOSED
+          and f3["breaker_closes"] == 1 and f3["probe_successes"] == 1,
+          f"disarmed: the probe re-closed the breaker ({f3['probe_failures']}"
+          f" failed probes while armed, {f3['probe_successes']} success)")
+    _build.reset_launches()
+    got = codec.submit_chunks(enc_eng, one).result(timeout=60)
+    f4 = faults()
+    check(np.array_equal(got, want) and _build.LAUNCHES["gf_matvec"] == 1
+          and f4["fallback_batches"] == f3["fallback_batches"],
+          "after re-close the encode runs on the card again, bit-exact")
+    result["ladder"] = {k: f4[k] for k in (
+        "retries", "retry_successes", "fallback_batches", "breaker_opens",
+        "breaker_closes", "probe_successes", "probe_failures")}
+    return result
 
 
 def card_line() -> str:
@@ -307,6 +799,19 @@ def graph_ms(fn, iters: int, reps: int = 7) -> float:
     return statistics.median(graph_times(fn, iters, reps))
 
 
+def _union(spans) -> float:
+    """Length of the union of (start, end) intervals."""
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy
+
+
 def profile_window(fn, calls: int = 3) -> dict:
     """torch.profiler (CPU and CUDA activities) over ``calls`` warm calls of
     ``fn``: the window's length, the card's busy time (the union of its
@@ -330,14 +835,7 @@ def profile_window(fn, calls: int = 3) -> dict:
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) \
                 + (e.time_range.end - e.time_range.start) / 1e3
-    busy, end = 0.0, None
-    for a, b in spans:
-        if end is None or a > end:
-            busy += b - a
-            end = b
-        elif b > end:
-            busy += b - end
-            end = b
+    busy = _union(spans)
     window = (max(e.time_range.end for e in events)
               - min(e.time_range.start for e in events)) if events else 0.0
     avg = prof.key_averages()
@@ -1086,6 +1584,8 @@ def run() -> None:
               f"leaf: a row of zeros gives its position 0, -1 and NONE "
               f"positions give NONE, N={n_} R={R_}")
 
+    assert_no_faults("phases 3 and 4")
+
     print("== 5. wide map: crush_test on 1,000 hosts x 10 OSDs")
     wmap, wrid, wrw = bench_map(WIDE_HOSTS, WIDE_PER_HOST)
     ec_rid = add_simple_rule(wmap, -1, 1, "indep")
@@ -1161,6 +1661,8 @@ def run() -> None:
                          [0x10000] * FLAT_OSDS),
           f"flat {FLAT_OSDS}: placements == crush_do_rule on "
           f"{SMALL_ORACLE} PGs")
+
+    assert_no_faults("phase 5 (its flat rule rides the dispatch engine)")
 
     wcols = fmw.cols
     table = sf.ln_f32_table(dev)
@@ -1556,6 +2058,7 @@ def run() -> None:
               f"replay): " + "  ".join(f"T={th} {ms:.4f} ms"
                                        for th, ms in sweep.items())
               + f"  {tag}")
+    assert_no_faults("phase 6")
     print("== 7. EC codecs; a fast-path rule of 65 replicas")
     # GF at the EC codec path's shapes, in gf_matvec's row
     row_of["gf_matvec"]["ec_shapes"] = ec_phase(dev, tag, same, rng)
@@ -1598,7 +2101,13 @@ def run() -> None:
                      f"numrep={WIDE_NUMREP} (the generic instance), "
                      f"N={WIDE_NUMREP_PGS} R={R_}")
 
+    assert_no_faults("phase 7")
+
+    print("== 8. the dispatch engine: EC writes, degraded reads, remaps")
+    engine = engine_phase(dev, tag, xs_np)
+
     print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"engine": engine}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -47,7 +47,13 @@ PORT_MODULES = [
     "ceph_tpu_torch.ec.shec", "ceph_tpu_torch.native",
     "ceph_tpu_torch.osd.ec_util", "ceph_tpu_torch.tools.ec_benchmark",
     "ceph_tpu_torch.tools.ec_non_regression",
-    "ceph_tpu_torch.crush.mapper_torch", "ceph_tpu_torch.ops.gf_kernel"]
+    "ceph_tpu_torch.crush.mapper_torch", "ceph_tpu_torch.ops.gf_kernel",
+    "ceph_tpu_torch.common.admin_socket", "ceph_tpu_torch.common.config",
+    "ceph_tpu_torch.common.context", "ceph_tpu_torch.common.failpoint",
+    "ceph_tpu_torch.common.logging", "ceph_tpu_torch.common.perf_counters",
+    "ceph_tpu_torch.common.tracing", "ceph_tpu_torch.ops.dispatch",
+    "ceph_tpu_torch.ops.telemetry", "ceph_tpu_torch.ops.crush_kernel",
+    "ceph_tpu_torch.crush.mapper_ref", "ceph_tpu_torch.tools.crush_test"]
 
 
 def test_import_loads_neither_jax_nor_reference():
@@ -77,6 +83,9 @@ def test_default_device_without_cuda_raises(monkeypatch):
     from ceph_tpu_torch.crush.mapper_torch import BatchMapper
     from ceph_tpu_torch.ec import registry_instance
     from ceph_tpu_torch.gf import gen_cauchy1_matrix
+    from ceph_tpu_torch.common.context import CephTpuContext, default_context
+    from ceph_tpu_torch.ops.crush_kernel import flat_firstn
+    from ceph_tpu_torch.ops.dispatch import DeviceDispatchEngine
     from ceph_tpu_torch.ops.gf_kernel import (
         ec_decode_batched, ec_encode, make_encoder)
     from ceph_tpu_torch.tools import crush_test, ec_benchmark
@@ -98,6 +107,12 @@ def test_default_device_without_cuda_raises(monkeypatch):
         lambda: registry_instance().factory("jerasure", {}),
         lambda: ec_benchmark.main(["--iterations", "1"]),
         lambda: ec_non_regression.main(["--check"]),
+        lambda: DeviceDispatchEngine(),
+        lambda: CephTpuContext(),
+        lambda: default_context(),
+        lambda: flat_firstn(np.arange(4), np.arange(3), [0x10000] * 3,
+                            [0x10000] * 3, numrep=2),
+        lambda: crush_test.main(["--osds", "8"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
