@@ -28,6 +28,11 @@ called raw on the same operands at the paths' shapes:
         4,096 x, R = 9) and the wide map's stage-1 columns (through the
         filter root), numrep 3, with the maps' reweights
   ln    ln_f32_table, the table of 65,536 f32 ln values and its bound D
+  ladder pg_finish_ladder on the replicated pool of chip_smoke's phase 9
+        (N = 262,144 rows, W = 12, P = 4, 10,000 OSDs) with an override
+        epoch's sparsity: 1,024 rows with 1-3 upmap pairs, 256 pg_upmap
+        rows, 512 pg_temp rows (64 empty), 128 primary_temp, 100 OSDs down,
+        primary affinity 0x8000 on 5% and 0 on 1% of the OSDs
 
 Launcher forms are known by their argument count: the root kernels' dividing
 form (root: xs, n, R, ids, w, S, ln_tab, pos, id; filter: xs, n, R, ids, w,
@@ -41,7 +46,10 @@ S, k, t, B, vec) and its packed form (data, pack_rows, pidx, out, S, k, t,
 B); the consume kernel's form on precomputed is_out verdicts (hw, lw, lb,
 R, n, numrep, tries, out_h, out_l, ovf) and its fused form (hw, lw, xs,
 reweight, n_rw, R, n, numrep, tries, out_h, out_l, ovf, threads); the ln
-table's form without D (out, n) and its fused form (ln_tab, out, d_bits, n).
+table's form without D (out, n) and its fused form (ln_tab, out, d_bits, n);
+the ladder's one form (raw, pps, raw_len, up_rows, up_len, items, temp_rows,
+temp_len, ptemp, state, weight, affinity, m_osd, n, w, P, erasure, out).
+A checkout without a kernel's launcher is left out of that kernel's rows.
 Every checkout's outputs must equal this one's (for the ln table: the table,
 and D, which an unfused checkout reduces in torch).  Times are CUDA events,
 median of 7 runs of 20 launches, by graph replay (``ms``: the launches
@@ -82,10 +90,11 @@ SHAPES = {
                        ("stage 2", "flag", 4096, 9),
                        ("wide stage 1", "wide", 65536, 4)],
     "ln_f32_table": [("table and D", "ln", 65536, 0)],
+    "pg_finish_ladder": [("override epoch", "ladder", 262144, 0)],
 }
 LAUNCHERS = ("straw2_root_launch", "straw2_froot_launch", "straw2_leaf_launch",
              "gf_matvec_launch", "firstn_consume_launch",
-             "ln_f32_table_launch")
+             "ln_f32_table_launch", "pg_finish_ladder_launch")
 
 
 def load_build(root: str, tag: str):
@@ -107,7 +116,8 @@ class Lib:
         self.path = build.build()
         self.so = ctypes.CDLL(self.path)
         self.sigs = build.SIGNATURES
-        for name in LAUNCHERS:
+        self.launchers = [name for name in LAUNCHERS if name in self.sigs]
+        for name in self.launchers:
             fn = getattr(self.so, name)
             fn.argtypes = self.sigs[name]
             fn.restype = ctypes.c_int
@@ -203,6 +213,53 @@ class Lib:
             self._call("gf_matvec_launch", data.data_ptr(),
                        op["packed"].data_ptr(), pidx.data_ptr(),
                        out.data_ptr(), S, k, t, B)
+
+
+    def ladder(self, t, n, out):
+        w = t[0].shape[1]
+        self._call("pg_finish_ladder_launch", *[a.data_ptr() for a in t],
+                   t[9].shape[0], n, w, t[5].shape[1], 0, out.data_ptr())
+
+
+def ladder_operands(dev, rng, n: int, w: int = 12, p: int = 4,
+                    m_osd: int = 10000):
+    """pg_finish_ladder's operands (finish_ladder's order) for a replicated
+    size-3 pool at an override epoch's sparsity, laid out as
+    placement_kernel.build_operands lays them out."""
+    import numpy as np
+    import torch
+    none, nosd = 0x7FFFFFFF, -1
+    raw = np.full((n, w), none, dtype=np.int32)
+    raw[:, :3] = rng.integers(0, m_osd, (n, 3))
+    up_rows = np.full((n, w), none, dtype=np.int32)
+    up_len = np.zeros(n, dtype=np.int32)
+    rows = rng.choice(n, 256, replace=False)
+    up_rows[rows, :3] = rng.integers(0, m_osd, (256, 3))
+    up_len[rows] = 3
+    items = np.full((n, p, 2), -1, dtype=np.int32)
+    for r in rng.choice(n, 1024, replace=False):
+        for j in range(int(rng.integers(1, 4))):
+            items[r, j] = (raw[r, j], int(rng.integers(0, m_osd)))
+    temp_rows = np.full((n, w), nosd, dtype=np.int32)
+    temp_len = np.zeros(n, dtype=np.int32)
+    rows = rng.choice(n, 448, replace=False)
+    temp_rows[rows, :3] = rng.integers(0, m_osd, (448, 3))
+    temp_len[rows] = 3
+    ptemp = np.full(n, nosd, dtype=np.int32)
+    ptemp[rng.choice(n, 128, replace=False)] = rng.integers(0, m_osd, 128)
+    state = np.full(m_osd, 3, dtype=np.int32)
+    state[rng.choice(m_osd, 100, replace=False)] = 1
+    weight = np.full(m_osd, 0x10000, dtype=np.int64)
+    weight[rng.choice(m_osd, m_osd // 10, replace=False)] = 0x8000
+    weight[rng.choice(m_osd, m_osd // 50, replace=False)] = 0
+    affinity = np.full(m_osd, 0x10000, dtype=np.int32)
+    affinity[rng.choice(m_osd, m_osd // 20, replace=False)] = 0x8000
+    affinity[rng.choice(m_osd, m_osd // 100, replace=False)] = 0
+    pps = rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(np.uint32)
+    raw_len = np.full(n, 3, dtype=np.int32)
+    return [torch.from_numpy(a).to(dev) for a in (
+        raw, pps, raw_len, up_rows, up_len, items, temp_rows, temp_len,
+        ptemp, state, weight, affinity)]
 
 
 def gf_operands(dev, rng):
@@ -320,7 +377,16 @@ def main() -> int:
             outs = {}
             steps = {}      # what a caller pays, issued from Python
             S = G = None
-            if kernel == "gf_matvec":
+            if kernel == "pg_finish_ladder":
+                t = ladder_operands(dev, rng, n)
+
+                def fn(lib, outs=outs, t=t, n=n):
+                    if lib.tag not in outs:
+                        outs[lib.tag] = (torch.empty(
+                            (n, 2 * t[0].shape[1] + 4), dtype=torch.int32,
+                            device=dev),)
+                    lib.ladder(t, n, outs[lib.tag][0])
+            elif kernel == "gf_matvec":
                 op = gf_ops[which]
 
                 def fn(lib, outs=outs, op=op):
@@ -399,11 +465,13 @@ def main() -> int:
                     else:
                         lib.leaf(c, x32, n, R, G, root_pos, vary_r, pos)
 
-            for lib in libs:
+            launcher = f"{kernel}_launch"
+            libs_k = [lib for lib in libs if launcher in lib.launchers]
+            for lib in libs_k:
                 fn(lib)
             torch.cuda.synchronize()
             ref = outs["this"]
-            for lib in libs[1:]:
+            for lib in libs_k[1:]:
                 if kernel == "ln_f32_table":
                     same = torch.equal(ref[0], outs[lib.tag][0]) \
                         and d_of(libs[0]) == d_of(lib)
@@ -412,9 +480,10 @@ def main() -> int:
                                zip(ref, outs[lib.tag]))
                 cs.check(same, f"{kernel} {what}: {lib.tag} == this (every "
                          f"output)")
-            graph = {lib.tag: [] for lib in libs}
-            host = {tag: [] for tag in [lib.tag for lib in libs] + list(steps)}
-            for lib in libs + libs[::-1]:
+            graph = {lib.tag: [] for lib in libs_k}
+            host = {tag: [] for tag in [lib.tag for lib in libs_k]
+                    + list(steps)}
+            for lib in libs_k + libs_k[::-1]:
                 graph[lib.tag].append(cs.graph_ms(lambda: fn(lib), 20))
                 host[lib.tag].append(cs.time_ms(lambda: fn(lib), 20))
             order = list(steps.items())

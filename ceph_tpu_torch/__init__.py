@@ -11,11 +11,16 @@ EC stripe math (osd.ec_util), the tools (crush_test, ec_benchmark,
 ec_non_regression), and the device dispatch engine (ops.dispatch, with
 ops.telemetry and common's context, config, failpoints, tracing, logging,
 perf counters, admin socket and named locks) that coalesces concurrent EC
-encodes, decodes and CRUSH remaps into padded calls on the card.
+encodes, decodes, CRUSH remaps and placement tails into padded calls on the
+card.  Above it: the OSDMap, its wire codec (msg.encoding, osd.map_codec),
+crushtool's text format (crush.text, crush.classes), and the shared PG
+mapping service (osd.mapping) with its fused placement tail
+(ops.placement_kernel, the pg_finish_ladder kernel) and its tools
+(crushtool, osdmap_test, psim).
 
 Importing the package sets no global configuration and builds nothing: the
 kernels are compiled with nvcc at their first CUDA call (ops._build).
 """
 
-__all__ = ["common", "convert", "crush", "ec", "entry", "gf", "native", "ops",
-           "osd", "tools"]
+__all__ = ["common", "convert", "crush", "ec", "entry", "gf", "msg", "native",
+           "ops", "osd", "tools"]

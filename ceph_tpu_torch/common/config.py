@@ -10,7 +10,8 @@ observers notified on runtime changes.
 
 The port's table holds the options its modules read: the dispatch engine's
 coalescing, depth and fault knobs, the failpoint spec, telemetry's and
-tracing's knobs.  A later slice adds the options of the layers it ports.
+tracing's knobs, and the PG mapping service's.  A later slice adds the
+options of the layers it ports.
 """
 
 from __future__ import annotations
@@ -141,6 +142,26 @@ register_options([
            "tenants fold into the _overflow bucket (a tenant-name "
            "flood cannot grow the table without bound; overflow work "
            "stays counted, so conservation holds)"),
+    Option("crush_backend", OPT_STR, "cuda",
+           "bulk placement backend of the PG mapping service: cuda "
+           "(BatchMapper and the fused tail on the context's device; "
+           "tpu reads as cuda) | scalar (the pure-Python rule engine)"),
+    Option("osdmap_mapping_min_pgs", OPT_INT, 1024,
+           "pools with fewer PGs than this rebuild their cached raw "
+           "tables with the scalar rule engine instead of a batched "
+           "call, and maps with fewer PGs in all skip the fused tail "
+           "(per-call overhead dominates tiny pools); the epoch cache, "
+           "incremental invalidation and delta detection are identical "
+           "either way"),
+    Option("osdmap_mapping_fused", OPT_BOOL, True,
+           "fuse the post-CRUSH placement pipeline tail (upmap -> "
+           "up/state filter -> primary affinity -> pg_temp/"
+           "primary_temp) into one ladder per pool and epoch "
+           "(ops.placement_kernel, the pg_finish_ladder kernel on the "
+           "card): the mapping service publishes packed (up, acting, "
+           "primaries) tables next to the raw ones, reads become row "
+           "slices, and epoch deltas diff the packed tables; off (or "
+           "crush_backend=scalar) = the per-PG host pipeline tail"),
     Option("log_level", OPT_INT, 1, "default subsystem log level"),
 ])
 

@@ -8,9 +8,10 @@ it, exactly as every reference component takes a CephContext*.
 The port's context runs on one torch device: the CUDA card unless the caller
 asks for another (``device="cpu"``, as the tests do); without a card the
 default raises (``_device.resolve``).  Its two dispatch engines place their
-batches on that device.  On one card there is no device mesh: the
-reference's ``kernel_mesh``, ``mapping_service`` and multi-controller hooks
-wait for the slices that port the mesh and the OSD data path.
+batches on that device, and its shared PG mapping service
+(``mapping_service()``) runs there.  On one card there is no device mesh:
+the reference's ``kernel_mesh`` and multi-controller hooks wait for the
+slice that ports the mesh.
 """
 
 from __future__ import annotations
@@ -83,8 +84,17 @@ class CephTpuContext:
         #: two engines would break per-key submission-order delivery
         self._dispatch = None
         self._decode_dispatch = None
+        self._mapping_service = None
         self._dispatch_lock = lockdep.make_lock(
             "CephTpuContext::dispatch_build")
+        self.admin.register_command(
+            "dump_mapping_stats",
+            lambda **kw: telemetry.mapping_dump(),
+            "shared PG-mapping-service telemetry: epoch-update "
+            "latency, pools recomputed vs reused, changed-PG counts, "
+            "epoch-skips, cache lookups vs scalar fallbacks, fused vs "
+            "unfused epochs, and the per-epoch device/delta/host-tail "
+            "phase split")
         self.admin.register_command(
             "dump_dispatch_stats",
             lambda **kw: {"encode": telemetry.dispatch_dump(),
@@ -100,8 +110,9 @@ class CephTpuContext:
             "engines: queue-wait/build/place/launch/compute/"
             "materialize/deliver histograms per kernel family, the "
             "compile ledger (first launch of a shape, separate from "
-            "steady-state compute), device busy-seconds/utilization "
-            "and a ring of recent per-batch records")
+            "steady-state compute), device busy-seconds/utilization, "
+            "a ring of recent per-batch records, and the mapping "
+            "service's epoch phase split")
 
     def fault_digest(self) -> dict:
         """telemetry.fault_digest() with THIS context's engines'
@@ -186,6 +197,20 @@ class CephTpuContext:
                     f"{self.name}-decode",
                     stats=telemetry.decode_dispatch_stats())
         return self._decode_dispatch
+
+    def mapping_service(self):
+        """The context's shared epoch-keyed PG mapping cache
+        (osd.mapping.SharedPGMappingService) — one per context like the
+        dispatch engines; N daemons on one context advancing the same epoch
+        share a single table build, and its remaps and fused tails ride
+        this context's dispatch engine."""
+        if self._mapping_service is None:
+            with self._dispatch_lock:
+                if self._mapping_service is not None:
+                    return self._mapping_service
+                from ceph_tpu_torch.osd.mapping import SharedPGMappingService
+                self._mapping_service = SharedPGMappingService(self)
+        return self._mapping_service
 
     def stop(self) -> bool:
         """Stop both engines (each drains its queue first); True when

@@ -1,13 +1,15 @@
 """Carry the reference package's state into the port as plain numpy/Python.
 
-A storage system's "weights" are its coding matrices (already numpy) and its
-CRUSH map.  These readers copy a map, a fast-path rule, a codec's generator or
-a flat map's bucket operands out of any object that carries the reference's
-attributes (duck typing: nothing of the reference package is imported), so
+A storage system's "weights" are its coding matrices (already numpy), its
+CRUSH map and its OSDMap.  These readers copy a map, an OSDMap, a fast-path
+rule, a codec's generator or a flat map's bucket operands out of any object
+that carries the reference's attributes (duck typing: nothing of the reference package is imported), so
 tests can feed both packages, and both dispatch engines, the same state.
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 
@@ -53,6 +55,47 @@ def crush_map_from_reference(obj) -> CrushMap:
     m.choose_args = {name: {int(i): _choose_arg(a) for i, a in args.items()}
                      for name, args in getattr(obj, "choose_args", {}).items()}
     m.class_bucket = dict(getattr(obj, "class_bucket", {}))
+    return m
+
+
+def osdmap_from_reference(obj):
+    """The port's OSDMap with the epoch, OSD vectors, pools, the four
+    override tables, the crush map (``crush_map_from_reference``) and the
+    side tables of a reference ``OSDMap``; each pool keeps every field the
+    port's PGPool has."""
+    import dataclasses
+
+    from ceph_tpu_torch.osd.osdmap import OSDMap, OSDXInfo, PGPool
+
+    def ints(v):
+        return [int(i) for i in v]
+
+    def pool(p) -> PGPool:
+        return PGPool(**{f.name: copy.deepcopy(getattr(p, f.name))
+                         for f in dataclasses.fields(PGPool)
+                         if hasattr(p, f.name)})
+
+    m = OSDMap(
+        epoch=int(obj.epoch), crush=crush_map_from_reference(obj.crush),
+        max_osd=int(obj.max_osd), osd_state=ints(obj.osd_state),
+        osd_weight=ints(obj.osd_weight),
+        osd_primary_affinity=ints(obj.osd_primary_affinity),
+        osd_addrs=[str(a) for a in obj.osd_addrs],
+        pools={int(pid): pool(p) for pid, p in obj.pools.items()},
+        pg_upmap={(int(a), int(b)): ints(v)
+                  for (a, b), v in obj.pg_upmap.items()},
+        pg_upmap_items={(int(a), int(b)): [(int(f), int(t)) for f, t in v]
+                        for (a, b), v in obj.pg_upmap_items.items()},
+        pg_temp={(int(a), int(b)): ints(v)
+                 for (a, b), v in obj.pg_temp.items()},
+        primary_temp={(int(a), int(b)): int(v)
+                      for (a, b), v in obj.primary_temp.items()},
+        osd_xinfo=[OSDXInfo(float(x.down_stamp), float(x.laggy_probability),
+                            float(x.laggy_interval))
+                   for x in getattr(obj, "osd_xinfo", [])])
+    for name in ("config_db", "auth_db", "fs_db", "crush_names", "mgr_db",
+                 "mon_db", "qos_db", "slo_db"):
+        setattr(m, name, copy.deepcopy(dict(getattr(obj, name, {}))))
     return m
 
 

@@ -15,6 +15,8 @@ fastpath     the batched chooseleaf/choose-firstn fast path on the card
              (ops.straw2_cuda kernels) or in plain torch on the CPU.
 mapper_torch BatchMapper: batched crush_do_rule for any rule — the fast path
              where it fits, else a masked torch interpreter of the rule.
+text         crushtool's text map format: compile and decompile.
+classes      device-class shadow trees (CrushWrapper populate_classes).
 """
 
 from .types import (

@@ -20,8 +20,8 @@ CRUSH_ITEM_UNDEF = 0x7FFFFFFE
 CRUSH_ITEM_NONE = 0x7FFFFFFF
 
 # device classes: shadow-bucket table (CrushWrapper class_bucket) keyed
-# (original bucket id, class name) -> shadow bucket id; built by the
-# reference's crush/classes.py, not ported yet
+# (original bucket id, class name) -> shadow bucket id; see
+# crush/classes.py
 
 RULE_NOOP = 0
 RULE_TAKE = 1
@@ -120,7 +120,7 @@ class CrushMap:
     # choose_args: name -> {bucket_index: ChooseArg}
     choose_args: dict = field(default_factory=dict)
     #: device-class shadow buckets: (orig bucket id, class) -> shadow id
-    #: (CrushWrapper class_bucket)
+    #: (CrushWrapper class_bucket; built by crush.classes)
     class_bucket: dict = field(default_factory=dict)
 
     @property

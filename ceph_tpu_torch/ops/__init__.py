@@ -6,7 +6,11 @@ gf_kernel    GF(2^8) encode / recovery / heterogeneous decode (gf_matvec),
 crush_kernel rjenkins hashes, crush_ln, straw2 draws, is_out (plain torch);
              flat_firstn (the plain loop, or the column kernels on the card).
 straw2_cuda  the CRUSH fast path's root, leaf and consume column kernels.
-dispatch     the coalescing dispatch engine and its EC/CRUSH channels.
+placement_kernel  the fused placement tail (upmap, up filter, primary
+             affinity, temps): ladder_ref (numpy), ladder_plain (torch), the
+             dense operands; placement_cuda its pg_finish_ladder kernel.
+dispatch     the coalescing dispatch engine and its EC, CRUSH and pg_finish
+             channels.
 telemetry    kernel, dispatch, phase and tenant ledgers.
 _build       nvcc build of csrc/*.cu, ctypes binding, launch counts.
 """

@@ -78,6 +78,12 @@ from ceph_tpu_torch.common import failpoint, lockdep
 from ceph_tpu_torch.ops import _build, telemetry
 
 
+#: the dmClock class of system background work (the reference's
+#: qos/dmclock.py constant, same value): the mapping service tags its remaps
+#: and ladders ("system", BACKGROUND_BEST_EFFORT) in the tenant ledger
+BACKGROUND_BEST_EFFORT = "background_best_effort"
+
+
 class EngineWedgedError(RuntimeError):
     """The engine's thread-restart budget is exhausted: every pending
     and in-flight waiter has been failed with this error, ``flush()``
@@ -1510,3 +1516,43 @@ def submit_do_rule(engine: DeviceDispatchEngine, mapper, ruleno: int,
 
     return engine.submit(key, fn, _xs_lanes(xs), label="crush_rule",
                          fallback=host_oracle, cost_tag=cost_tag)
+
+
+def submit_finish_ladder(engine: DeviceDispatchEngine, operands, *,
+                         key=None, cost_tag=None) -> DispatchFuture:
+    """Submit one pool's fused placement tail (raw -> up -> acting;
+    ops.placement_kernel) through the engine.  ``operands`` is a
+    placement_kernel.LadderOperands: the raw table is the data channel,
+    the per-PG override and pps tables ride aux in lockstep, and the per-OSD
+    state/weight/affinity vectors stay resident on the engine's device under
+    the key.  Pools (and daemons) sharing one epoch's vectors and table
+    widths coalesce on the PG axis into ONE launch of ``pg_finish_ladder``;
+    the padded rows (zero raw, edge-padded aux) compute garbage that is
+    sliced off.  The host oracle is ``ladder_ref``.
+
+    ``key`` defaults to the erasure flag, the width, the pairs and digests
+    of the three vectors."""
+    state, weight, affinity = (operands.state, operands.weight,
+                               operands.affinity)
+    erasure = operands.erasure
+    if key is None:
+        key = ("pg_finish", erasure, operands.width,
+               operands.items.shape[1], hash(state.tobytes()),
+               hash(weight.tobytes()), hash(affinity.tobytes()))
+
+    def fn(batch, *aux, key=key):
+        from ceph_tpu_torch.ops.placement_cuda import finish_ladder
+        vecs = resident(batch.device, key, lambda: tuple(
+            torch.from_numpy(np.ascontiguousarray(v)).to(batch.device)
+            for v in (state, weight, affinity)))
+        return finish_ladder(batch, *aux, *vecs, erasure=erasure)
+
+    def host_oracle(batch, *aux):
+        # numpy twin of the fused tail: the same packed rows, bit for bit
+        from ceph_tpu_torch.ops.placement_kernel import ladder_ref
+        return ladder_ref(batch, *aux, state, weight, affinity,
+                          erasure=erasure)
+
+    return engine.submit(key, fn, operands.raw, aux=operands.aux(),
+                         label="pg_finish", fallback=host_oracle,
+                         cost_tag=cost_tag)

@@ -30,9 +30,10 @@ tracer, so every call here is a timed call.
 
 Surfaces: ``dump()`` (admin socket ``dump_kernel_stats``) and
 ``summary()`` (a one-line digest: launch-signature misses, p50/p99
-latency, occupancy).  The reference's ``MappingStats``, ``ScrubStats``
-and ``BlueStoreStats`` sinks wait for the mapping, scrub and BlueStore
-channels that feed them.
+latency, occupancy); ``MappingStats`` (the shared PG mapping service,
+admin socket ``dump_mapping_stats``).  The reference's ``ScrubStats`` and
+``BlueStoreStats`` sinks wait for the scrub and BlueStore channels that
+feed them.
 """
 
 from __future__ import annotations
@@ -708,6 +709,197 @@ OVERFLOW_TENANT = "_overflow"
 TENANT_LEDGER_MAX_DEFAULT = 1024
 
 
+class MappingStats:
+    """Counters for the shared PG mapping service (osd.mapping).
+
+    The service's efficiency story: how often an epoch actually
+    recomputes (vs reusing cached pool tables), how many PGs each
+    epoch really changed (the O(changed) scan bound), how many queued
+    epochs were skipped outright (burst coalescing), and how often a
+    read had to fall back to the scalar oracle (epoch/object mismatch
+    — the correctness escape hatch, not an error).
+
+    The PHASE split says whether an epoch's cost is the card's or the
+    host's: each computed epoch divides into ``device`` (pool remaps
+    through the mapper/dispatch engine and the fused tail, pps seeding
+    and the host's operand build included), ``delta`` (the changed-PG
+    set: the on-card diff of the packed tables, or candidate extraction
+    when a side is unfused), and ``host_tail`` (the per-candidate
+    pipeline tail — upmap/affinity/temp filtering through
+    ``_finish_from`` — of an unfused epoch).
+
+    The FUSED counters track the fused placement tail:
+    ``fused_epochs``/``unfused_epochs`` count computed epochs that
+    published complete packed (up, acting) tables vs those serving the
+    host tail, ``fused_lookups`` counts reads answered by a packed-row
+    slice (a subset of ``lookups``), and the ``host_tail_share`` gauge
+    is the host-tail phase's share of the total epoch cost — 0 on a
+    fused cluster.
+    """
+
+    __slots__ = ("_lock", "epoch_updates", "epoch_skips",
+                 "pools_recomputed", "pools_reused", "full_rescans",
+                 "lookups", "lookup_fallbacks", "update_latency",
+                 "changed_pgs", "cached_pgs", "cached_pools",
+                 "phase_device", "phase_delta", "phase_host_tail",
+                 "fused_epochs", "unfused_epochs", "fused_lookups")
+
+    def __init__(self):
+        self._lock = lockdep.make_lock("MappingStats::lock")
+        self.epoch_updates = 0     # epochs actually computed
+        self.epoch_skips = 0       # queued epochs never computed
+        self.pools_recomputed = 0  # pool tables rebuilt on device
+        self.pools_reused = 0      # pool tables carried over unchanged
+        self.full_rescans = 0      # deltas unavailable -> full consumer scan
+        self.lookups = 0           # reads served from the cache
+        self.lookup_fallbacks = 0  # reads that fell back to the oracle
+        self.update_latency = Histogram(LATENCY_BOUNDS)  # per-epoch s
+        self.changed_pgs = Histogram(BATCH_BOUNDS)       # delta size/epoch
+        self.cached_pgs = 0        # gauge: PGs resident in raw tables
+        self.cached_pools = 0      # gauge: pools resident
+        # per-epoch phase attribution (see class docstring)
+        self.phase_device = Histogram(LATENCY_BOUNDS)
+        self.phase_delta = Histogram(LATENCY_BOUNDS)
+        self.phase_host_tail = Histogram(LATENCY_BOUNDS)
+        # fused-vs-fallback epoch/read accounting (see class docstring)
+        self.fused_epochs = 0
+        self.unfused_epochs = 0
+        self.fused_lookups = 0
+
+    def clear(self) -> None:
+        with self._lock:
+            self.epoch_updates = self.epoch_skips = 0
+            self.pools_recomputed = self.pools_reused = 0
+            self.full_rescans = 0
+            self.lookups = self.lookup_fallbacks = 0
+            self.update_latency = Histogram(LATENCY_BOUNDS)
+            self.changed_pgs = Histogram(BATCH_BOUNDS)
+            self.cached_pgs = 0
+            self.cached_pools = 0
+            self.phase_device = Histogram(LATENCY_BOUNDS)
+            self.phase_delta = Histogram(LATENCY_BOUNDS)
+            self.phase_host_tail = Histogram(LATENCY_BOUNDS)
+            self.fused_epochs = self.unfused_epochs = 0
+            self.fused_lookups = 0
+
+    def record_phases(self, *, device_s: float, delta_s: float,
+                      host_tail_s: float) -> None:
+        """One computed epoch's phase split (seconds per phase)."""
+        with self._lock:
+            self.phase_device.add(device_s)
+            self.phase_delta.add(delta_s)
+            self.phase_host_tail.add(host_tail_s)
+
+    def record_update(self, *, seconds: float, recomputed: int,
+                      reused: int, changed: int, cached_pgs: int,
+                      cached_pools: int) -> None:
+        with self._lock:
+            self.epoch_updates += 1
+            self.pools_recomputed += recomputed
+            self.pools_reused += reused
+            self.update_latency.add(seconds)
+            self.changed_pgs.add(changed)
+            self.cached_pgs = cached_pgs
+            self.cached_pools = cached_pools
+
+    def record_skip(self, n: int = 1) -> None:
+        with self._lock:
+            self.epoch_skips += n
+
+    def record_full_rescan(self) -> None:
+        with self._lock:
+            self.full_rescans += 1
+
+    def record_lookup(self, hit: bool, fused: bool = False) -> None:
+        with self._lock:
+            if hit:
+                self.lookups += 1
+                if fused:
+                    self.fused_lookups += 1
+            else:
+                self.lookup_fallbacks += 1
+
+    def record_fused_epoch(self, fused: bool) -> None:
+        """One computed epoch's tail mode: complete packed fused
+        tables vs the host-tail fallback."""
+        with self._lock:
+            if fused:
+                self.fused_epochs += 1
+            else:
+                self.unfused_epochs += 1
+
+    def _host_tail_share(self) -> float:
+        """Called under the lock: host-tail share of the total epoch
+        phase cost (the collapse gauge)."""
+        total = (self.phase_device.sum + self.phase_delta.sum
+                 + self.phase_host_tail.sum)
+        return (self.phase_host_tail.sum / total) if total else 0.0
+
+    def dump(self) -> dict:
+        with self._lock:
+            return {
+                "epoch_updates": self.epoch_updates,
+                "epoch_skips": self.epoch_skips,
+                "pools_recomputed": self.pools_recomputed,
+                "pools_reused": self.pools_reused,
+                "full_rescans": self.full_rescans,
+                "lookups": self.lookups,
+                "lookup_fallbacks": self.lookup_fallbacks,
+                "update_latency_seconds": self.update_latency.dump(),
+                "changed_pgs": self.changed_pgs.dump(),
+                "cached_pgs": self.cached_pgs,
+                "cached_pools": self.cached_pools,
+                "fused_epochs": self.fused_epochs,
+                "unfused_epochs": self.unfused_epochs,
+                "fused_lookups": self.fused_lookups,
+                "host_tail_share": round(self._host_tail_share(), 6),
+                "phase_seconds": {
+                    "device": self.phase_device.dump(),
+                    "delta": self.phase_delta.dump(),
+                    "host_tail": self.phase_host_tail.dump(),
+                },
+            }
+
+    def phase_summary(self) -> dict:
+        """Per-phase totals + shares across computed epochs (the
+        mapping row of the pipeline profile)."""
+        with self._lock:
+            sums = {"device": self.phase_device.sum,
+                    "delta": self.phase_delta.sum,
+                    "host_tail": self.phase_host_tail.sum}
+            epochs = self.phase_device.count
+            fused, unfused = self.fused_epochs, self.unfused_epochs
+        total = sum(sums.values())
+        return {"seconds": {k: round(v, 6) for k, v in sums.items()},
+                "share": {k: (round(v / total, 4) if total else 0.0)
+                          for k, v in sums.items()},
+                "epochs": epochs,
+                "fused_epochs": fused,
+                "unfused_epochs": unfused}
+
+    def summary(self) -> dict:
+        """A digest: incrementality in a few numbers."""
+        with self._lock:
+            n = self.update_latency.count
+            return {
+                "epoch_updates": self.epoch_updates,
+                "epoch_skips": self.epoch_skips,
+                "pools_recomputed": self.pools_recomputed,
+                "pools_reused": self.pools_reused,
+                "mean_update_ms": (round(self.update_latency.sum / n
+                                         * 1e3, 3) if n else 0.0),
+                "mean_changed_pgs": (round(self.changed_pgs.sum
+                                           / self.changed_pgs.count, 1)
+                                     if self.changed_pgs.count else 0.0),
+                "lookups": self.lookups,
+                "lookup_fallbacks": self.lookup_fallbacks,
+                "fused_epochs": self.fused_epochs,
+                "unfused_epochs": self.unfused_epochs,
+                "fused_lookups": self.fused_lookups,
+                "host_tail_share": round(self._host_tail_share(), 6),
+            }
+
+
 class TenantDeviceStats:
     """Tenant-attributed device-time ledger (per-tenant × engine ×
     channel).
@@ -838,6 +1030,7 @@ class KernelTelemetry:
         self._kernels: dict[str, KernelStats] = {}
         self.dispatch = DispatchStats()
         self.decode_dispatch = DecodeDispatchStats()
+        self.mapping = MappingStats()
         self.tenant = TenantDeviceStats()
         #: synchronize a CUDA event before closing each latency sample
         self.fence_for_timing = False
@@ -865,6 +1058,7 @@ class KernelTelemetry:
             self._kernels.clear()
         self.dispatch.clear()
         self.decode_dispatch.clear()
+        self.mapping.clear()
         self.tenant.clear()
 
     def summary(self) -> dict:
@@ -936,6 +1130,21 @@ def decode_dispatch_summary() -> dict:
     return _REG.decode_dispatch.summary()
 
 
+def mapping_stats() -> MappingStats:
+    """The process-global shared-mapping-service counters: every
+    SharedPGMappingService (one per context) feeds this, and the
+    ``dump_mapping_stats`` admin command reads it."""
+    return _REG.mapping
+
+
+def mapping_dump() -> dict:
+    return _REG.mapping.dump()
+
+
+def mapping_summary() -> dict:
+    return _REG.mapping.summary()
+
+
 def tenant_stats() -> TenantDeviceStats:
     """The process-global tenant-attributed device-time ledger: both
     dispatch engines apportion completed batches here by cost tag;
@@ -959,11 +1168,12 @@ def pipeline_profile_dump(include_recent: bool = True) -> dict:
     ``dump_pipeline_profile`` admin-socket payload: phase histograms
     per kernel family, the compile ledger, utilization gauges, and the
     bounded ring of recent per-batch records, for both dispatch
-    engines.
+    engines, plus the mapping service's epoch phase split.
     ``include_recent=False`` drops the ring (aggregate-only readers:
     the prometheus scrape)."""
     return {"encode": _REG.dispatch.phases.dump(include_recent),
-            "decode": _REG.decode_dispatch.phases.dump(include_recent)}
+            "decode": _REG.decode_dispatch.phases.dump(include_recent),
+            "mapping": _REG.mapping.phase_summary()}
 
 
 def fault_digest() -> dict:
@@ -979,7 +1189,8 @@ def pipeline_profile_digest() -> dict:
     """Compact phase-share digest (no histograms, no ring) — the
     MMgrReport v4 carriage and bench.py's ``profile`` section."""
     return {"encode": _REG.dispatch.phases.summary(),
-            "decode": _REG.decode_dispatch.phases.summary()}
+            "decode": _REG.decode_dispatch.phases.summary(),
+            "mapping": _REG.mapping.phase_summary()}
 
 
 def set_profile_ring(n) -> None:

@@ -1,0 +1,567 @@
+"""Wire encoding for CrushMap and OSDMap (OSDMap::encode / CrushWrapper::encode
+analog) using the versioned binary codec, so maps distribute over MOSDMapMsg
+and persist in the mon store exactly like any other wire struct."""
+
+from __future__ import annotations
+
+from ceph_tpu_torch.crush.types import (
+    Bucket, ChooseArg, CrushMap, Rule, RuleStep, Tunables)
+from ceph_tpu_torch.msg.encoding import Decoder, Encoder
+
+from .osdmap import OSDMap, OSDXInfo, PGPool
+
+
+# -- crush ------------------------------------------------------------------
+
+def encode_crush(m: CrushMap, enc: Encoder) -> None:
+    def body(e: Encoder):
+        t = m.tunables
+        for v in (t.choose_local_tries, t.choose_local_fallback_tries,
+                  t.choose_total_tries, t.chooseleaf_descend_once,
+                  t.chooseleaf_vary_r, t.chooseleaf_stable,
+                  t.straw_calc_version):
+            e.u32(v)
+        e.u32(m.max_devices)
+
+        def enc_bucket(e2: Encoder, b: Bucket | None):
+            if b is None:
+                e2.u8(0)
+                return
+            e2.u8(1)
+            e2.s32(b.id).u32(b.type).u8(b.alg).u8(b.hash).u32(b.weight)
+            e2.list(b.items, lambda e3, v: e3.s32(v))
+            e2.list(b.item_weights, lambda e3, v: e3.u32(v))
+            e2.u32(b.item_weight)
+            e2.list(b.sum_weights, lambda e3, v: e3.u32(v))
+            e2.list(b.straws, lambda e3, v: e3.u64(v))
+            e2.list(b.node_weights, lambda e3, v: e3.u32(v))
+
+        e.list(m.buckets, enc_bucket)
+
+        def enc_rule(e2: Encoder, r: Rule | None):
+            if r is None:
+                e2.u8(0)
+                return
+            e2.u8(1)
+            e2.u32(r.ruleset).u32(r.type).u32(r.min_size).u32(r.max_size)
+            e2.list(r.steps, lambda e3, s: (e3.u32(s.op), e3.s32(s.arg1),
+                                            e3.s32(s.arg2)))
+
+        e.list(m.rules, enc_rule)
+
+        def enc_choose_args(e2: Encoder, d: dict):
+            def enc_arg(e3: Encoder, a: ChooseArg):
+                if a.ids is None:
+                    e3.u8(0)
+                else:
+                    e3.u8(1)
+                    e3.list(a.ids, lambda e4, v: e4.s32(v))
+                if a.weight_set is None:
+                    e3.u8(0)
+                else:
+                    e3.u8(1)
+                    e3.list(a.weight_set,
+                            lambda e4, ws: e4.list(ws, lambda e5, v: e5.u32(v)))
+
+            e2.map(d, lambda e3, k: e3.u32(k), enc_arg)
+
+        # choose_args ids are s64 in the reference (CrushWrapper.h:72);
+        # v1 encoded them as strings, hence the struct version bump
+        e.map(m.choose_args, lambda e2, k: e2.s64(int(k)), enc_choose_args)
+        # v3: device-class shadow table (CrushWrapper class_bucket)
+        e.map(m.class_bucket,
+              lambda e2, k: (e2.s32(k[0]), e2.str(k[1])),
+              lambda e2, v: e2.s32(v))
+
+    enc.versioned(3, 1, body)
+
+
+def decode_crush(dec: Decoder) -> CrushMap:
+    def body(d: Decoder, version: int) -> CrushMap:
+        t = Tunables(
+            choose_local_tries=d.u32(),
+            choose_local_fallback_tries=d.u32(),
+            choose_total_tries=d.u32(),
+            chooseleaf_descend_once=d.u32(),
+            chooseleaf_vary_r=d.u32(),
+            chooseleaf_stable=d.u32(),
+            straw_calc_version=d.u32(),
+        )
+        max_devices = d.u32()
+
+        def dec_bucket(d2: Decoder) -> Bucket | None:
+            if not d2.u8():
+                return None
+            b = Bucket(id=d2.s32(), type=d2.u32(), alg=d2.u8(),
+                       hash=d2.u8(), weight=d2.u32())
+            b.items = d2.list(lambda d3: d3.s32())
+            b.item_weights = d2.list(lambda d3: d3.u32())
+            b.item_weight = d2.u32()
+            b.sum_weights = d2.list(lambda d3: d3.u32())
+            b.straws = d2.list(lambda d3: d3.u64())
+            b.node_weights = d2.list(lambda d3: d3.u32())
+            return b
+
+        buckets = d.list(dec_bucket)
+
+        def dec_rule(d2: Decoder) -> Rule | None:
+            if not d2.u8():
+                return None
+            r = Rule(ruleset=d2.u32(), type=d2.u32(), min_size=d2.u32(),
+                     max_size=d2.u32())
+            r.steps = d2.list(
+                lambda d3: RuleStep(op=d3.u32(), arg1=d3.s32(), arg2=d3.s32()))
+            return r
+
+        rules = d.list(dec_rule)
+
+        def dec_choose_args(d2: Decoder) -> dict:
+            def dec_arg(d3: Decoder) -> ChooseArg:
+                ids = d3.list(lambda d4: d4.s32()) if d3.u8() else None
+                ws = (d3.list(lambda d4: d4.list(lambda d5: d5.u32()))
+                      if d3.u8() else None)
+                return ChooseArg(ids=ids, weight_set=ws)
+
+            return d2.map(lambda d3: d3.u32(), dec_arg)
+
+        if version >= 2:
+            choose_args = d.map(lambda d2: d2.s64(), dec_choose_args)
+        else:  # v1 stores persisted before the s64 key change
+            raw = d.map(lambda d2: d2.str(), dec_choose_args)
+            choose_args = {
+                int(k) if k.lstrip("-").isdigit() else k: v
+                for k, v in raw.items()}
+        class_bucket = {}
+        if version >= 3:
+            class_bucket = d.map(lambda d2: (d2.s32(), d2.str()),
+                                 lambda d2: d2.s32())
+        m = CrushMap(buckets=buckets, rules=rules, max_devices=max_devices,
+                     tunables=t, choose_args=choose_args,
+                     class_bucket=class_bucket)
+        return m
+
+    return dec.versioned(3, body)
+
+
+# -- osdmap -----------------------------------------------------------------
+
+# ONE pool/pgid codec serves the full map AND the incremental: a field
+# added to one but not the other would make delta-built maps silently
+# diverge from backfilled ones.
+
+def _enc_pool(e2: Encoder, p: PGPool) -> None:
+    e2.s64(p.pool_id).u8(p.type).u32(p.size).u32(p.min_size)
+    e2.u32(p.crush_rule).u32(p.pg_num).u32(p.pgp_num)
+    e2.map(p.ec_profile, lambda e3, k: e3.str(k),
+           lambda e3, v: e3.str(str(v)))
+    e2.u64(p.snap_seq)
+    e2.map(p.snaps, lambda e3, k: e3.u64(k), lambda e3, v: e3.str(v))
+    # v5: cache-tier fields (pg_pool_t tier_of/read_tier/...)
+    e2.s64(p.tier_of).s64(p.read_tier).s64(p.write_tier)
+    e2.str(p.cache_mode)
+    e2.u64(p.target_max_objects)
+    e2.f64(p.cache_min_flush_age)
+    # v13: per-pool objectstore compression (pg_pool_t compression opts)
+    e2.str(p.compression_mode)
+    e2.str(p.compression_algorithm)
+
+
+def _dec_pool(d2: Decoder, version: int = 999) -> PGPool:
+    p = PGPool(pool_id=d2.s64(), type=d2.u8(), size=d2.u32(),
+               min_size=d2.u32(), crush_rule=d2.u32(),
+               pg_num=d2.u32(), pgp_num=d2.u32(),
+               ec_profile=d2.map(lambda d3: d3.str(),
+                                 lambda d3: d3.str()))
+    if version >= 2:
+        p.snap_seq = d2.u64()
+        p.snaps = d2.map(lambda d3: d3.u64(), lambda d3: d3.str())
+    if version >= 5:
+        p.tier_of = d2.s64()
+        p.read_tier = d2.s64()
+        p.write_tier = d2.s64()
+        p.cache_mode = d2.str()
+        p.target_max_objects = d2.u64()
+        p.cache_min_flush_age = d2.f64()
+    if version >= 13:
+        p.compression_mode = d2.str()
+        p.compression_algorithm = d2.str()
+    return p
+
+
+def _enc_pgid(e2: Encoder, k) -> None:
+    e2.s64(k[0])
+    e2.u32(k[1])
+
+
+def _dec_pgid(d2: Decoder):
+    return (d2.s64(), d2.u32())
+
+
+def encode_osdmap(m: OSDMap, *, with_auth: bool = False) -> bytes:
+    """with_auth gates the AuthMonitor key table: ONLY the mon-internal
+    paxos value / mon store carries it (reference: auth key material
+    lives in the AuthMonitor's own paxos service, never in the OSDMap
+    clients subscribe to).  Every broadcast path — MOSDMapMsg fan-out,
+    subscription replies, OSD maybe_share_map — uses the default
+    stripped form, so no client ever sees another entity's secret."""
+    enc = Encoder()
+
+    def body(e: Encoder):
+        e.u32(m.epoch).u32(m.max_osd)
+        encode_crush(m.crush, e)
+        e.list(m.osd_state, lambda e2, v: e2.u8(v))
+        e.list(m.osd_weight, lambda e2, v: e2.u32(v))
+        e.list(m.osd_primary_affinity, lambda e2, v: e2.u32(v))
+        e.list(m.osd_addrs, lambda e2, v: e2.str(v))
+
+        e.map(m.pools, lambda e2, k: e2.s64(k), _enc_pool)
+
+        e.map(m.pg_upmap, _enc_pgid,
+              lambda e2, v: e2.list(v, lambda e3, o: e3.s32(o)))
+        e.map(m.pg_upmap_items, _enc_pgid,
+              lambda e2, v: e2.list(v, lambda e3, p: (e3.s32(p[0]),
+                                                      e3.s32(p[1]))))
+        e.map(m.pg_temp, _enc_pgid,
+              lambda e2, v: e2.list(v, lambda e3, o: e3.s32(o)))
+        e.map(m.primary_temp, _enc_pgid, lambda e2, v: e2.s32(v))
+        # v3: CRUSH name tables ride the map (the reference's binary
+        # crush carries type/name/rule maps; CrushWrapper name_map)
+        import json as _json
+        e.bytes(_json.dumps(m.crush_names).encode()
+                if m.crush_names else b"")
+        # v4: osd_xinfo laggy history (osd_xinfo_t vector)
+        e.list(m.osd_xinfo, lambda e2, x: (
+            e2.f64(x.down_stamp), e2.f64(x.laggy_probability),
+            e2.f64(x.laggy_interval)))
+        # v6: central config-db (ConfigMonitor key space)
+        e.bytes(_json.dumps(m.config_db).encode() if m.config_db
+                else b"")
+        # v7: auth key table (AuthMonitor key space) — mon-internal only
+        e.bytes(_json.dumps(m.auth_db).encode()
+                if (with_auth and m.auth_db) else b"")
+        # v8: FSMap (MDSMonitor FSMap) — public, clients route by it
+        e.bytes(_json.dumps(m.fs_db).encode() if m.fs_db else b"")
+        # v9: active-mgr record (MgrMap) — OSDs/clients re-target by it
+        e.bytes(_json.dumps(m.mgr_db).encode() if m.mgr_db else b"")
+        # v10: monitor membership (MonMap) — mon add/rm rides paxos
+        e.bytes(_json.dumps(m.mon_db).encode() if m.mon_db else b"")
+        # v11: per-tenant QoS profiles (dmclock ClientInfo distribution,
+        # `ceph qos set/rm/ls`) — every OSD schedules from the same db
+        e.bytes(_json.dumps(m.qos_db).encode() if m.qos_db else b"")
+        # v12: per-tenant SLO objectives (`ceph qos slo set/rm/ls`) —
+        # the mgr slo module's burn-rate engine reads them off the map
+        e.bytes(_json.dumps(m.slo_db).encode() if m.slo_db else b"")
+
+    enc.versioned(13, 1, body)
+    return enc.tobytes()
+
+
+# -- incremental osdmap (OSDMap::Incremental, src/osd/OSDMap.h:353) ---------
+#
+# The mon publishes DELTAS for normal churn: an incremental carries only
+# what changed between epoch-1 and epoch, daemons apply them in sequence,
+# and full maps ship only to gapped/backfilling subscribers.  A 10k-OSD
+# map is ~hundreds of KB; marking one osd down is tens of bytes.
+#
+# Layout choice vs the reference: pg_temp/primary_temp/upmap changes
+# carry the full new value per KEY (remove = empty), pools ship whole
+# per changed pool id, and a changed CRUSH ships whole (as in the
+# reference — crush deltas aren't worth the complexity).  The small
+# JSON side-tables (config/fs/crush-names) ship whole when changed.
+
+_SENTINEL = object()
+
+
+def diff_osdmap(old: OSDMap, new: OSDMap) -> dict:
+    """Compute the incremental old -> new (epochs must be adjacent or
+    at least ordered; the inc is tagged with new.epoch)."""
+    import json as _json
+    inc: dict = {"epoch": new.epoch}
+    if new.max_osd != old.max_osd:
+        inc["max_osd"] = new.max_osd
+    for field_, name in (("osd_state", "state"),
+                        ("osd_weight", "weight"),
+                        ("osd_primary_affinity", "affinity"),
+                        ("osd_addrs", "addrs")):
+        ov, nv = getattr(old, field_), getattr(new, field_)
+        changes = {i: nv[i] for i in range(len(nv))
+                   if i >= len(ov) or ov[i] != nv[i]}
+        if changes:
+            inc[name] = changes
+    pools = {}
+    for pid, p in new.pools.items():
+        if pid not in old.pools or old.pools[pid] != p:
+            pools[pid] = p
+    gone = [pid for pid in old.pools if pid not in new.pools]
+    if pools:
+        inc["pools"] = pools
+    if gone:
+        inc["old_pools"] = gone
+    for attr in ("pg_temp", "primary_temp", "pg_upmap",
+                 "pg_upmap_items"):
+        ov, nv = getattr(old, attr), getattr(new, attr)
+        changes = {k: v for k, v in nv.items()
+                   if ov.get(k, _SENTINEL) != v}
+        removes = [k for k in ov if k not in nv]
+        if changes or removes:
+            inc[attr] = (changes, removes)
+    if old.osd_xinfo != new.osd_xinfo:
+        xch = {i: new.osd_xinfo[i] for i in range(len(new.osd_xinfo))
+               if i >= len(old.osd_xinfo)
+               or old.osd_xinfo[i] != new.osd_xinfo[i]}
+        if xch:
+            inc["xinfo"] = xch
+    # whole-structure deltas: compare structurally (dataclass equality)
+    # first — encoding runs only when the crush map actually changed, not
+    # on every epoch commit under the mon lock
+    if old.crush is not new.crush and old.crush != new.crush:
+        enc_new = Encoder()
+        encode_crush(new.crush, enc_new)
+        inc["crush"] = enc_new.tobytes()
+    for attr in ("config_db", "fs_db", "crush_names",
+                 "mgr_db", "mon_db", "qos_db", "slo_db"):
+        if getattr(old, attr) != getattr(new, attr):
+            inc[attr] = _json.dumps(getattr(new, attr))
+    return inc
+
+
+def apply_incremental(m: OSDMap, inc: dict) -> None:
+    """Apply one decoded incremental IN PLACE (OSD::handle_osd_map's
+    apply_incremental).  inc['epoch'] must be m.epoch + 1."""
+    import json as _json
+    if inc["epoch"] != m.epoch + 1:
+        raise ValueError(
+            f"incremental {inc['epoch']} onto map {m.epoch}")
+    if "max_osd" in inc:
+        m.set_max_osd(inc["max_osd"])
+    for name, attr in (("state", "osd_state"), ("weight", "osd_weight"),
+                       ("affinity", "osd_primary_affinity"),
+                       ("addrs", "osd_addrs")):
+        vec = getattr(m, attr)
+        for i, v in inc.get(name, {}).items():
+            while len(vec) <= i:
+                vec.append(0 if attr != "osd_addrs" else "")
+            vec[i] = v
+    for pid, p in inc.get("pools", {}).items():
+        m.pools[pid] = p
+    for pid in inc.get("old_pools", []):
+        m.pools.pop(pid, None)
+    for attr in ("pg_temp", "primary_temp", "pg_upmap",
+                 "pg_upmap_items"):
+        if attr in inc:
+            changes, removes = inc[attr]
+            d = getattr(m, attr)
+            d.update(changes)
+            for k in removes:
+                d.pop(k, None)
+    for i, x in inc.get("xinfo", {}).items():
+        while len(m.osd_xinfo) <= i:
+            m.osd_xinfo.append(OSDXInfo())
+        m.osd_xinfo[i] = x
+    if "crush" in inc:
+        m.crush = decode_crush(Decoder(inc["crush"]))
+    for attr in ("config_db", "fs_db", "crush_names",
+                 "mgr_db", "mon_db", "qos_db", "slo_db"):
+        if attr in inc:
+            setattr(m, attr, _json.loads(inc[attr]))
+    m.epoch = inc["epoch"]
+
+
+def encode_incremental(inc: dict) -> bytes:
+    enc = Encoder()
+
+    def body(e: Encoder):
+        e.u32(inc["epoch"])
+        e.s32(inc.get("max_osd", -1))
+        for name in ("state", "weight", "affinity"):
+            e.map(inc.get(name, {}), lambda e2, k: e2.u32(k),
+                  lambda e2, v: e2.u64(v))
+        e.map(inc.get("addrs", {}), lambda e2, k: e2.u32(k),
+              lambda e2, v: e2.str(v))
+        e.map(inc.get("pools", {}), lambda e2, k: e2.s64(k), _enc_pool)
+        e.list(inc.get("old_pools", []), lambda e2, v: e2.s64(v))
+        for attr, enc_v in (
+                ("pg_temp", lambda e2, v: e2.list(
+                    v, lambda e3, o: e3.s32(o))),
+                ("primary_temp", lambda e2, v: e2.s32(v)),
+                ("pg_upmap", lambda e2, v: e2.list(
+                    v, lambda e3, o: e3.s32(o))),
+                ("pg_upmap_items", lambda e2, v: e2.list(
+                    v, lambda e3, p: (e3.s32(p[0]), e3.s32(p[1]))))):
+            changes, removes = inc.get(attr, ({}, []))
+            e.map(changes, _enc_pgid, enc_v)
+            e.list(removes, _enc_pgid)
+        e.map(inc.get("xinfo", {}), lambda e2, k: e2.u32(k),
+              lambda e2, x: (e2.f64(x.down_stamp),
+                             e2.f64(x.laggy_probability),
+                             e2.f64(x.laggy_interval)))
+        e.bytes(inc.get("crush", b""))
+        for attr in ("config_db", "fs_db", "crush_names",
+                     "mgr_db", "mon_db", "qos_db",
+                     "slo_db"):  # mon_db: v2; qos: v3; slo: v4
+            has = attr in inc
+            e.u8(1 if has else 0)
+            if has:
+                e.bytes(inc[attr].encode())
+
+    enc.versioned(4, 1, body)
+    return enc.tobytes()
+
+
+def decode_incremental(data: bytes) -> dict:
+    dec = Decoder(data)
+
+    def body(d: Decoder, version: int) -> dict:
+        inc: dict = {"epoch": d.u32()}
+        mo = d.s32()
+        if mo >= 0:
+            inc["max_osd"] = mo
+        for name in ("state", "weight", "affinity"):
+            ch = d.map(lambda d2: d2.u32(), lambda d2: d2.u64())
+            if ch:
+                inc[name] = ch
+        ch = d.map(lambda d2: d2.u32(), lambda d2: d2.str())
+        if ch:
+            inc["addrs"] = ch
+        pools = d.map(lambda d2: d2.s64(), _dec_pool)
+        if pools:
+            inc["pools"] = pools
+        old_pools = d.list(lambda d2: d2.s64())
+        if old_pools:
+            inc["old_pools"] = old_pools
+        for attr, dec_v in (
+                ("pg_temp", lambda d2: d2.list(lambda d3: d3.s32())),
+                ("primary_temp", lambda d2: d2.s32()),
+                ("pg_upmap", lambda d2: d2.list(lambda d3: d3.s32())),
+                ("pg_upmap_items", lambda d2: d2.list(
+                    lambda d3: (d3.s32(), d3.s32())))):
+            changes = d.map(_dec_pgid, dec_v)
+            removes = d.list(_dec_pgid)
+            if changes or removes:
+                inc[attr] = (changes, removes)
+        xinfo = d.map(lambda d2: d2.u32(),
+                      lambda d2: OSDXInfo(down_stamp=d2.f64(),
+                                          laggy_probability=d2.f64(),
+                                          laggy_interval=d2.f64()))
+        if xinfo:
+            inc["xinfo"] = xinfo
+        crush = d.bytes()
+        if crush:
+            inc["crush"] = crush
+        side = ["config_db", "fs_db", "crush_names", "mgr_db"]
+        if version >= 2:
+            side.append("mon_db")
+        if version >= 3:
+            side.append("qos_db")
+        if version >= 4:
+            side.append("slo_db")
+        for attr in side:
+            if d.u8():
+                inc[attr] = d.bytes().decode()
+        return inc
+
+    return dec.versioned(1, body)
+
+
+def advance_map(cur: OSDMap, msg) -> tuple[OSDMap | None, bool]:
+    """Apply an MOSDMapMsg (full or incremental) to the current map:
+    returns (new map | None, gapped).  gapped=True means the deltas
+    don't connect to our epoch — the caller re-subscribes with its
+    epoch and the mon backfills (OSD::handle_osd_map's request_full)."""
+    if msg.map_blob:
+        new = decode_osdmap(msg.map_blob)
+        return (new, False) if new.epoch > cur.epoch else (None, False)
+    if not msg.incs:
+        return None, False
+    incs = [(e, b) for e, b in msg.incs if e > cur.epoch]
+    if not incs:
+        return None, False
+    if incs[0][0] != cur.epoch + 1 or cur.epoch == 0:
+        return None, True
+    new = cur.copy()
+    for _e, b in incs:
+        apply_incremental(new, decode_incremental(b))
+    return new, False
+
+
+def decode_osdmap(data: bytes) -> OSDMap:
+    dec = Decoder(data)
+
+    def body(d: Decoder, version: int) -> OSDMap:
+        epoch = d.u32()
+        max_osd = d.u32()
+        crush = decode_crush(d)
+        osd_state = d.list(lambda d2: d2.u8())
+        osd_weight = d.list(lambda d2: d2.u32())
+        affinity = d.list(lambda d2: d2.u32())
+        osd_addrs = d.list(lambda d2: d2.str())
+
+        pools = d.map(lambda d2: d2.s64(),
+                      lambda d2: _dec_pool(d2, version))
+        pg_upmap = d.map(_dec_pgid, lambda d2: d2.list(lambda d3: d3.s32()))
+        pg_upmap_items = d.map(
+            _dec_pgid,
+            lambda d2: d2.list(lambda d3: (d3.s32(), d3.s32())))
+        pg_temp = d.map(_dec_pgid, lambda d2: d2.list(lambda d3: d3.s32()))
+        primary_temp = d.map(_dec_pgid, lambda d2: d2.s32())
+        crush_names = {}
+        if version >= 3:
+            import json as _json
+            blob = d.bytes()
+            if blob:
+                crush_names = _json.loads(blob.decode())
+        xinfo = []
+        if version >= 4:
+            xinfo = d.list(lambda d2: OSDXInfo(
+                down_stamp=d2.f64(), laggy_probability=d2.f64(),
+                laggy_interval=d2.f64()))
+        while len(xinfo) < max_osd:
+            xinfo.append(OSDXInfo())
+        config_db = {}
+        auth_db = {}
+        fs_db = {}
+        mgr_db = {}
+        mon_db = {}
+        qos_db = {}
+        slo_db = {}
+        if version >= 6:
+            import json as _json
+            blob = d.bytes()
+            if blob:
+                config_db = _json.loads(blob.decode())
+            if version >= 7:
+                blob = d.bytes()
+                if blob:
+                    auth_db = _json.loads(blob.decode())
+            if version >= 8:
+                blob = d.bytes()
+                if blob:
+                    fs_db = _json.loads(blob.decode())
+            if version >= 9:
+                blob = d.bytes()
+                if blob:
+                    mgr_db = _json.loads(blob.decode())
+            if version >= 10:
+                blob = d.bytes()
+                if blob:
+                    mon_db = _json.loads(blob.decode())
+            if version >= 11:
+                blob = d.bytes()
+                if blob:
+                    qos_db = _json.loads(blob.decode())
+            if version >= 12:
+                blob = d.bytes()
+                if blob:
+                    slo_db = _json.loads(blob.decode())
+        return OSDMap(epoch=epoch, crush=crush, max_osd=max_osd,
+                      config_db=config_db, auth_db=auth_db, fs_db=fs_db,
+                      mgr_db=mgr_db, mon_db=mon_db, qos_db=qos_db,
+                      slo_db=slo_db,
+                      crush_names=crush_names, osd_xinfo=xinfo,
+                      osd_state=osd_state, osd_weight=osd_weight,
+                      osd_primary_affinity=affinity, osd_addrs=osd_addrs,
+                      pools=pools,
+                      pg_upmap=pg_upmap, pg_upmap_items=pg_upmap_items,
+                      pg_temp=pg_temp, primary_temp=primary_temp)
+
+    return dec.versioned(1, body)

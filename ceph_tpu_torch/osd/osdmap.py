@@ -1,0 +1,398 @@
+"""OSDMap: the replicated cluster map and its placement pipeline.
+
+Semantics follow src/osd/OSDMap.{h,cc} and src/osd/osd_types.cc:
+
+  object -> pg      ceph_str_hash_rjenkins(object name) -> ps, then
+                    ceph_stable_mod(ps, pg_num, pg_num_mask)   (rados.h:85-91)
+  pg -> pps         crush_hash32_2(stable_mod(ps, pgp_num, pgp_num_mask), pool)
+                    (osd_types.cc:1505-1521 raw_pg_to_pps)
+  pps -> raw osds   crush do_rule with per-osd reweight   (OSDMap.cc:2198-2216)
+  raw -> up         drop nonexistent/down osds (compact for replicated, NONE
+                    holes for erasure)                    (OSDMap.cc:2275-2297)
+  upmap             pg_upmap / pg_upmap_items overrides   (OSDMap.cc:2228-2272)
+  primary affinity  hash coin-flip primary reselection    (OSDMap.cc:2299+)
+  temp              pg_temp / primary_temp                (OSDMap.cc:2417-2445)
+
+The scalar path is the oracle; OSDMapMapping (mapping.py) batches the heavy
+middle (pps -> raw osds) on device.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+from ceph_tpu_torch.crush.hashfn import crush_hash32_2
+from ceph_tpu_torch.crush.mapper_ref import crush_do_rule
+from ceph_tpu_torch.crush.types import CRUSH_ITEM_NONE, CrushMap
+
+CEPH_NOSD = -1
+
+POOL_TYPE_REPLICATED = 1
+POOL_TYPE_ERASURE = 3
+
+OSD_EXISTS = 1
+OSD_UP = 2
+
+MAX_AFFINITY = 0x10000
+
+
+def _pg_mask(n: int) -> int:
+    """calc_pg_masks (osd_types.cc): smallest 2^b-1 >= n-1."""
+    if n <= 1:
+        return 0
+    return (1 << (n - 1).bit_length()) - 1
+
+
+def ceph_stable_mod(x: int, b: int, bmask: int) -> int:
+    """include/rados.h:85-91 — stable under pg_num growth."""
+    if (x & bmask) < b:
+        return x & bmask
+    return x & (bmask >> 1)
+
+
+def pg_to_pgid(ps: int, pg_num: int) -> int:
+    """raw ps -> actual pg id within the pool (raw_pg_to_pg)."""
+    return ceph_stable_mod(ps, pg_num, _pg_mask(pg_num))
+
+
+@dataclass
+class PGPool:
+    """pg_pool_t (src/osd/osd_types.h) — the subset that affects placement."""
+
+    pool_id: int
+    type: int = POOL_TYPE_REPLICATED
+    size: int = 3
+    min_size: int = 2
+    crush_rule: int = 0
+    pg_num: int = 64
+    pgp_num: int = 0  # 0 -> pg_num
+    # erasure pools carry their code profile (pg_pool_t erasure_code_profile)
+    ec_profile: dict = field(default_factory=dict)
+    # pool snapshots (pg_pool_t::snaps + snap_seq): snapid -> name
+    snap_seq: int = 0
+    snaps: dict = field(default_factory=dict)
+    # cache tiering (pg_pool_t tier fields): a cache pool fronts its
+    # tier_of base; the base's read/write_tier redirect the Objecter
+    tier_of: int = -1          # set on the CACHE pool
+    read_tier: int = -1        # set on the BASE pool (overlay)
+    write_tier: int = -1       # set on the BASE pool (overlay)
+    cache_mode: str = ""       # "" | "writeback"
+    target_max_objects: int = 0
+    cache_min_flush_age: float = 0.0
+    # per-pool objectstore compression (pg_pool_t compression opts):
+    # OSDs push these to their bluestore backend on map apply; ""
+    # falls back to the bluestore_compression_* conf
+    compression_mode: str = ""        # "" | "none" | "aggressive" | "force"
+    compression_algorithm: str = ""   # "" | a compressor plugin name
+
+    def __post_init__(self):
+        if self.pgp_num == 0:
+            self.pgp_num = self.pg_num
+
+    @property
+    def pg_num_mask(self) -> int:
+        return _pg_mask(self.pg_num)
+
+    @property
+    def pgp_num_mask(self) -> int:
+        return _pg_mask(self.pgp_num)
+
+    def raw_pg_to_pps(self, ps: int) -> int:
+        """osd_types.cc:1505-1521 — placement seed for CRUSH."""
+        return crush_hash32_2(
+            ceph_stable_mod(ps, self.pgp_num, self.pgp_num_mask),
+            self.pool_id)
+
+    def is_erasure(self) -> bool:
+        return self.type == POOL_TYPE_ERASURE
+
+
+@dataclass
+class OSDXInfo:
+    """osd_xinfo_t (src/osd/osd_types.h): laggy history the monitor uses
+    to scale the mark-down grace adaptively.  down_stamp is when the osd
+    was last marked down; laggy_probability/laggy_interval are decaying
+    averages of how often a marked-down osd turned out to be merely slow
+    (it booted again shortly after) and for how long."""
+
+    down_stamp: float = 0.0
+    laggy_probability: float = 0.0
+    laggy_interval: float = 0.0
+
+
+@dataclass
+class OSDMap:
+    """The authoritative cluster map (src/osd/OSDMap.h:class OSDMap)."""
+
+    epoch: int = 1
+    crush: CrushMap = field(default_factory=CrushMap)
+    max_osd: int = 0
+    osd_state: list[int] = field(default_factory=list)   # EXISTS|UP bits
+    osd_weight: list[int] = field(default_factory=list)  # 16.16 reweight
+    osd_primary_affinity: list[int] = field(default_factory=list)
+    osd_addrs: list[str] = field(default_factory=list)   # entity_addr_t
+    pools: dict[int, PGPool] = field(default_factory=dict)
+    #: central config database (mon/ConfigMonitor.h analog): section
+    #: ("global" / "osd" / "osd.3" / "mon" ...) -> {option: value-str};
+    #: replicated with the map, applied by daemons via config observers
+    config_db: dict = field(default_factory=dict)
+    #: auth key table (mon/AuthMonitor analog): entity ("client.admin",
+    #: "osd.3", ...) -> base64 key; issued by `auth get-or-create`
+    auth_db: dict = field(default_factory=dict)
+    #: FSMap (mon/MDSMonitor FSMap analog): {"name", "max_mds",
+    #: "metadata_pool", "data_pool", "ranks": {rank-str: {"gid",
+    #: "addr"}}, "standbys": [{"gid", "addr"}]} — empty until `fs new`
+    fs_db: dict = field(default_factory=dict)
+    # overrides
+    pg_upmap: dict[tuple[int, int], list[int]] = field(default_factory=dict)
+    pg_upmap_items: dict[tuple[int, int], list[tuple[int, int]]] = \
+        field(default_factory=dict)
+    pg_temp: dict[tuple[int, int], list[int]] = field(default_factory=dict)
+    primary_temp: dict[tuple[int, int], int] = field(default_factory=dict)
+    #: CRUSH name side-tables (types/items/rules/classes, JSON-shaped —
+    #: CrushWrapper type_map/name_map analog), set via `osd setcrushmap`
+    crush_names: dict = field(default_factory=dict)
+    #: active-mgr record published to every subscriber (MgrMap reduced):
+    #: {"active_name": "mgr.0", "addr": "..."} — OSDs stream reports to
+    #: it; clients re-target mgr-tier commands at it
+    mgr_db: dict = field(default_factory=dict)
+    #: monitor membership (MonMap analog): {"epoch": N, "mons":
+    #: {rank-str: addr}} — committed through paxos like any map, so
+    #: `mon add/rm` reconfigures every quorum member identically and a
+    #: probing joiner learns the authoritative member set.  Empty on
+    #: clusters bootstrapped with a static monmap before first commit
+    mon_db: dict = field(default_factory=dict)
+    #: per-tenant QoS profiles (dmclock ClientInfo distribution):
+    #: tenant -> {"reservation", "weight", "limit"}, committed by
+    #: `ceph qos set/rm` and folded into every OSD's mClock scheduler
+    #: on map application — all OSDs agree on the tenant lanes
+    qos_db: dict = field(default_factory=dict)
+    #: per-tenant SLO objectives: tenant -> {"reservation_attainment",
+    #: "p99_latency_s", "device_share"}, committed by `ceph qos slo
+    #: set/rm` and consumed by the mgr slo module's burn-rate engine
+    #: (measurement-only — no OSD behavior keys off it)
+    slo_db: dict = field(default_factory=dict)
+    #: per-osd laggy history (osd_xinfo_t vector)
+    osd_xinfo: list[OSDXInfo] = field(default_factory=list)
+
+    def copy(self) -> "OSDMap":
+        """Cheap structural copy for incremental application: the
+        mutable containers are duplicated one level deep; their VALUES
+        are never mutated in place by apply_incremental (changed
+        entries are replaced wholesale), so sharing them is safe — and
+        ~100x cheaper than an encode/decode round trip on a 10k-OSD
+        map."""
+        import copy as _copy
+        m = _copy.copy(self)
+        for attr in ("osd_state", "osd_weight", "osd_primary_affinity",
+                     "osd_addrs", "osd_xinfo"):
+            setattr(m, attr, list(getattr(self, attr)))
+        for attr in ("pools", "pg_upmap", "pg_upmap_items", "pg_temp",
+                     "primary_temp", "config_db", "auth_db", "fs_db",
+                     "crush_names", "mgr_db", "mon_db", "qos_db",
+                     "slo_db"):
+            setattr(m, attr, dict(getattr(self, attr)))
+        return m
+
+    # -- osd state ------------------------------------------------------------
+
+    def set_max_osd(self, n: int) -> None:
+        """OSDMap::set_max_osd — grow the state vectors."""
+        self.max_osd = n
+        for vec, dflt in ((self.osd_state, 0), (self.osd_weight, 0),
+                          (self.osd_primary_affinity, MAX_AFFINITY),
+                          (self.osd_addrs, "")):
+            while len(vec) < n:
+                vec.append(dflt)
+        while len(self.osd_xinfo) < n:
+            self.osd_xinfo.append(OSDXInfo())
+
+    def get_xinfo(self, osd: int) -> OSDXInfo:
+        if osd >= len(self.osd_xinfo):
+            while len(self.osd_xinfo) < max(self.max_osd, osd + 1):
+                self.osd_xinfo.append(OSDXInfo())
+        return self.osd_xinfo[osd]
+
+    def is_up(self, osd: int) -> bool:
+        return (0 <= osd < self.max_osd
+                and bool(self.osd_state[osd] & OSD_UP))
+
+    def exists(self, osd: int) -> bool:
+        return (0 <= osd < self.max_osd
+                and bool(self.osd_state[osd] & OSD_EXISTS))
+
+    def mark_up(self, osd: int, weight: int = 0x10000) -> None:
+        self.osd_state[osd] = OSD_EXISTS | OSD_UP
+        self.osd_weight[osd] = weight
+
+    def mark_down(self, osd: int) -> None:
+        import time
+        self.osd_state[osd] &= ~OSD_UP
+        # stamp for the laggy history (OSDMap Incremental down_at /
+        # osd_xinfo_t::down_stamp)
+        self.get_xinfo(osd).down_stamp = time.time()
+
+    def mark_out(self, osd: int) -> None:
+        self.osd_weight[osd] = 0
+
+    # -- dense operand extraction (fused placement ladder) --------------------
+
+    def dense_osd_vectors(self):
+        """(state, weight, affinity) numpy vectors of length
+        max(max_osd, 1) — the per-OSD operands of the fused placement
+        ladder (ops.placement_kernel).  Sliced to max_osd exactly: the
+        scalar pipeline's bounds checks all read ``0 <= o < max_osd``,
+        so entries past it must not exist on device either."""
+        import numpy as np
+        n = max(self.max_osd, 1)
+        state = np.zeros(n, dtype=np.int32)
+        weight = np.zeros(n, dtype=np.int64)
+        affinity = np.full(n, MAX_AFFINITY, dtype=np.int32)
+        k = min(self.max_osd, len(self.osd_state))
+        state[:k] = self.osd_state[:k]
+        k = min(self.max_osd, len(self.osd_weight))
+        weight[:k] = self.osd_weight[:k]
+        k = min(self.max_osd, len(self.osd_primary_affinity))
+        affinity[:k] = self.osd_primary_affinity[:k]
+        return state, weight, affinity
+
+    def dense_pool_overrides(self, pool_id: int, pg_num: int,
+                             width: int, pairs: int):
+        """One pool's sparse overrides as dense per-PG tables for the
+        fused ladder: (up_rows, up_len, items, temp_rows, temp_len,
+        ptemp).  pg_upmap/pg_temp rows are NONE/NOSD padded to
+        ``width``; pg_upmap_items pairs are (-1, -1) padded to
+        ``pairs`` (-1 never matches a raw cell, so pads are inert
+        while genuine entries — including NONE frms — keep the scalar
+        list semantics)."""
+        import numpy as np
+        up_rows = np.full((pg_num, width), CRUSH_ITEM_NONE,
+                          dtype=np.int32)
+        up_len = np.zeros(pg_num, dtype=np.int32)
+        for (pid, pg), lst in self.pg_upmap.items():
+            if pid != pool_id or not (0 <= pg < pg_num):
+                continue
+            n = min(len(lst), width)
+            up_rows[pg, :n] = lst[:n]
+            up_len[pg] = n
+        items = np.full((pg_num, pairs, 2), -1, dtype=np.int32)
+        for (pid, pg), prs in self.pg_upmap_items.items():
+            if pid != pool_id or not (0 <= pg < pg_num):
+                continue
+            for i, (frm, to) in enumerate(prs[:pairs]):
+                items[pg, i, 0] = frm
+                items[pg, i, 1] = to
+        temp_rows = np.full((pg_num, width), CEPH_NOSD, dtype=np.int32)
+        temp_len = np.zeros(pg_num, dtype=np.int32)
+        for (pid, pg), lst in self.pg_temp.items():
+            if pid != pool_id or not (0 <= pg < pg_num):
+                continue
+            n = min(len(lst), width)
+            temp_rows[pg, :n] = lst[:n]
+            temp_len[pg] = n
+        ptemp = np.full(pg_num, CEPH_NOSD, dtype=np.int32)
+        for (pid, pg), osd in self.primary_temp.items():
+            if pid == pool_id and 0 <= pg < pg_num:
+                ptemp[pg] = osd
+        return up_rows, up_len, items, temp_rows, temp_len, ptemp
+
+    # -- placement pipeline (scalar oracle) -----------------------------------
+
+    def _pg_to_raw_osds(self, pool: PGPool, ps: int,
+                        pps: int | None = None) -> list[int]:
+        """OSDMap.cc:2198-2216."""
+        if pps is None:
+            pps = pool.raw_pg_to_pps(ps)
+        ruleno = pool.crush_rule
+        if ruleno < 0 or ruleno >= self.crush.max_rules:
+            return []
+        return crush_do_rule(self.crush, ruleno, pps, pool.size,
+                             self.osd_weight)
+
+    def _apply_upmap(self, pool: PGPool, pgid: tuple[int, int],
+                     raw: list[int]) -> list[int]:
+        """OSDMap.cc:2228-2272 — explicit overrides, validity-checked."""
+        pm = self.pg_upmap.get(pgid)
+        if pm:
+            if all(self.exists(o) and not self._is_out(o) for o in pm):
+                return list(pm)
+        pairs = self.pg_upmap_items.get(pgid)
+        if pairs:
+            raw = list(raw)
+            for frm, to in pairs:
+                if (frm in raw and to not in raw and self.exists(to)
+                        and not self._is_out(to)):
+                    raw[raw.index(frm)] = to
+        return raw
+
+    def is_out(self, osd: int) -> bool:
+        """OSDMap::is_out — weight 0 means CRUSH never places here."""
+        return not (0 <= osd < self.max_osd) or self.osd_weight[osd] == 0
+
+    # placement-pipeline internal alias
+    _is_out = is_out
+
+    def _raw_to_up_osds(self, pool: PGPool, raw: list[int]
+                        ) -> tuple[list[int], int]:
+        """OSDMap.cc:2275-2297: erasure keeps positions (NONE holes),
+        replicated compacts; primary = first valid."""
+        if pool.is_erasure():
+            up = [o if (o != CRUSH_ITEM_NONE and self.exists(o)
+                        and self.is_up(o)) else CEPH_NOSD for o in raw]
+            primary = next((o for o in up if o != CEPH_NOSD), CEPH_NOSD)
+        else:
+            up = [o for o in raw
+                  if o != CRUSH_ITEM_NONE and self.exists(o) and self.is_up(o)]
+            primary = up[0] if up else CEPH_NOSD
+        return up, primary
+
+    def _apply_primary_affinity(self, seed: int, up: list[int],
+                                primary: int) -> int:
+        """OSDMap.cc _apply_primary_affinity: the first osd in up that wins
+        the affinity coin flip (hash(seed, o) >> 16 < affinity) becomes
+        primary; default-affinity osds always win their flip."""
+        if not up or all(
+                not (0 <= o < self.max_osd)
+                or self.osd_primary_affinity[o] == MAX_AFFINITY
+                for o in up if o != CEPH_NOSD):
+            return primary
+        for pos, o in enumerate(up):
+            if o == CEPH_NOSD:
+                continue
+            a = self.osd_primary_affinity[o] \
+                if 0 <= o < self.max_osd else MAX_AFFINITY
+            if a == MAX_AFFINITY:
+                return o
+            if (crush_hash32_2(seed, o) >> 16) < a:
+                return o
+        return primary
+
+    def _finish_pg_mapping(self, pool: PGPool, pgid: tuple[int, int],
+                           raw: list[int], pps: int | None = None
+                           ) -> tuple[list[int], int, list[int], int]:
+        """Post-CRUSH pipeline tail: upmap -> up -> primary affinity -> temps.
+        Shared by the scalar path and the batched mapping cache."""
+        raw = self._apply_upmap(pool, pgid, raw)
+        up, up_primary = self._raw_to_up_osds(pool, raw)
+        # affinity seed is pps, not the raw pg id (OSDMap.cc:2410-2447)
+        if pps is None:
+            pps = pool.raw_pg_to_pps(pgid[1])
+        up_primary = self._apply_primary_affinity(pps, up, up_primary)
+        acting = list(self.pg_temp.get(pgid, [])) or list(up)
+        acting_primary = self.primary_temp.get(pgid, CEPH_NOSD)
+        if acting_primary == CEPH_NOSD:
+            acting_primary = next(
+                (o for o in acting if o != CEPH_NOSD), CEPH_NOSD)
+            if acting == up:
+                acting_primary = up_primary
+        return up, up_primary, acting, acting_primary
+
+    def pg_to_up_acting_osds(self, pool_id: int, ps: int
+                             ) -> tuple[list[int], int, list[int], int]:
+        """OSDMap.cc:2417-2445 — returns (up, up_primary, acting,
+        acting_primary)."""
+        pool = self.pools[pool_id]
+        pgid = (pool_id, pg_to_pgid(ps, pool.pg_num))
+        pps = pool.raw_pg_to_pps(pgid[1])
+        raw = self._pg_to_raw_osds(pool, pgid[1], pps)
+        return self._finish_pg_mapping(pool, pgid, raw, pps)

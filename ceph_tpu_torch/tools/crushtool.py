@@ -1,0 +1,182 @@
+"""crushtool analog (src/tools/crushtool.cc): compile / decompile /
+inspect CRUSH maps.
+
+    python -m ceph_tpu_torch.tools.crushtool -c map.txt -o map.bin
+    python -m ceph_tpu_torch.tools.crushtool -d map.bin [-o map.txt]
+    python -m ceph_tpu_torch.tools.crushtool --tree map.bin
+    python -m ceph_tpu_torch.tools.crushtool --build --num-osds N \
+        node straw2 <per-node> root straw2 0 -o map.bin
+
+The binary format is our crush codec (map_codec.encode_crush) framed
+with a JSON name-table section — the reference's binary likewise
+carries type/name/rule name maps next to the algorithmic struct.
+
+--test is served by ceph_tpu_torch.tools.crush_test (crushtool --test's
+flags live there); --build mirrors the reference's layered builder.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import struct
+import sys
+
+from ceph_tpu_torch.crush.text import (
+    _ALG_IDS, CrushNames, compile_text, decompile, item_name, type_name)
+from ceph_tpu_torch.crush.types import CRUSH_BUCKET_UNIFORM
+from ceph_tpu_torch.msg.encoding import Decoder, Encoder
+from ceph_tpu_torch.osd.map_codec import decode_crush, encode_crush
+
+_MAGIC = b"CTPUCRSH"
+
+
+def write_binary(path: str, m, names: CrushNames) -> None:
+    e = Encoder()
+    encode_crush(m, e)
+    write_binary_blob(path, e.tobytes(), {
+        "types": names.types, "items": names.items,
+        "rules": names.rules, "classes": names.classes})
+
+
+def write_binary_blob(path: str, blob: bytes, names_dict: dict) -> None:
+    """Frame an already-encoded crush blob (as fetched from the mon)
+    without a redundant decode/re-encode round."""
+    names_dict = {"types": names_dict.get("types") or {},
+                  "items": names_dict.get("items") or {},
+                  "rules": names_dict.get("rules") or {},
+                  "classes": names_dict.get("classes") or {}}
+    nj = json.dumps(names_dict).encode()
+    with open(path, "wb") as f:
+        f.write(_MAGIC + struct.pack("<II", len(blob), len(nj))
+                + blob + nj)
+
+
+def read_binary(path: str):
+    raw = open(path, "rb").read()
+    if not raw.startswith(_MAGIC):
+        raise SystemExit(f"{path}: not a crush map (bad magic)")
+    bl, nl = struct.unpack_from("<II", raw, len(_MAGIC))
+    off = len(_MAGIC) + 8
+    m = decode_crush(Decoder(raw[off:off + bl]))
+    nd = json.loads(raw[off + bl:off + bl + nl].decode())
+    names = CrushNames(
+        types={int(k): v for k, v in nd["types"].items()},
+        items={int(k): v for k, v in nd["items"].items()},
+        rules={int(k): v for k, v in nd["rules"].items()},
+        classes={int(k): v for k, v in nd["classes"].items()})
+    return m, names
+
+
+def tree_lines(m, names: CrushNames) -> list[str]:
+    """`crushtool --tree` / `ceph osd tree` rendering."""
+    def iname(i):
+        return item_name(names, i)
+
+    def tname(t):
+        return type_name(names, t)
+
+    referenced = {it for b in m.buckets if b is not None
+                  for it in b.items}
+    roots = [b for b in m.buckets
+             if b is not None and b.id not in referenced]
+    out = ["ID\tWEIGHT\tTYPE NAME"]
+
+    def walk(bid, depth):
+        b = m.bucket(bid)
+        if b is None:   # device
+            out.append(f"{bid}\t-\t{'  ' * depth}{iname(bid)}")
+            return
+        out.append(f"{b.id}\t{b.weight / 0x10000:.5f}\t"
+                   f"{'  ' * depth}{tname(b.type)} {iname(b.id)}")
+        for k, it in enumerate(b.items):
+            if it >= 0:
+                w = (b.item_weight if b.alg == CRUSH_BUCKET_UNIFORM
+                     else (b.item_weights[k]
+                           if k < len(b.item_weights) else 0))
+                out.append(f"{it}\t{w / 0x10000:.5f}\t"
+                           f"{'  ' * (depth + 1)}{iname(it)}")
+            else:
+                walk(it, depth + 1)
+
+    for r in roots:
+        walk(r.id, 0)
+    return out
+
+
+def build_layered(num_osds: int, layers: list[tuple[str, str, int]]):
+    """crushtool --build: stack layers bottom-up; size 0 means one
+    bucket holding everything (crushtool.cc build mode)."""
+    from ceph_tpu_torch.crush.builder import add_simple_rule, make_bucket
+    from ceph_tpu_torch.crush.types import CrushMap
+    m = CrushMap()
+    names = CrushNames(types={0: "osd"})
+    prev = list(range(num_osds))
+    prev_w = [0x10000] * num_osds
+    names.items.update({i: f"osd.{i}" for i in prev})
+    tid = 0
+    # a multi-bucket top layer would leave subtrees unreachable by the
+    # generated rule: close the map with an implicit root over them
+    if not layers or layers[-1][2] != 0:
+        layers = list(layers) + [("root", "straw2", 0)]
+    for tname, alg, size in layers:
+        tid += 1
+        names.types[tid] = tname
+        group = len(prev) if size == 0 else size
+        nxt, nxt_w = [], []
+        for i in range(0, len(prev), group):
+            items = prev[i:i + group]
+            ws = prev_w[i:i + group]
+            b = make_bucket(m.next_bucket_id(), _ALG_IDS[alg], tid,
+                            items, ws)
+            m.add_bucket(b)
+            names.items[b.id] = f"{tname}{len(nxt)}"
+            nxt.append(b.id)
+            nxt_w.append(b.weight)
+        prev, prev_w = nxt, nxt_w
+    m.max_devices = num_osds
+    rule = add_simple_rule(m, prev[0], tid - 1)
+    names.rules[rule] = "replicated_rule"
+    return m, names
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="crushtool")
+    p.add_argument("-c", "--compile", metavar="TXT")
+    p.add_argument("-d", "--decompile", metavar="BIN")
+    p.add_argument("--tree", metavar="BIN")
+    p.add_argument("--build", action="store_true")
+    p.add_argument("--num-osds", type=int, default=0)
+    p.add_argument("-o", "--outfn")
+    p.add_argument("layers", nargs="*",
+                   help="--build: name alg size triples")
+    a = p.parse_args(argv)
+    if a.compile:
+        m, names = compile_text(open(a.compile).read())
+        write_binary(a.outfn or a.compile + ".bin", m, names)
+        return 0
+    if a.decompile:
+        m, names = read_binary(a.decompile)
+        text = decompile(m, names)
+        if a.outfn:
+            open(a.outfn, "w").write(text)
+        else:
+            sys.stdout.write(text)
+        return 0
+    if a.tree:
+        m, names = read_binary(a.tree)
+        print("\n".join(tree_lines(m, names)))
+        return 0
+    if a.build:
+        if not a.num_osds or len(a.layers) % 3:
+            p.error("--build needs --num-osds and name alg size triples")
+        layers = [(a.layers[i], a.layers[i + 1], int(a.layers[i + 2]))
+                  for i in range(0, len(a.layers), 3)]
+        m, names = build_layered(a.num_osds, layers)
+        write_binary(a.outfn or "crush.bin", m, names)
+        return 0
+    p.error("one of -c / -d / --tree / --build required")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

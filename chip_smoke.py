@@ -120,9 +120,45 @@ Runs ceph_tpu_torch (never JAX, never ceph_tpu) at the bench's full size:
              kernel_fault_max_retries retries; the host oracle serves
              bit-exact), is disarmed, and the probe re-closes the breaker;
              the exact counts are held
-  9. prints  the {"engine": ...} line, the {"kernels": [...]} line
-             (gf_matvec's row also carries the EC shapes of phase 7 as
-             "ec_shapes"), then {"ok": true, "device": ...}
+  9. mapping the OSDMap and the context's shared PG mapping service on the
+             card (a fresh CephTpuContext at the knobs' defaults), the fault
+             and mapping counters first set to 0: bench_map's 10,000 OSDs
+             (its reweights as osd_weight, every OSD up), pool 1 replicated
+             size 3 on the chooseleaf firstn host rule and pool 2 erasure
+             k=8 m=4 (size 12) on a chooseleaf indep host rule, pg_num
+             262,144 and 16,384 (Ceph's mon_target_pg_per_osd 100: OSDs x
+             100 / size to a power of two; 983,040 PG replicas), through
+             four epochs, each a new map passed to update_to with the
+             launch counts at 0 just before it and read just after: e1 the
+             base map (every pool built; the straw2 kernels and
+             pg_finish_ladder launch); e2 overrides only (1,024
+             pg_upmap_items on pool 1 and 64 on pool 2 with 1-3 pairs, some
+             invalid or with a NONE frm; 256 pg_upmap rows, some naming an
+             out OSD; 512 pg_temp, some empty; 128 primary_temp; primary
+             affinity 0x8000 on 5% of OSDs and 0 on 1%): the raw tables
+             are reused and no straw2 kernel launches; e3 100 OSDs down,
+             one whole host among them; e4 1% reweighted to 0x8000 and 20
+             out (both pools remap through submit_do_rule).  At every
+             epoch: each pool's packed table == the numpy ladder_ref over
+             all rows and the kernel == ladder_plain on the card on the
+             same operands; lookup == pg_to_up_acting_osds (the scalar
+             oracle, in worker processes) on every PG an override names and
+             a seeded 1,024 PGs of pool 1 and 256 of pool 2; the delta ==
+             the rows where the two epochs' packed tables differ; no full
+             rescan after e1; MappingStats' unfused_epochs and
+             lookup_fallbacks 0; fault_digest() zero.  Then what_if_up
+             against the host pipeline, e4's content again with
+             osdmap_mapping_fused off (host-tail lookups == the fused
+             rows), osdmap_test.test_map_pgs on e4's map and psim on the
+             250 x 40 map, the kernel against ladder_plain and ladder_ref on
+             adversarial operands (W 1, 3, 12, 16, 32; P 1, 2, 4; N 1, 37,
+             203; a pad row in the middle), and its time by graph replay
+             beside host_ms, ladder_plain's time, its bound and the host's
+             build_operands time
+ 10. prints  the {"engine": ...} line, the {"mapping": ...} line, the
+             {"kernels": [...]} line (gf_matvec's row also carries the EC
+             shapes of phase 7 as "ec_shapes"; pg_finish_ladder's its
+             launches per epoch), then {"ok": true, "device": ...}
 
 Exits non-zero, printing no result, without a card or without the package.
 """
@@ -236,6 +272,23 @@ ENGINE_RULE_REQ = (256, 2048)         # PGs a submit_do_rule request
 ENGINE_ORACLE = 16                    # requests sampled against the oracle
 ENGINE_RULE_ORACLE = 4                # PGs of each against crush_do_rule
 NONE_ID = 0x7FFFFFFF
+
+#: the mapping phase (9): osdmaptool --test-map-pgs scale on the flagship
+#: 10,000-OSD map at Ceph's mon_target_pg_per_osd 100 (nautilus): pg_num =
+#: OSDs x 100 / size, to a power of two — a replicated size-3 pool on the
+#: map's chooseleaf firstn host rule and an erasure k=8 m=4 pool on a
+#: chooseleaf indep host rule; 983,040 PG replicas, ~98 per OSD
+MAP_REP_PGS, MAP_EC_PGS, MAP_EC_SIZE = 262144, 16384, 12
+#: e2's overrides: pg_upmap_items on pool 1 and pool 2, pg_upmap rows,
+#: pg_temp entries (pool 1, pool 2) and primary_temp (pool 1, pool 2)
+MAP_ITEMS, MAP_EC_ITEMS, MAP_UPMAP = 1024, 64, 256
+MAP_TEMP, MAP_EC_TEMP, MAP_PTEMP, MAP_EC_PTEMP = 448, 64, 112, 16
+#: seeded PGs of each pool held against the scalar oracle at every epoch,
+#: beside every PG an override names
+MAP_SAMPLE = {1: 1024, 2: 256}
+#: the adversarial kernel checks: widths, pairs, row counts
+LADDER_WIDTHS, LADDER_PAIRS, LADDER_NS = (1, 3, 12, 16, 32), (1, 2, 4), \
+    (1, 37, 203)
 
 
 def rows_of(m, rid: int, xs, rw_list) -> "np.ndarray":
@@ -698,6 +751,517 @@ def engine_phase(dev, tag: str, xs_np) -> dict:
         "retries", "retry_successes", "fallback_batches", "breaker_opens",
         "breaker_closes", "probe_successes", "probe_failures")}
     return result
+
+
+def _oracle_chunk(args):
+    """The scalar oracle pg_to_up_acting_osds over (pool, pg) pairs of one
+    map: a worker process's share."""
+    m, keys = args
+    return [m.pg_to_up_acting_osds(pid, pg) for pid, pg in keys]
+
+
+def scalar_oracle(pool_exec, m, keys: list) -> dict:
+    """pg_to_up_acting_osds of every key, computed in ``pool_exec``'s worker
+    processes (the pure-Python rule engine on a 10,000-OSD map takes 25-100
+    ms a PG)."""
+    step = max(1, -(-len(keys) // 64))
+    chunks = [keys[i:i + step] for i in range(0, len(keys), step)]
+    out: dict = {}
+    for chunk, rows in zip(chunks, pool_exec.map(
+            _oracle_chunk, [(m, c) for c in chunks])):
+        out.update(zip(chunk, rows))
+    return out
+
+
+def ladder_operands_case(rng, n: int, w: int, p: int, erasure: bool):
+    """Seeded adversarial operands of the fused tail (the LadderOperands
+    fields, numpy): few OSDs, ids past max_osd, NONE holes, NONE frm pairs,
+    targets in the row, out or down, upmap rows valid or not, empty and
+    short temps, primary_temp, affinity all default or not, and an all-zero
+    row in the middle (a padded bucket's row)."""
+    import numpy as np
+    none, nosd = NONE_ID, -1
+    m_osd = int(rng.integers(1, 24))
+    hi = m_osd + 3
+    state = rng.choice([0, 1, 2, 3, 3, 3, 3], m_osd).astype(np.int32)
+    weight = rng.choice([0, 0x10000, 0x10000, 0x8000, 1 << 40],
+                        m_osd).astype(np.int64)
+    affinity = (np.full(m_osd, 0x10000, dtype=np.int32) if rng.random() < .3
+                else rng.choice([0, 0x10000, 0x10000, 0x8000, 0x1234],
+                                m_osd).astype(np.int32))
+    raw = rng.integers(0, hi, (n, w)).astype(np.int32)
+    raw[rng.random((n, w)) < 0.2] = none
+    raw_len = np.full(n, w, dtype=np.int32)
+    if erasure:
+        short = rng.random(n) < 0.2
+        raw_len[short] = rng.integers(0, w + 1, int(short.sum()))
+    up_rows = np.full((n, w), none, dtype=np.int32)
+    up_len = np.zeros(n, dtype=np.int32)
+    for i in np.flatnonzero(rng.random(n) < 0.15):
+        k = int(rng.integers(1, w + 1))
+        up_rows[i, :k] = rng.integers(0, hi, k)
+        up_len[i] = k
+    items = np.full((n, p, 2), -1, dtype=np.int32)
+    for i in np.flatnonzero(rng.random(n) < 0.5):
+        for j in range(int(rng.integers(1, p + 1))):
+            frm = (none if rng.random() < 0.15
+                   else int(raw[i, rng.integers(0, w)]))
+            to = (int(raw[i, rng.integers(0, w)]) if rng.random() < 0.2
+                  else int(rng.integers(0, hi)))
+            items[i, j] = (frm, to)
+    temp_rows = np.full((n, w), nosd, dtype=np.int32)
+    temp_len = np.zeros(n, dtype=np.int32)
+    for i in np.flatnonzero(rng.random(n) < 0.15):
+        k = int(rng.integers(0, w + 1))
+        temp_rows[i, :k] = rng.integers(-1, hi, k)
+        temp_len[i] = k
+    ptemp = np.where(rng.random(n) < 0.1, rng.integers(0, hi, n),
+                     nosd).astype(np.int32)
+    pps = rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(np.uint32)
+    case = dict(raw=raw, pps=pps, raw_len=raw_len, up_rows=up_rows,
+                up_len=up_len, items=items, temp_rows=temp_rows,
+                temp_len=temp_len, ptemp=ptemp, state=state, weight=weight,
+                affinity=affinity, erasure=erasure, width=w)
+    if n > 2:
+        for f in ("raw", "pps", "raw_len", "up_rows", "up_len", "items",
+                  "temp_rows", "temp_len", "ptemp"):
+            case[f][n // 2] = 0
+    return case
+
+
+def on_card(op, dev):
+    """A LadderOperands' arrays as card tensors: the per-PG ones in
+    finish_ladder's order, then the three per-OSD vectors."""
+    import numpy as np
+    import torch
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (op.raw,) + op.aux() + (op.state, op.weight,
+                                              op.affinity)]
+
+
+def launch_ladder(t, erasure: bool, out) -> None:
+    """One raw pg_finish_ladder launch on prepared card operands ``t``
+    (finish_ladder's order, int32 but weight int64) into ``out``."""
+    from ceph_tpu_torch.ops import _build
+    n, w = t[0].shape
+    _build.launch("pg_finish_ladder", "pg_finish_ladder_launch",
+                  *[a.data_ptr() for a in t], t[9].shape[0], n, w,
+                  t[5].shape[1], int(erasure), out.data_ptr())
+
+
+def ladder_bound(op, packed) -> tuple[float, str]:
+    """The fused tail's bound on these operands, counting only the bytes
+    this data makes the function read: every row's raw cells, pairs,
+    up_len, temp_len and ptemp; raw_len on an erasure pool only; a row's
+    pg_upmap cells (up_len of them), its pg_temp row and its pps only where
+    it has one or its up members do not all have default affinity; the
+    three per-OSD vectors once; the packed table written once.  The
+    operations: the coin-flip hashes this data needs (one hash32_2 per up
+    member of those rows)."""
+    import numpy as np
+    n, w = op.raw.shape
+    up = packed[:, :w]
+    real = up != -1
+    aff = np.where(real, op.affinity[np.clip(up, 0, len(op.affinity) - 1)],
+                   0x10000)
+    rows = (real & (aff != 0x10000)).any(axis=1)
+    nbytes = (op.raw.nbytes + op.items.nbytes + op.up_len.nbytes
+              + op.temp_len.nbytes + op.ptemp.nbytes
+              + (op.raw_len.nbytes if op.erasure else 0)
+              + 4 * int(op.up_len.sum())
+              + 4 * w * int((op.temp_len > 0).sum())
+              + 4 * int(rows.sum())
+              + op.state.nbytes + op.weight.nbytes + op.affinity.nbytes
+              + packed.nbytes)
+    hashes = int(real[rows].sum())
+    return bound(nbytes, hashes * HASH2_OPS)
+
+
+def ladder_padding(op, packed, size: int) -> tuple[int, int]:
+    """(bytes, of which padding): what one pool's tail moves through the
+    engine (its dense operand tables to the card, its packed table back),
+    and the part of it that is cells past the pool's own size in the
+    epoch-shared width W (raw, pg_upmap and pg_temp rows; up and acting)."""
+    import numpy as np
+    w = op.raw.shape[1]
+    moved = (sum(np.asarray(a).nbytes for a in (op.raw,) + op.aux())
+             + packed.nbytes)
+    pad = (sum(a[:, size:].nbytes for a in (op.raw, op.up_rows,
+                                             op.temp_rows))
+           + packed[:, size:w].nbytes + packed[:, w + size:2 * w].nbytes)
+    return moved, pad
+
+
+def mapping_phase(dev, tag: str) -> tuple[dict, dict]:
+    """Phase 9: the OSDMap and the shared PG mapping service on the card
+    (see the module docstring); returns (summary, the kernel row of
+    pg_finish_ladder)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from ceph_tpu_torch.common.context import CephTpuContext
+    from ceph_tpu_torch.crush.builder import add_simple_rule
+    from ceph_tpu_torch.ops import _build, telemetry
+    from ceph_tpu_torch.ops import placement_cuda as pc
+    from ceph_tpu_torch.ops import placement_kernel as pk
+    from ceph_tpu_torch.osd import OSDMap, PGPool
+    from ceph_tpu_torch.osd.osdmap import OSD_EXISTS, OSD_UP
+    from ceph_tpu_torch.tools import osdmap_test, psim
+
+    rng = np.random.default_rng(9)
+    # the counters of earlier phases (8e armed the ladder on purpose) start
+    # this phase at zero
+    telemetry.reset()
+    crush, rid, reweight = bench_map()
+    ec_rid = add_simple_rule(crush, -1, 1, mode="indep")
+    m1 = OSDMap(crush=crush, epoch=1)
+    m1.set_max_osd(N_OSDS)
+    for o in range(N_OSDS):
+        m1.mark_up(o, int(reweight[o]))
+    m1.pools[1] = PGPool(pool_id=1, size=NUMREP, crush_rule=rid,
+                         pg_num=MAP_REP_PGS)
+    m1.pools[2] = PGPool(pool_id=2, type=3, size=MAP_EC_SIZE,
+                         crush_rule=ec_rid, pg_num=MAP_EC_PGS,
+                         ec_profile={"k": "8", "m": "4"})
+    replicas = sum(p.size * p.pg_num for p in m1.pools.values())
+    print(f"cluster: {N_OSDS} OSDs (250 hosts x 40), pool 1 replicated size "
+          f"{NUMREP} pg_num {MAP_REP_PGS}, pool 2 erasure k=8 m=4 pg_num "
+          f"{MAP_EC_PGS}: {replicas} PG replicas, "
+          f"{replicas / N_OSDS:.1f} per OSD")
+    samples = {pid: sorted(int(pg) for pg in rng.choice(
+        m1.pools[pid].pg_num, n, replace=False))
+        for pid, n in MAP_SAMPLE.items()}
+
+    ctx = CephTpuContext("mapping")
+    svc = ctx.mapping_service()
+    st = telemetry.mapping_stats()
+    out_osds = np.flatnonzero(reweight == 0)
+    summary: dict = {"epochs": {}}
+    ladder_launches: list[int] = []
+    max_err = 0
+
+    def phases() -> dict:
+        d = st.dump()["phase_seconds"]
+        return {k: v["sum"] for k, v in d.items()}
+
+    def checked_keys(m) -> list:
+        keys = {(pid, pg) for pid, pgs in samples.items() for pg in pgs}
+        for attr in ("pg_upmap", "pg_upmap_items", "pg_temp",
+                     "primary_temp"):
+            keys.update(getattr(m, attr))
+        return sorted(keys)
+
+    def ladder_of(m, pid):
+        """The service's packed table of one pool, and the operands it was
+        built from (the service's raw and pps tables)."""
+        mp = svc._mapping
+        width, pairs = pk.pool_widths(m)
+        op = pk.build_operands(m, pid, m.pools[pid], mp._raw[pid],
+                               mp._pps[pid], width=width, pairs=pairs)
+        return mp._fused[pid], op
+
+    def epoch(name, m, prev, straw2: bool, pool_exec):
+        nonlocal max_err
+        ph0 = phases()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        upd = svc.update_to(m)
+        secs = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        ph = {k: v - ph0[k] for k, v in phases().items()}
+        ladder_launches.append(launches["pg_finish_ladder"])
+        print(f"{name}: update_to {secs:.3f} s (device {ph['device']:.3f}, "
+              f"delta {ph['delta']:.3f}, host_tail {ph['host_tail']:.3f}); "
+              f"{'full' if upd.full else len(upd.changed)} changed PGs; "
+              f"launches {launches}  {tag}")
+        check(launches["pg_finish_ladder"] >= 1,
+              f"{name}: pg_finish_ladder launched "
+              f"{launches['pg_finish_ladder']} times")
+        s2 = {k: launches[k] for k in ("straw2_root", "straw2_leaf",
+                                       "firstn_consume")}
+        check(all(v >= 1 for v in s2.values()) if straw2
+              else not any(s2.values()),
+              f"{name}: the straw2 kernels "
+              + ("remap the pools" if straw2 else "do not launch (the raw "
+                 "tables are reused)") + f" ({s2})")
+        check(upd.full == (prev is None),
+              f"{name}: " + ("a full first build" if prev is None
+                             else "an incremental delta, no full rescan"))
+        for pid in m.pools:
+            packed, op = ladder_of(m, pid)
+            want = pk.ladder_ref(op.raw, *op.aux(), op.state, op.weight,
+                                 op.affinity, erasure=op.erasure)
+            check(np.array_equal(packed, want),
+                  f"{name}: pool {pid}'s packed table == numpy ladder_ref "
+                  f"on all {packed.shape[0]} rows")
+            t = on_card(op, dev)
+            got = pc.finish_ladder(*t, erasure=op.erasure)
+            plain_ = pk.ladder_plain(*t, erasure=op.erasure)
+            err = int((got.long() - plain_.long()).abs().max())
+            max_err = max(max_err, err)
+            check(err == 0 and np.array_equal(got.cpu().numpy(), packed),
+                  f"{name}: pool {pid}: the kernel == ladder_plain on the "
+                  f"card and == the service's table")
+        keys = checked_keys(m)
+        t_o = time.perf_counter()
+        oracle = scalar_oracle(pool_exec, m, keys)
+        got = {k: svc.lookup(m, *k) for k in keys}
+        bad = [k for k in keys if got[k] != oracle[k]]
+        check(not bad, f"{name}: lookup == pg_to_up_acting_osds on "
+              f"{len(keys)} PGs (every override-named PG and the seeded "
+              f"sample; oracle {time.perf_counter() - t_o:.1f} s) "
+              f"{bad[:3]}")
+        if prev is not None:
+            want_delta = []
+            for pid, pool in m.pools.items():
+                a, wa = prev[pid]
+                b, wb = svc._mapping._fused[pid], svc._mapping._fused_w[pid]
+                w = max(wa, wb)
+                diff = (pk.normalize_packed(a, wa, w)
+                        != pk.normalize_packed(b, wb, w)).any(axis=1)
+                want_delta += [(pid, int(pg)) for pg in np.flatnonzero(diff)]
+            check(sorted(upd.changed) == sorted(want_delta),
+                  f"{name}: the delta == the rows where the packed tables "
+                  f"differ ({len(want_delta)} PGs, a host compare)")
+        d = st.dump()
+        check(d["unfused_epochs"] == 0 and d["lookup_fallbacks"] == 0,
+              f"{name}: MappingStats unfused_epochs 0, lookup_fallbacks 0 "
+              f"(fused epochs {d['fused_epochs']}, lookups {d['lookups']})")
+        assert_no_faults(name)
+        summary["epochs"][name] = {
+            "update_to_s": secs, "phases_s": ph,
+            "changed": None if upd.full else len(upd.changed),
+            "launches": launches, "checked_pgs": len(keys)}
+        return {pid: (svc._mapping._fused[pid].copy(),
+                      svc._mapping._fused_w[pid]) for pid in m.pools}
+
+    ctx_mp = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
+                             mp_context=ctx_mp) as pool_exec:
+        print("-- 9a. e1: the base map, every pool built")
+        prev = epoch("e1", m1, None, True, pool_exec)
+        raw1 = {pid: svc._mapping._raw[pid] for pid in m1.pools}
+
+        print("-- 9b. e2: overrides only (upmap items and rows, temps, "
+              "primary affinity)")
+        m2 = m1.copy()
+        m2.epoch = 2
+        osds = np.arange(N_OSDS)
+        for pid, count in ((1, MAP_ITEMS), (2, MAP_EC_ITEMS)):
+            for pg in rng.choice(m2.pools[pid].pg_num, count, replace=False):
+                row = [int(v) for v in raw1[pid][pg]]
+                pairs = []
+                for _ in range(int(rng.integers(1, 4))):
+                    kind = rng.random()
+                    frm = (NONE_ID if pid == 2 and kind < 0.2
+                           else row[int(rng.integers(0, len(row)))])
+                    if kind < 0.15:       # invalid: the target is out
+                        to = int(rng.choice(out_osds))
+                    elif kind < 0.3:      # invalid: already in the row
+                        to = row[int(rng.integers(0, len(row)))]
+                    else:
+                        to = int(rng.integers(0, N_OSDS))
+                    pairs.append((frm, to))
+                m2.pg_upmap_items[(pid, int(pg))] = pairs
+        for pg in rng.choice(MAP_REP_PGS, MAP_UPMAP, replace=False):
+            lst = [int(v) for v in rng.choice(osds, NUMREP, replace=False)]
+            if rng.random() < 0.25:       # invalid: names an out OSD
+                lst[int(rng.integers(0, NUMREP))] = int(rng.choice(out_osds))
+            m2.pg_upmap[(1, int(pg))] = lst
+        for pid, count, size in ((1, MAP_TEMP, NUMREP),
+                                 (2, MAP_EC_TEMP, MAP_EC_SIZE)):
+            for pg in rng.choice(m2.pools[pid].pg_num, count, replace=False):
+                ln = 0 if rng.random() < 0.1 else size
+                m2.pg_temp[(pid, int(pg))] = [
+                    int(v) for v in rng.choice(osds, ln, replace=False)]
+        for pid, count in ((1, MAP_PTEMP), (2, MAP_EC_PTEMP)):
+            for pg in rng.choice(m2.pools[pid].pg_num, count, replace=False):
+                m2.primary_temp[(pid, int(pg))] = int(rng.integers(0,
+                                                                   N_OSDS))
+        perm = rng.permutation(N_OSDS)
+        for o in perm[:N_OSDS // 20]:
+            m2.osd_primary_affinity[int(o)] = 0x8000
+        for o in perm[N_OSDS // 20:N_OSDS // 20 + N_OSDS // 100]:
+            m2.osd_primary_affinity[int(o)] = 0
+        width, pairs = pk.pool_widths(m2)
+        print(f"e2 overrides: {len(m2.pg_upmap_items)} pg_upmap_items, "
+              f"{len(m2.pg_upmap)} pg_upmap, {len(m2.pg_temp)} pg_temp, "
+              f"{len(m2.primary_temp)} primary_temp; shared width W="
+              f"{width}, pairs P={pairs}")
+        prev = epoch("e2", m2, prev, False, pool_exec)
+        check(all(svc._mapping._raw[p] is raw1[p] for p in m2.pools),
+              "e2: every raw table reused")
+        # what_if_up: the balancer's batched scoring, one more ladder
+        cands = [(int(pg), [(int(raw1[1][pg][0]),
+                             int(rng.integers(0, N_OSDS)))])
+                 for pg in samples[1][:256]]
+        _build.reset_launches()
+        wi = svc.what_if_up(m2, 1, cands)
+        wi_launch = _build.LAUNCHES["pg_finish_ladder"]
+        want_wi = []
+        for pg, prs in cands:
+            row = [o for o in map(int, raw1[1][pg]) if o != NONE_ID]
+            for frm, to in prs:
+                if (frm in row and to not in row and m2.exists(to)
+                        and not m2.is_out(to)):
+                    row[row.index(frm)] = to
+            want_wi.append(m2._raw_to_up_osds(m2.pools[1], row)[0])
+        check(wi == want_wi and wi_launch == 1,
+              f"what_if_up on {len(cands)} candidates == the host pipeline "
+              f"(raw + pairs + state filter), one pg_finish_ladder launch")
+
+        print("-- 9c. e3: 100 OSDs down, one whole host among them")
+        m3 = m2.copy()
+        m3.epoch = 3
+        host = crush.bucket(crush.bucket(-1).items[7])
+        down = [int(o) for o in host.items]
+        down += [int(o) for o in rng.permutation(N_OSDS)
+                 if int(o) not in set(host.items)][:100 - len(down)]
+        for o in down:
+            m3.osd_state[o] = OSD_EXISTS
+        check(set(host.items) <= set(down) and len(down) == 100,
+              f"e3: {len(down)} OSDs down, host {host.id}'s "
+              f"{len(host.items)} among them")
+        prev = epoch("e3", m3, prev, False, pool_exec)
+        check(all(svc._mapping._raw[p] is raw1[p] for p in m3.pools),
+              "e3: every raw table reused, the tail re-run")
+
+        print("-- 9d. e4: 1% of OSDs reweighted to 0x8000, 20 marked out")
+        m4 = m3.copy()
+        m4.epoch = 4
+        perm = rng.permutation(N_OSDS)
+        for o in perm[:N_OSDS // 100]:
+            m4.osd_weight[int(o)] = 0x8000
+        for o in perm[N_OSDS // 100:N_OSDS // 100 + 20]:
+            m4.osd_weight[int(o)] = 0
+        prev = epoch("e4", m4, prev, True, pool_exec)
+        check(all(svc._mapping._raw[p] is not raw1[p] for p in m4.pools),
+              "e4: both pools remapped through submit_do_rule")
+
+        print("-- 9e. e5 = e4's content with osdmap_mapping_fused off")
+        ctx.conf.set("osdmap_mapping_fused", False)
+        m5 = m4.copy()
+        m5.epoch = 5
+        t0 = time.perf_counter()
+        upd5 = svc.update_to(m5)
+        secs5 = time.perf_counter() - t0
+        keys = checked_keys(m4)
+        off = [svc.lookup(m5, *k) for k in keys]
+        on = [pk.unpack_row(prev[pid][0][pg], prev[pid][1])
+              for pid, pg in keys]
+        check(off == on and not upd5.full and list(upd5.changed) == []
+              and not svc._mapping.fused_complete(),
+              f"e5, fused off: {len(keys)} host-tail lookups == e4's fused "
+              f"rows, empty delta ({secs5:.3f} s)")
+        ctx.conf.set("osdmap_mapping_fused", True)
+    summary["fused_off_s"] = secs5
+    fin = [r for r in telemetry.dispatch_stats().phases.dump()["recent"]
+           if r["kernel"] == "pg_finish"]
+    led = {"calls": len(fin), "rows": [r["stripes"] for r in fin],
+           "phase_median_ms": {
+               ph: statistics.median(r["phases"][ph] for r in fin) * 1e3
+               for ph in telemetry.PHASES} if fin else {}}
+    print(f"pg_finish channel: {led['calls']} engine calls of {led['rows']} "
+          f"rows; phase medians ms " + "  ".join(
+              f"{k} {v:.4f}" for k, v in led["phase_median_ms"].items())
+          + f"  {tag}")
+    summary["pg_finish_ledger"] = led
+    assert_no_faults("phase 9")
+
+    print("-- 9f. osdmaptool --test-map-pgs on this cluster; psim")
+    buf = io.StringIO()
+    res = osdmap_test.test_map_pgs(m4, out=buf)
+    print(buf.getvalue().rstrip() + f"  {tag}")
+    check(res["pg_total"] == MAP_REP_PGS + MAP_EC_PGS,
+          f"osdmap_test: {res['pg_total']} PGs mapped at "
+          f"{res['pgs_per_s']:,.0f} pg mappings/s")
+    sim = psim.simulate(250, 40, MAP_REP_PGS, NUMREP)
+    print(f"psim 250 x 40, {MAP_REP_PGS} objects: {json.dumps(sim)}  {tag}")
+    check(sim["placements"] == MAP_REP_PGS * NUMREP,
+          "psim placed every object's replicas")
+    summary["osdmap_test"] = {k: res[k] for k in (
+        "pg_total", "osd_count", "avg", "min", "max", "elapsed_s",
+        "pgs_per_s")}
+    summary["psim"] = sim
+
+    print("-- 9g. pg_finish_ladder against ladder_plain and ladder_ref on "
+          "adversarial operands")
+    arng = np.random.default_rng(99)
+    n_cases = 0
+    for w in LADDER_WIDTHS:
+        for p in LADDER_PAIRS:
+            for erasure in (False, True):
+                for n in LADDER_NS:
+                    case = ladder_operands_case(arng, n, w, p, erasure)
+                    op = pk.LadderOperands(**case)
+                    t = on_card(op, dev)
+                    got = pc.finish_ladder(*t, erasure=erasure).cpu().numpy()
+                    want = pk.ladder_plain(*t, erasure=erasure).cpu().numpy()
+                    ref = pk.ladder_ref(op.raw, *op.aux(), op.state,
+                                        op.weight, op.affinity,
+                                        erasure=erasure)
+                    if not (np.array_equal(got, want)
+                            and np.array_equal(got, ref)):
+                        raise SmokeFailure(
+                            f"pg_finish_ladder != plain at W={w} P={p} "
+                            f"N={n} erasure={erasure}")
+                    n_cases += 1
+    check(True, f"pg_finish_ladder == ladder_plain == ladder_ref on "
+          f"{n_cases} adversarial cases (W {LADDER_WIDTHS}, P "
+          f"{LADDER_PAIRS}, N {LADDER_NS}, replicated and erasure, a pad "
+          f"row in the middle)")
+
+    print("-- 9h. times: the kernel at the replicated pool's e4 shape")
+    mp = svc._mapping
+    width, pairs = pk.pool_widths(m4)
+    t_b = time.perf_counter()
+    op2 = pk.build_operands(m4, 1, m4.pools[1], mp._raw[1], mp._pps[1],
+                            width=width, pairs=pairs)
+    build_s = time.perf_counter() - t_b
+    t = on_card(op2, dev)
+    out = torch.empty((op2.raw.shape[0], 2 * op2.width + 4),
+                      dtype=torch.int32, device=dev)
+    g, h = paired_times(lambda: launch_ladder(t, op2.erasure, out), 20)
+    ms, host = statistics.median(g), statistics.median(h)
+    packed4 = prev[1][0]
+    check(torch.equal(out.cpu(), torch.from_numpy(packed4)),
+          "the raw launch wrote e4's table")
+    plain_ms = time_ms(lambda: pk.ladder_plain(*t, erasure=op2.erasure), 1,
+                       reps=5)
+    b_ms, b_by = ladder_bound(op2, packed4)
+    n_, w_ = op2.raw.shape
+    shape = f"N={n_} W={w_} P={op2.items.shape[1]}"
+    print(f"pg_finish_ladder {shape} kernel {ms:.4f} ms (graph replay; "
+          f"{host:.4f} issued)  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms "
+          f"({b_by})  launches per epoch {ladder_launches}  build_operands "
+          f"on the host {build_s * 1e3:.1f} ms  {tag}")
+    check(ms >= b_ms, f"pg_finish_ladder: graph replay {ms:.4f} ms at or "
+          f"above its bound {b_ms:.4f} ms")
+    moved = pad = 0
+    for pid, pool in m4.pools.items():
+        op_p = op2 if pid == 1 else pk.build_operands(
+            m4, pid, pool, mp._raw[pid], mp._pps[pid], width=width,
+            pairs=pairs)
+        mv, pd = ladder_padding(op_p, prev[pid][0], int(pool.size))
+        moved, pad = moved + mv, pad + pd
+    print(f"the tail's tables at e4 (W={w_} shared by the epoch's pools): "
+          f"{moved / 1e6:.1f} MB through the engine, {pad / 1e6:.1f} MB of "
+          f"it ({pad / moved:.1%}) cells past their pool's size  {tag}")
+    summary["build_operands_ms"] = build_s * 1e3
+    summary["tail_mb"], summary["tail_padding_mb"] = moved / 1e6, pad / 1e6
+    row = {"name": "pg_finish_ladder", "route": "cuda",
+           "source": "ceph_tpu_torch/csrc/placement.cu",
+           "replaces": "ceph_tpu/ops/placement_kernel.py:67",
+           "launches": sum(ladder_launches),
+           "launches_per_epoch": ladder_launches, "max_abs_err": max_err,
+           "matches_plain": max_err == 0, "ms": ms, "host_ms": host,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": None, "shape": shape}
+    ctx.stop()
+    return summary, row
 
 
 def card_line() -> str:
@@ -2106,8 +2670,13 @@ def run() -> None:
     print("== 8. the dispatch engine: EC writes, degraded reads, remaps")
     engine = engine_phase(dev, tag, xs_np)
 
+    print("== 9. the OSDMap and the shared PG mapping service")
+    mapping, ladder_row = mapping_phase(dev, tag)
+    kernels.append(ladder_row)
+
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"engine": engine}))
+    print(json.dumps({"mapping": mapping}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -53,7 +53,13 @@ PORT_MODULES = [
     "ceph_tpu_torch.common.logging", "ceph_tpu_torch.common.perf_counters",
     "ceph_tpu_torch.common.tracing", "ceph_tpu_torch.ops.dispatch",
     "ceph_tpu_torch.ops.telemetry", "ceph_tpu_torch.ops.crush_kernel",
-    "ceph_tpu_torch.crush.mapper_ref", "ceph_tpu_torch.tools.crush_test"]
+    "ceph_tpu_torch.crush.mapper_ref", "ceph_tpu_torch.tools.crush_test",
+    "ceph_tpu_torch.msg.encoding", "ceph_tpu_torch.crush.classes",
+    "ceph_tpu_torch.crush.text", "ceph_tpu_torch.osd.osdmap",
+    "ceph_tpu_torch.osd.map_codec", "ceph_tpu_torch.osd.mapping",
+    "ceph_tpu_torch.ops.placement_kernel",
+    "ceph_tpu_torch.ops.placement_cuda", "ceph_tpu_torch.tools.crushtool",
+    "ceph_tpu_torch.tools.osdmap_test", "ceph_tpu_torch.tools.psim"]
 
 
 def test_import_loads_neither_jax_nor_reference():
@@ -89,7 +95,11 @@ def test_default_device_without_cuda_raises(monkeypatch):
     from ceph_tpu_torch.ops.gf_kernel import (
         ec_decode_batched, ec_encode, make_encoder)
     from ceph_tpu_torch.tools import crush_test, ec_benchmark
-    from ceph_tpu_torch.tools import ec_non_regression
+    from ceph_tpu_torch.tools import ec_non_regression, osdmap_test, psim
+    from ceph_tpu_torch.osd import OSDMap, OSDMapMapping, PGPool
+    from ceph_tpu_torch.osd.mapping import (SharedPGMappingService,
+                                            pps_batch)
+    from ceph_tpu_torch.ops.placement_kernel import run_ladder
 
     _no_cuda(monkeypatch)
     m, _root, rid = build_two_level_map(2, 2)
@@ -113,6 +123,12 @@ def test_default_device_without_cuda_raises(monkeypatch):
         lambda: flat_firstn(np.arange(4), np.arange(3), [0x10000] * 3,
                             [0x10000] * 3, numrep=2),
         lambda: crush_test.main(["--osds", "8"]),
+        lambda: OSDMapMapping(OSDMap(crush=m)),
+        lambda: SharedPGMappingService(),
+        lambda: pps_batch(PGPool(pool_id=1), np.arange(4)),
+        lambda: run_ladder(None),
+        lambda: osdmap_test.main(["--hosts", "2", "--per-host", "2"]),
+        lambda: psim.simulate(2, 2, 16, 2),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -336,7 +336,11 @@ def test_dump_pipeline_profile_admin_roundtrip():
     finally:
         assert ctx.stop()
     out = ctx.admin.execute("dump_pipeline_profile")
-    assert set(out) == {"encode", "decode"}
+    # the mapping service's epoch phase split rides along, as in the
+    # reference's dump
+    assert set(out) == {"encode", "decode", "mapping"}
+    assert set(out["mapping"]["seconds"]) == {"device", "delta",
+                                               "host_tail"}
     enc = out["encode"]
     assert enc["recent"], enc
     assert set(telemetry.PHASES) >= set(enc["phases"]["ec_encode"])
