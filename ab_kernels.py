@@ -2,8 +2,7 @@
 """ab_kernels.py — the redesigned hand kernels of this checkout against those
 of other checkouts, on one card, in turns.
 
-    python3 ab_kernels.py OTHER_DIR [OTHER_DIR ...] [--kernels K,...]
-                          [--out FILE]
+    python3 ab_kernels.py [OTHER_DIR ...] [--kernels K,...] [--out FILE]
 
 Each OTHER_DIR holds an unpacked checkout of this repository (for example
 `git archive <commit> | tar -x -C OTHER_DIR`, in a directory .gitignore
@@ -32,7 +31,9 @@ called raw on the same operands at the paths' shapes:
         (N = 262,144 rows, W = 12, P = 4, 10,000 OSDs) with an override
         epoch's sparsity: 1,024 rows with 1-3 upmap pairs, 256 pg_upmap
         rows, 512 pg_temp rows (64 empty), 128 primary_temp, 100 OSDs down,
-        primary affinity 0x8000 on 5% and 0 on 1% of the OSDs
+        primary affinity 0x8000 on 5% and 0 on 1% of the OSDs, and the same
+        at the pool's own W = 3; then the design variants of ab_ladder.cu (``ladder_variants``) on the same
+        operands at W = 12 and cut to the pool's own W = 3
 
 Launcher forms are known by their argument count: the root kernels' dividing
 form (root: xs, n, R, ids, w, S, ln_tab, pos, id; filter: xs, n, R, ids, w,
@@ -47,8 +48,10 @@ B); the consume kernel's form on precomputed is_out verdicts (hw, lw, lb,
 R, n, numrep, tries, out_h, out_l, ovf) and its fused form (hw, lw, xs,
 reweight, n_rw, R, n, numrep, tries, out_h, out_l, ovf, threads); the ln
 table's form without D (out, n) and its fused form (ln_tab, out, d_bits, n);
-the ladder's one form (raw, pps, raw_len, up_rows, up_len, items, temp_rows,
-temp_len, ptemp, state, weight, affinity, m_osd, n, w, P, erasure, out).
+the ladder's vector form (raw, pps, raw_len, up_rows, up_len, items,
+temp_rows, temp_len, ptemp, state, weight, affinity, m_osd, n, w, P,
+erasure, out) and its word form (..., ptemp, words, m_osd, n, w, P,
+erasure, out), whose word table this checkout's ``osd_words`` packs.
 A checkout without a kernel's launcher is left out of that kernel's rows.
 Every checkout's outputs must equal this one's (for the ln table: the table,
 and D, which an unfused checkout reduces in torch).  Times are CUDA events,
@@ -90,7 +93,8 @@ SHAPES = {
                        ("stage 2", "flag", 4096, 9),
                        ("wide stage 1", "wide", 65536, 4)],
     "ln_f32_table": [("table and D", "ln", 65536, 0)],
-    "pg_finish_ladder": [("override epoch", "ladder", 262144, 0)],
+    "pg_finish_ladder": [("override epoch", "ladder", 262144, 12),
+                         ("override epoch, W=3", "ladder", 262144, 3)],
 }
 LAUNCHERS = ("straw2_root_launch", "straw2_froot_launch", "straw2_leaf_launch",
              "gf_matvec_launch", "firstn_consume_launch",
@@ -215,10 +219,194 @@ class Lib:
                        out.data_ptr(), S, k, t, B)
 
 
-    def ladder(self, t, n, out):
+    def ladder(self, t, n, out, words):
         w = t[0].shape[1]
-        self._call("pg_finish_ladder_launch", *[a.data_ptr() for a in t],
+        lead = t if self._argc("pg_finish_ladder_launch") == 19 \
+            else t[:9] + [words]
+        self._call("pg_finish_ladder_launch", *[a.data_ptr() for a in lead],
                    t[9].shape[0], n, w, t[5].shape[1], 0, out.data_ptr())
+
+
+#: the design variants of pg_finish_ladder (ab_ladder.cu), in the order
+#: they are timed: (label, launcher, width)
+LADDER_VARIANTS = (
+    ("1 first version, W=12", "pr8", 12),
+    ("2 first version, W=3", "pr8", 3),
+    ("3 copy, row addressing, W=12", "copy_rows", 12),
+    ("3 copy, row addressing, W=3", "copy_rows", 3),
+    ("4 copy, tile addressing, W=12", "copy_tiles", 12),
+    ("4 copy, tile addressing, W=3", "copy_tiles", 3),
+    ("5 first version + shared-memory words, W=12", "pr8_words", 12),
+    ("this kernel, W=12", "this", 12),
+    ("this kernel, W=3", "this", 3),
+) + tuple(
+    (f"tiles, {'ldg' if ldg else 'shared'} words, {st} stage"
+     f"{'s' if st > 1 else ''}, "
+     f"{'16-byte' if nat else 'restrided'}, {'' if per else 'a block a tile, '}"
+     f"W={w}", ("tiles", ldg, st, nat, per, 128, 1), w)
+    for w in (3, 12) for ldg in (0, 1) for nat in (1, 0)
+    for st in (1, 2, 3, 4) for per in (1, 0)
+    if (nat or st > 1) and (per or st == (1 if nat else 2))) + tuple(
+    (f"tiles, ldg words, 1 stage, 16-byte, a block a tile, {rows} rows, "
+     f"at least {minb} blocks an SM, W={w}",
+     ("tiles", 1, 1, 1, 0, rows, minb), w)
+    for w in (3, 12) for rows, minb in ((64, 1), (256, 1), (128, 16))) + tuple(
+    (f"this kernel built beside the variants, carveout "
+     f"{'default' if c < 0 else f'{c}%'}, W={w}", ("carveout", c), w)
+    for w in (3, 12) for c in (-1, 100, 72, 58, 44, 28))
+
+
+def build_variants(first_only: bool = False):
+    """ab_ladder.cu built with the package's nvcc flags into
+    ceph_tpu_torch/_build/ (keyed by its sources), loaded with ctypes;
+    ``first_only`` leaves out the instances of this_variant_launch."""
+    import hashlib
+
+    from ceph_tpu_torch.ops import _build
+    here = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.join(here, "ab_ladder.cu")
+    h = hashlib.sha256(" ".join(_build.NVCC_FLAGS).encode())
+    for path in (src, os.path.join(_build._CSRC, "straw2_common.cuh"),
+                 os.path.join(_build._CSRC, "placement.cu")):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    flags = ["-DAB_FIRST_ONLY"] if first_only else []
+    h.update(" ".join(flags).encode())
+    out = os.path.join(_build._OUT, f"libab_ladder_{h.hexdigest()[:16]}.so")
+    if not os.path.exists(out):
+        os.makedirs(_build._OUT, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-I",
+                        _build._CSRC, "-shared", "-o", tmp, src], check=True,
+                       capture_output=True, text=True)
+        os.replace(tmp, out)
+    so = ctypes.CDLL(out)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for name, args in (("pr8_ladder_launch", [P] * 12 + [I] * 5 + [P, P]),
+                       ("pr8_words_launch", [P] * 10 + [I] * 5 + [P, P]),
+                       ("copy_ladder_launch", [P] * 7 + [I] * 3
+                        + [P, I, P]),
+                       ("tile_variant_launch", [P] * 10 + [I] * 5
+                        + [P] + [I] * 6 + [P]),
+                       ("this_carveout_launch", [P] * 10 + [I] * 5
+                        + [P, I, P])):
+        if first_only and name in ("tile_variant_launch",
+                                   "this_carveout_launch"):
+            continue
+        getattr(so, name).argtypes = args
+        getattr(so, name).restype = ctypes.c_int
+    return so
+
+
+#: the rows of ladder_variants(first_only=True): the first version and this
+#: kernel, each at both widths
+FIRST_ONLY = ("1 first version, W=12", "2 first version, W=3",
+              "this kernel, W=12", "this kernel, W=3")
+
+
+def ladder_variants(t12, erasure: bool = False, card: str = "",
+                    first_only: bool = False) -> dict:
+    """pg_finish_ladder's design variants (ab_ladder.cu) and this
+    checkout's kernel on one pool's card operands ``t12`` (finish_ladder's
+    order, the tables at W = 12) and on the same operands cut to W = 3,
+    timed by graph replay (``ms``) and issued (``host_ms``) in turns (the
+    order, then reversed), each the mean of the turns' medians.  The
+    ladders' outputs are held equal (the first version's, the shared-word
+    variant's and this kernel's at W = 12; at W = 3 this kernel's is the W
+    = 12 table re-padded).  ``first_only`` times the FIRST_ONLY rows
+    alone."""
+    import numpy as np
+    import torch
+
+    from ceph_tpu_torch.ops import _build
+    from ceph_tpu_torch.ops import placement_cuda as pc
+    from ceph_tpu_torch.ops import placement_kernel as pk
+    so = build_variants(first_only)
+    if not first_only:
+        from ceph_tpu_torch.tools import sass_report
+        try:
+            rep = sass_report.report(so._name)
+            print("\n".join(line for line in sass_report.format_report(
+                rep).splitlines() if "kernel" in line))
+        except (OSError, subprocess.CalledProcessError) as e:
+            print(f"SASS of the variants: not measured ({e})")
+    this = _build.lib()
+    variants = [v for v in LADDER_VARIANTS
+                if not first_only or v[0] in FIRST_ONLY]
+    n = t12[0].shape[0]
+    p = t12[5].shape[1]
+    m_osd = t12[9].shape[0]
+    cut = [a[:, :3].contiguous() if i in (0, 3, 6) else a
+           for i, a in enumerate(t12)]
+    words = pc.osd_words(*t12[9:12])
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    outs = {}
+
+    def call(kind, w):
+        t = t12 if w == 12 else cut
+        key = (kind, w)
+        if key not in outs:
+            outs[key] = torch.empty((n, 2 * w + 4), dtype=torch.int32,
+                                    device=t[0].device)
+        out = outs[key].data_ptr()
+        ptr = [a.data_ptr() for a in t]
+        if kind == "pr8":
+            err = so.pr8_ladder_launch(*ptr, m_osd, n, w, p, int(erasure),
+                                       out, stream())
+        elif kind == "pr8_words":
+            err = so.pr8_words_launch(*ptr[:9], words.data_ptr(), m_osd, n,
+                                      w, p, int(erasure), out, stream())
+        elif kind == "this":
+            err = this.pg_finish_ladder_launch(
+                *ptr[:9], words.data_ptr(), m_osd, n, w, p, int(erasure),
+                out, stream())
+        elif isinstance(kind, tuple) and kind[0] == "carveout":
+            err = so.this_carveout_launch(
+                *ptr[:9], words.data_ptr(), m_osd, n, w, p, int(erasure),
+                out, kind[1], stream())
+        elif isinstance(kind, tuple):
+            err = so.tile_variant_launch(
+                *ptr[:9], words.data_ptr(), m_osd, n, w, p, int(erasure),
+                out, *kind[1:], stream())
+        else:
+            err = so.copy_ladder_launch(
+                ptr[0], ptr[3], ptr[4], ptr[5], ptr[6], ptr[7], ptr[8], n, w,
+                p, out, int(kind == "copy_tiles"), stream())
+        if err:
+            raise RuntimeError(f"ladder variant {kind} W={w}: error {err}")
+
+    for _label, kind, w in variants:
+        call(kind, w)
+    torch.cuda.synchronize()
+    ref = outs[("pr8", 12)]
+    for key in (("pr8_words", 12), ("this", 12)):
+        if key in outs:
+            cs.check(torch.equal(outs[key], ref),
+                     f"ladder variant {key[0]} == the first version at "
+                     f"W=12")
+    cs.check(torch.equal(outs[("this", 3)], outs[("pr8", 3)]),
+             "this kernel == the first version at W=3")
+    for _label, kind, w in variants:
+        if isinstance(kind, tuple):
+            cs.check(torch.equal(outs[(kind, w)], outs[("pr8", w)]),
+                     f"ladder variant {kind} == the first version at W={w}")
+    cs.check(np.array_equal(
+        pk.normalize_packed(outs[("this", 3)].cpu().numpy(), 3, 12),
+        ref.cpu().numpy()), "W=3's table, re-padded, == W=12's")
+    graph = {label: [] for label, _k, _w in variants}
+    host = {label: [] for label in graph}
+    order = list(variants)
+    for label, kind, w in order + order[::-1]:
+        graph[label].append(cs.graph_ms(lambda: call(kind, w), 20))
+        host[label].append(cs.time_ms(lambda: call(kind, w), 20))
+    res = {label: {"ms": sum(graph[label]) / len(graph[label]),
+                   "host_ms": sum(host[label]) / len(host[label]),
+                   "runs": graph[label]} for label in graph}
+    for label, r in res.items():
+        print(f"pg_finish_ladder variant {label:46s} {r['ms']:.4f} ms "
+              f"(graph replay; {r['host_ms']:.4f} issued)  N={n} P={p}  "
+              f"{card}")
+    return res
 
 
 def ladder_operands(dev, rng, n: int, w: int = 12, p: int = 4,
@@ -293,7 +481,7 @@ def gf_operands(dev, rng):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("others", nargs="+")
+    ap.add_argument("others", nargs="*")
     ap.add_argument("--kernels", default=",".join(SHAPES),
                     help="comma-separated subset of " + ",".join(SHAPES))
     ap.add_argument("--out", default=None)
@@ -305,6 +493,7 @@ def main() -> int:
         return 1
     from ceph_tpu_torch.crush.builder import build_flat_map
     from ceph_tpu_torch.crush.fastpath import FastMapper, detect
+    from ceph_tpu_torch.ops import placement_cuda as pc
     from ceph_tpu_torch.ops import straw2_cuda as sc
     from ceph_tpu_torch.ops import straw2_filter as sf
     from ceph_tpu_torch.ops.crush_kernel import is_out
@@ -378,14 +567,15 @@ def main() -> int:
             steps = {}      # what a caller pays, issued from Python
             S = G = None
             if kernel == "pg_finish_ladder":
-                t = ladder_operands(dev, rng, n)
+                t = ladder_operands(dev, rng, n, w=R)
+                words = pc.osd_words(*t[9:12])
 
-                def fn(lib, outs=outs, t=t, n=n):
+                def fn(lib, outs=outs, t=t, n=n, words=words):
                     if lib.tag not in outs:
                         outs[lib.tag] = (torch.empty(
                             (n, 2 * t[0].shape[1] + 4), dtype=torch.int32,
                             device=dev),)
-                    lib.ladder(t, n, outs[lib.tag][0])
+                    lib.ladder(t, n, outs[lib.tag][0], words)
             elif kernel == "gf_matvec":
                 op = gf_ops[which]
 
@@ -501,7 +691,11 @@ def main() -> int:
                   + "  issued: " + "  ".join(
                       f"{t} {ms:.4f} ms" for t, ms in row["host_ms"].items())
                   + f"  [{card}]")
-    line = {"card": card, "results": results}
+    variants = None
+    if "pg_finish_ladder" in kernels:
+        variants = ladder_variants(ladder_operands(dev, rng, 262144),
+                                   card=card)
+    line = {"card": card, "results": results, "ladder_variants": variants}
     if args.out:
         with open(args.out, "w") as f:
             json.dump(line, f, indent=1)

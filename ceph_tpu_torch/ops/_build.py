@@ -63,15 +63,17 @@ SIGNATURES = {
     # ln_tab, out, d_bits, n, stream
     "ln_f32_table_launch": [_P, _P, _P, _I, _P],
     # raw, pps, raw_len, up_rows, up_len, items, temp_rows, temp_len, ptemp,
-    # state, weight, affinity, m_osd, n, w, P, erasure, out, stream
-    "pg_finish_ladder_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _P, _I, _I, _I, _I, _I, _P, _P],
+    # words, m_osd, n, w, P, erasure, out, stream
+    "pg_finish_ladder_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                _I, _I, _I, _I, _P, _P],
+    # state, weight, affinity, m_osd, out, stream
+    "pg_osd_words_launch": [_P, _P, _P, _I, _P, _P],
 }
 
 #: kernel name -> launches made by its wrapper since the last reset
 LAUNCHES = {"gf_matvec": 0, "straw2_root": 0, "straw2_leaf": 0,
             "firstn_consume": 0, "straw2_froot": 0, "ln_f32_table": 0,
-            "pg_finish_ladder": 0}
+            "pg_finish_ladder": 0, "pg_osd_words": 0}
 
 _LOCK = lockdep.make_lock("ops._build")
 

@@ -100,9 +100,14 @@ class DispatchFuture:
     run inline on the caller.
     """
 
-    __slots__ = ("_ev", "_value", "_exc", "_cbs", "_lock")
+    __slots__ = ("_ev", "_value", "_exc", "_cbs", "_lock", "device_value")
 
     def __init__(self):
+        #: the request's rows as they lie on the engine's device (a view
+        #: of the batch's output), set before delivery when the submitter
+        #: passed ``keep_device`` and a device call delivered them; None
+        #: when the host oracle served the request
+        self.device_value = None
         self._ev = threading.Event()
         self._value = None
         self._exc: BaseException | None = None
@@ -155,12 +160,13 @@ class DispatchFuture:
 class _Request:
     __slots__ = ("key", "fn", "data", "aux", "stripes", "future",
                  "t_submit", "label", "cache_entries", "trace", "span",
-                 "place", "fallback", "cost_tag")
+                 "place", "fallback", "cost_tag", "keep_device")
 
     def __init__(self, key, fn, data, stripes, label=None,
                  cache_entries=None, aux=None, place=True,
-                 fallback=None, cost_tag=None):
+                 fallback=None, cost_tag=None, keep_device=False):
         self.place = place
+        self.keep_device = keep_device
         #: (tenant, dmclock class) for the device-time ledger; None
         #: lands in the visible _untagged bucket at completion
         self.cost_tag = cost_tag
@@ -680,7 +686,7 @@ class DeviceDispatchEngine:
     def submit(self, key, fn, data, *, label=None,
                cache_entries=None, aux=None,
                place: bool = True, fallback=None,
-               cost_tag=None) -> DispatchFuture:
+               cost_tag=None, keep_device: bool = False) -> DispatchFuture:
         """``aux``: optional tuple of per-stripe side arrays (each with
         the SAME leading axis as ``data``) that coalesce alongside it —
         concatenated per component, edge-padded (last row repeated) to
@@ -712,7 +718,12 @@ class DeviceDispatchEngine:
         completion the batch's busy integral (compute_s × devices) is
         apportioned to each request by stripe share and accounted under
         its tag in ``telemetry.TenantDeviceStats``.  Untagged requests
-        land in the visible ``_untagged`` bucket."""
+        land in the visible ``_untagged`` bucket.
+
+        ``keep_device``: besides the host rows, hand the request's rows
+        as they lie on the device to ``future.device_value`` (a view of
+        the batch's output, complete when the future is), so a caller
+        that reads them again on the card uploads nothing."""
         # analysis: allow[blocking] -- caller-input normalization: submit() receives host arrays (numpy/bytes)
         data = np.asarray(data)
         stripes = int(data.shape[0]) if data.ndim else 1
@@ -725,7 +736,8 @@ class DeviceDispatchEngine:
                         f"aux leading axis {a.shape} != stripes {stripes}")
         req = _Request(key, fn, data, stripes, label=label,
                        cache_entries=cache_entries, aux=aux, place=place,
-                       fallback=fallback, cost_tag=cost_tag)
+                       fallback=fallback, cost_tag=cost_tag,
+                       keep_device=keep_device)
         with self._cv:
             if not self._stop and not self._wedged:
                 self._ensure_threads()
@@ -1024,7 +1036,10 @@ class DeviceDispatchEngine:
                 except BaseException as e:         # noqa: BLE001
                     exc = e
             # the card result is on the host now (or failed): drop the
-            # device tensor before the recovery ladder or delivery
+            # device tensor before the recovery ladder or delivery (the
+            # requests that keep their device rows get views of it)
+            kept = (batch.out if exc is None and not batch.via_fallback
+                    and isinstance(batch.out, torch.Tensor) else None)
             batch.out = None
             # supervised recovery: a failed device-path batch walks the
             # bounded retry ladder, then the channel's host oracle; a
@@ -1082,6 +1097,8 @@ class DeviceDispatchEngine:
                     if exc is not None:
                         req.future._deliver(None, exc)
                     else:
+                        if req.keep_device and kept is not None:
+                            req.future.device_value = kept[a:b]
                         req.future._deliver(host[a:b], None)
                 except BaseException as e:  # noqa: BLE001 — see below
                     # _deliver shields continuations with `except
@@ -1519,33 +1536,44 @@ def submit_do_rule(engine: DeviceDispatchEngine, mapper, ruleno: int,
 
 
 def submit_finish_ladder(engine: DeviceDispatchEngine, operands, *,
-                         key=None, cost_tag=None) -> DispatchFuture:
+                         key=None, cost_tag=None,
+                         keep_device: bool = False) -> DispatchFuture:
     """Submit one pool's fused placement tail (raw -> up -> acting;
     ops.placement_kernel) through the engine.  ``operands`` is a
     placement_kernel.LadderOperands: the raw table is the data channel,
-    the per-PG override and pps tables ride aux in lockstep, and the per-OSD
-    state/weight/affinity vectors stay resident on the engine's device under
-    the key.  Pools (and daemons) sharing one epoch's vectors and table
-    widths coalesce on the PG axis into ONE launch of ``pg_finish_ladder``;
-    the padded rows (zero raw, edge-padded aux) compute garbage that is
-    sliced off.  The host oracle is ``ladder_ref``.
+    the per-PG override and pps tables ride aux in lockstep.  The per-OSD
+    state/weight/affinity vectors and the word table packed from them
+    (placement_cuda.osd_words, one launch an epoch) stay resident on the
+    engine's device under a key of the vectors alone, which the epoch's
+    pools share.  Requests of one pool width, pair count and erasure flag
+    coalesce on the PG axis into ONE launch of ``pg_finish_ladder``; the
+    padded rows (zero raw, edge-padded aux) compute garbage that is
+    sliced off.  The host oracle is ``ladder_ref``.  ``keep_device``
+    hands the packed rows on the device to ``future.device_value`` too.
 
     ``key`` defaults to the erasure flag, the width, the pairs and digests
     of the three vectors."""
     state, weight, affinity = (operands.state, operands.weight,
                                operands.affinity)
     erasure = operands.erasure
+    vkey = ("pg_finish_osd", hash(state.tobytes()), hash(weight.tobytes()),
+            hash(affinity.tobytes()))
     if key is None:
         key = ("pg_finish", erasure, operands.width,
-               operands.items.shape[1], hash(state.tobytes()),
-               hash(weight.tobytes()), hash(affinity.tobytes()))
+               operands.items.shape[1]) + vkey[1:]
 
-    def fn(batch, *aux, key=key):
+    def per_osd(device):
+        from ceph_tpu_torch.ops.placement_cuda import osd_words
+        vecs = tuple(torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                     for v in (state, weight, affinity))
+        return vecs + (osd_words(*vecs),)
+
+    def fn(batch, *aux):
         from ceph_tpu_torch.ops.placement_cuda import finish_ladder
-        vecs = resident(batch.device, key, lambda: tuple(
-            torch.from_numpy(np.ascontiguousarray(v)).to(batch.device)
-            for v in (state, weight, affinity)))
-        return finish_ladder(batch, *aux, *vecs, erasure=erasure)
+        *vecs, words = resident(batch.device, vkey,
+                                lambda: per_osd(batch.device))
+        return finish_ladder(batch, *aux, *vecs, erasure=erasure,
+                             words=words)
 
     def host_oracle(batch, *aux):
         # numpy twin of the fused tail: the same packed rows, bit for bit
@@ -1555,4 +1583,4 @@ def submit_finish_ladder(engine: DeviceDispatchEngine, operands, *,
 
     return engine.submit(key, fn, operands.raw, aux=operands.aux(),
                          label="pg_finish", fallback=host_oracle,
-                         cost_tag=cost_tag)
+                         cost_tag=cost_tag, keep_device=keep_device)

@@ -16,7 +16,8 @@ Three versions of the one function, bit for bit the same:
   ladder_plain  torch, what a CPU tensor runs (and what the card's kernel is
                 held against);
   the kernel    csrc/placement.cu ``pg_finish_ladder``, one thread per PG
-                row, through ops.placement_cuda.finish_ladder.
+                row of a tile staged through shared memory, through
+                ops.placement_cuda.finish_ladder.
 
 Semantics are the scalar oracle's (OSDMap.cc:2228-2445 via
 osd.osdmap._finish_pg_mapping):
@@ -35,10 +36,13 @@ osd.osdmap._finish_pg_mapping):
     equals up, which inherits up_primary.
 
 Operands (built by OSDMap.dense_osd_vectors / dense_pool_overrides): every
-per-PG table is NONE/NOSD padded to a width ``W`` shared by the epoch's pools
-and the pairs to ``P``, so pools sharing one epoch's operands coalesce into
-one call through ``ops.dispatch.submit_finish_ladder``; the per-OSD
-state/weight/affinity vectors stay resident on the card per epoch.
+per-PG table of a pool is NONE/NOSD padded to that pool's own width ``W``
+(``pool_widths(m, {pool_id: pool})``) and its pairs to ``P``, so a
+replicated pool carries no cells for an erasure pool's width; requests of
+one (W, P, erasure) coalesce into one call through
+``ops.dispatch.submit_finish_ladder``; the per-OSD state/weight/affinity
+vectors and the word table packed from them stay resident on the card per
+epoch.
 
 Output: one (N, 2*W + 4) int32 table — ``[up (W) | acting (W) | up_len |
 up_primary | acting_len | acting_primary]``; padded cells are a NOSD fill, so
@@ -351,11 +355,19 @@ def ladder_plain(raw, pps, raw_len, up_rows, up_len, items, temp_rows,
 
 def run_ladder(operands: "LadderOperands", device=None) -> np.ndarray:
     """Direct (engine-less) evaluation of one pool's tail on ``device``
+    (the card by default); the packed table comes back to the host.  See
+    ``run_ladder_device``."""
+    return run_ladder_device(operands, device).cpu().numpy()
+
+
+def run_ladder_device(operands: "LadderOperands",
+                      device=None) -> torch.Tensor:
+    """Direct (engine-less) evaluation of one pool's tail on ``device``
     (the card by default): the kernel on the card, ``ladder_plain`` on the
-    CPU; the packed table comes back to the host.  The PG axis pads to a
-    power-of-two bucket with all-zero rows (garbage that is sliced off), as
-    the reference's ``run_ladder`` does.  The dispatch-engine path is
-    ops.dispatch.submit_finish_ladder."""
+    CPU; the packed (N, 2W+4) table stays on ``device``.  The PG axis pads
+    to a power-of-two bucket with all-zero rows (garbage that is sliced
+    off), as the reference's ``run_ladder`` does.  The dispatch-engine path
+    is ops.dispatch.submit_finish_ladder."""
     from ceph_tpu_torch._device import resolve
     from ceph_tpu_torch.ops.placement_cuda import finish_ladder
 
@@ -374,7 +386,7 @@ def run_ladder(operands: "LadderOperands", device=None) -> np.ndarray:
     per_osd = [torch.from_numpy(np.ascontiguousarray(v)).to(dev)
                for v in (operands.state, operands.weight, operands.affinity)]
     out = finish_ladder(*per_pg, *per_osd, erasure=operands.erasure)
-    return out[:n].cpu().numpy()
+    return out[:n]
 
 
 # ---------------------------------------------------------------------------
@@ -382,7 +394,8 @@ def run_ladder(operands: "LadderOperands", device=None) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 class LadderOperands:
-    """One pool's (or one what-if batch's) dense ladder operands.
+    """One pool's (or one what-if batch's) dense ladder operands, at the
+    pool's own ``width``.
 
     ``raw``/``pps``/``raw_len`` and the override tables have the PG leading
     axis (they coalesce through the engine's data and aux channels);
@@ -420,7 +433,7 @@ class LadderOperands:
 
 
 def pad_raw(raw: np.ndarray, width: int) -> np.ndarray:
-    """(N, w) raw table NONE-padded to the shared ladder width."""
+    """(N, w) raw table NONE-padded to the ladder width."""
     raw = np.asarray(raw, dtype=np.int32)
     n, w = raw.shape
     if w == width:
@@ -434,8 +447,8 @@ def build_operands(m, pool_id: int, pool, raw: np.ndarray,
                    pps: np.ndarray, *, width: int, pairs: int,
                    vectors=None) -> LadderOperands:
     """Dense ladder operands for one pool at one epoch.  ``width`` and
-    ``pairs`` are the epoch-shared table widths (so pools coalesce);
-    ``vectors`` memoizes m.dense_osd_vectors() across pools."""
+    ``pairs`` are the pool's table widths (``pool_widths(m, {pool_id:
+    pool})``); ``vectors`` memoizes m.dense_osd_vectors() across pools."""
     n = int(pool.pg_num)
     raw_np = np.asarray(raw, dtype=np.int32)
     raw_w = raw_np.shape[1] if raw_np.ndim == 2 else 0
@@ -455,11 +468,12 @@ def build_operands(m, pool_id: int, pool, raw: np.ndarray,
 
 
 def pool_widths(m, pools=None) -> tuple[int, int]:
-    """(width, pairs) shared by every pool of an epoch: W covers the widest
-    of pool size / pg_upmap row / pg_temp row, P the longest pg_upmap_items
-    pair list — each rounded up (P to a power of two, W's excess over the
-    max size to a power of two) so the bucket key space stays bounded under
-    override churn."""
+    """(width, pairs) of the ``pools`` given (every pool of the map by
+    default; the mapping service passes one pool, so each pool's tail runs
+    at its own width): W covers the widest of pool size / pg_upmap row /
+    pg_temp row, P the longest pg_upmap_items pair list — each rounded up
+    (P to a power of two, W's excess over the max size to a power of two)
+    so the bucket key space stays bounded under override churn."""
     if pools is None:
         pools = m.pools
     w = max((int(p.size) for p in pools.values()), default=1)
@@ -495,8 +509,8 @@ def unpack_row(row, width: int) -> tuple[list[int], int, list[int], int]:
 
 def normalize_packed(packed: np.ndarray, width: int,
                      to_width: int) -> np.ndarray:
-    """Re-pad a packed table to a wider layout (NOSD fill) so two epochs
-    built at different shared widths compare row for row."""
+    """Re-pad a packed table to a wider layout (NOSD fill) so two tables
+    built at different widths compare row for row."""
     if width == to_width:
         return packed
     n = packed.shape[0]

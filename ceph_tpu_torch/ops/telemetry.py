@@ -742,7 +742,8 @@ class MappingStats:
                  "lookups", "lookup_fallbacks", "update_latency",
                  "changed_pgs", "cached_pgs", "cached_pools",
                  "phase_device", "phase_delta", "phase_host_tail",
-                 "fused_epochs", "unfused_epochs", "fused_lookups")
+                 "fused_epochs", "unfused_epochs", "fused_lookups",
+                 "diff_uploads")
 
     def __init__(self):
         self._lock = lockdep.make_lock("MappingStats::lock")
@@ -765,6 +766,9 @@ class MappingStats:
         self.fused_epochs = 0
         self.unfused_epochs = 0
         self.fused_lookups = 0
+        # packed tables uploaded for the delta's diff (0 while the fused
+        # tail keeps them on the card)
+        self.diff_uploads = 0
 
     def clear(self) -> None:
         with self._lock:
@@ -781,6 +785,7 @@ class MappingStats:
             self.phase_host_tail = Histogram(LATENCY_BOUNDS)
             self.fused_epochs = self.unfused_epochs = 0
             self.fused_lookups = 0
+            self.diff_uploads = 0
 
     def record_phases(self, *, device_s: float, delta_s: float,
                       host_tail_s: float) -> None:
@@ -828,6 +833,10 @@ class MappingStats:
             else:
                 self.unfused_epochs += 1
 
+    def record_diff_uploads(self, n: int) -> None:
+        with self._lock:
+            self.diff_uploads += n
+
     def _host_tail_share(self) -> float:
         """Called under the lock: host-tail share of the total epoch
         phase cost (the collapse gauge)."""
@@ -852,6 +861,7 @@ class MappingStats:
                 "fused_epochs": self.fused_epochs,
                 "unfused_epochs": self.unfused_epochs,
                 "fused_lookups": self.fused_lookups,
+                "diff_uploads": self.diff_uploads,
                 "host_tail_share": round(self._host_tail_share(), 6),
                 "phase_seconds": {
                     "device": self.phase_device.dump(),

@@ -25,8 +25,11 @@ Two layers:
 * ``SharedPGMappingService`` — one per CephTpuContext
   (``ctx.mapping_service()``), the epoch-keyed cache every mapping consumer
   reads.  On a new epoch it updates the mapping and diffs old against new
-  packed tables (on the card for large pools) into the exact changed-PG
-  delta, so map consumption is O(changed PGs).  A burst of epochs coalesces:
+  packed tables on the card into the exact changed-PG delta, so map
+  consumption is O(changed PGs).  Each pool's tail runs at the pool's own
+  width, and its packed table stays on the card beside the host copy for
+  the current and the previous published epoch, so the diff uploads
+  nothing.  A burst of epochs coalesces:
   while one update runs, later maps queue and only the newest is computed.
   Reads are epoch- and identity-checked — a reader holding a different map
   object or epoch gets the scalar oracle, so ``pg_to_up_acting_osds`` stays
@@ -143,18 +146,23 @@ def rule_devices(crush: CrushMap, ruleno: int) -> tuple[int, ...]:
     return tuple(sorted(devs))
 
 
-def _changed_rows(old: np.ndarray, new: np.ndarray,
-                  device=None) -> np.ndarray:
-    """Row indices where two tables of one shape differ: both go to
-    ``device`` (the card by default), the compare and the row reduce run
-    there, and only the row indices come back."""
-    if old.shape != new.shape:
+def _changed_rows(old, new, device=None) -> np.ndarray:
+    """Row indices where two tables of one shape differ: the compare, the
+    row reduce and ``nonzero`` run on the device, and only the row indices
+    come back.  Tensors are diffed where they lie; host arrays go to
+    ``device`` (the card by default) first."""
+    if tuple(old.shape) != tuple(new.shape):
         return np.arange(new.shape[0])
-    if new.size == 0:
+    if new.shape[0] == 0 or new.shape[1] == 0:
         return np.zeros(0, dtype=np.int64)
     dev = resolve(device)
-    o = torch.from_numpy(np.ascontiguousarray(old)).to(dev)
-    n = torch.from_numpy(np.ascontiguousarray(new)).to(dev)
+
+    def put(t):
+        if isinstance(t, torch.Tensor):
+            return t
+        return torch.from_numpy(np.ascontiguousarray(t)).to(dev)
+
+    o, n = put(old), put(new)
     return torch.nonzero((o != n).any(dim=1)).flatten().cpu().numpy()
 
 
@@ -256,7 +264,10 @@ class _Tables:
     (identity IS the primary cache key — see the module contract), the raw
     placements, the pps seeds, the per-pool signatures, and — when the fused
     ladder ran — the packed (up, up_primary, acting, acting_primary) tables
-    with their shared width and tail signatures.
+    with each pool's width and tail signature.  ``fused_dev`` holds the same
+    packed tables on the mapping's device while the epoch is the current or
+    the previous published one (the service empties it after), so the next
+    epoch's diff reads them where they lie.
 
     ``bound`` / ``rejected`` memoize OTHER map objects of the same epoch
     that were content-checked against the signatures (N daemons on one
@@ -266,11 +277,11 @@ class _Tables:
     fused rows — everyone else gets the host tail against their OWN map."""
 
     __slots__ = ("osdmap", "raw", "pps", "sigs", "epoch", "bound",
-                 "rejected", "fused", "fused_w", "tail_sigs",
+                 "rejected", "fused", "fused_w", "fused_dev", "tail_sigs",
                  "tail_bound")
 
     def __init__(self, osdmap, raw, pps, sigs, epoch, fused=None,
-                 fused_w=None, tail_sigs=None):
+                 fused_w=None, tail_sigs=None, fused_dev=None):
         self.osdmap = osdmap
         self.raw = raw
         self.pps = pps
@@ -278,6 +289,7 @@ class _Tables:
         self.epoch = epoch
         self.fused = fused if fused is not None else {}
         self.fused_w = fused_w if fused_w is not None else {}
+        self.fused_dev = fused_dev if fused_dev is not None else {}
         self.tail_sigs = tail_sigs if tail_sigs is not None else {}
         # id -> weakref (OSDMap is an eq-dataclass, hence unhashable;
         # membership verifies the ref still IS the object, so a reused id
@@ -360,6 +372,7 @@ class OSDMapMapping:
         self._sigs: dict[int, tuple] = {}        # pool -> placement signature
         self._fused: dict[int, np.ndarray] = {}  # pool -> packed ladder rows
         self._fused_w: dict[int, int] = {}       # pool -> packed width
+        self._fused_dev: dict[int, torch.Tensor] = {}  # the same, on device
         self._tail_sigs: dict[int, tuple] = {}   # pool -> tail signature
         self._reach: dict[tuple, tuple] = {}     # (crush_sig, rule) -> devs
         self.epoch = -1
@@ -396,10 +409,8 @@ class OSDMapMapping:
         # nothing on self is reassigned until the commit point below, so a
         # mid-update exception leaves the old state consistent and the next
         # successful update diffs against the right old map
-        prev = _Tables(self.osdmap if self.epoch >= 0 else None,
-                       self._raw, self._pps, self._sigs, self.epoch,
-                       fused=self._fused, fused_w=self._fused_w,
-                       tail_sigs=self._tail_sigs)
+        prev = self.tables(self.osdmap if self.epoch >= 0 else None,
+                           self.epoch)
         csig, sigs = pool_signatures(m, self._reach)
         self._reach = {k: v for k, v in self._reach.items()
                        if k[0] == csig}
@@ -458,28 +469,40 @@ class OSDMapMapping:
             raw[pool_id] = np.asarray(fut.result(timeout=RESULT_TIMEOUT))
         fused: dict[int, np.ndarray] = {}
         fused_w: dict[int, int] = {}
+        fused_dev: dict[int, torch.Tensor] = {}
         tail_sigs: dict[int, tuple] = {}
         if self.fused and self.backend != "scalar":
             # no except: a fault of the card reaches the caller
             self._build_fused(m, sigs, raw, pps_t, prev, engine,
-                              fused, fused_w, tail_sigs)
+                              fused, fused_w, fused_dev, tail_sigs)
         self.osdmap = m
         self._raw, self._pps, self._sigs = raw, pps_t, sigs
         self._fused, self._fused_w = fused, fused_w
+        self._fused_dev = fused_dev
         self._tail_sigs = tail_sigs
         self.epoch = m.epoch
         return _UpdateInfo(prev, recomputed, reused)
 
+    def tables(self, osdmap, epoch) -> _Tables:
+        """The current tables as one epoch's ``_Tables`` (sharing the
+        mapping's dicts)."""
+        return _Tables(osdmap, self._raw, self._pps, self._sigs, epoch,
+                       fused=self._fused, fused_w=self._fused_w,
+                       tail_sigs=self._tail_sigs, fused_dev=self._fused_dev)
+
     def _build_fused(self, m: OSDMap, sigs: dict, raw: dict,
                      pps_t: dict, prev: _Tables, engine,
-                     fused: dict, fused_w: dict,
+                     fused: dict, fused_w: dict, fused_dev: dict,
                      tail_sigs: dict) -> None:
         """Run the fused tail for every pool whose TAIL signature moved (raw
         signature + the per-OSD vectors' digest + the pool's override
-        digest); unchanged pools alias their packed tables forward.  With
-        an ``engine`` the ladders submit through submit_finish_ladder (pools
-        sharing the epoch's vectors and widths coalesce into one launch);
-        without one, each pool runs ``run_ladder`` at its own pow-2 bucket.
+        digest and its own (width, pairs)); unchanged pools alias their
+        packed tables (host and device) forward.  Each pool runs at its own
+        width: a pg_temp row that widens one pool re-runs that pool alone.
+        With an ``engine`` the ladders submit through submit_finish_ladder
+        (requests of one width, pairs and erasure flag coalesce into one
+        launch) and keep their device rows; without one, each pool runs
+        ``run_ladder_device`` at its own pow-2 bucket.
 
         Maps below ``min_device_pgs`` TOTAL PGs skip the fused tail (the
         same policy as the raw-table rebuild)."""
@@ -488,23 +511,26 @@ class OSDMapMapping:
         if sum(int(p.pg_num) for p in m.pools.values()) \
                 < self.min_device_pgs:
             return
-        width, pairs = pk.pool_widths(m)
         vectors = m.dense_osd_vectors()
         state, weight, affinity = vectors
         epoch_digest = (hash(state.tobytes()), hash(weight.tobytes()),
-                        hash(affinity.tobytes()), width, pairs)
+                        hash(affinity.tobytes()))
         ov = _pool_override_digests(m)
         jobs: list[tuple[int, pk.LadderOperands]] = []
         for pool_id, pool in m.pools.items():
             if pool_id not in raw:
                 continue
-            tsig = (sigs[pool_id], epoch_digest, ov.get(pool_id))
+            width, pairs = pk.pool_widths(m, {pool_id: pool})
+            tsig = (sigs[pool_id], epoch_digest, ov.get(pool_id),
+                    width, pairs)
             tail_sigs[pool_id] = tsig
             if (prev.tail_sigs.get(pool_id) == tsig
                     and pool_id in prev.fused
                     and raw.get(pool_id) is prev.raw.get(pool_id)):
                 fused[pool_id] = prev.fused[pool_id]
                 fused_w[pool_id] = prev.fused_w[pool_id]
+                if pool_id in prev.fused_dev:
+                    fused_dev[pool_id] = prev.fused_dev[pool_id]
                 continue
             pps = pps_t.get(pool_id)
             if pps is None:
@@ -517,16 +543,20 @@ class OSDMapMapping:
                 m, pool_id, pool, raw[pool_id], pps, width=width,
                 pairs=pairs, vectors=vectors)))
         if engine is not None:
-            futs = [(pid, submit_finish_ladder(
-                engine, op, cost_tag=("system", BACKGROUND_BEST_EFFORT)))
-                for pid, op in jobs]
-            for pid, fut in futs:
+            futs = [(pid, op, submit_finish_ladder(
+                engine, op, cost_tag=("system", BACKGROUND_BEST_EFFORT),
+                keep_device=True)) for pid, op in jobs]
+            for pid, op, fut in futs:
                 fused[pid] = np.asarray(fut.result(timeout=RESULT_TIMEOUT))
-                fused_w[pid] = width
+                fused_w[pid] = op.width
+                if fut.device_value is not None:
+                    fused_dev[pid] = fut.device_value
         else:
             for pid, op in jobs:
-                fused[pid] = pk.run_ladder(op, self.device)
-                fused_w[pid] = width
+                packed = pk.run_ladder_device(op, self.device)
+                fused[pid] = packed.cpu().numpy()
+                fused_w[pid] = op.width
+                fused_dev[pid] = packed
 
     def fused_complete(self) -> bool:
         """True when every pool of the cached map has a packed fused table
@@ -566,12 +596,6 @@ class SharedPGMappingService:
     #: delta-log entries retained (epoch transitions a lagging reader can
     #: still be served incrementally)
     DELTA_LOG = 64
-
-    #: packed fused tables at/below this many elements diff with one
-    #: vectorized numpy compare instead of the on-card diff — the copies to
-    #: the card dominate tiny tables (1M elements ~ a 100k-PG pool at
-    #: width 3)
-    FUSED_DIFF_HOST_MAX = 1 << 20
 
     def __init__(self, ctx=None, backend: str | None = None,
                  fused: bool | None = None, device=None):
@@ -702,13 +726,9 @@ class SharedPGMappingService:
         cached_pgs = sum(int(r.shape[0]) for r in mapping._raw.values())
         with self._cv:
             prev = info.prev
-            newt = _Tables(work, mapping._raw, mapping._pps,
-                           mapping._sigs, work.epoch,
-                           fused=mapping._fused,
-                           fused_w=mapping._fused_w,
-                           tail_sigs=mapping._tail_sigs)
-            self._tables = ({prev.epoch: prev, work.epoch: newt}
-                            if prev.epoch >= 0 else {work.epoch: newt})
+            newt = mapping.tables(work, work.epoch)
+            self._publish({prev.epoch: prev, work.epoch: newt}
+                          if prev.epoch >= 0 else {work.epoch: newt})
             if full or not self._chain_valid:
                 # chain break (first map, or the prev tables came from a
                 # warm()): a delta against them is never served online
@@ -769,11 +789,8 @@ class SharedPGMappingService:
             raise
         cached_pgs = sum(int(r.shape[0]) for r in mapping._raw.values())
         with self._cv:
-            self._tables = {osdmap.epoch: _Tables(
-                osdmap, mapping._raw, mapping._pps, mapping._sigs,
-                osdmap.epoch, fused=mapping._fused,
-                fused_w=mapping._fused_w,
-                tail_sigs=mapping._tail_sigs)}
+            self._publish({osdmap.epoch: mapping.tables(osdmap,
+                                                        osdmap.epoch)})
             self._deltas.clear()
             self._chain_valid = False
             self._epoch = max(self._epoch, osdmap.epoch)
@@ -785,6 +802,17 @@ class SharedPGMappingService:
             changed=0, cached_pgs=cached_pgs,
             cached_pools=len(mapping._raw))
         self.stats.record_fused_epoch(mapping.fused_complete())
+
+    def _publish(self, tables: dict) -> None:
+        """Install the served tables (called under the lock): the tables
+        that leave drop their device copies, so the card holds packed
+        tables of the current and the previous published epoch only (the
+        tables that stay may share the leaving ones' dicts)."""
+        keep = {id(t.fused_dev) for t in tables.values()}
+        for t in self._tables.values():
+            if id(t.fused_dev) not in keep:
+                t.fused_dev.clear()
+        self._tables = tables
 
     def _delta_since(self, from_epoch: int,
                      to_epoch: int | None = None) -> MapUpdate:
@@ -823,10 +851,12 @@ class SharedPGMappingService:
     def _fused_delta(self, old: _Tables, mapping: OSDMapMapping):
         """Exact changed-PG set by diffing both epochs' PACKED tables: rows
         encode the full oracle tuple with deterministic padding, so row
-        inequality IS tuple inequality.  Tables above FUSED_DIFF_HOST_MAX
-        elements diff on the card (``_changed_rows``).  None when either
-        epoch lacks complete fused coverage (the host candidate path then
-        stays the exact answer)."""
+        inequality IS tuple inequality.  The diff runs on the mapping's
+        device over the tables kept there (``_changed_rows``); a table
+        without a device copy (its tail was served by the host oracle) is
+        uploaded, counted in ``diff_uploads``.  None when either epoch
+        lacks complete fused coverage (the host candidate path then stays
+        the exact answer)."""
         m_new = mapping.osdmap
         m_old = old.osdmap
         changed: list[tuple[int, int]] = []
@@ -846,15 +876,19 @@ class SharedPGMappingService:
             wn = mapping._fused_w[pool_id]
             wo = old.fused_w[pool_id]
             if wn == wo and oldp.shape == newp.shape:
-                if oldp.size <= self.FUSED_DIFF_HOST_MAX:
-                    rows = np.flatnonzero((oldp != newp).any(axis=1))
-                else:
-                    rows = _changed_rows(oldp, newp, mapping.device)
+                a = old.fused_dev.get(pool_id)
+                b = mapping._fused_dev.get(pool_id)
+                uploads = (a is None) + (b is None)
+                if uploads:
+                    self.stats.record_diff_uploads(uploads)
+                rows = _changed_rows(oldp if a is None else a,
+                                     newp if b is None else b,
+                                     mapping.device)
                 changed.extend((pool_id, int(pg)) for pg in rows)
                 continue
-            # shared width or pg_num moved (override growth, pool resize):
-            # normalize to a common layout and compare the overlapping rows
-            # on the host — rare, and still exact
+            # the pool's width or pg_num moved (override growth, pool
+            # resize): normalize to a common layout and compare the
+            # overlapping rows on the host — rare, and still exact
             w = max(wo, wn)
             a = pk.normalize_packed(oldp, wo, w)
             b = pk.normalize_packed(newp, wn, w)

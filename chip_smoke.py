@@ -138,27 +138,40 @@ Runs ceph_tpu_torch (never JAX, never ceph_tpu) at the bench's full size:
              affinity 0x8000 on 5% of OSDs and 0 on 1%): the raw tables
              are reused and no straw2 kernel launches; e3 100 OSDs down,
              one whole host among them; e4 1% reweighted to 0x8000 and 20
-             out (both pools remap through submit_do_rule).  At every
-             epoch: each pool's packed table == the numpy ladder_ref over
-             all rows and the kernel == ladder_plain on the card on the
-             same operands; lookup == pg_to_up_acting_osds (the scalar
-             oracle, in worker processes) on every PG an override names and
-             a seeded 1,024 PGs of pool 1 and 256 of pool 2; the delta ==
-             the rows where the two epochs' packed tables differ; no full
-             rescan after e1; MappingStats' unfused_epochs and
-             lookup_fallbacks 0; fault_digest() zero.  Then what_if_up
-             against the host pipeline, e4's content again with
-             osdmap_mapping_fused off (host-tail lookups == the fused
+             out (both pools remap through submit_do_rule).  Each pool's
+             tail runs at the pool's own width (pool 1 W = 3, pool 2 W =
+             12).  At every epoch: each pool's packed table == the numpy
+             ladder_ref over all rows and the kernel == ladder_plain on the
+             card on the same operands, and the service's card copy == its
+             host copy; pg_finish_ladder launched once a pool whose tail
+             re-ran (counted by (W, P, erasure)), pg_osd_words once; no
+             packed table uploaded for the diff; in e1 and e4 each pool's
+             remap batch on the engine (launch and compute ms: pool 1's
+             fast path, pool 2's chooseleaf indep interpreter); lookup ==
+             pg_to_up_acting_osds (the scalar oracle, in worker processes)
+             on every PG an override names and a seeded 1,024 PGs of pool 1
+             and 256 of pool 2; the delta == the rows where the two epochs'
+             packed tables differ; no full rescan after e1; MappingStats'
+             unfused_epochs and lookup_fallbacks 0; fault_digest() zero.
+             Then what_if_up against the host pipeline, e4's content again
+             with osdmap_mapping_fused off (host-tail lookups == the fused
              rows), osdmap_test.test_map_pgs on e4's map and psim on the
-             250 x 40 map, the kernel against ladder_plain and ladder_ref on
-             adversarial operands (W 1, 3, 12, 16, 32; P 1, 2, 4; N 1, 37,
-             203; a pad row in the middle), and its time by graph replay
-             beside host_ms, ladder_plain's time, its bound and the host's
-             build_operands time
+             250 x 40 map, the kernel and pg_osd_words against their plain
+             versions and ladder_ref on adversarial operands (W 1..32; P 1,
+             2, 4; N 1, 37, 203; a pad row in the middle; maps of 10,000 and
+             60,000 OSDs on 51,277 rows, the last tile ragged), and each
+             pool's kernel at its e4 shape by graph replay beside host_ms,
+             ladder_plain's time, its bound, its launches, the host's
+             build_operands time and the MB and padding its tail moves;
+             then pool 1 at the one width both pools shared before (W = 12)
+             with the first version of the kernel (ab_kernels.py,
+             ab_ladder.cu), beside this kernel, in turns
  10. prints  the {"engine": ...} line, the {"mapping": ...} line, the
              {"kernels": [...]} line (gf_matvec's row also carries the EC
              shapes of phase 7 as "ec_shapes"; pg_finish_ladder's its
-             launches per epoch), then {"ok": true, "device": ...}
+             launches per epoch, each pool's shape and times, and the first
+             version's times; pg_osd_words's its launches per epoch), then
+             {"ok": true, "device": ...}
 
 Exits non-zero, printing no result, without a card or without the package.
 """
@@ -287,8 +300,11 @@ MAP_TEMP, MAP_EC_TEMP, MAP_PTEMP, MAP_EC_PTEMP = 448, 64, 112, 16
 #: beside every PG an override names
 MAP_SAMPLE = {1: 1024, 2: 256}
 #: the adversarial kernel checks: widths, pairs, row counts
-LADDER_WIDTHS, LADDER_PAIRS, LADDER_NS = (1, 3, 12, 16, 32), (1, 2, 4), \
+LADDER_WIDTHS, LADDER_PAIRS, LADDER_NS = tuple(range(1, 33)), (1, 2, 4), \
     (1, 37, 203)
+#: rows of the cases over many tiles a block: not a multiple of the tile
+#: (128 rows), so the last tile is ragged
+LADDER_BIG_N = 128 * 400 + 77
 
 
 def rows_of(m, rid: int, xs, rw_list) -> "np.ndarray":
@@ -773,15 +789,17 @@ def scalar_oracle(pool_exec, m, keys: list) -> dict:
     return out
 
 
-def ladder_operands_case(rng, n: int, w: int, p: int, erasure: bool):
+def ladder_operands_case(rng, n: int, w: int, p: int, erasure: bool,
+                         m_osd: int | None = None):
     """Seeded adversarial operands of the fused tail (the LadderOperands
-    fields, numpy): few OSDs, ids past max_osd, NONE holes, NONE frm pairs,
-    targets in the row, out or down, upmap rows valid or not, empty and
-    short temps, primary_temp, affinity all default or not, and an all-zero
-    row in the middle (a padded bucket's row)."""
+    fields, numpy): few OSDs (or ``m_osd``), ids past max_osd, NONE holes,
+    NONE frm pairs, targets in the row, out or down, upmap rows valid or
+    not, empty and short temps, primary_temp, affinity all default or not,
+    and an all-zero row in the middle (a padded bucket's row)."""
     import numpy as np
     none, nosd = NONE_ID, -1
-    m_osd = int(rng.integers(1, 24))
+    if m_osd is None:
+        m_osd = int(rng.integers(1, 24))
     hi = m_osd + 3
     state = rng.choice([0, 1, 2, 3, 3, 3, 3], m_osd).astype(np.int32)
     weight = rng.choice([0, 0x10000, 0x10000, 0x8000, 1 << 40],
@@ -839,14 +857,16 @@ def on_card(op, dev):
                                               op.affinity)]
 
 
-def launch_ladder(t, erasure: bool, out) -> None:
+def launch_ladder(t, words, erasure: bool, out) -> None:
     """One raw pg_finish_ladder launch on prepared card operands ``t``
-    (finish_ladder's order, int32 but weight int64) into ``out``."""
+    (finish_ladder's order, int32 but weight int64; 16-byte aligned, as
+    fresh tensors are) and the word table ``words`` into ``out``."""
     from ceph_tpu_torch.ops import _build
     n, w = t[0].shape
     _build.launch("pg_finish_ladder", "pg_finish_ladder_launch",
-                  *[a.data_ptr() for a in t], t[9].shape[0], n, w,
-                  t[5].shape[1], int(erasure), out.data_ptr())
+                  *[a.data_ptr() for a in t[:9]], words.data_ptr(),
+                  t[9].shape[0], n, w, t[5].shape[1], int(erasure),
+                  out.data_ptr())
 
 
 def ladder_bound(op, packed) -> tuple[float, str]:
@@ -855,7 +875,8 @@ def ladder_bound(op, packed) -> tuple[float, str]:
     up_len, temp_len and ptemp; raw_len on an erasure pool only; a row's
     pg_upmap cells (up_len of them), its pg_temp row and its pps only where
     it has one or its up members do not all have default affinity; the
-    three per-OSD vectors once; the packed table written once.  The
+    per-OSD word table (4 bytes an OSD) once; the packed table written
+    once.  The
     operations: the coin-flip hashes this data needs (one hash32_2 per up
     member of those rows)."""
     import numpy as np
@@ -871,8 +892,7 @@ def ladder_bound(op, packed) -> tuple[float, str]:
               + 4 * int(op.up_len.sum())
               + 4 * w * int((op.temp_len > 0).sum())
               + 4 * int(rows.sum())
-              + op.state.nbytes + op.weight.nbytes + op.affinity.nbytes
-              + packed.nbytes)
+              + 4 * len(op.state) + packed.nbytes)
     hashes = int(real[rows].sum())
     return bound(nbytes, hashes * HASH2_OPS)
 
@@ -881,7 +901,7 @@ def ladder_padding(op, packed, size: int) -> tuple[int, int]:
     """(bytes, of which padding): what one pool's tail moves through the
     engine (its dense operand tables to the card, its packed table back),
     and the part of it that is cells past the pool's own size in the
-    epoch-shared width W (raw, pg_upmap and pg_temp rows; up and acting)."""
+    tables' width W (raw, pg_upmap and pg_temp rows; up and acting)."""
     import numpy as np
     w = op.raw.shape[1]
     moved = (sum(np.asarray(a).nbytes for a in (op.raw,) + op.aux())
@@ -892,10 +912,68 @@ def ladder_padding(op, packed, size: int) -> tuple[int, int]:
     return moved, pad
 
 
-def mapping_phase(dev, tag: str) -> tuple[dict, dict]:
+def ladder_cases(dev, tag: str) -> int:
+    """Phase 9g: pg_finish_ladder (and pg_osd_words) against ladder_plain
+    and ladder_ref (osd_words_plain) on adversarial operands: every W of
+    1..32 at P 1, 2, 4 and N 1, 37, 203 (a pad row in the middle),
+    replicated and erasure; then maps of 10,000 and 60,000 OSDs (a word
+    table of 40 KB, which L1 can hold, and of 240 KB, which it cannot) on
+    LADDER_BIG_N rows (many tiles, the last one ragged).  Returns the
+    number of cases."""
+    import numpy as np
+    import torch
+
+    from ceph_tpu_torch.ops import placement_cuda as pc
+    from ceph_tpu_torch.ops import placement_kernel as pk
+    arng = np.random.default_rng(99)
+    shapes = [(w, p, erasure, n, None) for w in LADDER_WIDTHS
+              for p in LADDER_PAIRS for erasure in (False, True)
+              for n in LADDER_NS]
+    shapes += [(w, 4, erasure, LADDER_BIG_N, m)
+               for m in (N_OSDS, 60000)
+               for w in (3, 12) for erasure in (False, True)]
+    for w, p, erasure, n, m_osd in shapes:
+        case = ladder_operands_case(arng, n, w, p, erasure, m_osd)
+        op = pk.LadderOperands(**case)
+        t = on_card(op, dev)
+        words = pc.osd_words(*t[9:12])
+        if not torch.equal(words, pc.osd_words_plain(*t[9:12])):
+            raise SmokeFailure(f"pg_osd_words != plain at M={len(op.state)}")
+        got = pc.finish_ladder(*t, erasure=erasure, words=words)
+        got = got.cpu().numpy()
+        want = pk.ladder_plain(*t, erasure=erasure).cpu().numpy()
+        ref = pk.ladder_ref(op.raw, *op.aux(), op.state, op.weight,
+                            op.affinity, erasure=erasure)
+        if not (np.array_equal(got, want) and np.array_equal(got, ref)):
+            raise SmokeFailure(
+                f"pg_finish_ladder != plain at W={w} P={p} N={n} "
+                f"M={len(op.state)} erasure={erasure}")
+    check(True, f"pg_finish_ladder == ladder_plain == ladder_ref and "
+          f"pg_osd_words == osd_words_plain on {len(shapes)} adversarial "
+          f"cases (W 1..32, P {LADDER_PAIRS}, N {LADDER_NS}, replicated and "
+          f"erasure, a pad row in the middle; {N_OSDS} and 60,000 OSDs on "
+          f"{LADDER_BIG_N} rows, the last tile ragged)  {tag}")
+    return len(shapes)
+
+
+def remap_split(recent: list) -> dict:
+    """Each pool's remap batch of one epoch, from the engine's phase
+    ledger (the newest crush_rule batch of each row count): the host's
+    launch phase (issuing the calls: the indep interpreter's torch ops, the
+    fast path's kernels) and compute (launch end to the batch's CUDA
+    event), ms."""
+    out = {}
+    for r in reversed(recent):
+        if r["kernel"] == "crush_rule" and r["stripes"] not in out:
+            out[r["stripes"]] = {ph: r["phases"][ph] * 1e3
+                                 for ph in ("launch", "compute")}
+    return out
+
+
+def mapping_phase(dev, tag: str) -> tuple[dict, list]:
     """Phase 9: the OSDMap and the shared PG mapping service on the card
-    (see the module docstring); returns (summary, the kernel row of
-    pg_finish_ladder)."""
+    (see the module docstring); returns (summary, the kernel rows of
+    pg_finish_ladder and pg_osd_words)."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -941,6 +1019,8 @@ def mapping_phase(dev, tag: str) -> tuple[dict, dict]:
     out_osds = np.flatnonzero(reweight == 0)
     summary: dict = {"epochs": {}}
     ladder_launches: list[int] = []
+    words_launches: list[int] = []
+    pool_launches: dict = {}
     max_err = 0
 
     def phases() -> dict:
@@ -956,9 +1036,10 @@ def mapping_phase(dev, tag: str) -> tuple[dict, dict]:
 
     def ladder_of(m, pid):
         """The service's packed table of one pool, and the operands it was
-        built from (the service's raw and pps tables)."""
+        built from (the service's raw and pps tables, at the pool's own
+        width)."""
         mp = svc._mapping
-        width, pairs = pk.pool_widths(m)
+        width, pairs = pk.pool_widths(m, {pid: m.pools[pid]})
         op = pk.build_operands(m, pid, m.pools[pid], mp._raw[pid],
                                mp._pps[pid], width=width, pairs=pairs)
         return mp._fused[pid], op
@@ -966,20 +1047,46 @@ def mapping_phase(dev, tag: str) -> tuple[dict, dict]:
     def epoch(name, m, prev, straw2: bool, pool_exec):
         nonlocal max_err
         ph0 = phases()
+        up0 = st.dump()["diff_uploads"]
         _build.reset_launches()
+        pc.reset_shape_launches()
         t0 = time.perf_counter()
         upd = svc.update_to(m)
         secs = time.perf_counter() - t0
         launches = dict(_build.LAUNCHES)
+        shapes = dict(pc.SHAPE_LAUNCHES)
+        uploads = st.dump()["diff_uploads"] - up0
         ph = {k: v - ph0[k] for k, v in phases().items()}
         ladder_launches.append(launches["pg_finish_ladder"])
+        words_launches.append(launches["pg_osd_words"])
+        for shape, k in shapes.items():
+            pool_launches[shape] = pool_launches.get(shape, 0) + k
+        split = (remap_split(telemetry.dispatch_stats().phases.dump()
+                             ["recent"]) if straw2 else None)
         print(f"{name}: update_to {secs:.3f} s (device {ph['device']:.3f}, "
-              f"delta {ph['delta']:.3f}, host_tail {ph['host_tail']:.3f}); "
+              f"delta {ph['delta'] * 1e3:.2f} ms, host_tail "
+              f"{ph['host_tail']:.3f}); "
               f"{'full' if upd.full else len(upd.changed)} changed PGs; "
-              f"launches {launches}  {tag}")
+              f"launches {launches}; pg_finish_ladder by (W, P, erasure) "
+              f"{shapes}; packed tables uploaded for the diff {uploads}  "
+              f"{tag}")
+        if split:
+            print(f"{name}: the remaps on the engine, ms by pool (launch: "
+                  f"the host issuing the calls; compute: launch end to the "
+                  f"batch's event): pool 1 (fast path, {MAP_REP_PGS} PGs) "
+                  f"{split.get(MAP_REP_PGS)}, pool 2 (chooseleaf indep "
+                  f"interpreter, {MAP_EC_PGS} PGs) {split.get(MAP_EC_PGS)}  "
+                  f"{tag}")
         check(launches["pg_finish_ladder"] >= 1,
               f"{name}: pg_finish_ladder launched "
-              f"{launches['pg_finish_ladder']} times")
+              f"{launches['pg_finish_ladder']} times, one a pool at its own "
+              f"(W, P) {shapes}")
+        check(launches["pg_osd_words"] == 1,
+              f"{name}: pg_osd_words packed the epoch's word table once")
+        check(uploads == 0 and all(
+            pid in svc._mapping._fused_dev for pid in m.pools),
+              f"{name}: every pool's packed table kept on the card, no "
+              f"table uploaded for the diff")
         s2 = {k: launches[k] for k in ("straw2_root", "straw2_leaf",
                                        "firstn_consume")}
         check(all(v >= 1 for v in s2.values()) if straw2
@@ -1002,9 +1109,11 @@ def mapping_phase(dev, tag: str) -> tuple[dict, dict]:
             plain_ = pk.ladder_plain(*t, erasure=op.erasure)
             err = int((got.long() - plain_.long()).abs().max())
             max_err = max(max_err, err)
-            check(err == 0 and np.array_equal(got.cpu().numpy(), packed),
-                  f"{name}: pool {pid}: the kernel == ladder_plain on the "
-                  f"card and == the service's table")
+            check(err == 0 and np.array_equal(got.cpu().numpy(), packed)
+                  and torch.equal(svc._mapping._fused_dev[pid], got),
+                  f"{name}: pool {pid} (W={op.width}): the kernel == "
+                  f"ladder_plain on the card and == the service's table, "
+                  f"on the host and on the card")
         keys = checked_keys(m)
         t_o = time.perf_counter()
         oracle = scalar_oracle(pool_exec, m, keys)
@@ -1034,7 +1143,9 @@ def mapping_phase(dev, tag: str) -> tuple[dict, dict]:
         summary["epochs"][name] = {
             "update_to_s": secs, "phases_s": ph,
             "changed": None if upd.full else len(upd.changed),
-            "launches": launches, "checked_pgs": len(keys)}
+            "launches": launches, "checked_pgs": len(keys),
+            "ladder_shapes": {str(k): v for k, v in shapes.items()},
+            "diff_uploads": uploads, "remap_split_ms": split}
         return {pid: (svc._mapping._fused[pid].copy(),
                       svc._mapping._fused_w[pid]) for pid in m.pools}
 
@@ -1086,11 +1197,12 @@ def mapping_phase(dev, tag: str) -> tuple[dict, dict]:
             m2.osd_primary_affinity[int(o)] = 0x8000
         for o in perm[N_OSDS // 20:N_OSDS // 20 + N_OSDS // 100]:
             m2.osd_primary_affinity[int(o)] = 0
-        width, pairs = pk.pool_widths(m2)
+        widths = {pid: pk.pool_widths(m2, {pid: pool})
+                  for pid, pool in m2.pools.items()}
         print(f"e2 overrides: {len(m2.pg_upmap_items)} pg_upmap_items, "
               f"{len(m2.pg_upmap)} pg_upmap, {len(m2.pg_temp)} pg_temp, "
-              f"{len(m2.primary_temp)} primary_temp; shared width W="
-              f"{width}, pairs P={pairs}")
+              f"{len(m2.primary_temp)} primary_temp; (W, P) by pool "
+              f"{widths} (one width for all: {pk.pool_widths(m2)})")
         prev = epoch("e2", m2, prev, False, pool_exec)
         check(all(svc._mapping._raw[p] is raw1[p] for p in m2.pools),
               "e2: every raw table reused")
@@ -1163,11 +1275,20 @@ def mapping_phase(dev, tag: str) -> tuple[dict, dict]:
     led = {"calls": len(fin), "rows": [r["stripes"] for r in fin],
            "phase_median_ms": {
                ph: statistics.median(r["phases"][ph] for r in fin) * 1e3
-               for ph in telemetry.PHASES} if fin else {}}
+               for ph in telemetry.PHASES} if fin else {},
+           "by_rows": {n: {ph: statistics.median(
+               r["phases"][ph] for r in fin if r["stripes"] == n) * 1e3
+               for ph in telemetry.PHASES}
+               for n in (MAP_REP_PGS, MAP_EC_PGS)
+               if any(r["stripes"] == n for r in fin)}}
     print(f"pg_finish channel: {led['calls']} engine calls of {led['rows']} "
           f"rows; phase medians ms " + "  ".join(
               f"{k} {v:.4f}" for k, v in led["phase_median_ms"].items())
           + f"  {tag}")
+    for n, meds in led["by_rows"].items():
+        print(f"pg_finish channel, the calls of {n} rows: phase medians ms "
+              + "  ".join(f"{k} {v:.4f}" for k, v in meds.items())
+              + f"  {tag}")
     summary["pg_finish_ledger"] = led
     assert_no_faults("phase 9")
 
@@ -1189,79 +1310,135 @@ def mapping_phase(dev, tag: str) -> tuple[dict, dict]:
 
     print("-- 9g. pg_finish_ladder against ladder_plain and ladder_ref on "
           "adversarial operands")
-    arng = np.random.default_rng(99)
-    n_cases = 0
-    for w in LADDER_WIDTHS:
-        for p in LADDER_PAIRS:
-            for erasure in (False, True):
-                for n in LADDER_NS:
-                    case = ladder_operands_case(arng, n, w, p, erasure)
-                    op = pk.LadderOperands(**case)
-                    t = on_card(op, dev)
-                    got = pc.finish_ladder(*t, erasure=erasure).cpu().numpy()
-                    want = pk.ladder_plain(*t, erasure=erasure).cpu().numpy()
-                    ref = pk.ladder_ref(op.raw, *op.aux(), op.state,
-                                        op.weight, op.affinity,
-                                        erasure=erasure)
-                    if not (np.array_equal(got, want)
-                            and np.array_equal(got, ref)):
-                        raise SmokeFailure(
-                            f"pg_finish_ladder != plain at W={w} P={p} "
-                            f"N={n} erasure={erasure}")
-                    n_cases += 1
-    check(True, f"pg_finish_ladder == ladder_plain == ladder_ref on "
-          f"{n_cases} adversarial cases (W {LADDER_WIDTHS}, P "
-          f"{LADDER_PAIRS}, N {LADDER_NS}, replicated and erasure, a pad "
-          f"row in the middle)")
+    ladder_cases(dev, tag)
 
-    print("-- 9h. times: the kernel at the replicated pool's e4 shape")
+    print("-- 9h. times: each pool's kernel at its own e4 shape; the one "
+          "width of the first layout beside it")
     mp = svc._mapping
-    width, pairs = pk.pool_widths(m4)
-    t_b = time.perf_counter()
-    op2 = pk.build_operands(m4, 1, m4.pools[1], mp._raw[1], mp._pps[1],
-                            width=width, pairs=pairs)
-    build_s = time.perf_counter() - t_b
-    t = on_card(op2, dev)
-    out = torch.empty((op2.raw.shape[0], 2 * op2.width + 4),
-                      dtype=torch.int32, device=dev)
-    g, h = paired_times(lambda: launch_ladder(t, op2.erasure, out), 20)
-    ms, host = statistics.median(g), statistics.median(h)
-    packed4 = prev[1][0]
-    check(torch.equal(out.cpu(), torch.from_numpy(packed4)),
-          "the raw launch wrote e4's table")
-    plain_ms = time_ms(lambda: pk.ladder_plain(*t, erasure=op2.erasure), 1,
-                       reps=5)
-    b_ms, b_by = ladder_bound(op2, packed4)
-    n_, w_ = op2.raw.shape
-    shape = f"N={n_} W={w_} P={op2.items.shape[1]}"
-    print(f"pg_finish_ladder {shape} kernel {ms:.4f} ms (graph replay; "
-          f"{host:.4f} issued)  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms "
-          f"({b_by})  launches per epoch {ladder_launches}  build_operands "
-          f"on the host {build_s * 1e3:.1f} ms  {tag}")
-    check(ms >= b_ms, f"pg_finish_ladder: graph replay {ms:.4f} ms at or "
-          f"above its bound {b_ms:.4f} ms")
+    pools: dict = {}
     moved = pad = 0
     for pid, pool in m4.pools.items():
-        op_p = op2 if pid == 1 else pk.build_operands(
+        width, pairs = pk.pool_widths(m4, {pid: pool})
+        t_b = time.perf_counter()
+        op = pk.build_operands(m4, pid, pool, mp._raw[pid], mp._pps[pid],
+                               width=width, pairs=pairs)
+        build_s = time.perf_counter() - t_b
+        t = on_card(op, dev)
+        words = pc.osd_words(*t[9:12])
+        out = torch.empty((op.raw.shape[0], 2 * op.width + 4),
+                          dtype=torch.int32, device=dev)
+        g, h = paired_times(lambda: launch_ladder(t, words, op.erasure, out),
+                            20)
+        ms, host = statistics.median(g), statistics.median(h)
+        packed4 = prev[pid][0]
+        check(torch.equal(out.cpu(), torch.from_numpy(packed4)),
+              f"pool {pid}: the raw launch wrote e4's table")
+        plain_ms = time_ms(lambda: pk.ladder_plain(*t, erasure=op.erasure),
+                           1, reps=5)
+        b_ms, b_by = ladder_bound(op, packed4)
+        mv, pd = ladder_padding(op, packed4, int(pool.size))
+        moved, pad = moved + mv, pad + pd
+        n_, w_ = op.raw.shape
+        shape = f"N={n_} W={w_} P={op.items.shape[1]}"
+        launches = sum(k for (_w, _p, erasure), k in pool_launches.items()
+                       if erasure == op.erasure)
+        print(f"pg_finish_ladder pool {pid} {shape} kernel {ms:.4f} ms "
+              f"(graph replay; {host:.4f} issued)  plain {plain_ms:.4f} ms  "
+              f"bound {b_ms:.4f} ms ({b_by})  launches over e1-e4 "
+              f"{launches}  build_operands on the host "
+              f"{build_s * 1e3:.1f} ms  tail {mv / 1e6:.1f} MB, padding "
+              f"{pd / 1e6:.2f} MB  {tag}")
+        check(ms >= b_ms, f"pool {pid}: pg_finish_ladder's graph replay "
+              f"{ms:.4f} ms at or above its bound {b_ms:.4f} ms")
+        pools[pid] = {"shape": shape, "ms": ms, "host_ms": host,
+                      "plain_ms": plain_ms, "bound_ms": b_ms,
+                      "bound_by": b_by, "launches": launches,
+                      "build_operands_ms": build_s * 1e3,
+                      "tail_mb": mv / 1e6, "padding_mb": pd / 1e6}
+    print(f"the tail's tables at e4 (each pool at its own width): "
+          f"{moved / 1e6:.1f} MB through the engine, {pad / 1e6:.2f} MB of "
+          f"it ({pad / moved:.2%}) cells past their pool's size  {tag}")
+    check(pad / moved < 0.10, "the tail's padding under 10% at e4")
+    # the first layout: pool 1 at the one width of the epoch's pools,
+    # timed with the first kernel (ab_ladder.cu) and this one in turns
+    width, pairs = pk.pool_widths(m4)
+    op12 = pk.build_operands(m4, 1, m4.pools[1], mp._raw[1], mp._pps[1],
+                             width=width, pairs=pairs)
+    shared_mv, shared_pd = 0, 0
+    for pid, pool in m4.pools.items():
+        op_s = op12 if pid == 1 else pk.build_operands(
             m4, pid, pool, mp._raw[pid], mp._pps[pid], width=width,
             pairs=pairs)
-        mv, pd = ladder_padding(op_p, prev[pid][0], int(pool.size))
-        moved, pad = moved + mv, pad + pd
-    print(f"the tail's tables at e4 (W={w_} shared by the epoch's pools): "
-          f"{moved / 1e6:.1f} MB through the engine, {pad / 1e6:.1f} MB of "
-          f"it ({pad / moved:.1%}) cells past their pool's size  {tag}")
-    summary["build_operands_ms"] = build_s * 1e3
+        packed_s = pk.normalize_packed(prev[pid][0], prev[pid][1], width)
+        mv, pd = ladder_padding(op_s, packed_s, int(pool.size))
+        shared_mv, shared_pd = shared_mv + mv, shared_pd + pd
+    print(f"(one width W={width} for both pools, as before: "
+          f"{shared_mv / 1e6:.1f} MB, {shared_pd / 1e6:.1f} MB of it "
+          f"({shared_pd / shared_mv:.1%}) padding)  {tag}")
+    import ab_kernels
+    first = ab_kernels.ladder_variants(
+        on_card(op12, dev), card=tag, first_only=True)
+    summary["pg_finish_pools"] = pools
     summary["tail_mb"], summary["tail_padding_mb"] = moved / 1e6, pad / 1e6
-    row = {"name": "pg_finish_ladder", "route": "cuda",
-           "source": "ceph_tpu_torch/csrc/placement.cu",
-           "replaces": "ceph_tpu/ops/placement_kernel.py:67",
-           "launches": sum(ladder_launches),
-           "launches_per_epoch": ladder_launches, "max_abs_err": max_err,
-           "matches_plain": max_err == 0, "ms": ms, "host_ms": host,
-           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-           "library_ms": None, "shape": shape}
+    summary["shared_width_tail_mb"] = shared_mv / 1e6
+    summary["shared_width_padding_mb"] = shared_pd / 1e6
+    summary["ladder_variants"] = first
+    p1 = pools[1]
+    rows = [{"name": "pg_finish_ladder", "route": "cuda",
+             "source": "ceph_tpu_torch/csrc/placement.cu",
+             "replaces": "ceph_tpu/ops/placement_kernel.py:67",
+             "launches": sum(ladder_launches),
+             "launches_per_epoch": ladder_launches, "max_abs_err": max_err,
+             "matches_plain": max_err == 0, "ms": p1["ms"],
+             "host_ms": p1["host_ms"], "plain_ms": p1["plain_ms"],
+             "bound_ms": p1["bound_ms"], "bound_by": p1["bound_by"],
+             "library_ms": None, "shape": p1["shape"],
+             "pools": {str(k): v for k, v in pools.items()},
+             "first_version_ms": {k: v["ms"] for k, v in first.items()}}]
+    rows.append(words_row(dev, m4, words_launches))
     ctx.stop()
-    return summary, row
+    return summary, rows
+
+
+def words_row(dev, m, launches: list) -> dict:
+    """pg_osd_words at the map's OSD count: held against osd_words_plain,
+    timed by graph replay, beside its bound (each OSD's three entries read,
+    its word written)."""
+    import torch
+
+    from ceph_tpu_torch.ops import _build
+    from ceph_tpu_torch.ops import placement_cuda as pc
+    vec = [torch.from_numpy(v).to(dev) for v in m.dense_osd_vectors()]
+    words = pc.osd_words(*vec)
+    plain_ = pc.osd_words_plain(*vec)
+    err = int((words.long() - plain_.long()).abs().max())
+    out = torch.empty_like(words)
+    m_osd = vec[0].shape[0]
+
+    def launch():
+        _build.launch("pg_osd_words", "pg_osd_words_launch",
+                      vec[0].data_ptr(), vec[1].data_ptr(), vec[2].data_ptr(),
+                      m_osd, out.data_ptr())
+
+    g, h = paired_times(launch, 20)
+    b_ms, b_by = bound(sum(v.nbytes for v in vec) + out.nbytes, 0)
+    row = {"name": "pg_osd_words", "route": "cuda",
+           "source": "ceph_tpu_torch/csrc/placement.cu",
+           "replaces": "ceph_tpu/ops/placement_kernel.py:84",
+           "launches": sum(launches), "launches_per_epoch": launches,
+           "max_abs_err": err, "matches_plain": err == 0,
+           "ms": statistics.median(g), "host_ms": statistics.median(h),
+           "plain_ms": time_ms(lambda: pc.osd_words_plain(*vec), 1, reps=5),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+           "shape": f"M={m_osd}"}
+    check(err == 0 and torch.equal(out, words),
+          f"pg_osd_words == osd_words_plain on {m_osd} OSDs")
+    check(row["ms"] >= b_ms, f"pg_osd_words: graph replay {row['ms']:.4f} "
+          f"ms at or above its bound {b_ms:.4f} ms")
+    print(f"pg_osd_words M={m_osd} {row['ms']:.4f} ms (graph replay; "
+          f"{row['host_ms']:.4f} issued)  plain {row['plain_ms']:.4f} ms  "
+          f"bound {b_ms:.5f} ms ({b_by})  launches per epoch {launches}")
+    return row
 
 
 def card_line() -> str:
@@ -2671,8 +2848,8 @@ def run() -> None:
     engine = engine_phase(dev, tag, xs_np)
 
     print("== 9. the OSDMap and the shared PG mapping service")
-    mapping, ladder_row = mapping_phase(dev, tag)
-    kernels.append(ladder_row)
+    mapping, ladder_rows = mapping_phase(dev, tag)
+    kernels.extend(ladder_rows)
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"engine": engine}))

@@ -8,7 +8,11 @@ mapper, the fused tail and the engine's batches run their plain torch
 versions) go through the same churn — test_fused_placement.py's churn kinds
 0-8 and test_mapping_service.py's — and at every epoch the pps seeds, raw
 tables, packed tables and deltas must be equal, every lookup equal to the
-scalar oracle ``pg_to_up_acting_osds``.  Then the engine's ``pg_finish``
+scalar oracle ``pg_to_up_acting_osds``.  The port finishes each pool at the
+pool's own width, where the JAX service pads every pool to the widest; so
+each packed table is compared after ``normalize_packed`` re-pads it to the
+JAX width, and the port's card copy of it (here: on the service's device)
+must equal its host copy.  Then the engine's ``pg_finish``
 channel: coalescing, the host oracle under an armed failpoint, and a card
 fault that fans to the futures with no fallback batch and propagates out of
 ``update_to``, ``warm``, ``what_if_up`` and ``place``.  The tolerance is
@@ -91,16 +95,26 @@ def _port(rm) -> OSDMap:
 
 
 def _tables_equal(ref, port, m) -> None:
-    """pps seeds, raw and packed tables of every pool, equal."""
+    """pps seeds, raw and packed tables of every pool, equal: each of the
+    port's packed tables is at its pool's own width and, re-padded to the
+    JAX service's shared width, equals the JAX table row for row; its
+    device copy equals its host copy."""
     for pid in m.pools:
         np.testing.assert_array_equal(port._mapping._pps[pid],
                                       ref._mapping._pps[pid])
         np.testing.assert_array_equal(port._mapping._raw[pid],
                                       ref._mapping._raw[pid])
         if pid in ref._mapping._fused or pid in port._mapping._fused:
-            np.testing.assert_array_equal(port._mapping._fused[pid],
-                                          ref._mapping._fused[pid])
-            assert port._mapping._fused_w[pid] == ref._mapping._fused_w[pid]
+            wp = port._mapping._fused_w[pid]
+            wj = ref._mapping._fused_w[pid]
+            assert wp == pk.pool_widths(m, {pid: m.pools[pid]})[0] <= wj
+            packed = port._mapping._fused[pid]
+            assert packed.shape[1] == 2 * wp + 4
+            np.testing.assert_array_equal(
+                pk.normalize_packed(packed, wp, wj),
+                ref._mapping._fused[pid])
+            np.testing.assert_array_equal(
+                port._mapping._fused_dev[pid].cpu().numpy(), packed)
 
 
 def _drive(ref, port, rm, churn, rng, rule, epochs):
@@ -764,3 +778,115 @@ def test_state_only_epoch_reuses_raw_tables_and_reruns_the_tail(contexts):
     assert all(svc._mapping._raw[p] is not raw0[p] for p in m.pools)
     for key, want in _oracle(m4).items():
         assert svc.lookup(m4, *key) == want
+
+
+# -- the per-pool layout: own widths, card copies for two epochs ------------
+
+def _widen(m, pid, pg, extra=2):
+    """A copy of ``m`` one epoch on with a pg_temp row ``extra`` OSDs
+    longer than pool ``pid``'s size."""
+    new = m.copy()
+    new.epoch = m.epoch + 1
+    new.pg_temp[(pid, pg)] = list(range(m.pools[pid].size + extra))
+    return new
+
+
+@pytest.mark.parametrize("engine", [False, True], ids=["direct", "engine"])
+def test_pg_temp_row_widens_one_pool_alone(contexts, engine):
+    """A pg_temp row longer than pool 1's size widens pool 1 alone: pool 1
+    re-runs at its new width, pool 2's host and card tables are aliased
+    forward, the delta is exact and equal to the JAX service's, and the
+    tables equal the JAX ones after normalize_packed."""
+    rm, _rule = ref_fused._base_map()
+    m = _port(rm)
+    svc = (contexts("widen").mapping_service() if engine
+           else SharedPGMappingService(device="cpu"))
+    ref = RefService()
+    svc.update_to(m)
+    ref.update_to(rm)
+    w0 = dict(svc._mapping._fused_w)
+    assert w0 == {1: 3, 2: 4}
+    host2, dev2 = svc._mapping._fused[2], svc._mapping._fused_dev[2]
+    rnew = _widen(rm, 1, 5)
+    new = _port(rnew)
+    upd = svc.update_to(new, from_epoch=m.epoch)
+    rupd = ref.update_to(rnew, from_epoch=rm.epoch)
+    assert svc._mapping._fused_w == {1: 5, 2: 4}
+    assert svc._mapping._fused[2] is host2
+    assert svc._mapping._fused_dev[2] is dev2
+    assert not upd.full and list(upd.changed) == list(rupd.changed)
+    assert sorted(upd.changed) == sorted(
+        k for k, v in _oracle(new).items() if _oracle(m)[k] != v)
+    _tables_equal(ref, svc, new)
+    for key, want in _oracle(new).items():
+        assert svc.lookup(new, *key) == want
+
+
+def test_card_copies_for_two_epochs_only():
+    """The packed tables stay on the service's device for the current and
+    the previous published epoch, and the diff uploads nothing."""
+    rng = np.random.default_rng(17)
+    rm, rule = ref_fused._base_map()
+    svc = SharedPGMappingService(device="cpu")
+    st = telemetry.mapping_stats()
+    up0 = st.dump()["diff_uploads"]
+    m = _port(rm)
+    svc.update_to(m)
+    published = []
+    for _ in range(5):
+        published.extend(svc._tables.values())
+        rm = ref_fused._churn_once(rm, rng, rule)
+        new = _port(rm)
+        svc.update_to(new, from_epoch=m.epoch)
+        m = new
+        live = {id(t.fused_dev) for t in svc._tables.values()}
+        assert sorted(svc._tables) == [m.epoch - 1, m.epoch]
+        for t in svc._tables.values():
+            assert set(t.fused_dev) == set(m.pools)
+            for pid, dev in t.fused_dev.items():
+                assert dev.device == svc.device
+                np.testing.assert_array_equal(dev.numpy(), t.fused[pid])
+        for t in published:
+            if id(t.fused_dev) not in live:
+                assert t.fused_dev == {}
+    assert st.dump()["diff_uploads"] == up0
+
+
+def test_diff_uploads_only_a_table_the_host_oracle_served(engines):
+    """keep_device hands the packed rows on the device to the future; a
+    batch the host oracle served has none (so the service's diff counts an
+    upload for it)."""
+    eng = engines()
+    op = _ops(14, 40, erasure=True)
+    fut = submit_finish_ladder(eng, op, keep_device=True)
+    np.testing.assert_array_equal(fut.result(timeout=T), _want(op))
+    assert isinstance(fut.device_value, torch.Tensor)
+    np.testing.assert_array_equal(fut.device_value.numpy(), _want(op))
+    assert submit_finish_ladder(eng, op).device_value is None
+    failpoint.set("dispatch.launch:pg_finish", "always")
+    fut = submit_finish_ladder(eng, op, keep_device=True)
+    np.testing.assert_array_equal(fut.result(timeout=T), _want(op))
+    assert fut.device_value is None
+
+
+def test_service_diff_counts_an_upload_when_the_oracle_served(contexts):
+    """An epoch whose tail the host oracle served has no card copy: the
+    next diff uploads that table (counted), and the delta stays exact."""
+    ctx = contexts("mapping-oracle-upload")
+    ctx.conf.set("kernel_fault_max_retries", 0)
+    svc = ctx.mapping_service()
+    rm, _rule = ref_fused._base_map()
+    m = _port(rm)
+    failpoint.set("dispatch.launch:pg_finish", "always")
+    svc.update_to(m)
+    failpoint.clear()
+    assert svc._mapping._fused_dev == {}
+    st = telemetry.mapping_stats()
+    up0 = st.dump()["diff_uploads"]
+    m2 = m.copy()
+    m2.epoch += 1
+    m2.osd_state[1] &= ~OSD_UP
+    upd = svc.update_to(m2, from_epoch=m.epoch)
+    assert st.dump()["diff_uploads"] - up0 == 2
+    assert sorted(upd.changed) == sorted(
+        k for k, v in _oracle(m2).items() if _oracle(m)[k] != v)

@@ -391,3 +391,70 @@ def test_finish_ladder_checks_its_operands():
     with pytest.raises(ValueError):
         pc.finish_ladder(*t, vec[0], vec[1][:1], vec[2], erasure=False)
     assert xs_i32(torch.tensor([0xFFFFFFFF, 5])).tolist() == [-1, 5]
+
+
+@pytest.mark.parametrize("seed", [7, 8])
+def test_each_pool_at_its_own_width_matches_jax(seed):
+    """The mapping service's layout: each pool's operands at its own (W, P)
+    (pool_widths of that pool alone, equal to the JAX function's), whose
+    packed table, re-padded with normalize_packed to the epoch's shared
+    width, equals the JAX run_ladder's over the shared-width operands, and
+    unpacks to the same tuples."""
+    rm = _churned_ref_map(seed, 30)
+    rm.pg_temp[(1, 1)] = list(range(5))     # widens pool 1 alone
+    m = osdmap_from_reference(rm)
+    shared = pk.pool_widths(m)
+    assert shared == ref_pk.pool_widths(rm)
+    weights = np.zeros(m.max_osd, dtype=np.int64)
+    weights[:len(m.osd_weight)] = m.osd_weight
+    for pid, pool in m.pools.items():
+        own = pk.pool_widths(m, {pid: pool})
+        assert own == ref_pk.pool_widths(rm, {pid: rm.pools[pid]})
+        assert own[0] <= shared[0] and own[1] <= shared[1]
+        pps = pps_batch_scalar(pool, np.arange(pool.pg_num, dtype=np.uint32))
+        raw = scalar_rows(m.crush, pool.crush_rule, pps, pool.size, weights)
+        op = pk.build_operands(m, pid, pool, raw, pps, width=own[0],
+                               pairs=own[1])
+        packed = pk.run_ladder(op, "cpu")
+        assert packed.shape == (pool.pg_num, 2 * own[0] + 4)
+        jax_shared = ref_pk.run_ladder(ref_pk.build_operands(
+            rm, pid, rm.pools[pid], raw, pps, width=shared[0],
+            pairs=shared[1]))
+        np.testing.assert_array_equal(
+            pk.normalize_packed(packed, own[0], shared[0]), jax_shared)
+        for pg in range(pool.pg_num):
+            assert pk.unpack_row(packed[pg], own[0]) == ref_pk.unpack_row(
+                jax_shared[pg], shared[0])
+
+
+def test_osd_words_on_the_cpu_are_the_plain_words():
+    """osd_words hands CPU tensors to osd_words_plain: affinity clamped to
+    0..0x10000 in the low 17 bits, then exists, up and in."""
+    state = torch.tensor([0, 1, 2, 3, 3, 3], dtype=torch.int32)
+    weight = torch.tensor([5, 0, 1 << 40, 0x10000, 1 << 32, -1],
+                          dtype=torch.int64)
+    aff = torch.tensor([0x10000, -3, 0x20000, 0x8000, 0, 1],
+                       dtype=torch.int32)
+    words = pc.osd_words(state, weight, aff)
+    assert torch.equal(words, pc.osd_words_plain(state, weight, aff))
+    assert (words & 0x1FFFF).tolist() == [0x10000, 0, 0x10000, 0x8000, 0,
+                                          1]
+    assert ((words & pc.WORD_EXISTS) != 0).tolist() == [
+        False, True, False, True, True, True]
+    assert ((words & pc.WORD_UP) != 0).tolist() == [
+        False, False, True, True, True, True]
+    assert ((words & pc.WORD_IN) != 0).tolist() == [
+        True, False, True, True, True, True]
+    with pytest.raises(ValueError):
+        pc.osd_words(state, weight[:2], aff)
+
+
+def test_run_ladder_device_keeps_the_table_where_it_ran():
+    """run_ladder_device returns the packed table on the device it ran on
+    (the mapping service's card copy); run_ladder is its host copy."""
+    op = port_operands(ladder_case(77, 45, 4, 2, True))
+    dev_t = pk.run_ladder_device(op, "cpu")
+    assert isinstance(dev_t, torch.Tensor) and dev_t.device.type == "cpu"
+    np.testing.assert_array_equal(dev_t.numpy(), pk.run_ladder(op, "cpu"))
+    np.testing.assert_array_equal(dev_t.numpy(), plain(ladder_case(
+        77, 45, 4, 2, True)))
