@@ -1,0 +1,851 @@
+"""librados-style client + Objecter.
+
+The op path mirrors the reference (SURVEY.md §3.1): IoCtx.operate -> Objecter
+op_submit -> _calc_target (client-side CRUSH on the subscribed OSDMap) ->
+MOSDOp to the primary -> MOSDOpReply completes the waiter.  Map updates
+re-target and resend every in-flight op (Objecter resend-on-map-change).
+
+Object -> ps uses ceph_str_hash_rjenkins (src/common/ceph_hash.cc) — the
+Jenkins lookup2 string hash, distinct from the CRUSH rjenkins1 mix.
+"""
+
+from __future__ import annotations
+
+from ceph_tpu_torch.common import lockdep
+
+import random
+import threading
+import time
+from contextlib import contextmanager
+
+from ceph_tpu_torch.common.context import CephTpuContext
+from ceph_tpu_torch.messages import MMonCommand, MMonCommandAck, MOSDMapMsg, MOSDOp
+from ceph_tpu_torch.messages.osd_msgs import (
+    MWatchNotify, MWatchNotifyAck, OP_CALL, OP_NOTIFY, OP_UNWATCH,
+    OP_WATCH)
+from ceph_tpu_torch.messages.osd_msgs import (
+    OP_DELETE, OP_OMAP_GET, OP_OMAP_RMKEYS, OP_OMAP_SET, OP_PGLS,
+    OP_READ, OP_STAT, OP_WRITE, OP_WRITEFULL, OSDOpField)
+from ceph_tpu_torch.mon.monitor import MMonSubscribe
+from ceph_tpu_torch.msg.encoding import Decoder, Encoder
+from ceph_tpu_torch.msg.messenger import (
+    ConnectionPolicy, Dispatcher, EntityName, Messenger)
+from ceph_tpu_torch.messages import MOSDOpReply
+from ceph_tpu_torch.osd.map_codec import advance_map
+from ceph_tpu_torch.osd.osdmap import CEPH_NOSD, OSDMap, pg_to_pgid
+
+_M32 = 0xFFFFFFFF
+
+
+def _mix3(a: int, b: int, c: int) -> tuple[int, int, int]:
+    """Jenkins lookup2 mix (ceph_hash.cc mix() macro)."""
+    a = (a - b - c) & _M32; a ^= c >> 13
+    b = (b - c - a) & _M32; b ^= (a << 8) & _M32
+    c = (c - a - b) & _M32; c ^= b >> 13
+    a = (a - b - c) & _M32; a ^= c >> 12
+    b = (b - c - a) & _M32; b ^= (a << 16) & _M32
+    c = (c - a - b) & _M32; c ^= b >> 5
+    a = (a - b - c) & _M32; a ^= c >> 3
+    b = (b - c - a) & _M32; b ^= (a << 10) & _M32
+    c = (c - a - b) & _M32; c ^= b >> 15
+    return a, b, c
+
+
+def ceph_str_hash_rjenkins(s: bytes | str) -> int:
+    """ceph_str_hash_rjenkins (src/common/ceph_hash.cc): lookup2 over bytes."""
+    if isinstance(s, str):
+        s = s.encode("utf-8")
+    length = len(s)
+    a = b = 0x9E3779B9
+    c = 0
+    i = 0
+    while length - i >= 12:
+        a = (a + int.from_bytes(s[i:i + 4], "little")) & _M32
+        b = (b + int.from_bytes(s[i + 4:i + 8], "little")) & _M32
+        c = (c + int.from_bytes(s[i + 8:i + 12], "little")) & _M32
+        a, b, c = _mix3(a, b, c)
+        i += 12
+    c = (c + length) & _M32
+    rest = s[i:]
+    if len(rest) >= 11:
+        c = (c + (rest[10] << 24)) & _M32
+    if len(rest) >= 10:
+        c = (c + (rest[9] << 16)) & _M32
+    if len(rest) >= 9:
+        c = (c + (rest[8] << 8)) & _M32
+    if len(rest) >= 8:
+        b = (b + (rest[7] << 24)) & _M32
+    if len(rest) >= 7:
+        b = (b + (rest[6] << 16)) & _M32
+    if len(rest) >= 6:
+        b = (b + (rest[5] << 8)) & _M32
+    if len(rest) >= 5:
+        b = (b + rest[4]) & _M32
+    if len(rest) >= 4:
+        a = (a + (rest[3] << 24)) & _M32
+    if len(rest) >= 3:
+        a = (a + (rest[2] << 16)) & _M32
+    if len(rest) >= 2:
+        a = (a + (rest[1] << 8)) & _M32
+    if len(rest) >= 1:
+        a = (a + rest[0]) & _M32
+    a, b, c = _mix3(a, b, c)
+    return c
+
+
+class _Waiter:
+    def __init__(self, msg: MOSDOp, base_pool: int, is_write: bool,
+                 direct: bool = False,
+                 fixed_pgid: tuple[int, int] | None = None):
+        self.msg = msg
+        #: PG-targeted ops (pgls): the pg is the address, no oid hash
+        self.fixed_pgid = fixed_pgid
+        #: the pool the caller named — retargeting re-applies any
+        #: cache-tier overlay from this, not from a prior redirect
+        self.base_pool = base_pool
+        self.is_write = is_write
+        #: bypass cache-tier overlays (the tier agent's own I/O must
+        #: reach the pool it names, or flushes would loop back into
+        #: the cache and evict would destroy the only copy)
+        self.direct = direct
+        self.event = threading.Event()
+        self.reply: MOSDOpReply | None = None
+        #: map-change/stale-epoch resend count: the first resend is
+        #: immediate, later ones back off exponentially with jitter
+        self.resends = 0
+        #: True while a deferred resend row sits in _resend_q: later
+        #: map epochs coalesce into it (it targets from the newest map
+        #: when it fires) instead of queueing duplicate sends
+        self.resend_queued = False
+
+
+class AioCompletion:
+    """librados AioCompletion analog over a pending Objecter op."""
+
+    def __init__(self, client: "RadosClient", tid: int, waiter: _Waiter):
+        self.client = client
+        self.tid = tid
+        self._w = waiter
+
+    def is_complete(self) -> bool:
+        return self._w.event.is_set()
+
+    def wait_for_complete(self, timeout: float | None = None) -> bool:
+        return self._w.event.wait(timeout)
+
+    def get_return_value(self) -> int:
+        return self._w.reply.result if self._w.reply else -110  # ETIMEDOUT
+
+    @property
+    def reply(self) -> MOSDOpReply | None:
+        return self._w.reply
+
+    @property
+    def data(self) -> bytes:
+        r = self._w.reply
+        return r.ops[0].data if r and r.ops else b""
+
+    def cancel(self) -> None:
+        with self.client._lock:
+            self.client._waiters.pop(self.tid, None)
+        # wake any blocked waiter: a cancelled op never gets its reply
+        # (get_return_value reads -ETIMEDOUT from the missing reply)
+        self._w.event.set()
+
+
+class RadosClient(Dispatcher):
+    """RadosClient + Objecter (librados/RadosClient.cc:229 connect)."""
+
+    _next_client_id = 1
+    _id_lock = lockdep.make_lock("RadosClient::id_lock")
+
+    def __init__(self, mon_addr: str, ctx: CephTpuContext | None = None,
+                 ms_type: str = "async", timeout: float = 10.0,
+                 auth_key=None, cephx: tuple[str, str] | None = None,
+                 device=None):
+        if cephx is not None:
+            raise NotImplementedError(
+                "cephx needs ceph_tpu_torch/auth, not ported yet "
+                "(ROADMAP.md Queue 1 item 7)")
+        with RadosClient._id_lock:
+            self.client_id = RadosClient._next_client_id
+            RadosClient._next_client_id += 1
+        #: the client's context runs on ``device`` (the card by
+        #: default); its mapping service places the ops' PGs there
+        self.ctx = ctx or CephTpuContext(f"client.{self.client_id}",
+                                         device=device)
+        self._own_ctx = ctx is None
+        self.mon_addr = mon_addr
+        #: comma-separated mon_host list; subscribe to all, command with
+        #: per-mon failover (any mon forwards commands to the leader)
+        self.mon_addrs = [a for a in mon_addr.split(",") if a]
+        self.timeout = timeout
+        self.osdmap = OSDMap()
+        #: op targeting reads the context's shared epoch-keyed mapping
+        #: cache (Objecter-side OSDMapMapping): _calc_target becomes a
+        #: cached-raw pipeline tail instead of a scalar crush_do_rule
+        #: per op.  Hot-togglable; any epoch mismatch falls back to the
+        #: scalar oracle, so correctness never depends on the cache.
+        self._map_shared = bool(
+            self.ctx.conf.get("osdmap_mapping_shared"))
+        self.ctx.conf.add_observer(
+            "osdmap_mapping_shared",
+            lambda _n, v: setattr(self, "_map_shared", bool(v)))
+        #: newest-map slot + single background warm worker: map storms
+        #: must neither stall the dispatch thread nor spawn a thread
+        #: per epoch (the slot keeps only the latest, matching the
+        #: service's own newest-wins queueing)
+        self._warm_latest: OSDMap | None = None
+        self._warm_thread: threading.Thread | None = None
+        #: a card fault the warm worker met (raised by _pg_mapping)
+        self._warm_error: BaseException | None = None
+        self._map_event = threading.Event()
+        self._lock = lockdep.make_lock(f"RadosClient::lock({self.client_id})")
+        self._next_tid = 1
+        self._waiters: dict[int, _Waiter] = {}
+        self._cmd_waiters: dict[int, tuple[threading.Event, list]] = {}
+        #: (pool, oid) -> watch callback(payload)
+        self._watch_cbs: dict[tuple, object] = {}
+        #: dmClock client state (qos.dmclock.ServiceTracker), one
+        #: tracker PER QOS ENTITY — the tenant lane (or the bare
+        #: client when untenanted): every outgoing MOSDOp is stamped
+        #: with (delta, rho) for its target OSD — completions of THAT
+        #: TENANT anywhere / in reservation phase since its last op to
+        #: that OSD — so per-tenant reservations and limits hold
+        #: across OSDs, not per daemon.  A single shared tracker would
+        #: cross-contaminate tenants behind one gateway client: a hog's
+        #: completions would inflate an idle tenant's delta and lock it
+        #: out of its own weight/limit budget for service it never
+        #: received.  Replies feed phases back via MOSDOpReply.qos_phase
+        #: into the completing op's own tenant tracker.  LRU-bounded:
+        #: one-shot tenants age out rather than growing the map forever.
+        from collections import OrderedDict
+        self._qos_trackers: "OrderedDict[str, object]" = OrderedDict()
+        #: thread-local QoS tenant lane (qos_tenant() context manager):
+        #: ops submitted by this thread bill to the tenant — the RGW
+        #: front wraps each authenticated request in its tenant's lane
+        self._qos_tl = threading.local()
+        #: capped-backoff resend queue: (due monotonic, waiter) rows
+        #: drained by a single coalesced timer — a map storm neither
+        #: re-sends every in-flight op once per epoch nor spawns a
+        #: timer per op
+        self._resend_q: list[tuple[float, _Waiter]] = []
+        self._resend_timer: threading.Timer | None = None
+        #: the armed timer's deadline (monotonic): a new row due
+        #: EARLIER must cancel and re-arm, or a short-backoff op waits
+        #: behind a max-backoff op's far timer
+        self._resend_due: float = 0.0
+        #: client-side Objecter counters (librados perf dump analog):
+        #: resend volume and how many of them were backoff-deferred
+        from ceph_tpu_torch.common.perf_counters import PerfCountersBuilder
+        self.perf = (PerfCountersBuilder(f"objecter.{self.client_id}")
+                     .add_u64("op_resends")
+                     .add_u64("op_resend_backoffs")
+                     .create_perf_counters())
+        self.ctx.perf.add(self.perf)
+        self.name = EntityName("client", self.client_id)
+        self.msgr = Messenger.create(self.name, ms_type)
+        self.msgr.set_auth(auth_key)
+        self.auth_entity = None
+        self.msgr.set_policy("osd", ConnectionPolicy.stateful_peer())
+        self.msgr.set_policy("mon", ConnectionPolicy.stateful_peer())
+        self.msgr.add_dispatcher_tail(self)
+
+    # -- lifecycle ------------------------------------------------------------
+
+    #: re-subscribe cadence: map pushes ride the mon-side session, so a
+    #: dropped session must be re-established or the client goes stale
+    SUB_RENEW = 5.0
+
+    def connect(self) -> None:
+        self.msgr.bind("127.0.0.1:0") if _is_tcp(self.msgr) else \
+            self.msgr.bind(f"client.{self.client_id}")
+        self.msgr.start()
+        self._subscribe()
+        if not self._map_event.wait(self.timeout):
+            raise TimeoutError("no OSDMap from mon")
+        self._sub_timer: threading.Timer | None = None
+        self._schedule_sub_renew()
+
+    def _subscribe(self) -> None:
+        from ceph_tpu_torch.common.moncmd import mon_targets
+        with self._lock:
+            epoch = self.osdmap.epoch
+        for rank, addr in mon_targets(self.osdmap, self.mon_addrs):
+            mon = self.msgr.connect_to(addr, EntityName("mon", rank))
+            mon.send_message(MMonSubscribe(name=str(self.name),
+                                           addr=self.msgr.my_addr,
+                                           epoch=epoch))
+
+    def _schedule_sub_renew(self) -> None:
+        if getattr(self, "_stopped", False):
+            return
+        self._sub_timer = threading.Timer(self.SUB_RENEW, self._sub_renew)
+        self._sub_timer.daemon = True
+        self._sub_timer.start()
+
+    def _sub_renew(self) -> None:
+        try:
+            self._subscribe()
+        except OSError:
+            pass
+        finally:
+            self._schedule_sub_renew()
+
+    def shutdown(self) -> None:
+        self._stopped = True
+        if getattr(self, "_sub_timer", None) is not None:
+            self._sub_timer.cancel()
+        with self._lock:
+            if self._resend_timer is not None:
+                self._resend_timer.cancel()
+                self._resend_timer = None
+            self._resend_q.clear()
+        self.msgr.shutdown()
+        if self._own_ctx:
+            self.ctx.stop()
+
+    # -- dispatch -------------------------------------------------------------
+
+    def ms_dispatch(self, msg) -> bool:
+        if isinstance(msg, MOSDMapMsg):
+            with self._lock:
+                newmap, gapped = advance_map(self.osdmap, msg)
+                if newmap is None:
+                    if not gapped:
+                        return True
+                else:
+                    self.osdmap = newmap
+                    pending = list(self._waiters.values())
+            if gapped:
+                # deltas don't connect to our epoch: ask the mon to
+                # backfill (it sends the chain or a full map)
+                self._subscribe()
+                return True
+            if self._map_shared:
+                # warm the shared cache in the BACKGROUND: the op path
+                # must never stall behind a table build (a light client
+                # on a many-pool cluster would otherwise pay an
+                # OSD-sized rebuild on its dispatch thread); until the
+                # build lands, targeting falls back to the scalar
+                # oracle per op — exactly the seed's cost
+                with self._lock:
+                    self._warm_latest = newmap
+                    if self._warm_thread is None:
+                        self._warm_thread = threading.Thread(
+                            target=self._warm_worker, daemon=True,
+                            name="rados-map-warm")
+                        self._warm_thread.start()
+            self._map_event.set()
+            for w in pending:   # resend on map change (Objecter semantics)
+                self._resend_op(w)
+            return True
+        if isinstance(msg, MOSDOpReply):
+            with self._lock:
+                w = self._waiters.pop(msg.tid, None)
+            if w is not None:
+                # dmclock response accounting (phase echo -> rho): count
+                # into the completing op's OWN tenant tracker before
+                # waking the waiter, so the lane's next op carries the
+                # completion in its (delta, rho)
+                self._tracker_for(w.msg.qos_tenant).track_resp(
+                    getattr(msg, "qos_phase", 0))
+                w.reply = msg
+                w.event.set()
+            return True
+        if isinstance(msg, MWatchNotify):
+            cb = self._watch_cbs.get((msg.pool, msg.oid))
+            if cb is not None:
+                try:
+                    cb(msg.payload)
+                finally:
+                    msg.connection.send_message(MWatchNotifyAck(
+                        pool=msg.pool, oid=msg.oid,
+                        notify_id=msg.notify_id))
+            return True
+        if isinstance(msg, MMonCommandAck):
+            with self._lock:
+                cw = self._cmd_waiters.pop(msg.tid, None)
+            if cw is not None:
+                cw[1].append(msg)
+                cw[0].set()
+            return True
+        return False
+
+    # -- mon commands ---------------------------------------------------------
+
+    def mgr_command(self, cmd: dict) -> tuple[int, str]:
+        """Route a mgr-tier command (pg dump / iostat / balancer ...):
+        discover the active mgr through the mon, then send the command
+        envelope straight to it (the reference's mgr command re-target)."""
+        import json as _json
+        mgr_db = self.osdmap.mgr_db or {}
+        addr = mgr_db.get("addr", "")
+        if not addr:
+            # pre-mgr_db mons: fall back to asking
+            rc, out = self.mon_command({"prefix": "mgr dump"})
+            if rc != 0:
+                return rc, out
+            addr = _json.loads(out).get("addr", "")
+        if not addr:
+            return -2, "no active mgr"
+        with self._lock:
+            tid = self._next_tid
+            self._next_tid += 1
+            ev: tuple[threading.Event, list] = (threading.Event(), [])
+            self._cmd_waiters[tid] = ev
+        con = self.msgr.connect_to(addr, EntityName("mgr", 0))
+        con.send_message(MMonCommand(tid=tid, cmd=cmd))
+        if ev[0].wait(self.timeout):
+            ack = ev[1][0]
+            return ack.result, ack.output
+        with self._lock:
+            self._cmd_waiters.pop(tid, None)
+        return -110, "mgr command timed out"
+
+    def mon_command(self, cmd: dict) -> tuple[int, str]:
+        """Cycle through the monitors until the overall deadline: a mon
+        may be dead, electing, or between leaders — transient windows
+        that the next attempt (or the next mon) heals."""
+        import time as _time
+        deadline = _time.time() + self.timeout
+        last_exc: Exception | None = None
+        from ceph_tpu_torch.common.moncmd import mon_targets
+        while True:
+            for rank, addr in mon_targets(self.osdmap, self.mon_addrs):
+                remaining = deadline - _time.time()
+                if remaining <= 0:
+                    raise last_exc if last_exc \
+                        else TimeoutError("no monitors")
+                with self._lock:
+                    tid = self._next_tid
+                    self._next_tid += 1
+                    ev: tuple[threading.Event, list] = (threading.Event(),
+                                                        [])
+                    self._cmd_waiters[tid] = ev
+                mon = self.msgr.connect_to(addr, EntityName("mon", rank))
+                mon.send_message(MMonCommand(tid=tid, cmd=cmd))
+                if ev[0].wait(min(2.5, remaining)):
+                    ack = ev[1][0]
+                    if ack.result == -11:  # no quorum there yet: an
+                        # election is running; don't hammer the mons
+                        last_exc = OSError(11, ack.output)
+                        threading.Event().wait(0.25)
+                        continue
+                    return ack.result, ack.output
+                with self._lock:
+                    self._cmd_waiters.pop(tid, None)
+                last_exc = TimeoutError(
+                    f"mon command {cmd} timed out ({addr})")
+
+    def wait_for_epoch(self, epoch: int, timeout: float | None = None
+                       ) -> None:
+        deadline = threading.Event()
+        t = timeout if timeout is not None else self.timeout
+        end = t
+        import time as _time
+        start = _time.time()
+        while self.osdmap.epoch < epoch:
+            if _time.time() - start > end:
+                raise TimeoutError(
+                    f"epoch {epoch} not reached (at {self.osdmap.epoch})")
+            deadline.wait(0.02)
+
+    # -- objecter -------------------------------------------------------------
+
+    def _calc_target(self, pool_id: int, oid: str,
+                     is_write: bool = False,
+                     direct: bool = False) -> tuple[tuple[int, int],
+                                                    int]:
+        """osdc/Objecter.cc:2795 — object -> pg -> primary, client side.
+        Cache-tier overlays redirect here (Objecter _calc_target honors
+        pool.read_tier/write_tier): ops aimed at the base pool land on
+        the cache pool instead; the cache OSD promotes/flushes."""
+        pool = self.osdmap.pools[pool_id]
+        tier = pool.write_tier if is_write else pool.read_tier
+        if not direct and tier >= 0 and tier in self.osdmap.pools:
+            pool_id, pool = tier, self.osdmap.pools[tier]
+        ps = ceph_str_hash_rjenkins(oid)
+        # reduce to the pg first (raw_pg_to_pg), THEN place — the osd receives
+        # the reduced pg and must compute the identical mapping
+        pgid = pg_to_pgid(ps, pool.pg_num)
+        _up, _primary, _acting, acting_primary = \
+            self._pg_mapping(pool_id, pgid)
+        return (pool_id, pgid), acting_primary
+
+    def _warm_worker(self) -> None:
+        """Drain the newest-map slot into the shared mapping cache;
+        exits (and deregisters) when the slot is empty.  The slot
+        write and the exit decision share self._lock, so a map landing
+        while we exit always sees _warm_thread None and respawns."""
+        while True:
+            with self._lock:
+                nm = self._warm_latest
+                self._warm_latest = None
+                if nm is None:
+                    self._warm_thread = None
+                    return
+            try:
+                self.ctx.mapping_service().update_to(nm)
+            except BaseException as e:
+                # no fallback hides a card fault: every later placement
+                # read raises it to the op's caller
+                with self._lock:
+                    self._warm_error = e
+                    self._warm_thread = None
+                return
+
+    def _pg_mapping(self, pool_id: int, pgid: int
+                    ) -> tuple[list[int], int, list[int], int]:
+        """(up, up_primary, acting, acting_primary) — shared mapping
+        cache when enabled (scalar-oracle fallback on any epoch or
+        object mismatch), else the scalar pipeline."""
+        if self._warm_error is not None:
+            raise self._warm_error
+        if self._map_shared:
+            return self.ctx.mapping_service().lookup(
+                self.osdmap, pool_id, pgid)
+        return self.osdmap.pg_to_up_acting_osds(pool_id, pgid)
+
+    def _send_op(self, w: _Waiter) -> None:
+        if w.fixed_pgid is not None:
+            # PG-targeted op (pgls): the pg IS the address — map it to
+            # its primary directly, never rehash an oid
+            pgid = w.fixed_pgid
+            _up, _p, _a, primary = self._pg_mapping(pgid[0], pgid[1])
+        else:
+            pgid, primary = self._calc_target(w.base_pool, w.msg.oid,
+                                              w.is_write, w.direct)
+        w.msg.pgid = pgid
+        w.msg.epoch = self.osdmap.epoch
+        if w.is_write:
+            # SnapContext stamp (Objecter rides the op's snapc, not the
+            # server map): re-stamped on every (re)send from the pool
+            # the op actually TARGETS this time (pgid[0]) — snap_seq is
+            # monotone WITHIN a pool, but a retarget (cache tier added/
+            # removed mid-op) crosses into an independent snap_seq
+            # namespace, so carrying a max() across sends would
+            # over-stamp the object's snapc there
+            pool = self.osdmap.pools.get(pgid[0])
+            if pool is not None:
+                w.msg.write_snapc = pool.snap_seq
+        if primary == CEPH_NOSD:
+            return  # no primary this epoch; resent on next map
+        # dmClock tags for THIS target from the op's own tenant lane:
+        # (re)sends re-stamp because a retargeted op bills its service
+        # deltas to the osd actually serving it (dmclock ServiceTracker
+        # get_params per request)
+        w.msg.qos_delta, w.msg.qos_rho = \
+            self._tracker_for(w.msg.qos_tenant).get_params(primary)
+        addr = self.osdmap.osd_addrs[primary]
+        con = self.msgr.connect_to(addr, EntityName("osd", primary))
+        con.send_message(w.msg)
+
+    def _resend_op(self, w: _Waiter) -> None:
+        """Resend an in-flight op after a map change / stale-epoch
+        retarget, with CAPPED EXPONENTIAL BACKOFF + JITTER past the
+        first resend: one map flip never delays an op, but an op that
+        keeps being resent (map storm, flapping primary) waits
+        ~base * 2^(n-1) ms (jittered, capped) between attempts instead
+        of hammering the cluster once per epoch.  Deferred resends
+        re-target from the NEWEST map when their timer fires — so an
+        epoch arriving while a resend is already queued coalesces into
+        the queued row (a second row would just duplicate the send)."""
+        base = float(self.ctx.conf.get("client_resend_backoff_ms"))
+        cap = float(self.ctx.conf.get("client_resend_backoff_max_ms"))
+        send_now = False
+        # one critical section for check-bump-queue: concurrent map
+        # deliveries racing the resend_queued check must not both
+        # queue (or both count) the same waiter
+        with self._lock:
+            if w.resend_queued:
+                return
+            w.resends += 1
+            self.perf.inc("op_resends")
+            if w.resends <= 1:
+                send_now = True
+            else:
+                delay = min(cap, base * (2 ** (w.resends - 2)))
+                delay *= (0.5 + 0.5 * random.random()) / 1e3
+                self.perf.inc("op_resend_backoffs")
+                w.resend_queued = True
+                self._resend_q.append((time.monotonic() + delay, w))
+                self._arm_resend_timer()
+        if send_now:
+            self._send_op(w)
+
+    def _arm_resend_timer(self) -> None:
+        """Under self._lock: one coalesced timer at the earliest due
+        time serves the whole queue.  An armed timer is re-armed when
+        a NEW row is due before its deadline — otherwise a 25 ms
+        backoff queued behind a 2 s one would wait the full 2 s."""
+        if not self._resend_q or getattr(self, "_stopped", False):
+            return
+        due = min(t for t, _ in self._resend_q)
+        if self._resend_timer is not None:
+            if due >= self._resend_due:
+                return
+            self._resend_timer.cancel()
+        timer = threading.Timer(max(0.0, due - time.monotonic()),
+                                self._drain_resends)
+        timer.daemon = True
+        self._resend_timer = timer
+        self._resend_due = due
+        timer.start()
+
+    def _drain_resends(self) -> None:
+        now = time.monotonic()
+        with self._lock:
+            self._resend_timer = None
+            live = [(t, w) for t, w in self._resend_q
+                    if w.msg.tid in self._waiters]   # replied: drop
+            ready = [w for t, w in live if t <= now]
+            self._resend_q = [(t, w) for t, w in live if t > now]
+            for w in ready:
+                w.resend_queued = False
+            self._arm_resend_timer()
+        for w in ready:
+            try:
+                self._send_op(w)
+            except (OSError, TimeoutError):
+                pass   # next map change (or timeout) retries again
+            except Exception as e:
+                # anything else (a pool deleted under the op making
+                # _calc_target raise) must not unwind the ONE shared
+                # timer thread mid-fan: the remaining ready waiters
+                # were already dequeued with resend_queued=False and
+                # would never be re-sent — stranded until their own
+                # op timeout on a healthy cluster
+                from ceph_tpu_torch.common.logging import dout
+                dout("rados", 0, "%s: resend of tid %d failed "
+                     "(waiter left for map change/timeout): %r",
+                     self.name, w.msg.tid, e)
+
+    #: distinct tenant trackers retained per client (LRU)
+    QOS_TRACKER_CAP = 1024
+
+    def _tracker_for(self, tenant: str):
+        """The tenant lane's own ServiceTracker (lazy, LRU-bounded);
+        '' is the untenanted per-client lane."""
+        from ceph_tpu_torch.qos.dmclock import ServiceTracker
+        with self._lock:
+            t = self._qos_trackers.get(tenant)
+            if t is None:
+                t = self._qos_trackers[tenant] = ServiceTracker()
+                while len(self._qos_trackers) > self.QOS_TRACKER_CAP:
+                    self._qos_trackers.popitem(last=False)
+            else:
+                self._qos_trackers.move_to_end(tenant)
+            return t
+
+    @contextmanager
+    def qos_tenant(self, tenant: str | None):
+        """Bill every op submitted by this thread inside the block to
+        the tenant's QoS lane (the RGW request wrapper): the tenant tag
+        rides each MOSDOp and the OSDs schedule it as client.<tenant>
+        with the qos_db profile.  Nests; None is a no-op lane."""
+        prev = getattr(self._qos_tl, "tenant", None)
+        self._qos_tl.tenant = tenant
+        try:
+            yield
+        finally:
+            self._qos_tl.tenant = prev
+
+    def aio_operate(self, pool_id: int, oid: str, ops: list[OSDOpField],
+                    snapid: int = 0, direct: bool = False,
+                    pgid: tuple[int, int] | None = None,
+                    tenant: str | None = None) -> "AioCompletion":
+        """Submit without blocking (librados aio_*): returns a completion
+        the caller waits on.  In-flight completions resend on map change
+        like synchronous ops."""
+        if "\x1d" in oid:
+            # the GROUP SEPARATOR is reserved for the OSD's internal
+            # snap-clone store names (osd.daemon.CLONE_SEP); allowing it
+            # through would let a client oid impersonate a clone
+            raise ValueError("object names may not contain \\x1d")
+        is_write = any(op.op in (OP_WRITE, OP_WRITEFULL, OP_DELETE,
+                                 OP_OMAP_SET, OP_OMAP_RMKEYS)
+                       for op in ops)
+        if tenant is None:
+            tenant = getattr(self._qos_tl, "tenant", None)
+        with self._lock:
+            tid = self._next_tid
+            self._next_tid += 1
+            msg = MOSDOp(client_id=self.client_id, tid=tid,
+                         pgid=(pool_id, 0), oid=oid, ops=ops,
+                         epoch=self.osdmap.epoch, snapid=snapid,
+                         qos_tenant=tenant or "")
+            w = _Waiter(msg, pool_id, is_write, direct,
+                        fixed_pgid=pgid)
+            self._waiters[tid] = w
+        self._send_op(w)
+        return AioCompletion(self, tid, w)
+
+    def operate(self, pool_id: int, oid: str, ops: list[OSDOpField],
+                snapid: int = 0, direct: bool = False,
+                pgid: tuple[int, int] | None = None,
+                tenant: str | None = None) -> MOSDOpReply:
+        # head sampling (tracing_sample_rate): an untraced op opens a
+        # trace at the configured rate, whose root span covers submit
+        # through reply — the tail-retention check then decides whether
+        # the completed trace is worth keeping.  Explicit trace_ctx
+        # callers pass through (already traced).
+        from ceph_tpu_torch.common import tracing
+        with tracing.maybe_sampled(f"osd_op {oid}",
+                                   daemon=f"client.{self.client_id}"):
+            c = self.aio_operate(pool_id, oid, ops, snapid=snapid,
+                                 direct=direct, pgid=pgid,
+                                 tenant=tenant)
+            if not c.wait_for_complete(self.timeout):
+                c.cancel()
+                raise TimeoutError(f"op {c.tid} on {oid} timed out")
+            if c.get_return_value() < 0:
+                raise OSError(-c.get_return_value(),
+                              f"op on {oid} failed")
+            return c.reply
+
+    # -- pools ----------------------------------------------------------------
+
+    def pool_id_by_name(self, name_or_id) -> int:
+        return int(name_or_id)
+
+    def open_ioctx(self, pool_id: int, direct: bool = False) -> "IoCtx":
+        return IoCtx(self, int(pool_id), direct=direct)
+
+
+def _is_tcp(msgr) -> bool:
+    return msgr.is_wire
+
+
+class IoCtx:
+    """Pool I/O handle (librados IoCtx)."""
+
+    def __init__(self, client: RadosClient, pool_id: int,
+                 direct: bool = False, tenant: str | None = None):
+        self.client = client
+        self.pool_id = pool_id
+        #: bypass cache-tier overlays (tier-agent internal I/O)
+        self.direct = direct
+        #: explicit QoS tenant lane: every op through this handle bills
+        #: to the tenant (overrides the client's thread-local lane) —
+        #: rgw_lite buckets and bench tenants use this form
+        self.tenant = tenant
+
+    def with_tenant(self, tenant: str | None) -> "IoCtx":
+        """A view of this pool handle whose ops bill to the tenant's
+        QoS lane (librados would set the ioctx namespace/tenant)."""
+        return IoCtx(self.client, self.pool_id, direct=self.direct,
+                     tenant=tenant)
+
+    def _op(self, oid, ops, snapid=0):
+        return self.client.operate(self.pool_id, oid, ops,
+                                   snapid=snapid, direct=self.direct,
+                                   tenant=self.tenant)
+
+    def write_full(self, oid: str, data: bytes) -> None:
+        self._op(oid, [OSDOpField(OP_WRITEFULL, 0, len(data), data)])
+
+    def aio_write_full(self, oid: str, data: bytes) -> "AioCompletion":
+        return self.client.aio_operate(
+            self.pool_id, oid, [OSDOpField(OP_WRITEFULL, 0, len(data),
+                                           data)], direct=self.direct,
+            tenant=self.tenant)
+
+    def aio_read(self, oid: str, length: int = 0,
+                 offset: int = 0) -> "AioCompletion":
+        return self.client.aio_operate(
+            self.pool_id, oid, [OSDOpField(OP_READ, offset, length)],
+            direct=self.direct, tenant=self.tenant)
+
+    def write(self, oid: str, data: bytes, offset: int = 0) -> None:
+        self._op(oid, [OSDOpField(OP_WRITE, offset, len(data), data)])
+
+    def read(self, oid: str, length: int = 0, offset: int = 0,
+             snapid: int = 0) -> bytes:
+        r = self._op(oid, [OSDOpField(OP_READ, offset, length)],
+                     snapid=snapid)
+        return r.ops[0].data if r.ops else b""
+
+    def _watch_keys(self, oid: str) -> list[tuple]:
+        """A cache-tier overlay redirects the watch to the cache pool,
+        whose OSD sends notifies stamped with ITS pool id — register
+        the callback under both keys so the lookup hits either way."""
+        keys = [(self.pool_id, oid)]
+        pool = self.client.osdmap.pools.get(self.pool_id)
+        if pool is not None and not self.direct and pool.write_tier >= 0:
+            keys.append((pool.write_tier, oid))
+        return keys
+
+    def watch(self, oid: str, callback) -> None:
+        """Register for notifies on the object (librados watch; the
+        callback runs on the client's dispatch thread)."""
+        for k in self._watch_keys(oid):
+            self.client._watch_cbs[k] = callback
+        self._op(oid, [OSDOpField(OP_WATCH, 0, 0)])
+
+    def unwatch(self, oid: str) -> None:
+        for k in self._watch_keys(oid):
+            self.client._watch_cbs.pop(k, None)
+        self._op(oid, [OSDOpField(OP_UNWATCH, 0, 0)])
+
+    def execute(self, oid: str, cls: str, method: str,
+                inp: bytes = b"") -> bytes:
+        """Run an in-OSD object class method (librados exec)."""
+        data = cls.encode() + b"\0" + method.encode() + b"\0" + inp
+        r = self._op(oid, [OSDOpField(OP_CALL, 0, 0, data)])
+        return r.ops[0].data if r.ops else b""
+
+    def notify(self, oid: str, payload: bytes = b"") -> None:
+        """Fan payload out to every watcher; returns once all acked
+        (librados notify)."""
+        self._op(oid, [OSDOpField(OP_NOTIFY, 0, 0, payload)])
+
+    def remove(self, oid: str) -> None:
+        self._op(oid, [OSDOpField(OP_DELETE)])
+
+    def stat(self, oid: str) -> dict:
+        r = self._op(oid, [OSDOpField(OP_STAT)])
+        return {"size": r.ops[0].length}
+
+    def set_omap(self, oid: str, keys: dict) -> None:
+        e = Encoder()
+        e.map(keys, lambda e2, k: e2.str(k), lambda e2, v: e2.bytes(v))
+        self._op(oid, [OSDOpField(OP_OMAP_SET, 0, 0, e.tobytes())])
+
+    def get_omap(self, oid: str) -> dict:
+        r = self._op(oid, [OSDOpField(OP_OMAP_GET)])
+        return Decoder(r.ops[0].data).map(lambda d: d.str(),
+                                          lambda d: d.bytes())
+
+    def rm_omap_keys(self, oid: str, keys: list[str]) -> None:
+        e = Encoder()
+        e.list(keys, lambda e2, k: e2.str(k))
+        self._op(oid, [OSDOpField(OP_OMAP_RMKEYS, 0, 0, e.tobytes())])
+
+    def list_objects(self) -> list[str]:
+        """Logical object names in the pool (`rados ls`): one PGLS op
+        per PG of the BASE pool, each answered by that PG's primary
+        (Objecter pg-targeted listing; librados nobjects_begin).
+        Re-lists when pg_num grew mid-iteration — a PG split would
+        otherwise silently omit objects rehashed to child PGs."""
+        for _attempt in range(4):
+            pool = self.client.osdmap.pools.get(self.pool_id)
+            if pool is None:
+                raise OSError(2, f"pool {self.pool_id} gone")
+            pg_num = pool.pg_num
+            names: set[str] = set()
+            for ps in range(pg_num):
+                r = self.client.operate(
+                    self.pool_id, "", [OSDOpField(OP_PGLS, 0, 0)],
+                    direct=True, pgid=(self.pool_id, ps))
+                if r.result != 0:
+                    raise OSError(-r.result or 5,
+                                  f"pgls {self.pool_id}.{ps}")
+                blob = r.ops[0].data if r.ops else b""
+                if blob:
+                    names.update(Decoder(blob).list(
+                        lambda d: d.str()))
+            cur = self.client.osdmap.pools.get(self.pool_id)
+            if cur is not None and cur.pg_num == pg_num:
+                return sorted(names)
+        raise OSError(11, "pool splitting continuously; retry listing")

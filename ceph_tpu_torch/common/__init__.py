@@ -9,4 +9,7 @@ config         the option table the ported modules read, with observers
 perf_counters  counter sets, admin_socket  named admin commands
 context        CephTpuContext: config, counters, admin socket and the two
                dispatch engines on one torch device; default_context()
+throttle       byte/op budgets (messenger policies, the OSD's front door)
+moncmd         a daemon's mon command round trip, clog  the cluster log,
+op_tracker     in-flight and historic ops
 """

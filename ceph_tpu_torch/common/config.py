@@ -10,8 +10,9 @@ observers notified on runtime changes.
 
 The port's table holds the options its modules read: the dispatch engine's
 coalescing, depth and fault knobs, the failpoint spec, telemetry's and
-tracing's knobs, and the PG mapping service's.  A later slice adds the
-options of the layers it ports.
+tracing's knobs, the PG mapping service's, and those of the OSD, monitor,
+client and messenger (the OSD data path).  A later slice adds the options
+of the layers it ports.
 """
 
 from __future__ import annotations
@@ -163,6 +164,100 @@ register_options([
            "slices, and epoch deltas diff the packed tables; off (or "
            "crush_backend=scalar) = the per-PG host pipeline tail"),
     Option("log_level", OPT_INT, 1, "default subsystem log level"),
+    # the daemons', the monitor's and the client's options (the OSD data
+    # path on a MiniCluster)
+    Option("erasure_code_runtime", OPT_STR, "cuda",
+           "default EC execution runtime of a pool's codec: cuda (the "
+           "hand kernel on the daemon's device; tpu reads as cuda) | "
+           "cpu (numpy oracle) | native (the C encode)"),
+    Option("osdmap_mapping_shared", OPT_BOOL, True,
+           "serve PG->OSD mappings from the context's shared "
+           "epoch-keyed mapping cache (osd.mapping."
+           "SharedPGMappingService): OSD map consumption becomes "
+           "O(changed PGs + local PGs), client op targeting and the "
+           "balancer read cached raw placements; off = every consumer "
+           "runs the scalar pg_to_up_acting_osds pipeline per PG"),
+    Option("osd_pool_default_size", OPT_INT, 3, "replicas per object"),
+    Option("osd_pool_default_pg_num", OPT_INT, 32, "pgs per new pool"),
+    Option("osd_heartbeat_interval", OPT_FLOAT, 1.0,
+           "seconds between peer pings (osd_heartbeat_interval analog)"),
+    Option("osd_heartbeat_grace", OPT_FLOAT, 6.0,
+           "seconds without ping before reporting failure"),
+    Option("mon_osd_min_down_reporters", OPT_INT, 2,
+           "distinct reporters before the mon marks an osd down"),
+    Option("mon_osd_adjust_heartbeat_grace", OPT_INT, 1,
+           "scale the mark-down grace by the target's laggy history "
+           "(OSDMonitor.cc:2548-2572 analog)"),
+    Option("mon_osd_laggy_halflife", OPT_FLOAT, 3600.0,
+           "seconds for laggy history to decay by half"),
+    Option("mon_osd_laggy_weight", OPT_FLOAT, 0.3,
+           "weight of the newest laggy interval in the decaying average"),
+    Option("mon_osd_laggy_max_interval", OPT_FLOAT, 300.0,
+           "cap on a single recorded laggy interval (seconds)"),
+    Option("osd_op_complaint_time", OPT_FLOAT, 30.0,
+           "age after which an in-flight op is a slow request"),
+    Option("osd_map_renew_interval", OPT_FLOAT, 2.0,
+           "seconds between mon map-subscription renewals"),
+    Option("osd_op_queue", OPT_STR, "mclock",
+           "op scheduler: mclock (sharded QoS queue) | direct"),
+    Option("osd_op_num_shards", OPT_INT, 2,
+           "op queue shards (ops shard by pgid; per-PG order kept)"),
+    Option("osd_mclock_per_client", OPT_INT, 1,
+           "tag client ops per client id (dmclock client-class QoS) "
+           "instead of one aggregate client class"),
+    Option("osd_mclock_client_reservation", OPT_FLOAT, 0.0,
+           "per-client guaranteed ops/s (dmclock reservation; 0 = none)"),
+    Option("osd_mclock_client_weight", OPT_FLOAT, 100.0,
+           "per-client share of excess capacity (dmclock weight)"),
+    Option("osd_mclock_client_limit", OPT_FLOAT, 0.0,
+           "per-client ops/s cap (dmclock limit; 0 = unlimited)"),
+    Option("osd_op_queue_max_client_backlog", OPT_INT, 512,
+           "client ops queued per shard before dispatch backpressure "
+           "blocks the intake (peer/recovery classes are never gated)"),
+    Option("osd_qos_tenant_lanes", OPT_BOOL, True,
+           "schedule client ops by the MOSDOp's authenticated tenant "
+           "tag (client.<tenant> dmclock lanes with per-tenant "
+           "profiles from the OSDMap qos_db); off = per-client-id "
+           "lanes only, tenant tags ignored"),
+    Option("osd_qos_idle_client_timeout", OPT_FLOAT, 60.0,
+           "seconds a dynamic per-client/per-tenant dmclock lane may "
+           "sit idle (empty queue, no enqueues) before the scheduler "
+           "evicts its state — bounds the lane table under millions "
+           "of one-shot clients; served/wait totals fold into the "
+           "dump_qos_stats evicted rollup"),
+    Option("osd_max_backfills", OPT_INT, 1,
+           "PGs an osd recovers concurrently (reservation slots)"),
+    Option("osd_recovery_max_active", OPT_INT, 3,
+           "in-flight object pulls per recovering PG"),
+    Option("osd_client_message_size_cap", OPT_INT, 256 << 20,
+           "bytes of op payloads queued in the sharded op queue before "
+           "dispatch threads block (front-door backpressure)"),
+    Option("osd_ec_dispatch_async", OPT_BOOL, True,
+           "submit EC write encodes through the dispatch engine and "
+           "run transaction-build + shard fan-out in the completion "
+           "continuation, letting concurrent client writes share one "
+           "device call; off = encode synchronously per op"),
+    Option("osd_ec_decode_async", OPT_BOOL, True,
+           "submit EC decodes (degraded reads, recovery pulls, rmw "
+           "gathers) through the decode dispatch engine and finish "
+           "reply/push/overlay in the completion continuation; "
+           "concurrent decodes coalesce into one device call even "
+           "with different erasure patterns (heterogeneous-matrix "
+           "batched kernel); off = decode synchronously per gather"),
+    Option("client_resend_backoff_ms", OPT_FLOAT, 25.0,
+           "base backoff in milliseconds before an Objecter resend "
+           "of an already-resent in-flight op (map-change/stale-epoch "
+           "retargeting): resend i of one op waits ~base * 2^(i-1) "
+           "with uniform jitter; the FIRST resend is immediate, so a "
+           "single map change never delays an op"),
+    Option("client_resend_backoff_max_ms", OPT_FLOAT, 2000.0,
+           "cap on a single client resend backoff wait"),
+    Option("ms_type", OPT_STR, "async",
+           "messenger implementation: loopback (async, threaded and ici "
+           "are not ported yet)"),
+    Option("objectstore", OPT_STR, "memstore",
+           "object store backend: memstore | filestore (bluestore is "
+           "not ported yet)"),
 ])
 
 

@@ -1,10 +1,13 @@
 """Carry the reference package's state into the port as plain numpy/Python.
 
 A storage system's "weights" are its coding matrices (already numpy), its
-CRUSH map and its OSDMap.  These readers copy a map, an OSDMap, a fast-path
-rule, a codec's generator or a flat map's bucket operands out of any object
-that carries the reference's attributes (duck typing: nothing of the reference package is imported), so
-tests can feed both packages, and both dispatch engines, the same state.
+CRUSH map and its OSDMap, and its data is what its object stores hold.
+These readers copy a map, an OSDMap, a fast-path rule, a codec's generator,
+a flat map's bucket operands or a MemStore's collections out of any object
+that carries the reference's attributes (duck typing: nothing of the
+reference package is imported), so tests can feed both packages, and both
+dispatch engines, the same state, and a port OSD can start on a reference
+OSD's data.
 """
 
 from __future__ import annotations
@@ -140,3 +143,31 @@ def reweight_vector(weights) -> np.ndarray:
     """A reweight vector (16.16 per device; a list, numpy or JAX array) as
     the int64 numpy the crush channels take."""
     return np.array(np.asarray(weights), dtype=np.int64).reshape(-1)
+
+
+def objectstore_from_reference(store):
+    """A port MemStore holding a reference MemStore's collections, objects,
+    xattrs and omap (its ``_colls`` of objects with ``data``, ``omap`` and
+    ``attrs``), written through one port Transaction.  A port OSD whose
+    ``store`` it becomes before ``init()`` keeps the data and serves it."""
+    from ceph_tpu_torch.objectstore import Transaction
+    from ceph_tpu_torch.objectstore.objectstore import MemStore
+    with store._lock:
+        colls = {cid: {oid: (bytes(o.data), dict(o.omap), dict(o.attrs))
+                       for oid, o in objs.items()}
+                 for cid, objs in store._colls.items()}
+    t = Transaction()
+    for cid in sorted(colls):
+        t.create_collection(cid)
+        for oid, (data, omap, attrs) in sorted(colls[cid].items()):
+            t.touch(cid, oid)
+            if data:
+                t.write(cid, oid, 0, data)
+            if omap:
+                t.omap_setkeys(cid, oid, omap)
+            for name in sorted(attrs):
+                t.setattr(cid, oid, name, bytes(attrs[name]))
+    out = MemStore()
+    out.mount()
+    out.apply_transaction(t)
+    return out

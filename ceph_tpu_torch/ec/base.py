@@ -78,6 +78,7 @@ def to_host(arr) -> np.ndarray:
     its device (``.cpu()``), anything else is converted."""
     if isinstance(arr, torch.Tensor):
         return arr.cpu().numpy()
+    # analysis: allow[blocking] -- a tensor took the branch above: this converts host values only (engine futures deliver host numpy)
     return np.asarray(arr, dtype=np.uint8)
 
 

@@ -1,0 +1,2175 @@
+"""Monitor daemon: Paxos-replicated cluster-map authority.
+
+Map mutations follow the reference's pending_inc pattern (OSDMonitor):
+mutate a *copy* of the map, then commit it through Paxos — the committed
+blob is what every monitor (leader and peons alike) applies in the
+on_commit callback, so all quorum members converge on the identical map
+bytes.  Leadership comes from the Elector (lowest reachable rank); peons
+forward client commands to the leader (MForward, src/mon/Monitor.cc
+forward_request_leader) and OSDs simply send their boot/failure reports
+to every monitor (the leader executes, peons ignore — the reports are
+idempotent and re-sent, so no relay machinery is needed for them).
+
+Failure handling mirrors check_failure (mon/OSDMonitor.cc:2537): an osd
+is marked down once `mon_osd_min_down_reporters` distinct reporters have
+filed MOSDFailure against it.
+
+Mutations run on a single worker thread, never on a messenger dispatch
+thread: propose_and_wait blocks until the quorum accepts, and the
+dispatch thread must stay free to process those very ACCEPT messages.
+"""
+
+from __future__ import annotations
+
+import json
+import queue
+import threading
+import time
+
+from ceph_tpu_torch.common.clog import (
+    MLog, PRIO_INFO, PRIO_WARN, LogStore)
+from ceph_tpu_torch.common.context import CephTpuContext
+from ceph_tpu_torch.common.logging import dout
+# top-level, not lazy: a STANDALONE mon process must have type 0x702 in
+# the message registry before the first beacon frame arrives, or every
+# beacon is dropped at decode and failover silently degrades
+from ceph_tpu_torch.mgr.daemon import MMgrBeacon
+from ceph_tpu_torch.crush.builder import add_simple_rule, make_bucket
+from ceph_tpu_torch.crush.types import CRUSH_BUCKET_STRAW2, CrushMap
+from ceph_tpu_torch.messages import (
+    MPGStats,
+    MMonCommand, MMonCommandAck, MOSDFailure, MOSDMapMsg)
+from ceph_tpu_torch.messages.osd_msgs import MOSDPing
+from ceph_tpu_torch.mon.elector import Elector, MMonElection
+from ceph_tpu_torch.mon.paxos import MMonPaxos, Paxos
+from ceph_tpu_torch.msg.message import Message, register_message
+from ceph_tpu_torch.msg.encoding import Encoder, Decoder
+from ceph_tpu_torch.msg.messenger import (
+    ConnectionPolicy, Dispatcher, EntityName, Messenger)
+from ceph_tpu_torch.objectstore.kv import LogDB, MemDB
+from ceph_tpu_torch.osd.map_codec import decode_osdmap, encode_osdmap
+from ceph_tpu_torch.osd.osdmap import OSDMap, PGPool, POOL_TYPE_ERASURE
+
+
+@register_message
+class MOSDBoot(Message):
+    """osd -> mon: I'm up at this address (messages/MOSDBoot.h analog)."""
+
+    TYPE = 71
+
+    def __init__(self, osd_id: int = 0, addr: str = ""):
+        super().__init__()
+        self.osd_id = osd_id
+        self.addr = addr
+
+    def encode_payload(self, enc: Encoder):
+        enc.versioned(1, 1, lambda e: (e.s32(self.osd_id), e.str(self.addr)))
+
+    def decode_payload(self, dec: Decoder, version: int):
+        def body(d, v):
+            self.osd_id = d.s32()
+            self.addr = d.str()
+        dec.versioned(1, body)
+
+
+@register_message
+class MMonSubscribe(Message):
+    """client/osd -> mon: send me map updates (MMonSubscribe analog).
+    v2: carries the subscriber's current epoch (the reference sub's
+    `start`) so a renewal from an up-to-date subscriber costs nothing."""
+
+    TYPE = 15
+
+    def __init__(self, name: str = "", addr: str = "", epoch: int = 0):
+        super().__init__()
+        self.name = name
+        self.addr = addr
+        self.epoch = epoch
+
+    def encode_payload(self, enc: Encoder):
+        enc.versioned(2, 1, lambda e: (e.str(self.name), e.str(self.addr),
+                                       e.u32(self.epoch)))
+
+    def decode_payload(self, dec: Decoder, version: int):
+        def body(d, v):
+            self.name = d.str()
+            self.addr = d.str()
+            self.epoch = d.u32() if v >= 2 else 0
+        dec.versioned(2, body)
+
+
+@register_message
+class MMonProbe(Message):
+    """mon <-> mon bootstrap probing + store sync
+    (messages/MMonProbe.h:22 + Monitor.cc:1186-1400 probe,
+    :1560-1740 sync, reduced):
+
+      PROBE      joiner -> any known mon: who is in the monmap?
+      REPLY      member -> joiner: committed monmap + my paxos tail pos
+      SYNC       joiner -> member: my store ends at `last_committed`,
+                 ship me the tail
+      SYNC_DATA  member -> joiner: paxos values (full snapshots) +
+                 last_committed; the joiner installs them and only THEN
+                 enters elections
+    """
+
+    TYPE = 67  # MSG_MON_PROBE
+
+    PROBE = 1
+    REPLY = 2
+    SYNC = 3
+    SYNC_DATA = 4
+
+    def __init__(self, op: int = 0, rank: int = -1, addr: str = "",
+                 mon_db: dict | None = None, last_committed: int = 0,
+                 values: dict[int, bytes] | None = None):
+        super().__init__()
+        self.op = op
+        self.rank = rank
+        self.addr = addr
+        self.mon_db = mon_db or {}
+        self.last_committed = last_committed
+        self.values = values or {}
+
+    def encode_payload(self, enc: Encoder):
+        enc.versioned(1, 1, lambda e: (
+            e.u8(self.op), e.s32(self.rank), e.str(self.addr),
+            e.bytes(json.dumps(self.mon_db).encode()),
+            e.u64(self.last_committed),
+            e.map(self.values, lambda e2, k: e2.u64(k),
+                  lambda e2, v: e2.bytes(v))))
+
+    def decode_payload(self, dec: Decoder, version: int):
+        def body(d, v):
+            self.op = d.u8()
+            self.rank = d.s32()
+            self.addr = d.str()
+            self.mon_db = json.loads(d.bytes().decode() or "{}")
+            self.last_committed = d.u64()
+            self.values = d.map(lambda d2: d2.u64(),
+                                lambda d2: d2.bytes())
+        dec.versioned(1, body)
+
+
+@register_message
+class MMonForward(Message):
+    """peon -> leader: relayed client command (messages/MForward.h)."""
+
+    TYPE = 46  # MSG_FORWARD
+
+    def __init__(self, fwd_tid: int = 0, cmd_tid: int = 0,
+                 cmd_blob: bytes = b""):
+        super().__init__()
+        self.fwd_tid = fwd_tid
+        self.cmd_tid = cmd_tid
+        self.cmd_blob = cmd_blob   # json-encoded command dict
+
+    def encode_payload(self, enc: Encoder):
+        enc.versioned(1, 1, lambda e: (
+            e.u64(self.fwd_tid), e.u64(self.cmd_tid),
+            e.bytes(self.cmd_blob)))
+
+    def decode_payload(self, dec: Decoder, version: int):
+        def body(d, v):
+            self.fwd_tid = d.u64()
+            self.cmd_tid = d.u64()
+            self.cmd_blob = d.bytes()
+        dec.versioned(1, body)
+
+
+@register_message
+class MMonForwardAck(Message):
+    TYPE = 47
+
+    def __init__(self, fwd_tid: int = 0, result: int = 0,
+                 output: str = ""):
+        super().__init__()
+        self.fwd_tid = fwd_tid
+        self.result = result
+        self.output = output
+
+    def encode_payload(self, enc: Encoder):
+        enc.versioned(1, 1, lambda e: (
+            e.u64(self.fwd_tid), e.s32(self.result), e.str(self.output)))
+
+    def decode_payload(self, dec: Decoder, version: int):
+        def body(d, v):
+            self.fwd_tid = d.u64()
+            self.result = d.s32()
+            self.output = d.str()
+        dec.versioned(1, body)
+
+
+@register_message
+class MMDSBeacon(Message):
+    """mds <-> mon liveness + rank assignment (messages/MMDSBeacon.h).
+    mds -> mon: gid/addr/state/load every beacon interval.
+    mon -> mds (ack): the rank this gid holds (-1 = standby)."""
+
+    TYPE = 100  # MSG_MDS_BEACON
+
+    def __init__(self, gid: int = 0, addr: str = "", state: str = "",
+                 rank: int = -1, load: float = 0.0,
+                 bal_rank: int = -1, bal_load: float = 0.0,
+                 meta_pool: int = -1, data_pool: int = -1):
+        super().__init__()
+        self.gid = gid
+        self.addr = addr
+        self.state = state
+        self.rank = rank
+        self.load = load
+        #: acks carry the balancer hint: least-loaded active rank
+        self.bal_rank = bal_rank
+        self.bal_load = bal_load
+        #: acks also carry the fs pools, so an assigned rank can
+        #: activate immediately without waiting on its own map
+        #: subscription (a cross-channel dependency that stalls under
+        #: load)
+        self.meta_pool = meta_pool
+        self.data_pool = data_pool
+
+    def encode_payload(self, enc: Encoder):
+        enc.versioned(2, 1, lambda e: (
+            e.u64(self.gid), e.str(self.addr), e.str(self.state),
+            e.s32(self.rank), e.f64(self.load),
+            e.s32(self.bal_rank), e.f64(self.bal_load),
+            e.s64(self.meta_pool), e.s64(self.data_pool)))
+
+    def decode_payload(self, dec: Decoder, version: int):
+        def body(d, v):
+            self.gid = d.u64()
+            self.addr = d.str()
+            self.state = d.str()
+            self.rank = d.s32()
+            self.load = d.f64()
+            if v >= 2:
+                self.bal_rank = d.s32()
+                self.bal_load = d.f64()
+                self.meta_pool = d.s64()
+                self.data_pool = d.s64()
+        dec.versioned(2, body)
+
+
+def _referenced_bucket_ids(crush) -> set:
+    """Bucket/item ids that appear inside some bucket — i.e. everything
+    but the root(s).  Shared by root detection and parent lookup."""
+    return {it for b in crush.buckets if b is not None for it in b.items}
+
+
+class Monitor(Dispatcher):
+    TICK_INTERVAL = 0.25
+
+    def __init__(self, ctx: CephTpuContext | None = None, mon_id: int = 0,
+                 store_path: str | None = None, ms_type: str = "async",
+                 addr: str = "127.0.0.1:0", auth_key=None,
+                 cephx_keyring: dict | None = None,
+                 cephx_rotation: float = 3600.0, device=None):
+        if cephx_keyring is not None:
+            raise NotImplementedError(
+                "cephx needs ceph_tpu_torch/auth, not ported yet "
+                "(ROADMAP.md Queue 1 item 7)")
+        #: the mon's context runs on ``device`` (the card by default):
+        #: it validates EC profiles at pool create with the port's codecs
+        self.ctx = ctx or CephTpuContext(f"mon.{mon_id}", device=device)
+        self.mon_id = mon_id
+        self.name = EntityName("mon", mon_id)
+        self.db = LogDB(store_path) if store_path else MemDB()
+        self.osdmap = OSDMap()
+        from ceph_tpu_torch.common.lockdep import make_lock
+        self._lock = make_lock(f"Monitor::lock({mon_id})")
+        #: failure reports: failed_osd -> {reporter: (report_time,
+        #: failed_for)} — report_time expires stale reports, failed_for
+        #: is the reporter's observed silence when it filed
+        self._failure_reports: dict[int, dict[int, tuple[float, float]]] = {}
+        #: subscriber name -> (addr, entity)
+        #: subscriber -> (addr, entity, session connection): pushes
+        #: ride the session the subscriber authenticated
+        self._subs: dict[str, tuple] = {}
+        #: epoch -> encoded OSDMap::Incremental (each mon rebuilds this
+        #: deterministically at commit; trimmed to INC_HISTORY)
+        self._inc_history: dict[int, bytes] = {}
+        #: latest MPGStats per reporting OSD (PG_DEGRADED health feed)
+        self._pg_stats: dict[int, dict] = {}
+        #: mds gid -> (last beacon time, addr, load) — mon-local
+        #: liveness (the FSMap itself is paxos state on the map)
+        self._mds_beacons: dict[int, tuple[float, str, float]] = {}
+        #: mgr name -> (time, addr, con, available, modules) — mon-local
+        #: liveness feeding the MgrMap (MgrMonitor beacon table)
+        self._mgr_beacons: dict[str, tuple] = {}
+        #: central cluster log (LogMonitor analog): every mon persists
+        #: the fanned-out MLog stream and serves `ceph log last`
+        self.logstore = LogStore(self.db)
+        self._clog_seq = 0
+        self._mgr_logged_active: str | None = None
+        self._health_log_status: str | None = None
+        self._health_log_last = 0.0
+        #: when this mon started watching beacons as leader: a gid we
+        #: have NEVER heard from is only dead once a full grace has
+        #: passed since then (a freshly-elected/restarted leader must
+        #: not fail every healthy rank on its first tick)
+        self._mds_watch_since: float | None = None
+        self._osd_addrs: dict[int, str] = {}
+        #: rank -> address.  Runtime membership (`mon add/rm`) keeps
+        #: this in lockstep with the committed mon_db; `mon rm` leaves
+        #: rank holes, hence a dict rather than a list
+        self.monmap: dict[int, str] = {}
+        #: committed monmap epoch this mon has reconfigured to
+        self.monmap_epoch = 0
+        #: probing mode (Monitor.cc bootstrap/probe): seed addrs we ask
+        #: for the authoritative monmap until we find ourselves in it
+        self._probe_addrs: list[str] = []
+        self._probe_synced = False
+        self._pending_join: dict | None = None
+        #: rank -> addr of members removed by `mon rm` (in-flight
+        #: fan-outs — notably their own removal COMMIT — still reach them)
+        self._retired_mons: dict[int, str] = {}
+        self.elector: Elector | None = None
+        self.paxos: Paxos | None = None
+        self._tick_timer: threading.Timer | None = None
+        self._work_q: queue.Queue = queue.Queue()
+        self._worker: threading.Thread | None = None
+        self._fwd_tid = 0
+        #: fwd_tid -> (client connection, client tid)
+        self._fwd_waiting: dict[int, tuple] = {}
+        self._stop = False
+        self.msgr = Messenger.create(self.name, ms_type)
+        self.msgr.set_auth(auth_key)
+        self.msgr.set_policy("client", ConnectionPolicy.lossy_client())
+        self.msgr.set_policy("osd", ConnectionPolicy.stateful_server())
+        self.msgr.set_policy("mon", ConnectionPolicy.stateful_peer())
+        #: per-entity cephx: the seed keyring (mon keys + client.admin)
+        #: bootstraps auth before the first map commit; after that the
+        #: paxos-replicated auth_db is authoritative
+        self._cephx_seed = dict(cephx_keyring or {})
+        self.cephx_rotation = cephx_rotation
+        self.msgr.add_dispatcher_tail(self)
+        self._addr = addr
+        self.ctx.admin.register_command(
+            "mon status", lambda **kw: self.status(), "cluster status")
+
+    # -- lifecycle ------------------------------------------------------------
+
+    def init(self, monmap: list[str] | None = None,
+             probe: list[str] | None = None) -> None:
+        """probe: addresses of an EXISTING cluster to join instead of
+        forming a quorum from a static monmap (Monitor.cc bootstrap/
+        probe).  The mon stays out of elections until a probe reply
+        shows its rank in the committed monmap; a wiped store is
+        re-synced from the quorum's paxos tail first."""
+        if isinstance(self.db, LogDB):
+            self.db.open()
+        self.msgr.bind(self._addr)
+        self.msgr.start()
+        self._worker = threading.Thread(target=self._work_loop, daemon=True)
+        self._worker.start()
+        if probe:
+            self._probe_addrs = list(probe)
+            self._schedule_tick()
+            self._send_probes()
+        elif monmap:
+            self.set_monmap(monmap)
+        elif monmap is None and not self.monmap:
+            # single-mon convenience: I am the whole quorum
+            # (monmap=[] defers: caller will set_monmap once every mon
+            # in the cluster has bound its address)
+            self.set_monmap([self.addr])
+
+    def set_monmap(self, addrs) -> None:
+        """Fix the monitor cluster membership and start electing.
+        Must run after init() (our own address must be known).
+        addrs: list (ranks 0..n-1) or rank->addr dict."""
+        if isinstance(addrs, dict):
+            self.monmap = {int(r): a for r, a in addrs.items() if a}
+        else:
+            # empty entries are rank-hole padding (a list monmap after
+            # `mon rm`/sparse add): a phantom rank would inflate the
+            # election majority with a peer that can never ack
+            self.monmap = {r: a for r, a in enumerate(addrs) if a}
+        self.elector = Elector(self.mon_id, sorted(self.monmap),
+                               self._send_mon,
+                               self._on_election_win, self._on_election_lose)
+        self.paxos = Paxos(self.mon_id, self.db, self._send_mon,
+                           self._on_paxos_commit, self._request_election)
+        self.paxos.on_active = self._on_paxos_active
+        # restore the last committed map (mon store = Paxos store)
+        if self.paxos.last_committed > 0:
+            blob = self.paxos.get(self.paxos.last_committed)
+            if blob:
+                self.osdmap = decode_osdmap(blob)
+        self._schedule_tick()
+        self.elector.start()
+
+    def shutdown(self) -> None:
+        self._stop = True
+        if self._tick_timer:
+            self._tick_timer.cancel()
+        self._work_q.put(None)
+        self.msgr.shutdown()
+        if isinstance(self.db, LogDB):
+            self.db.close()
+
+    @property
+    def addr(self) -> str:
+        return self.msgr.my_addr
+
+    def is_leader(self) -> bool:
+        # snapshot: _maybe_reconfigure nulls self.elector (removed
+        # mon) from the dispatch thread while tick/command threads run
+        # this — a re-read between check and use races to None
+        e = self.elector
+        return (e is not None and e.leader == self.mon_id
+                and not e.electing)
+
+    def quorum(self) -> list[int]:
+        e = self.elector
+        return list(e.quorum) if e else []
+
+    # -- mon-to-mon plumbing --------------------------------------------------
+
+    def _send_mon(self, rank: int, msg) -> None:
+        addr = self.monmap.get(rank) or self._retired_mons.get(rank)
+        if addr is None:
+            return
+        con = self.msgr.connect_to(addr, EntityName("mon", rank))
+        con.send_message(msg)
+
+    # -- runtime membership (Monitor.cc probe/sync + MonmapMonitor) -----------
+
+    #: values shipped per store sync: each is a full map snapshot, so
+    #: the tail only needs to cover realistic election-window lag
+    SYNC_TAIL = 50
+
+    def _clog(self, prio: int, fmt: str, *args) -> None:
+        """Mon-originated cluster-log entry: persist locally, fan to
+        peer mons (LogMonitor logging its own events)."""
+        from ceph_tpu_torch.common.clog import make_entry
+        with self._lock:
+            self._clog_seq += 1
+            ent = make_entry(self._clog_seq, prio,
+                             (fmt % args) if args else fmt)
+        name = f"mon.{self.mon_id}"
+        self.logstore.append(name, [ent])
+        for r in list(self.monmap):
+            if r != self.mon_id:
+                self._send_mon(r, MLog(name=name, entries=[ent]))
+
+    def _check_health_transition(self) -> None:
+        """Leader: log HEALTH_OK <-> HEALTH_WARN transitions (the
+        reference's health-to-clog bridge)."""
+        now = time.time()
+        if now - self._health_log_last < 2.0:
+            return
+        self._health_log_last = now
+        try:
+            rep = self._health_report()
+        except Exception:
+            return
+        status = rep["status"]
+        if status == self._health_log_status:
+            return
+        prev = self._health_log_status
+        self._health_log_status = status
+        if prev is None and status == "HEALTH_OK":
+            return      # boot into OK is not a transition
+        detail = "; ".join(c.get("summary", c.get("check", ""))
+                           for c in rep.get("checks", [])) or "all clear"
+        self._clog(PRIO_WARN if status != "HEALTH_OK" else PRIO_INFO,
+                   "health %s -> %s (%s)", prev or "?", status, detail)
+
+    def _maybe_seed_mon_db(self) -> None:
+        """Self-healing monmap seed: bootstrap normally commits it, but
+        an OSD-boot mutation queued ahead of the bootstrap work item
+        can commit first, making bootstrap's last_committed guard skip
+        — the leader re-seeds from the static config whenever the map
+        lacks a monmap."""
+        if self.osdmap.mon_db or not self.monmap:
+            return
+        mons = {str(r): a for r, a in self.monmap.items()}
+
+        def fn(m: OSDMap):
+            if m.mon_db:
+                return False
+            m.mon_db = {"epoch": 1, "mons": mons}
+        self._work_q.put(("mgr_map", fn, None))
+
+    _addr_fix_last = 0.0
+
+    def _maybe_fix_my_addr(self) -> None:
+        """A restarted mon can come back on a fresh ephemeral port
+        while the committed monmap still names its old one — re-commit
+        the entry through the ordinary `mon add` path so every consumer
+        of the map finds the live address again."""
+        db = self.osdmap.mon_db
+        e = self.elector
+        if not db or e is None or e.electing:
+            return
+        mine = db.get("mons", {}).get(str(self.mon_id))
+        if mine is None or mine == self.addr:
+            return
+        now = time.time()
+        if now - self._addr_fix_last < 2.0:
+            return
+        self._addr_fix_last = now
+        cmd = {"prefix": "mon add", "id": self.mon_id,
+               "addr": self.addr}
+        if self.is_leader():
+            self._work_q.put(("cmd", cmd, None))
+        elif e.leader is not None:
+            self._send_mon(e.leader,
+                           MMonCommand(tid=0, cmd=cmd))
+
+    def _current_mon_db(self) -> dict:
+        """The committed monmap, or one synthesized from the static
+        config (clusters bootstrapped before mon_db existed)."""
+        if self.osdmap.mon_db:
+            return self.osdmap.mon_db
+        return {"epoch": 0, "mons": {str(r): a
+                                     for r, a in self.monmap.items()}}
+
+    def _stored_lc(self) -> int:
+        lc = self.db.get("paxos", "last_committed")
+        return int(lc.decode()) if lc else 0
+
+    def _send_probes(self) -> None:
+        self._probe_last = time.time()
+        for a in self._probe_addrs:
+            try:
+                con = self.msgr.connect_to(a, EntityName("mon", 0))
+                con.send_message(MMonProbe(
+                    op=MMonProbe.PROBE, rank=self.mon_id,
+                    addr=self.addr))
+            except OSError:
+                continue
+
+    def _handle_probe(self, msg: MMonProbe) -> None:
+        if msg.op == MMonProbe.PROBE:
+            # member side: hand the joiner the authoritative monmap and
+            # my paxos position (any member may answer, like the
+            # reference's probe)
+            msg.connection.send_message(MMonProbe(
+                op=MMonProbe.REPLY, rank=self.mon_id, addr=self.addr,
+                mon_db=self._current_mon_db(),
+                last_committed=self._stored_lc()))
+            return
+        if msg.op == MMonProbe.SYNC:
+            values: dict[int, bytes] = {}
+            lc = self._stored_lc()
+            lo = max(msg.last_committed + 1, lc - self.SYNC_TAIL + 1, 1)
+            for v in range(lo, lc + 1):
+                blob = self.db.get("paxos", f"v_{v}")
+                if blob is not None:
+                    values[v] = blob
+            msg.connection.send_message(MMonProbe(
+                op=MMonProbe.SYNC_DATA, rank=self.mon_id,
+                addr=self.addr, last_committed=lc, values=values))
+            return
+        if self.elector is not None or not self._probe_addrs:
+            return      # only an un-joined prober consumes replies
+        if msg.op == MMonProbe.REPLY:
+            mons = {int(r): a for r, a in
+                    msg.mon_db.get("mons", {}).items()}
+            if mons.get(self.mon_id) != self.addr:
+                return  # not (yet) a member: keep probing for mon add
+            self._pending_join = msg.mon_db
+            if self._stored_lc() < msg.last_committed \
+                    and not self._probe_synced:
+                # wiped/fresh store: pull the paxos tail BEFORE
+                # electing (a rank-0 joiner winning with an empty
+                # store would roll the cluster back)
+                msg.connection.send_message(MMonProbe(
+                    op=MMonProbe.SYNC, rank=self.mon_id,
+                    addr=self.addr,
+                    last_committed=self._stored_lc()))
+                return
+            self._finish_join(msg.mon_db)
+            return
+        if msg.op == MMonProbe.SYNC_DATA:
+            t = self.db.get_transaction()
+            for v in sorted(msg.values):
+                t.set("paxos", f"v_{v}", msg.values[v])
+            t.set("paxos", "last_committed",
+                  str(msg.last_committed).encode())
+            self.db.submit_transaction(t)
+            self._probe_synced = True
+            dout("mon", 1, "mon.%d store-synced to v%d (%d values)",
+                 self.mon_id, msg.last_committed, len(msg.values))
+            join = getattr(self, "_pending_join", None)
+            if join:
+                self._finish_join(join)
+
+    def _finish_join(self, mon_db: dict) -> None:
+        dout("mon", 1, "mon.%d joining: monmap e%d %s", self.mon_id,
+             mon_db.get("epoch", 0), mon_db.get("mons"))
+        self._probe_addrs = []
+        self._probe_synced = False
+        self.monmap_epoch = int(mon_db.get("epoch", 0))
+        self.set_monmap({int(r): a
+                         for r, a in mon_db.get("mons", {}).items()})
+
+    def _maybe_reconfigure(self, mon_db: dict) -> None:
+        """A committed monmap with a newer epoch reconfigures this
+        member: update peers, resize the elector, re-elect.  A mon that
+        finds itself REMOVED goes quiet (the reference's removed mon
+        shuts down; ours parks so the operator can stop it)."""
+        if not mon_db or int(mon_db.get("epoch", 0)) <= self.monmap_epoch:
+            return
+        mons = {int(r): a for r, a in mon_db.get("mons", {}).items()}
+        self.monmap_epoch = int(mon_db.get("epoch", 0))
+        if mons == self.monmap:
+            return
+        # keep removed members dialable: the COMMIT carrying their own
+        # removal fans out AFTER this reconfigure runs on the leader —
+        # dropping the address here would strand them in the old map
+        for r, a in self.monmap.items():
+            if r not in mons:
+                self._retired_mons[r] = a
+        self.monmap = mons
+        if self.mon_id not in mons:
+            dout("mon", 1, "mon.%d removed from monmap e%d — going "
+                 "quiet", self.mon_id, self.monmap_epoch)
+            self.elector = None
+            self.paxos = None
+            return
+        dout("mon", 1, "mon.%d monmap e%d -> members %s", self.mon_id,
+             self.monmap_epoch, sorted(mons))
+        if self.is_leader():
+            self._clog(PRIO_INFO, "monmap e%d: members %s",
+                       self.monmap_epoch, sorted(mons))
+        if self.elector is not None:
+            self.elector.set_ranks(sorted(mons))
+            self._request_election()
+
+    def _request_election(self) -> None:
+        # one election at a time: restarting every liveness tick would
+        # bump the epoch faster than peers can ack and never converge
+        e = self.elector
+        if e and not self._stop and not e.electing:
+            dout("mon", 5, "mon.%d calling new election", self.mon_id)
+            e.start()
+
+    def _on_election_win(self, epoch: int, quorum: list[int]) -> None:
+        dout("mon", 5, "mon.%d won election epoch %d quorum %s",
+             self.mon_id, epoch, quorum)
+        self._mds_watch_since = None    # fresh grace for every rank
+        p = self.paxos
+        if p is not None:
+            p.leader_init(epoch, quorum)
+
+    def _on_election_lose(self, epoch: int, leader: int,
+                          quorum: list[int]) -> None:
+        dout("mon", 5, "mon.%d peon of mon.%d epoch %d", self.mon_id,
+             leader, epoch)
+        p = self.paxos
+        if p is not None:
+            p.peon_init(epoch, leader, quorum)
+
+    def _on_paxos_active(self) -> None:
+        """Leader finished the collect phase.  Bootstrap the very first
+        map if the store is empty (must not block the calling thread)."""
+        p = self.paxos
+        if p is not None and p.last_committed == 0:
+            self._work_q.put(("bootstrap", None, None))
+
+    #: incremental history depth (the mon's map trimming: subscribers
+    #: gapped further back than this get a full map)
+    INC_HISTORY = 500
+
+    def _on_paxos_commit(self, version: int, blob: bytes) -> None:
+        """Every quorum member applies committed maps identically, and
+        each builds the SAME incremental locally (deterministic diff of
+        consecutive committed maps) — no extra paxos state needed."""
+        from ceph_tpu_torch.osd.map_codec import diff_osdmap, encode_incremental
+        newmap = decode_osdmap(blob)
+        with self._lock:
+            if newmap.epoch <= self.osdmap.epoch:
+                return
+            old = self.osdmap
+            self.osdmap = newmap
+            inc_blob = None
+            if newmap.epoch == old.epoch + 1 and old.epoch > 0:
+                inc_blob = encode_incremental(diff_osdmap(old, newmap))
+                self._inc_history[newmap.epoch] = inc_blob
+                for e in list(self._inc_history):
+                    if e <= newmap.epoch - self.INC_HISTORY:
+                        del self._inc_history[e]
+            subs = list(self._subs.values())
+        self._maybe_reconfigure(newmap.mon_db)
+        if inc_blob is not None:
+            # normal churn: O(delta) bytes per subscriber per epoch
+            msg = MOSDMapMsg(epoch=newmap.epoch,
+                             incs=[(newmap.epoch, inc_blob)])
+        else:
+            # never fan the paxos value out: it carries the auth keys
+            msg = MOSDMapMsg(epoch=newmap.epoch,
+                             map_blob=encode_osdmap(newmap))
+        for sub in subs:
+            sub[2].send_message(msg)
+
+    def _schedule_tick(self) -> None:
+        if self._stop:
+            return
+        if self._tick_timer is not None:
+            # idempotent: a joiner schedules during probing and again
+            # via set_monmap on join — never run two timer chains
+            self._tick_timer.cancel()
+        self._tick_timer = threading.Timer(self.TICK_INTERVAL, self._tick)
+        self._tick_timer.daemon = True
+        self._tick_timer.start()
+
+    _probe_last = 0.0
+
+    def _tick(self) -> None:
+        try:
+            e, p = self.elector, self.paxos
+            if self._probe_addrs and e is None:
+                if time.time() - self._probe_last > 1.0:
+                    self._send_probes()
+            if e:
+                e.tick()
+            if p:
+                p.tick()
+            if self.is_leader() and self.osdmap.fs_db:
+                self._check_mds_failures()
+            if self.is_leader():
+                self._maybe_rotate_service_keys()
+                self._check_mgr_map()
+                self._check_health_transition()
+                self._maybe_seed_mon_db()
+            self._maybe_fix_my_addr()
+        finally:
+            self._schedule_tick()
+
+    MGR_SUB_GRACE = 12.0
+
+    def _live_mgr_subs(self) -> dict:
+        """mgr.* subscriptions whose session is up AND recently
+        renewed (subscribers renew every ~5 s)."""
+        now = time.time()
+        with self._lock:
+            return {n: s[0] for n, s in self._subs.items()
+                    if n.startswith("mgr.")
+                    and not getattr(s[2], "_down", False)
+                    and now - (s[3] if len(s) > 3 else now)
+                    < self.MGR_SUB_GRACE}
+
+    #: beacons renew every ~5 s: the grace spans two-plus periods so a
+    #: single starved timer tick (1-core hosts) never demotes a healthy
+    #: active; matches MGR_SUB_GRACE so the two liveness sources agree
+    MGR_BEACON_GRACE = 12.0
+
+    def _live_mgrs(self) -> dict[str, dict]:
+        """name -> {addr, modules} for every mgr whose beacon is fresh
+        and whose session is up (a SIGKILLed mgr's dead connection
+        drops it instantly, without waiting out the grace).  Plain
+        mgr.* subscriptions count as beacons too, so an older mgr that
+        never beacons still registers — reusing the last-known module
+        list, never wiping it (a map whose only change is modules
+        flapping to [] would churn paxos epochs for nothing)."""
+        now = time.time()
+        out: dict[str, dict] = {}
+        with self._lock:
+            for n, b in self._mgr_beacons.items():
+                if not getattr(b[2], "_down", False) and b[3] \
+                        and now - b[0] < self.MGR_BEACON_GRACE:
+                    out[n] = {"addr": b[1], "modules": b[4]}
+            known = {n: b[4] for n, b in self._mgr_beacons.items()}
+        for n, addr in self._live_mgr_subs().items():
+            out.setdefault(n, {"addr": addr,
+                               "modules": known.get(n, [])})
+        return out
+
+    def _check_mgr_map(self) -> None:
+        """Publish/maintain the MgrMap (MgrMonitor.cc:47-120 reduced):
+        keep the current active while its beacon lives; promote the
+        first live standby when it dies; list the rest as standbys.
+        OSDs and clients learn the change through their map
+        subscription; a promoted standby sees itself named and loads
+        its module set (see MgrDaemon._check_activation)."""
+        live = self._live_mgrs()
+        cur = self.osdmap.mgr_db
+        if not live and not cur:
+            return
+        desired: dict = {}
+        if live:
+            cur_name = (cur or {}).get("active_name")
+            if cur_name in live \
+                    and live[cur_name]["addr"] == cur.get("addr"):
+                name = cur_name          # incumbent keeps the role
+            else:
+                name = sorted(live)[0]   # promotion
+            desired = {
+                "active_name": name,
+                "addr": live[name]["addr"],
+                "modules": live[name]["modules"],
+                "standbys": [{"name": n, "addr": live[n]["addr"]}
+                             for n in sorted(live) if n != name],
+            }
+
+        if self.osdmap.mgr_db == desired:
+            return
+        old_active = (cur or {}).get("active_name")
+        new_active = desired.get("active_name")
+
+        def fn(m: OSDMap, desired=desired):
+            if m.mgr_db == desired:
+                return False
+            m.mgr_db = desired
+
+        def log_after():
+            # runs after the mutation: log only a transition that
+            # actually COMMITTED, deduped against the last logged
+            # active (pending paxos rounds re-enqueue this every tick)
+            if self.osdmap.mgr_db != desired \
+                    or old_active == new_active \
+                    or self._mgr_logged_active == new_active:
+                return
+            self._mgr_logged_active = new_active
+            if new_active is None:
+                self._clog(PRIO_WARN, "no active mgr (last was %s)",
+                           old_active)
+            else:
+                self._clog(PRIO_INFO, "mgr %s is now active%s",
+                           new_active,
+                           f" (was {old_active})" if old_active else "")
+        self._work_q.put(("mgr_map", (fn, log_after), None))
+
+    def _maybe_rotate_service_keys(self) -> None:
+        """Leader: advance stale service-key generations (KeyServer
+        rotation) through paxos so every mon grants/validates alike."""
+        svc = self.osdmap.auth_db.get("__svc__")
+        if not svc:
+            return
+        now = time.time()
+        stale = any(now - s.get("rotated_at", 0) >= self.cephx_rotation
+                    for s in svc.values())
+        if not stale:
+            return
+
+        def fn(m: OSDMap):
+            return self._keyserver(m.auth_db).maybe_rotate() or False
+        self._work_q.put(("rotate_keys", fn, None))
+
+    # -- FSMap / MDS cluster (MDSMonitor analog) ------------------------------
+
+    MDS_BEACON_GRACE = 6.0
+
+    def _check_mds_failures(self) -> None:
+        """Leader tick: a rank whose gid stopped beaconing is failed;
+        promote a standby into it (MDSMonitor::maybe_replace_gid)."""
+        now = time.time()
+        if self._mds_watch_since is None:
+            self._mds_watch_since = now
+        fs = self.osdmap.fs_db
+        dead = []
+        for rank, ent in fs.get("ranks", {}).items():
+            seen = self._mds_beacons.get(ent["gid"])
+            t0 = seen[0] if seen is not None else self._mds_watch_since
+            if now - t0 > self.MDS_BEACON_GRACE:
+                dead.append((rank, ent["gid"]))
+        if not dead:
+            return
+        self._work_q.put(("mds_failover", dead, None))
+
+    def _do_mds_failover(self, dead: list) -> None:
+        def fn(m: OSDMap):
+            fs = m.fs_db
+            if not fs:
+                return False
+            changed = False
+            for rank, gid in dead:
+                ent = fs.get("ranks", {}).get(rank)
+                if ent is None or ent["gid"] != gid:
+                    continue    # already replaced
+                del fs["ranks"][rank]
+                changed = True
+                if fs.get("standbys"):
+                    nxt = fs["standbys"].pop(0)
+                    fs["ranks"][rank] = nxt
+                    dout("mon", 1, "fsmap: rank %s failed (gid %d), "
+                         "promoting gid %d", rank, gid, nxt["gid"])
+                else:
+                    dout("mon", 1, "fsmap: rank %s failed (gid %d), "
+                         "no standby", rank, gid)
+            return changed     # False = no paxos round for a stale item
+        self._mutate(fn)
+
+    def _do_mds_beacon(self, msg) -> None:
+        """Worker-thread half: FSMap mutations for a new/boot gid."""
+        def fn(m: OSDMap):
+            fs = m.fs_db
+            if not fs:
+                return False
+            ranks = fs.setdefault("ranks", {})
+            standbys = fs.setdefault("standbys", [])
+            known = {e["gid"] for e in ranks.values()} | \
+                    {e["gid"] for e in standbys}
+            if msg.gid in known:
+                return False
+            ent = {"gid": msg.gid, "addr": msg.addr}
+            for r in range(int(fs.get("max_mds", 1))):
+                if str(r) not in ranks:
+                    ranks[str(r)] = ent
+                    dout("mon", 2, "fsmap: gid %d -> rank %d",
+                         msg.gid, r)
+                    return None
+            standbys.append(ent)
+            return None
+        self._mutate(fn)
+
+    def _beacon_ack(self, msg) -> None:
+        fs = self.osdmap.fs_db
+        rank = -1
+        bal_rank, bal_load = -1, 0.0
+        with self._lock:
+            for r, ent in fs.get("ranks", {}).items():
+                if ent["gid"] == msg.gid:
+                    rank = int(r)
+                load = self._mds_beacons.get(ent["gid"], (0, "", 0.0))[2]
+                if bal_rank < 0 or load < bal_load:
+                    bal_rank, bal_load = int(r), load
+        msg.connection.send_message(MMDSBeacon(
+            gid=msg.gid, addr=msg.addr, state="ack", rank=rank,
+            bal_rank=bal_rank, bal_load=bal_load,
+            meta_pool=fs.get("metadata_pool", -1) if fs else -1,
+            data_pool=fs.get("data_pool", -1) if fs else -1))
+
+    # -- the mutation path (worker thread only) -------------------------------
+
+    def _work_loop(self) -> None:
+        while True:
+            item = self._work_q.get()
+            if item is None:
+                return
+            kind, payload, reply_to = item
+            try:
+                if kind == "bootstrap":
+                    self._do_bootstrap()
+                elif kind == "cmd":
+                    out, res = self.handle_command(payload)
+                    if reply_to is not None:
+                        con, tid, fwd = reply_to
+                        if fwd is None:
+                            con.send_message(MMonCommandAck(
+                                tid=tid, result=res, output=out))
+                        else:
+                            con.send_message(MMonForwardAck(
+                                fwd_tid=fwd, result=res, output=out))
+                elif kind == "boot":
+                    self._do_boot(payload)
+                elif kind == "failure":
+                    self._do_failure(payload)
+                elif kind == "mds_beacon":
+                    self._do_mds_beacon(payload)
+                elif kind == "mds_failover":
+                    self._do_mds_failover(payload)
+                elif kind in ("rotate_keys", "mgr_map"):
+                    if isinstance(payload, tuple):
+                        fn, after = payload
+                        self._mutate(fn)
+                        after()
+                    else:
+                        self._mutate(payload)
+            except Exception:
+                from ceph_tpu_torch.common.logging import get_logger
+                get_logger("mon").exception("mon.%d work item failed",
+                                            self.mon_id)
+
+    def _mutate(self, fn) -> bool:
+        """Run fn on a copy of the map; commit through Paxos on change.
+        fn returns False for a no-op.  Worker thread only."""
+        if not self.is_leader():
+            return False
+        with self._lock:
+            m = decode_osdmap(encode_osdmap(self.osdmap, with_auth=True))
+        if fn(m) is False:
+            return True  # nothing to do
+        m.epoch += 1
+        # the paxos value is mon-internal: it is the ONE encoding that
+        # carries the auth key table (peons/restarts restore it from
+        # here); every client/OSD-facing broadcast re-encodes stripped
+        blob = encode_osdmap(m, with_auth=True)
+        p = self.paxos
+        if p is None:      # removed from the monmap mid-command
+            return False
+        return p.propose_and_wait(blob)
+
+    def _keyserver(self, auth_db: dict):
+        raise NotImplementedError(
+            "the cephx key server needs ceph_tpu_torch/auth, not ported "
+            "yet (ROADMAP.md Queue 1 item 7)")
+
+    def _do_bootstrap(self) -> None:
+        p = self.paxos
+        if p is None or p.last_committed > 0:
+            return
+
+        def fn(m: OSDMap):
+            m.crush = CrushMap()
+            m.crush.add_bucket(
+                make_bucket(-1, CRUSH_BUCKET_STRAW2, 2, [], []))
+            # seed the committed monmap from the static boot config so
+            # `mon add/rm` has a base to mutate and probing joiners get
+            # an authoritative member set
+            m.mon_db = {"epoch": 1,
+                        "mons": {str(r): a
+                                 for r, a in self.monmap.items()}}
+            if self._cephx_seed:
+                # commit the seed + fresh rotating service keys
+                m.auth_db.update(self._cephx_seed)
+                ks = self._keyserver(m.auth_db)
+                for svc in ks.SERVICES:
+                    ks._svc(svc)
+        self._mutate(fn)
+
+    # -- dispatch -------------------------------------------------------------
+
+    def ms_dispatch(self, msg) -> bool:
+        if self._stop:
+            return True  # stopping mon answers nothing (zombie guard)
+        if isinstance(msg, MMonProbe):
+            self._handle_probe(msg)
+            return True
+        if isinstance(msg, MMonElection):
+            e = self.elector
+            if e:
+                e.handle(msg)
+            return True
+        if isinstance(msg, MMonPaxos):
+            p = self.paxos
+            if p:
+                p.handle(msg)
+            return True
+        if isinstance(msg, MMonCommand):
+            self._handle_command_msg(msg)
+            return True
+        if isinstance(msg, MMonForward):
+            # only a fellow mon may forward (it attests the original
+            # caller's identity inside the blob; a client sending this
+            # directly could forge any identity)
+            if self._cephx_seed:
+                ent = getattr(msg.connection, "auth_entity", None)
+                if not (ent or "").startswith("mon."):
+                    return True
+            import json
+            cmd = json.loads(msg.cmd_blob.decode())
+            self._work_q.put(("cmd", cmd,
+                              (msg.connection, msg.cmd_tid, msg.fwd_tid)))
+            return True
+        if isinstance(msg, MMonForwardAck):
+            with self._lock:
+                waiting = self._fwd_waiting.pop(msg.fwd_tid, None)
+            if waiting is not None:
+                con, tid = waiting
+                con.send_message(MMonCommandAck(
+                    tid=tid, result=msg.result, output=msg.output))
+            return True
+        if isinstance(msg, MOSDBoot):
+            self._work_q.put(("boot", msg, None))
+            return True
+        if isinstance(msg, MMonSubscribe):
+            with self._lock:
+                entity = (msg.connection.peer_name
+                          or EntityName.parse(msg.name))
+                # map pushes ride the SUBSCRIBER'S OWN connection (the
+                # session it authenticated): dialing its listener back
+                # would need credentials no one holds for "client"
+                # targets, and a fake push must be impossible anyway
+                self._subs[msg.name] = (msg.addr, entity,
+                                        msg.connection, time.time())
+                epoch = self.osdmap.epoch
+                reply = None
+                if epoch > 0 and epoch > msg.epoch:
+                    # catch the subscriber up with deltas when its gap
+                    # is covered by history; full map otherwise
+                    wanted = range(msg.epoch + 1, epoch + 1)
+                    if msg.epoch > 0 and all(
+                            e in self._inc_history for e in wanted):
+                        reply = MOSDMapMsg(
+                            epoch=epoch,
+                            incs=[(e, self._inc_history[e])
+                                  for e in wanted])
+                    else:
+                        reply = MOSDMapMsg(
+                            epoch=epoch,
+                            map_blob=encode_osdmap(self.osdmap))
+                # (renewal from a current subscriber: nothing to send)
+            if reply is not None:
+                msg.connection.send_message(reply)
+            return True
+        if isinstance(msg, MPGStats):
+            with self._lock:
+                self._pg_stats[msg.osd_id] = {
+                    "states": dict(msg.states),
+                    "degraded_objects": msg.degraded_objects,
+                    "received": time.time()}
+            return True
+        if isinstance(msg, MOSDFailure):
+            self._work_q.put(("failure", msg, None))
+            return True
+        if isinstance(msg, MMDSBeacon):
+            with self._lock:
+                self._mds_beacons[msg.gid] = (time.time(), msg.addr,
+                                              msg.load)
+                fs = self.osdmap.fs_db
+                known = bool(fs) and any(
+                    e["gid"] == msg.gid
+                    for e in list(fs.get("ranks", {}).values())
+                    + fs.get("standbys", []))
+            if fs and not known and self.is_leader():
+                self._work_q.put(("mds_beacon", msg, None))
+            self._beacon_ack(msg)
+            return True
+        if isinstance(msg, MOSDPing):
+            return True  # mon liveness probe, nothing to do
+        if isinstance(msg, MMgrBeacon):
+            with self._lock:
+                self._mgr_beacons[msg.name] = (
+                    time.time(), msg.addr, msg.connection,
+                    msg.available, list(msg.modules))
+            return True
+        if isinstance(msg, MLog):
+            self.logstore.append(msg.name, msg.entries)
+            return True
+        return False
+
+    def _handle_command_msg(self, msg: MMonCommand) -> None:
+        # the AUTHENTICATED identity comes from the connection's cephx
+        # handshake, never from the command body (strip spoof attempts)
+        msg.cmd.pop("_auth_entity", None)
+        ent = getattr(msg.connection, "auth_entity", None)
+        if ent is not None:
+            msg.cmd["_auth_entity"] = ent
+        if self.is_leader():
+            self._work_q.put(("cmd", msg.cmd,
+                              (msg.connection, msg.tid, None)))
+            return
+        # peon: forward to the leader (MForward)
+        e = self.elector
+        leader = e.leader if e else None
+        if leader is None or leader == self.mon_id:
+            msg.connection.send_message(MMonCommandAck(
+                tid=msg.tid, result=-11, output="no quorum"))
+            return
+        import json
+        with self._lock:
+            self._fwd_tid += 1
+            fwd = self._fwd_tid
+            self._fwd_waiting[fwd] = (msg.connection, msg.tid)
+        self._send_mon(leader, MMonForward(
+            fwd_tid=fwd, cmd_tid=msg.tid,
+            cmd_blob=json.dumps(msg.cmd).encode()))
+
+    # -- osd lifecycle (worker thread) ----------------------------------------
+
+    def _do_boot(self, msg: MOSDBoot) -> None:
+        def fn(m: OSDMap):
+            osd = msg.osd_id
+            if (osd < m.max_osd and m.is_up(osd)
+                    and osd < len(m.osd_addrs)
+                    and m.osd_addrs[osd] == msg.addr):
+                return False  # dup boot (osd sends to every mon)
+            if osd >= m.max_osd:
+                m.set_max_osd(osd + 1)
+            newly_known = not m.exists(osd)
+            was_down = m.exists(osd) and not m.is_up(osd)
+            m.mark_up(osd, weight=m.osd_weight[osd] or 0x10000)
+            m.osd_addrs[osd] = msg.addr
+            if was_down:
+                # a marked-down osd that boots right back was laggy, not
+                # dead: fold this episode into the decaying laggy history
+                # that check_failure uses to extend the grace
+                # (OSDMonitor::prepare_boot xinfo update)
+                xi = m.get_xinfo(osd)
+                if xi.down_stamp > 0:
+                    w = float(self.ctx.conf.get("mon_osd_laggy_weight"))
+                    cap = float(self.ctx.conf.get(
+                        "mon_osd_laggy_max_interval"))
+                    interval = min(time.time() - xi.down_stamp, cap)
+                    xi.laggy_interval = (
+                        w * interval + (1 - w) * xi.laggy_interval)
+                    xi.laggy_probability = w + (1 - w) * xi.laggy_probability
+            if newly_known:
+                self._crush_add_osd(m, osd, 0x10000)
+        with self._lock:
+            self._osd_addrs[msg.osd_id] = msg.addr
+            self._failure_reports.pop(msg.osd_id, None)
+        was_up = self.osdmap.is_up(msg.osd_id)
+        if self._mutate(fn) and not was_up \
+                and self.osdmap.is_up(msg.osd_id):
+            self._clog(PRIO_INFO, "osd.%d boot (%s)", msg.osd_id,
+                       msg.addr)
+
+    def _crush_add_osd(self, m: OSDMap, osd: int, weight: int) -> None:
+        """Attach a booting osd to the map's hierarchy (the default
+        crush-location hook: straight under the root for flat maps, in
+        a fresh sibling bucket when the root holds buckets — so an
+        operator map injected via setcrushmap keeps its failure-domain
+        shape instead of gaining stray devices on a hardcoded -1)."""
+        crush = m.crush
+        referenced = _referenced_bucket_ids(crush)
+        root = next((b for b in crush.buckets
+                     if b is not None and b.id not in referenced), None)
+        if root is None:
+            # boot raced the bootstrap commit: create the root here
+            crush.add_bucket(
+                make_bucket(-1, CRUSH_BUCKET_STRAW2, 2, [], []))
+            root = crush.bucket(-1)
+        child_buckets = [crush.bucket(it) for it in root.items if it < 0]
+        if child_buckets:
+            # hierarchical map: wrap the device in its own bucket of
+            # the same type as the root's children (host-per-osd)
+            proto = child_buckets[0]
+            nb = make_bucket(crush.next_bucket_id(), proto.alg,
+                             proto.type, [osd], [weight])
+            crush.add_bucket(nb)
+            names = m.crush_names.get("items")
+            if isinstance(names, dict):
+                names[str(nb.id)] = f"osd-{osd}-host"
+            root.items.append(nb.id)
+            root.item_weights.append(nb.weight)
+            root.weight += nb.weight
+        else:
+            root.items.append(osd)
+            root.item_weights.append(weight)
+            root.weight += weight
+        crush.max_devices = max(crush.max_devices, osd + 1)
+
+    def _reporter_subtree(self, osd: int) -> int:
+        """The failure-domain key a reporter counts under: its immediate
+        parent bucket in the crush hierarchy (host level for two-level
+        maps — mon_osd_reporter_subtree_level semantics), or the osd id
+        itself on flat maps where the parent is the root."""
+        return self._reporter_subtrees([osd])[osd]
+
+    def _reporter_subtrees(self, osds) -> dict[int, int]:
+        """Resolve many reporters in one pass over the bucket array
+        (peers re-file reports every heartbeat tick; per-reporter scans
+        would be O(reporters x buckets) per report)."""
+        crush = self.osdmap.crush
+        referenced = _referenced_bucket_ids(crush)
+        out = {o: o for o in osds}
+        want = set(osds)
+        for b in crush.buckets:
+            if b is None or b.id not in referenced:
+                continue
+            for o in want & set(b.items):
+                out[o] = b.id
+        return out
+
+    def _failure_grace(self, osd: int, now: float) -> float:
+        """Adaptive grace (OSDMonitor::check_failure, OSDMonitor.cc:
+        2548-2572): an osd with a history of being marked down and
+        booting right back — laggy, not dead — earns extra grace
+        proportional to that history, decayed by time since last down."""
+        import math
+        grace = float(self.ctx.conf.get("osd_heartbeat_grace"))
+        if not int(self.ctx.conf.get("mon_osd_adjust_heartbeat_grace")):
+            return grace
+        xi = self.osdmap.get_xinfo(osd)
+        if xi.laggy_probability > 0 and xi.laggy_interval > 0:
+            halflife = float(self.ctx.conf.get("mon_osd_laggy_halflife"))
+            decay = math.exp(math.log(0.5) / halflife
+                             * max(now - xi.down_stamp, 0.0))
+            grace += decay * xi.laggy_interval * xi.laggy_probability
+        return grace
+
+    def _do_failure(self, msg: MOSDFailure) -> None:
+        need = int(self.ctx.conf.get("mon_osd_min_down_reporters"))
+        now = time.time()
+        with self._lock:
+            if msg.alive:
+                # reporter heard from the peer again: retract its report
+                # (OSDMonitor::process_failure FLAG_ALIVE path)
+                reports = self._failure_reports.get(msg.failed_osd)
+                if reports:
+                    reports.pop(msg.reporter, None)
+                    if not reports:
+                        self._failure_reports.pop(msg.failed_osd, None)
+                return
+            if not self.osdmap.is_up(msg.failed_osd):
+                return
+            reports = self._failure_reports.setdefault(msg.failed_osd, {})
+            reports[msg.reporter] = (now, msg.failed_for)
+            # a report is only a live witness while its reporter is still
+            # up and it is fresh — a reporter that died after filing can
+            # never retract, and peers re-file every heartbeat tick, so
+            # anything older than a few grace periods is stale
+            # (check_failure cancels reports from down reporters)
+            expiry = 2 * float(self.ctx.conf.get("osd_heartbeat_grace"))
+            for r in [r for r, (t, _ff) in reports.items()
+                      if not self.osdmap.is_up(r) or now - t > expiry]:
+                del reports[r]
+            if not reports:
+                self._failure_reports.pop(msg.failed_osd, None)
+                return
+            # reporters must span distinct failure domains
+            # (mon_osd_reporter_subtree_level: two osds on one host are
+            # one witness) and the peer must have been unreachable for
+            # the full — possibly laggy-extended — grace
+            subtrees = set(self._reporter_subtrees(list(reports)).values())
+            failed_for = max(ff for _t, ff in reports.values())
+            if (len(subtrees) < need
+                    or failed_for < self._failure_grace(msg.failed_osd, now)):
+                return
+            self._failure_reports.pop(msg.failed_osd, None)
+
+        def fn(m: OSDMap):
+            if not m.is_up(msg.failed_osd):
+                return False
+            m.mark_down(msg.failed_osd)
+        if self._mutate(fn) and not self.osdmap.is_up(msg.failed_osd):
+            self._clog(PRIO_WARN,
+                       "osd.%d marked down (%d reporters from %d "
+                       "subtrees, failed for %.1fs)", msg.failed_osd,
+                       len(reports), len(subtrees), failed_for)
+
+    # -- command table (MonCommands.h analog; worker thread) ------------------
+
+    #: with cephx identities, these need client.admin (minimal caps
+    #: floor; the reference's MonCap grammar is richer)
+    ADMIN_ONLY = ("auth get-or-create", "auth del", "auth ls",
+                  "auth get", "auth print-key", "config set",
+                  "config rm", "osd setcrushmap",
+                  "mon add", "mon rm")
+
+    def handle_command(self, cmd: dict) -> tuple[str, int]:
+        import json
+        prefix = cmd.get("prefix", "")
+        ent = cmd.get("_auth_entity")
+        if ent is not None and ent != "client.admin" \
+                and not ent.startswith("mon.") \
+                and prefix in self.ADMIN_ONLY:
+            # mon.* passes: a restarted mon re-commits its own address
+            # through `mon add` (_maybe_fix_my_addr)
+            return f"entity {ent!r} not authorized for {prefix!r}", -13
+        try:
+            if prefix == "auth get-ticket":
+                return self._cmd_auth_get_ticket(cmd)
+            if prefix == "auth rotating":
+                return self._cmd_auth_rotating(cmd)
+            if prefix == "status":
+                return json.dumps(self.status()), 0
+            if prefix in ("health", "health detail"):
+                return json.dumps(self._health_report(
+                    detail=(prefix == "health detail"
+                            or cmd.get("detail")))), 0
+            if prefix == "config set":
+                return self._cmd_config_set(cmd)
+            if prefix == "config get":
+                return self._cmd_config_get(cmd)
+            if prefix == "config rm":
+                return self._cmd_config_rm(cmd)
+            if prefix == "config dump":
+                return json.dumps(self.osdmap.config_db), 0
+            if prefix in ("config-key set", "config-key get",
+                          "config-key rm", "config-key dump"):
+                return self._cmd_config_key(prefix, cmd)
+            if prefix == "auth get-or-create":
+                return self._cmd_auth_get_or_create(cmd)
+            if prefix in ("auth get", "auth print-key"):
+                ent = str(cmd["entity"])
+                key = self.osdmap.auth_db.get(ent)
+                if not isinstance(key, str):
+                    return f"no key for {ent!r}", -2
+                if prefix == "auth print-key":
+                    return key, 0
+                return self._keyring(ent, key), 0
+            if prefix == "auth ls":
+                return json.dumps(sorted(
+                    e for e, v in self.osdmap.auth_db.items()
+                    if isinstance(v, str))), 0   # not the key server
+            if prefix == "auth del":
+                ent = str(cmd["entity"])
+                if ent not in self.osdmap.auth_db:
+                    return f"no key for {ent!r}", -2
+
+                def fn(m: OSDMap):
+                    if ent not in m.auth_db:
+                        return False
+                    del m.auth_db[ent]
+                if not self._mutate(fn):
+                    return "commit failed", -11
+                return "removed", 0
+            if prefix == "fs new":
+                return self._cmd_fs_new(cmd)
+            if prefix == "fs status":
+                fs = dict(self.osdmap.fs_db)
+                now = time.time()
+                with self._lock:
+                    fs["beacons"] = {
+                        str(g): round(now - t[0], 2)
+                        for g, t in self._mds_beacons.items()}
+                return json.dumps(fs), 0
+            if prefix == "fs set":
+                if str(cmd.get("var")) != "max_mds":
+                    return "only max_mds is settable", -22
+                n = int(cmd["val"])
+                if n < 1:
+                    return "max_mds must be >= 1", -22
+
+                def fn(m: OSDMap):
+                    if not m.fs_db:
+                        return False
+                    m.fs_db["max_mds"] = n
+                    # grow: promote standbys into the new ranks now
+                    ranks = m.fs_db.setdefault("ranks", {})
+                    sb = m.fs_db.setdefault("standbys", [])
+                    for r in range(n):
+                        if str(r) not in ranks and sb:
+                            ranks[str(r)] = sb.pop(0)
+                if not self._mutate(fn):
+                    return "commit failed", -11
+                return json.dumps({"max_mds": n}), 0
+            if prefix == "quorum_status":
+                e = self.elector
+                return json.dumps({
+                    "quorum": self.quorum(),
+                    "leader": e.leader if e else None,
+                    "election_epoch": e.epoch if e else 0}), 0
+            if prefix == "log last":
+                n = int(cmd.get("num", 100))
+                return json.dumps(self.logstore.last(
+                    n, channel=cmd.get("channel"),
+                    min_prio=int(cmd.get("level", 0)))), 0
+            if prefix == "log":
+                # operator-injected entry (`ceph log "..."`), fanned
+                # like any daemon's
+                self._clog(PRIO_INFO, "%s",
+                           str(cmd.get("message", "")))
+                return "{}", 0
+            if prefix == "mon dump":
+                db = self._current_mon_db()
+                return json.dumps({"epoch": db.get("epoch", 0),
+                                   "mons": db.get("mons", {}),
+                                   "quorum": self.quorum()}), 0
+            if prefix == "mon add":
+                return self._cmd_mon_add(cmd)
+            if prefix == "mon rm":
+                return self._cmd_mon_rm(cmd)
+            if prefix == "mgr dump":
+                # active mgr discovery (MgrMonitor::dump reduced): the
+                # mgr's map subscription carries its dialable address;
+                # clients re-target mgr-tier commands (pg dump, iostat)
+                # at it, like the reference's mgr command routing
+                if self.osdmap.mgr_db:
+                    return json.dumps(self.osdmap.mgr_db), 0
+                mgrs = self._live_mgr_subs()
+                if not mgrs:
+                    return json.dumps({"addr": ""}), 0
+                name = sorted(mgrs)[0]
+                return json.dumps({"active_name": name,
+                                   "addr": mgrs[name]}), 0
+            if prefix == "osd pool create":
+                return self._cmd_pool_create(cmd)
+            if prefix == "osd pool set":
+                return self._cmd_pool_set(cmd)
+            if prefix == "osd tree":
+                return json.dumps(self._cmd_tree()), 0
+            if prefix == "osd reweight":
+                w = float(cmd["weight"])
+                if not 0.0 <= w <= 1.0:
+                    return "weight must be in [0, 1]", -22
+                return self._cmd_osd_weight(int(cmd["id"]),
+                                            int(w * 0x10000))
+            if prefix == "osd reweight-by-utilization":
+                return ("osd reweight-by-utilization needs "
+                        "ceph_tpu_torch/balancer.py, not ported yet "
+                        "(ROADMAP.md Queue 1 item 7)"), -95
+            if prefix == "osd out":
+                return self._cmd_osd_weight(int(cmd["id"]), 0)
+            if prefix == "osd in":
+                return self._cmd_osd_weight(int(cmd["id"]), 0x10000)
+            if prefix == "osd down":
+                osd = int(cmd["id"])
+                if not self.osdmap.exists(osd):
+                    return f"osd.{osd} does not exist", -2
+
+                def fn(m: OSDMap):
+                    if not m.is_up(osd):
+                        return False
+                    m.mark_down(osd)
+                if not self._mutate(fn):
+                    return "commit failed", -11
+                return "marked down", 0
+            if prefix == "osd pool mksnap":
+                pool_id = int(cmd["pool"])
+                name = str(cmd["snap"])
+
+                def fn(m: OSDMap):
+                    p = m.pools[pool_id]
+                    p.snap_seq += 1
+                    p.snaps[p.snap_seq] = name
+                if not self._mutate(fn):
+                    return "commit failed", -11
+                # epoch rides the reply so clients can barrier on map
+                # propagation before trusting snapshot isolation
+                return json.dumps(
+                    {"snapid": self.osdmap.pools[pool_id].snap_seq,
+                     "epoch": self.osdmap.epoch}), 0
+            if prefix == "osd pool rmsnap":
+                pool_id = int(cmd["pool"])
+                name = str(cmd["snap"])
+                if name not in self.osdmap.pools[pool_id].snaps.values():
+                    return f"snap {name!r} does not exist", -2
+
+                def fn(m: OSDMap):
+                    p = m.pools[pool_id]
+                    sid = next((s for s, n in p.snaps.items()
+                                if n == name), None)
+                    if sid is None:
+                        return False
+                    del p.snaps[sid]
+                if not self._mutate(fn):
+                    return "commit failed", -11
+                return "removed", 0
+            if prefix == "osd pg-upmap-items":
+                pool_id, ps = (int(x) for x in
+                               str(cmd["pgid"]).split("."))
+                flat = [int(x) for x in cmd["id_pairs"]]
+                if len(flat) % 2:
+                    return "id_pairs must be from,to pairs", -22
+                pairs = [(flat[i], flat[i + 1])
+                         for i in range(0, len(flat), 2)]
+                if pool_id not in self.osdmap.pools:
+                    return f"pool {pool_id} does not exist", -2
+                if ps >= self.osdmap.pools[pool_id].pg_num:
+                    return f"pg {pool_id}.{ps} does not exist", -2
+                if not all(self.osdmap.exists(t) for _f, t in pairs):
+                    return "destination osd does not exist", -2
+
+                def fn(m: OSDMap):
+                    if pairs:
+                        m.pg_upmap_items[(pool_id, ps)] = pairs
+                    else:
+                        m.pg_upmap_items.pop((pool_id, ps), None)
+                if not self._mutate(fn):
+                    return "commit failed", -11
+                return json.dumps({"pgid": f"{pool_id}.{ps}",
+                                   "pairs": pairs}), 0
+            if prefix == "osd rm-pg-upmap-items":
+                pool_id, ps = (int(x) for x in
+                               str(cmd["pgid"]).split("."))
+                if (pool_id, ps) not in self.osdmap.pg_upmap_items:
+                    return "no upmap items for pg", -2
+
+                def fn(m: OSDMap):
+                    m.pg_upmap_items.pop((pool_id, ps), None)
+                if not self._mutate(fn):
+                    return "commit failed", -11
+                return "removed", 0
+            if prefix == "osd tier add":
+                base, cache = int(cmd["pool"]), int(cmd["tierpool"])
+                if base not in self.osdmap.pools \
+                        or cache not in self.osdmap.pools:
+                    return "no such pool", -2
+                if base == cache:
+                    return "a pool cannot be a tier of itself", -22
+                if self.osdmap.pools[cache].tier_of >= 0:
+                    return "tier pool already a tier", -22
+                if self.osdmap.pools[base].tier_of >= 0:
+                    return "base pool is itself a tier (no chains)", -22
+                if any(p.tier_of == cache
+                       for p in self.osdmap.pools.values()):
+                    return "tier pool has tiers of its own", -22
+                if self.osdmap.pools[cache].is_erasure():
+                    return "cache pool must be replicated", -22
+
+                def fn(m: OSDMap):
+                    m.pools[cache].tier_of = base
+                if not self._mutate(fn):
+                    return "commit failed", -11
+                return f"pool {cache} is now a tier of {base}", 0
+            if prefix == "osd tier cache-mode":
+                cache = int(cmd["pool"])
+                mode = str(cmd["mode"])
+                if mode not in ("none", "writeback"):
+                    return f"unknown cache mode {mode!r}", -22
+                if self.osdmap.pools[cache].tier_of < 0:
+                    return "pool is not a tier", -22
+
+                def fn(m: OSDMap):
+                    m.pools[cache].cache_mode = \
+                        "" if mode == "none" else mode
+                if not self._mutate(fn):
+                    return "commit failed", -11
+                return f"cache-mode {mode}", 0
+            if prefix == "osd tier set-overlay":
+                base, cache = int(cmd["pool"]), int(cmd["overlaypool"])
+                if self.osdmap.pools[cache].tier_of != base:
+                    return "overlay pool is not a tier of pool", -22
+
+                def fn(m: OSDMap):
+                    m.pools[base].read_tier = cache
+                    m.pools[base].write_tier = cache
+                if not self._mutate(fn):
+                    return "commit failed", -11
+                return json.dumps({"epoch": self.osdmap.epoch}), 0
+            if prefix == "osd tier remove-overlay":
+                base = int(cmd["pool"])
+
+                def fn(m: OSDMap):
+                    m.pools[base].read_tier = -1
+                    m.pools[base].write_tier = -1
+                if not self._mutate(fn):
+                    return "commit failed", -11
+                return json.dumps({"epoch": self.osdmap.epoch}), 0
+            if prefix == "osd tier remove":
+                base, cache = int(cmd["pool"]), int(cmd["tierpool"])
+                if self.osdmap.pools[cache].tier_of != base:
+                    return "pool is not a tier of base", -22
+                if self.osdmap.pools[base].write_tier == cache \
+                        or self.osdmap.pools[base].read_tier == cache:
+                    return "remove the overlay first", -16
+
+                def fn(m: OSDMap):
+                    m.pools[cache].tier_of = -1
+                    m.pools[cache].cache_mode = ""
+                if not self._mutate(fn):
+                    return "commit failed", -11
+                return "tier removed", 0
+            if prefix == "qos set":
+                # per-tenant dmclock profile -> the replicated qos_db
+                # (every OSD folds it into its scheduler on the next
+                # map push; `ceph qos set tenant=gold reservation=100
+                # weight=10 limit=0`)
+                from ceph_tpu_torch.qos.dmclock import QosProfile
+                tenant = str(cmd["tenant"])
+                if not tenant:
+                    return "empty tenant", -22
+                prof = QosProfile(
+                    reservation=float(cmd.get("reservation", 0.0)),
+                    weight=float(cmd.get("weight", 1.0)),
+                    limit=float(cmd.get("limit", 0.0)))
+                try:
+                    prof.validate()
+                except ValueError as e:
+                    return str(e), -22
+
+                def fn(m: OSDMap):
+                    m.qos_db[tenant] = prof.to_dict()
+                if not self._mutate(fn):
+                    return "commit failed", -11
+                return json.dumps({"tenant": tenant,
+                                   **prof.to_dict(),
+                                   "epoch": self.osdmap.epoch}), 0
+            if prefix == "qos rm":
+                tenant = str(cmd["tenant"])
+                if tenant not in self.osdmap.qos_db:
+                    return f"no qos profile for {tenant!r}", -2
+
+                def fn(m: OSDMap):
+                    m.qos_db.pop(tenant, None)
+                if not self._mutate(fn):
+                    return "commit failed", -11
+                return f"qos profile for {tenant} removed", 0
+            if prefix == "qos ls":
+                return json.dumps(self.osdmap.qos_db), 0
+            if prefix == "qos slo set":
+                # per-tenant SLO objectives -> the replicated slo_db
+                # (the mgr slo module evaluates them as burn rates;
+                # `ceph qos slo set tenant=gold
+                # reservation_attainment=0.9 p99_latency_s=0.05
+                # device_share=0.5`)
+                from ceph_tpu_torch.qos.dmclock import SloObjective
+                tenant = str(cmd["tenant"])
+                if not tenant:
+                    return "empty tenant", -22
+                slo = SloObjective(
+                    reservation_attainment=float(
+                        cmd.get("reservation_attainment", 0.0)),
+                    p99_latency_s=float(cmd.get("p99_latency_s", 0.0)),
+                    device_share=float(cmd.get("device_share", 0.0)))
+                try:
+                    slo.validate()
+                except ValueError as e:
+                    return str(e), -22
+
+                def fn(m: OSDMap):
+                    m.slo_db[tenant] = slo.to_dict()
+                if not self._mutate(fn):
+                    return "commit failed", -11
+                return json.dumps({"tenant": tenant,
+                                   **slo.to_dict(),
+                                   "epoch": self.osdmap.epoch}), 0
+            if prefix == "qos slo rm":
+                tenant = str(cmd["tenant"])
+                if tenant not in self.osdmap.slo_db:
+                    return f"no slo for {tenant!r}", -2
+
+                def fn(m: OSDMap):
+                    m.slo_db.pop(tenant, None)
+                if not self._mutate(fn):
+                    return "commit failed", -11
+                return f"slo for {tenant} removed", 0
+            if prefix == "qos slo ls":
+                return json.dumps(self.osdmap.slo_db), 0
+            if prefix == "osd getmap":
+                return json.dumps({"epoch": self.osdmap.epoch}), 0
+            if prefix == "osd getcrushmap":
+                import base64
+                from ceph_tpu_torch.msg.encoding import Encoder
+                from ceph_tpu_torch.osd.map_codec import encode_crush
+                e = Encoder()
+                encode_crush(self.osdmap.crush, e)
+                return json.dumps({
+                    "epoch": self.osdmap.epoch,
+                    "names": self.osdmap.crush_names,
+                    "crush_b64":
+                        base64.b64encode(e.tobytes()).decode()}), 0
+            if prefix == "osd setcrushmap":
+                import base64
+                from ceph_tpu_torch.msg.encoding import Decoder
+                from ceph_tpu_torch.osd.map_codec import decode_crush
+                blob = base64.b64decode(cmd["crush_b64"])
+                try:
+                    crush = decode_crush(Decoder(blob))
+                except Exception as e:
+                    return f"cannot decode crush map: {e}", -22
+                # every pool's rule must survive (OSDMonitor
+                # prepare_newcrush validation)
+                for pid, p in self.osdmap.pools.items():
+                    r = (crush.rules[p.crush_rule]
+                         if 0 <= p.crush_rule < crush.max_rules
+                         else None)
+                    if r is None:
+                        return (f"pool {pid} references rule "
+                                f"{p.crush_rule} absent from new map"), -22
+                if crush.max_devices > self.osdmap.max_osd:
+                    return (f"crush map addresses {crush.max_devices} "
+                            f"devices but max_osd is "
+                            f"{self.osdmap.max_osd}"), -22
+
+                names = cmd.get("names") or {}
+
+                def fn(m: OSDMap):
+                    m.crush = crush
+                    m.crush_names = names
+                if not self._mutate(fn):
+                    return "commit failed", -11
+                return json.dumps({"epoch": self.osdmap.epoch}), 0
+            return f"unknown command {prefix!r}", -22
+        except (KeyError, ValueError, IndexError) as e:
+            return f"command failed: {e}", -22
+
+    def _cmd_auth_get_ticket(self, cmd) -> tuple[str, int]:
+        """Ticket grant (CephxServiceHandler): the caller's cephx
+        identity gets a ticket for one service — unless the entity has
+        been deleted, which is how `auth del` cuts future access."""
+        ent = cmd.get("_auth_entity")
+        if ent is None:
+            return "no authenticated identity on this connection", -13
+        db = self.osdmap.auth_db
+        if (db.get(ent) is None or not isinstance(db.get(ent), str)) \
+                and self._cephx_seed.get(ent) is None:
+            return f"entity {ent!r} unknown or revoked", -13
+        service = str(cmd.get("service", ""))
+        svc_state = self.osdmap.auth_db.get("__svc__")
+        if svc_state is None:
+            return "cephx key server not initialized", -22
+        ks = self._keyserver({"__svc__": svc_state})
+        if service not in ks.SERVICES:
+            return f"unknown service {service!r}", -22
+        from ceph_tpu_torch.auth.cephx import ticket_to_json
+        return ticket_to_json(ks.grant(service, ent)), 0
+
+    def _cmd_auth_rotating(self, cmd) -> tuple[str, int]:
+        """Rotating service keys for a service DAEMON (its validation
+        material).  Only daemons of that service (or admin) may fetch."""
+        import json
+        ent = cmd.get("_auth_entity")
+        service = str(cmd.get("service", ""))
+        if ent is not None and ent != "client.admin" \
+                and not ent.startswith(service + "."):
+            return f"entity {ent!r} may not read {service!r} keys", -13
+        svc_state = self.osdmap.auth_db.get("__svc__")
+        if svc_state is None:
+            return "cephx key server not initialized", -22
+        ks = self._keyserver({"__svc__": svc_state})
+        if service not in ks.SERVICES:
+            return f"unknown service {service!r}", -22
+        return json.dumps(ks.rotating_keys(service)), 0
+
+    def _cmd_fs_new(self, cmd) -> tuple[str, int]:
+        """`ceph fs new <name> <metadata_pool> <data_pool>`
+        (MDSMonitor's filesystem creation)."""
+        import json
+        name = str(cmd.get("fs_name", "cephfs"))
+        meta = int(cmd["metadata"])
+        data = int(cmd["data"])
+        if meta not in self.osdmap.pools or data not in self.osdmap.pools:
+            return "metadata/data pool does not exist", -2
+        if self.osdmap.fs_db:
+            return f"filesystem {self.osdmap.fs_db['name']!r} exists", -17
+
+        def fn(m: OSDMap):
+            if m.fs_db:
+                return False
+            m.fs_db = {"name": name, "max_mds": 1,
+                       "metadata_pool": meta, "data_pool": data,
+                       "ranks": {}, "standbys": []}
+        if not self._mutate(fn):
+            return "commit failed", -11
+        return json.dumps({"fs_name": name}), 0
+
+    def _cmd_pool_create(self, cmd) -> tuple[str, int]:
+        result: list[int] = []
+
+        def fn(m: OSDMap):
+            pool_id = max(m.pools, default=0) + 1
+            pg_num = int(cmd.get("pg_num",
+                                 self.ctx.conf.get("osd_pool_default_pg_num")))
+            ptype = (POOL_TYPE_ERASURE if cmd.get("pool_type") == "erasure"
+                     else 1)
+            profile = {}
+            if ptype == POOL_TYPE_ERASURE:
+                profile = {"plugin": cmd.get("plugin", "jerasure"),
+                           "k": str(cmd.get("k", 4)),
+                           "m": str(cmd.get("m", 2))}
+                # plugin-specific keys ride through (shec's c, lrc's
+                # mapping/layers, jerasure/isa techniques); non-string
+                # values must be JSON, not python repr
+                for key in ("technique", "c", "mapping", "layers"):
+                    if key in cmd:
+                        v = cmd[key]
+                        profile[key] = (v if isinstance(v, str)
+                                        else json.dumps(v))
+                if profile["plugin"] in ("jerasure", "isa"):
+                    profile.setdefault("technique", "reed_sol_van")
+                # validate the profile NOW (reference: OSDMonitor
+                # get_erasure_code at pool create) and take the true
+                # chunk geometry from the codec — lrc's width comes from
+                # its mapping, not k+m
+                from ceph_tpu_torch.ec import registry_instance
+                codec = registry_instance().factory(
+                    profile["plugin"], dict(profile),
+                    device=self.ctx.device)
+                size = codec.get_chunk_count()
+                data_chunks = codec.get_data_chunk_count()
+                rule = add_simple_rule(m.crush, -1, 0, "indep")
+            else:
+                rule = add_simple_rule(m.crush, -1, 0, "firstn")
+                size = int(cmd.get("size",
+                                   self.ctx.conf.get("osd_pool_default_size")))
+            if "min_size" in cmd:
+                min_size = int(cmd["min_size"])
+            elif ptype == POOL_TYPE_ERASURE:
+                # k+1, not k: an EC write acked at exactly k live shards
+                # has zero redundancy margin — one more store loss is
+                # data loss (the thrasher caught this; real deployments
+                # default min_size = k+1 for the same reason)
+                min_size = min(data_chunks + 1, size)
+            else:
+                min_size = max(1, size - 1)
+            m.pools[pool_id] = PGPool(
+                pool_id=pool_id, type=ptype, size=size,
+                min_size=min_size,
+                crush_rule=rule, pg_num=pg_num, ec_profile=profile)
+            result.append(pool_id)
+        if not self._mutate(fn):
+            return "commit failed", -11
+        return f"pool {result[0]} created", 0
+
+    # -- auth key table (mon/AuthMonitor analog) ------------------------------
+
+    @staticmethod
+    def _keyring(entity: str, key: str) -> str:
+        """The keyring file shape `ceph auth get` emits."""
+        return f"[{entity}]\n\tkey = {key}\n"
+
+    def _cmd_auth_get_or_create(self, cmd) -> tuple[str, int]:
+        """Issue (or return the existing) key for an entity — the
+        AuthMonitor's create-or-fetch flow.  Keys are random per entity
+        and replicate through Paxos with the map."""
+        import base64
+        import os as _os
+        ent = str(cmd["entity"])
+        existing = self.osdmap.auth_db.get(ent)
+        if existing is not None:
+            return self._keyring(ent, existing), 0
+        newkey = base64.b64encode(_os.urandom(16)).decode()
+
+        def fn(m: OSDMap):
+            # another proposer may have won the race; keep the winner
+            m.auth_db.setdefault(ent, newkey)
+        if not self._mutate(fn):
+            return "commit failed", -11
+        return self._keyring(ent, self.osdmap.auth_db[ent]), 0
+
+    # -- central config-db (mon/ConfigMonitor.h:13 analog) --------------------
+
+    def _cmd_config_set(self, cmd) -> tuple[str, int]:
+        import json
+        who = str(cmd.get("who", "global"))
+        name = str(cmd["name"])
+        value = str(cmd["value"])
+        # reject unknown option names up front (the reference's config
+        # set does): a typo silently persisted-but-never-applied is the
+        # worst operator experience
+        from ceph_tpu_torch.common.config import OPTIONS
+        if name not in OPTIONS:
+            return f"unknown config option {name!r}", -22
+        try:
+            OPTIONS[name].cast(value)
+        except (ValueError, TypeError):
+            return (f"invalid value {value!r} for {name!r} "
+                    f"({OPTIONS[name].type})"), -22
+
+        def fn(m: OSDMap):
+            sec = m.config_db.setdefault(who, {})
+            if sec.get(name) == value:
+                return False
+            sec[name] = value
+        if not self._mutate(fn):
+            return "commit failed", -11
+        return json.dumps({"epoch": self.osdmap.epoch}), 0
+
+    def _cmd_mon_add(self, cmd) -> tuple[str, int]:
+        """`ceph mon add <id> <addr>` (MonmapMonitor::preprocess_join
+        reduced): commit the grown monmap; every member reconfigures on
+        the commit, and the probing joiner finds itself in the REPLY."""
+        import json
+        rank = int(cmd["id"])
+        addr = str(cmd["addr"])
+        base = self._current_mon_db()
+        mons = dict(base.get("mons", {}))
+        if mons.get(str(rank)) == addr:
+            return json.dumps({"epoch": base.get("epoch", 0)}), 0
+
+        def fn(m: OSDMap):
+            db = m.mon_db or self._current_mon_db()
+            ms = dict(db.get("mons", {}))
+            if ms.get(str(rank)) == addr:
+                return False
+            ms[str(rank)] = addr
+            m.mon_db = {"epoch": int(db.get("epoch", 0)) + 1,
+                        "mons": ms}
+        if not self._mutate(fn):
+            return "commit failed", -11
+        return json.dumps({"epoch": self.osdmap.mon_db.get("epoch", 0),
+                           "mons": self.osdmap.mon_db.get("mons")}), 0
+
+    def _cmd_mon_rm(self, cmd) -> tuple[str, int]:
+        import json
+        rank = int(cmd["id"])
+        base = self._current_mon_db()
+        if str(rank) not in base.get("mons", {}):
+            return f"mon.{rank} not in monmap", -2
+        if len(base.get("mons", {})) <= 1:
+            return "refusing to remove the last monitor", -22
+
+        def fn(m: OSDMap):
+            db = m.mon_db or self._current_mon_db()
+            ms = dict(db.get("mons", {}))
+            if ms.pop(str(rank), None) is None:
+                return False
+            m.mon_db = {"epoch": int(db.get("epoch", 0)) + 1,
+                        "mons": ms}
+        if not self._mutate(fn):
+            return "commit failed", -11
+        return json.dumps({"epoch": self.osdmap.mon_db.get("epoch", 0),
+                           "mons": self.osdmap.mon_db.get("mons")}), 0
+
+    def _cmd_config_key(self, prefix: str, cmd) -> tuple[str, int]:
+        """Arbitrary KV through paxos (mon/ConfigKeyService analog):
+        free-form keys, unlike `config set`'s option registry — the mgr
+        module store (module config, enabled-module list) lives here,
+        which is what lets a promoted standby find it."""
+        import json
+        KV = "__kv__"
+        if prefix == "config-key dump":
+            return json.dumps(self.osdmap.config_db.get(KV, {})), 0
+        key = str(cmd["key"])
+        if prefix == "config-key get":
+            sec = self.osdmap.config_db.get(KV, {})
+            if key not in sec:
+                return f"no such key {key!r}", -2
+            return sec[key], 0
+        if prefix == "config-key set":
+            value = str(cmd.get("value", ""))
+
+            def fn(m: OSDMap):
+                sec = m.config_db.setdefault(KV, {})
+                if sec.get(key) == value:
+                    return False
+                sec[key] = value
+            if not self._mutate(fn):
+                return "commit failed", -11
+            return json.dumps({"epoch": self.osdmap.epoch}), 0
+        # config-key rm
+        def fn(m: OSDMap):
+            sec = m.config_db.get(KV, {})
+            if key not in sec:
+                return False
+            del sec[key]
+            if not sec:
+                m.config_db.pop(KV, None)
+        if not self._mutate(fn):
+            return "commit failed", -11
+        return json.dumps({"epoch": self.osdmap.epoch}), 0
+
+    def _cmd_config_get(self, cmd) -> tuple[str, int]:
+        import json
+        who = str(cmd.get("who", "global"))
+        sec = self.osdmap.config_db.get(who, {})
+        if "name" in cmd:
+            name = str(cmd["name"])
+            if name not in sec:
+                return f"no config {name!r} for {who!r}", -2
+            return str(sec[name]), 0
+        return json.dumps(sec), 0
+
+    def _cmd_config_rm(self, cmd) -> tuple[str, int]:
+        import json
+        who = str(cmd.get("who", "global"))
+        name = str(cmd["name"])
+
+        def fn(m: OSDMap):
+            sec = m.config_db.get(who, {})
+            if name not in sec:
+                return False
+            del sec[name]
+            if not sec:
+                m.config_db.pop(who, None)
+        if not self._mutate(fn):
+            return "commit failed", -11
+        return json.dumps({"epoch": self.osdmap.epoch}), 0
+
+    # -- health framework (mon/HealthMonitor.h:22 analog) ---------------------
+
+    #: pg-stat reports older than this are ignored (the sender is dead
+    #: or wedged; OSD_DOWN covers it)
+    PG_STATS_STALE = 30.0
+
+    def _health_report(self, detail: bool = False) -> dict:
+        import time as _time
+        m = self.osdmap
+        checks = []
+
+        def check(name, summary, details, **extra):
+            c = {"check": name, "summary": summary, **extra}
+            if detail:
+                c["detail"] = details
+            checks.append(c)
+
+        down = [o for o in range(m.max_osd)
+                if m.exists(o) and not m.is_up(o)]
+        if down:
+            check("OSD_DOWN", f"{len(down)} osds down",
+                  [f"osd.{o} is down" for o in down], osds=down)
+        out_osds = [o for o in range(m.max_osd)
+                    if m.exists(o) and m.is_out(o)]
+        if out_osds:
+            check("OSD_OUT", f"{len(out_osds)} osds out",
+                  [f"osd.{o} is out" for o in out_osds], osds=out_osds)
+        # MON_DOWN: monmap members absent from the current quorum
+        e = self.elector
+        if e is not None and self.monmap:
+            q = set(self.quorum())
+            missing = [r for r in sorted(self.monmap) if r not in q]
+            if missing and not e.electing:
+                check("MON_DOWN",
+                      f"{len(missing)} mons down",
+                      [f"mon.{r} is not in quorum" for r in missing],
+                      mons=missing)
+        if e is None or e.electing:
+            check("MON_QUORUM_AT_RISK", "election in progress",
+                  [f"last quorum {self.quorum()}"],
+                  last_quorum=self.quorum())
+        # PG_DEGRADED from the MPGStats feed (primaries report)
+        now = _time.time()
+        with self._lock:
+            stats = {o: st for o, st in self._pg_stats.items()
+                     if now - st["received"] < self.PG_STATS_STALE
+                     and m.exists(o) and m.is_up(o)}
+        not_active = {}
+        degraded_objects = 0
+        for o, st in stats.items():
+            degraded_objects += st["degraded_objects"]
+            for state, n in st["states"].items():
+                if state != "active" and n:
+                    not_active[state] = not_active.get(state, 0) + n
+        if not_active or degraded_objects:
+            total = sum(not_active.values())
+            check("PG_DEGRADED",
+                  f"{total} pgs not active; "
+                  f"{degraded_objects} objects degraded",
+                  [f"{n} pgs {state}" for state, n in
+                   sorted(not_active.items())]
+                  + [f"osd.{o}: {st['degraded_objects']} degraded objects"
+                     for o, st in sorted(stats.items())
+                     if st["degraded_objects"]],
+                  pgs_not_active=total,
+                  degraded_objects=degraded_objects)
+        return {"status": "HEALTH_OK" if not checks else "HEALTH_WARN",
+                "checks": checks}
+
+    def _cmd_pool_set(self, cmd) -> tuple[str, int]:
+        pool_id = int(cmd["pool"])
+        pool = self.osdmap.pools.get(pool_id)
+        if pool is None:
+            return f"pool {pool_id} does not exist", -2
+        var = cmd["var"]
+        # pg_num / pgp_num changes gate PG splits (OSDMonitor.cc pg_num
+        # handling): pg_num may only grow (children split from parents on
+        # the OSDs), and pgp_num — the placement seed modulus — may never
+        # exceed pg_num (children must exist before they can move)
+        if var == "pg_num":
+            new = int(cmd["val"])
+            if new < pool.pg_num:
+                return (f"pg_num {new} < current {pool.pg_num}: "
+                        "shrinking is not supported", -22)
+        elif var == "pgp_num":
+            new = int(cmd["val"])
+            if new > pool.pg_num:
+                return f"pgp_num {new} > pg_num {pool.pg_num}", -22
+            if new < pool.pgp_num:
+                return (f"pgp_num {new} < current {pool.pgp_num}: "
+                        "shrinking is not supported", -22)
+
+        def fn(m: OSDMap):
+            p = m.pools[pool_id]
+            # coerce by the field's current type (int/float/str knobs)
+            cur = getattr(p, var)
+            cast = type(cur) if cur is not None else int
+            setattr(p, var,
+                    cast(cmd["val"]) if cast is not bool
+                    else cmd["val"] in ("1", "true", "True"))
+        if not self._mutate(fn):
+            return "commit failed", -11
+        return json.dumps({"epoch": self.osdmap.epoch}), 0
+
+    def _cmd_osd_weight(self, osd: int, weight: int) -> tuple[str, int]:
+        if not (0 <= osd < self.osdmap.max_osd):
+            return f"osd.{osd} does not exist", -2
+
+        def fn(m: OSDMap):
+            m.osd_weight[osd] = weight
+        if not self._mutate(fn):
+            return "commit failed", -11
+        return f"osd.{osd} weight {weight:#x}", 0
+
+    def _cmd_tree(self) -> dict:
+        m = self.osdmap
+        return {
+            "epoch": m.epoch,
+            "osds": [
+                {"id": o, "up": m.is_up(o), "exists": m.exists(o),
+                 "weight": m.osd_weight[o] / 0x10000}
+                for o in range(m.max_osd)],
+        }
+
+    def status(self) -> dict:
+        with self._lock:
+            m = self.osdmap
+            e = self.elector
+            return {
+                "epoch": m.epoch,
+                "quorum": self.quorum(),
+                "leader": e.leader if e else None,
+                "num_osds": sum(1 for o in range(m.max_osd) if m.exists(o)),
+                "num_up_osds": sum(1 for o in range(m.max_osd)
+                                   if m.is_up(o)),
+                "pools": {p: {"pg_num": pool.pg_num, "size": pool.size,
+                              "type": pool.type}
+                          for p, pool in m.pools.items()},
+            }

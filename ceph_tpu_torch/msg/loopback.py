@@ -1,0 +1,102 @@
+"""In-process messenger stack (the unit-test transport; testmsgr analog).
+
+Delivery preserves per-connection ordering via one dispatch thread per
+messenger; addresses live in a process-global registry.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+
+from ceph_tpu_torch.common import lockdep
+
+from .message import Message
+from .messenger import Connection, EntityName, Messenger
+
+_registry: dict[str, "LoopbackMessenger"] = {}
+# import-time module lock: named under CEPH_TPU_LOCKDEP=1, plain
+# otherwise (created before tests can call lockdep.enable())
+_registry_lock = lockdep.make_lock("loopback::registry")
+
+
+class LoopbackConnection(Connection):
+    def __init__(self, messenger, peer_addr, peer_name):
+        super().__init__(messenger, peer_addr)
+        self.peer_name = peer_name
+        self._down = False
+
+    def send_message(self, msg: Message) -> None:
+        if self._down:
+            return
+        from ceph_tpu_torch.common import tracing
+        tracing.stamp(msg, str(self.messenger.my_name))
+        with _registry_lock:
+            peer = _registry.get(self.peer_addr)
+        if peer is None:
+            self.messenger.notify_reset(self)
+            return
+        # wire round-trip keeps encode/decode honest even in-process
+        data = msg.encode()
+        self.messenger.count_sent(len(data))
+        peer._enqueue(data, sender=self.messenger)
+
+    def mark_down(self) -> None:
+        self._down = True
+
+    def is_connected(self) -> bool:
+        return not self._down
+
+
+class LoopbackMessenger(Messenger):
+    def __init__(self, name: EntityName):
+        super().__init__(name)
+        self._q: queue.Queue = queue.Queue()
+        self._thread: threading.Thread | None = None
+        self._stop = False
+
+    def bind(self, addr: str) -> None:
+        self.my_addr = addr
+        with _registry_lock:
+            _registry[addr] = self
+
+    def start(self) -> None:
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def shutdown(self) -> None:
+        self._stop = True
+        self._q.put(None)
+        if self.my_addr:
+            with _registry_lock:
+                _registry.pop(self.my_addr, None)
+
+    def _make_connection(self, addr: str, peer_name):
+        return LoopbackConnection(self, addr, peer_name)
+
+    def connect_to(self, addr: str, peer_name: EntityName) -> Connection:
+        return self._make_connection(addr, peer_name)
+
+    # -- internals ------------------------------------------------------------
+
+    def _enqueue(self, data: bytes, sender: "LoopbackMessenger") -> None:
+        self._q.put((data, sender))
+
+    def _loop(self) -> None:
+        from ceph_tpu_torch.common.logging import get_logger
+        while not self._stop:
+            item = self._q.get()
+            if item is None:
+                return
+            data, sender = item
+            # one bad frame or handler bug must not kill the delivery thread
+            try:
+                msg = Message.decode(data)
+                msg.wire_bytes = len(data)
+                msg.connection = self._make_connection(
+                    sender.my_addr, sender.my_name)
+                self.deliver(msg)
+            except Exception:
+                get_logger("ms").exception(
+                    "%s: dispatch failed for frame from %s",
+                    self.my_name, sender.my_name)

@@ -1,0 +1,256 @@
+"""Messenger abstraction (src/msg/Messenger.h:120, Connection, Dispatcher,
+per-peer Policy — msg/Policy.h).
+
+A Messenger owns an entity identity ("osd.3", "mon.0", "client.4123"), binds a
+transport, hands out Connections keyed by peer address, and delivers inbound
+messages to a dispatcher chain.  Policies mirror the reference knobs set in
+ceph_osd.cc:531-545: lossy server-side client sessions, stateful cluster
+peers, byte throttles.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+from ceph_tpu_torch.common import lockdep
+from ceph_tpu_torch.common.throttle import Throttle
+
+from .message import Message
+
+
+@dataclass(frozen=True, order=True)
+class EntityName:
+    """entity_name_t: type.id ("osd.3")."""
+
+    type: str
+    id: int
+
+    def __str__(self):
+        return f"{self.type}.{self.id}"
+
+    @staticmethod
+    def parse(s: str) -> "EntityName":
+        t, i = s.rsplit(".", 1)
+        return EntityName(t, int(i))
+
+
+@dataclass
+class ConnectionPolicy:
+    """msg/Policy.h: lossy connections drop state on failure (server->client);
+    stateful ones reconnect and resend (cluster peers)."""
+
+    lossy: bool = False
+    server: bool = False
+    resend_on_reconnect: bool = True
+    throttler_bytes: Throttle | None = None
+    #: extra feature bits this peer type MUST speak
+    #: (Policy::features_required; FEATURE_BASE is always required)
+    features_required: int = 0
+
+    @staticmethod
+    def lossy_client() -> "ConnectionPolicy":
+        return ConnectionPolicy(lossy=True, server=True,
+                                resend_on_reconnect=False)
+
+    @staticmethod
+    def stateful_server() -> "ConnectionPolicy":
+        return ConnectionPolicy(lossy=False, server=True)
+
+    @staticmethod
+    def stateful_peer() -> "ConnectionPolicy":
+        return ConnectionPolicy(lossy=False, server=False)
+
+
+class Connection:
+    """One peer session; send_message is asynchronous and ordered
+    (msg/Connection.h)."""
+
+    def __init__(self, messenger: "Messenger", peer_addr: str):
+        self.messenger = messenger
+        self.peer_addr = peer_addr
+        self.peer_name: EntityName | None = None
+        #: cephx-authenticated identity (e.g. "client.admin"), set by
+        #: wire handshakes; None on unauthenticated/loopback links
+        self.auth_entity: str | None = None
+        #: negotiated feature intersection; wire handshakes overwrite,
+        #: in-process transports (loopback/ici) keep the full local set
+        from ceph_tpu_torch.msg.features import SUPPORTED_FEATURES
+        self.features: int = SUPPORTED_FEATURES
+
+    def send_message(self, msg: Message) -> None:
+        raise NotImplementedError
+
+    def mark_down(self) -> None:
+        """Tear the session down (Connection::mark_down)."""
+        raise NotImplementedError
+
+    def is_connected(self) -> bool:
+        raise NotImplementedError
+
+
+class Dispatcher:
+    """Callback interface (msg/Dispatcher.h).  Messengers walk the dispatcher
+    chain until one returns True from ms_dispatch."""
+
+    def ms_dispatch(self, msg: Message) -> bool:
+        return False
+
+    def ms_handle_reset(self, con: Connection) -> None:
+        """Peer session dropped (stateful peer reset)."""
+
+    def ms_handle_remote_reset(self, con: Connection) -> None:
+        """Peer told us it reset."""
+
+
+class Messenger:
+    """Transport-agnostic base; create() picks the stack like
+    Messenger::create(cct, type, ...)."""
+
+    #: True for stacks that serialize to a real byte stream and bind
+    #: host:port addresses (TCP); loopback/ici bind entity names
+    is_wire = False
+
+    def __init__(self, name: EntityName):
+        self.my_name = name
+        self.my_addr: str | None = None
+        self._dispatchers: list[Dispatcher] = []
+        self._policies: dict[str, ConnectionPolicy] = {}
+        self._default_policy = ConnectionPolicy()
+        from ceph_tpu_torch.msg.features import SUPPORTED_FEATURES
+        #: what this endpoint advertises; tests shrink it to simulate
+        #: an old peer
+        self.local_features: int = SUPPORTED_FEATURES
+        self._lock = lockdep.make_lock(f"Messenger::lock({name})")
+        # per-messenger wire counters (AsyncMessenger's l_msgr_* set);
+        # daemons register this into their context's collection
+        from ceph_tpu_torch.common.perf_counters import PerfCountersBuilder
+        self.perf = (PerfCountersBuilder(f"msgr.{name}")
+                     .add_u64("msg_send").add_u64("msg_recv")
+                     .add_u64("bytes_send").add_u64("bytes_recv")
+                     .create_perf_counters())
+
+    def count_sent(self, nbytes: int) -> None:
+        """Transport send hook: one frame of nbytes left this endpoint."""
+        self.perf.inc("msg_send")
+        self.perf.inc("bytes_send", nbytes)
+
+    @staticmethod
+    def create(name: EntityName, mtype: str = "async", **kw) -> "Messenger":
+        if mtype == "loopback":
+            from .loopback import LoopbackMessenger
+            return LoopbackMessenger(name, **kw)
+        if mtype in ("async", "threaded", "ici", "ici-wire"):
+            raise NotImplementedError(
+                f"messenger type {mtype!r} is not ported yet (ROADMAP.md "
+                f"Queue 1 item 7: the TCP stacks and the ici stack); "
+                f"use ms_type='loopback'")
+        raise ValueError(f"unknown messenger type {mtype!r}")
+
+    # -- dispatcher chain (Messenger.h:337-352) -------------------------------
+
+    def set_auth(self, key, required: bool = True) -> None:
+        """cephx-lite shared-key authentication; only wire stacks
+        enforce it (in-process loopback peers are the same trust
+        domain)."""
+
+    def set_auth_cephx(self, config) -> None:
+        """Per-entity cephx (tickets + entity secrets, a CephxConfig);
+        only wire stacks enforce it — in-process loopback peers are the
+        same trust domain."""
+
+    def set_compression(self, mode) -> None:
+        """On-wire frame compression offer; only wire stacks compress
+        (loopback/ici never serialize to a byte stream)."""
+
+    def add_dispatcher_head(self, d: Dispatcher) -> None:
+        with self._lock:
+            self._dispatchers.insert(0, d)
+
+    def add_dispatcher_tail(self, d: Dispatcher) -> None:
+        with self._lock:
+            self._dispatchers.append(d)
+
+    def deliver(self, msg: Message) -> bool:
+        self.perf.inc("msg_recv")
+        self.perf.inc("bytes_recv", getattr(msg, "wire_bytes", 0))
+        tb = None
+        policy = self.policy_for(msg.connection.peer_name.type
+                                 if msg.connection and msg.connection.peer_name
+                                 else "client")
+        if policy.throttler_bytes is not None:
+            size = msg.frame_size()
+            policy.throttler_bytes.get(size)
+            tb = (policy.throttler_bytes, size)
+        tid = getattr(msg, "trace_id", 0)
+        rx_span = None
+        prev_trace = (0, 0)
+        if tid:
+            # the handling thread JOINS the trace under an rx dispatch
+            # span parented to the sender's span (the frame's
+            # parent_span_id): everything it sends while dispatching
+            # inherits the ids (common/tracing.stamp), and work handed
+            # to shard queues re-parents here via the message
+            from ceph_tpu_torch.common import tracing
+            rx_span = tracing.begin_span(
+                f"rx {type(msg).__name__}", str(self.my_name),
+                trace_id=tid,
+                parent_span_id=getattr(msg, "parent_span_id", 0))
+            if rx_span is not None:
+                msg.parent_span_id = rx_span.span_id
+            prev_trace = tracing.set_current(
+                tid, rx_span.span_id if rx_span else 0)
+        try:
+            with self._lock:
+                chain = list(self._dispatchers)
+            for d in chain:
+                if d.ms_dispatch(msg):
+                    return True
+            return False
+        finally:
+            if tid:
+                from ceph_tpu_torch.common import tracing
+                tracing.finish_span(rx_span)
+                tracing.set_current(prev_trace)
+            if tb:
+                tb[0].put(tb[1])
+
+    def notify_reset(self, con: Connection) -> None:
+        with self._lock:
+            chain = list(self._dispatchers)
+        for d in chain:
+            d.ms_handle_reset(con)
+
+    # -- policies -------------------------------------------------------------
+
+    def set_policy(self, peer_type: str, policy: ConnectionPolicy) -> None:
+        with self._lock:
+            self._policies[peer_type] = policy
+
+    def set_default_policy(self, policy: ConnectionPolicy) -> None:
+        with self._lock:
+            self._default_policy = policy
+
+    def policy_for(self, peer_type: str) -> ConnectionPolicy:
+        with self._lock:
+            return self._policies.get(peer_type, self._default_policy)
+
+    def required_for(self, peer_type: str) -> int:
+        """Feature bits a peer of this type must speak: the global
+        floor plus the per-type policy's features_required."""
+        from ceph_tpu_torch.msg.features import REQUIRED_DEFAULT
+        return REQUIRED_DEFAULT | self.policy_for(
+            peer_type).features_required
+
+    # -- transport lifecycle --------------------------------------------------
+
+    def bind(self, addr: str) -> None:
+        raise NotImplementedError
+
+    def start(self) -> None:
+        raise NotImplementedError
+
+    def shutdown(self) -> None:
+        raise NotImplementedError
+
+    def connect_to(self, addr: str, peer_name: EntityName) -> Connection:
+        raise NotImplementedError

@@ -307,6 +307,16 @@ class _PinnedPool:
     def _event():
         return torch.cuda.Event()
 
+    def release(self) -> None:
+        """Drop every buffer once its last copy has completed: the
+        engine stopped, so no thread takes or gives buffers any more
+        (a straggler run inline after stop() allocates anew)."""
+        for entries in self._bufs.values():
+            for e in entries:
+                if e[1] is not None:
+                    e[1].synchronize()
+        self._bufs.clear()
+
     def copied(self, entry: list, stream) -> None:
         """Record the event behind the copy just issued from ``entry``
         on ``stream``: the buffer is busy until it completes."""
@@ -633,7 +643,8 @@ class DeviceDispatchEngine:
                 fut._deliver(None, exc)
 
     def stop(self) -> bool:
-        """Drain queued work, then stop both threads.  Returns True
+        """Drain queued work, then stop both threads and release the
+        pinned staging buffers.  Returns True
         when both exited; a thread surviving its join timeout (wedged
         device call) stays in _threads so a later stop() can re-join.
         On a WEDGED engine every outstanding future has already been
@@ -650,6 +661,9 @@ class DeviceDispatchEngine:
         pt = self._probe_thread
         if pt is not None:
             pt.join(timeout=2.0)
+        if not self._threads:
+            # a stopped engine keeps no pinned host memory behind
+            self._staging.release()
         return not self._threads and not self._wedged
 
     def flush(self, timeout: float = 10.0) -> bool:

@@ -55,7 +55,9 @@ def ec_encode_ref(coeff: np.ndarray, data: np.ndarray) -> np.ndarray:
     data  : (..., k, B) uint8 data chunks
     returns (..., m, B) uint8 parity chunks
     """
+    # analysis: allow[blocking] -- host oracle: inputs are host numpy by contract (fallback/verification path)
     coeff = np.asarray(coeff, dtype=np.uint8)
+    # analysis: allow[blocking] -- host oracle: inputs are host numpy by contract (fallback/verification path)
     data = np.asarray(data, dtype=np.uint8)
     mt = mul_table()
     # prods[..., i, j, b] = coeff[i, j] * data[..., j, b]

@@ -11,6 +11,12 @@ map_codec  the versioned wire encoding of the crush map, the OSDMap and its
 mapping    OSDMapMapping and the context's SharedPGMappingService: every
            pool's PGs placed in one batched call on the card, the fused
            placement tail (ops.placement_kernel), the epoch's exact delta.
+pg         the PG log, info and missing set (PGLog.h, merge_log)
+op_queue   the mClock scheduler and the sharded op queue (ShardedOpWQ)
+reserver   recovery reservations (AsyncReserver)
+daemon     the OSD daemon: client ops, replication, the EC write, read and
+           recovery paths through the context's dispatch engines, peering,
+           heartbeats (the scrub path comes later)
 """
 
 from .osdmap import OSDMap, PGPool, ceph_stable_mod, pg_to_pgid

@@ -1,0 +1,4070 @@
+"""The OSD daemon (src/osd/OSD.{h,cc} + PrimaryLogPG + backends, condensed).
+
+Structure mirrors the reference data path (SURVEY.md §3.1/§3.3), now with the
+PG consistency backbone (src/osd/PGLog.h, src/osd/PG.h peering):
+
+  client MOSDOp -> primary:  dedup against the pg log (reqid), allocate an
+                             (epoch, seq) version, append a log entry, then
+                             replicated: local txn + MOSDRepOp fan-out
+                             erasure: batched GF(2^8) encode -> per-shard
+                             MOSDECSubOpWrite fan-out (the whole-stripe encode
+                             is one device call, ECUtil::encode's batch point)
+  map change:                every PG re-peers: GetInfo (MOSDPGQuery/Notify)
+                             -> GetLog from the peer with the longest history
+                             (MOSDPGLog) -> merge_log (divergent-entry
+                             rollback) -> recover missing objects ->
+                             Activate (authoritative log to every replica)
+  recovery:                  log-based, not scan-based: each OSD computes its
+                             own missing set from the authoritative log and
+                             pulls exactly those objects (MOSDPGPull/Push);
+                             EC shards are reconstructed from k live shards
+                             at the needed version and pushed per-shard
+  heartbeats:                periodic MOSDPing to up peers; missed grace ->
+                             MOSDFailure to the mon (OSD::heartbeat_check)
+
+Erasure objects store one chunk per shard-OSD as "<oid>:<shard>" with the
+stripe geometry in attrs; any k chunks reconstruct via the recovery-matrix
+kernel, exactly the ECBackend read path.  Every object carries a "_v"
+version attr so recovery can tell stale copies from current ones.
+
+Durability: the pg log and pg info ride in the *same* ObjectStore
+transaction as the data mutation (omap of the per-PG "_pgmeta_" object),
+so replay after restart reconstructs exactly the logged history
+(OSD::load_pgs, osd/OSD.cc:4061).
+
+The daemon's context runs on one torch device (the card unless the caller
+asks for another): its codecs keep their tables there, its encode and
+decode dispatch engines and its PG mapping service run there, and a card
+fault raises rather than falling back to the host.  The scrub path
+(deep-scrub digests on the scrub_digest channel, MOSDScrub) comes with the
+integrity channels (ROADMAP.md Queue 1 item 6).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+
+from ceph_tpu_torch.common.context import CephTpuContext
+from ceph_tpu_torch.common.logging import dout
+from ceph_tpu_torch.common.perf_counters import PerfCountersBuilder
+from ceph_tpu_torch.common.throttle import Throttle
+from ceph_tpu_torch.ec import registry_instance
+from ceph_tpu_torch.ec.base import to_host
+from ceph_tpu_torch.messages import (
+    MPGStats,
+    MOSDECSubOpRead, MOSDECSubOpReadReply, MOSDECSubOpWrite,
+    MOSDECSubOpWriteReply, MOSDFailure, MOSDMapMsg, MOSDOp, MOSDOpReply,
+    MOSDPing, MOSDRepOp, MOSDRepOpReply)
+from ceph_tpu_torch.messages.osd_msgs import (
+    OP_CALL, OP_DELETE, OP_NOTIFY, OP_OMAP_GET, OP_OMAP_RMKEYS, OP_PGLS,
+    OP_OMAP_SET, OP_READ,
+    OP_STAT, OP_UNWATCH, OP_WATCH, OP_WRITE, OP_WRITEFULL,
+    MWatchNotify, MWatchNotifyAck, OSDOpField)
+from ceph_tpu_torch.messages.peering_msgs import (
+    MOSDPGLog, MOSDPGNotify, MOSDPGQuery)
+from ceph_tpu_torch.mon.monitor import MMonSubscribe, MOSDBoot
+from ceph_tpu_torch.msg.encoding import Decoder, Encoder
+from ceph_tpu_torch.msg.message import Message, register_message
+from ceph_tpu_torch.msg.messenger import (
+    ConnectionPolicy, Dispatcher, EntityName, Messenger)
+from ceph_tpu_torch.objectstore import Transaction, create_objectstore
+from ceph_tpu_torch.osd.map_codec import advance_map, encode_osdmap
+from ceph_tpu_torch.osd.osdmap import CEPH_NOSD, OSDMap, pg_to_pgid
+from ceph_tpu_torch.qos.dmclock import (
+    PHASE_LIMIT, PHASE_NAMES, PHASE_RESERVATION, PHASE_WEIGHT)
+from ceph_tpu_torch.client.rados import ceph_str_hash_rjenkins
+from ceph_tpu_torch.osd.pg import (
+    EVERSION_ZERO, LOG_DELETE, LOG_MODIFY, PG, LogEntry, MissingItem,
+    PeerState, PGInfo, STATE_ACTIVE, STATE_GETINFO, STATE_GETLOG,
+    STATE_INACTIVE, STATE_RECOVERING, STATE_REPLICA)
+
+import numpy as np
+
+
+@register_message
+class MOSDPGPull(Message):
+    """recovering OSD -> source: send me this object (recovery pull).
+
+    For EC PGs the oid is "<logical>:<shard>": the source reconstructs
+    that shard's chunk from k live shards and pushes it back.
+    """
+
+    TYPE = 116
+
+    def __init__(self, pgid: tuple[int, int] = (0, 0), oid: str = "",
+                 from_osd: int = 0):
+        super().__init__()
+        self.pgid = pgid
+        self.oid = oid
+        self.from_osd = from_osd
+
+    def encode_payload(self, enc: Encoder):
+        enc.versioned(1, 1, lambda e: (e.s64(self.pgid[0]),
+                                       e.u32(self.pgid[1]),
+                                       e.str(self.oid), e.s32(self.from_osd)))
+
+    def decode_payload(self, dec: Decoder, version):
+        def body(d, v):
+            self.pgid = (d.s64(), d.u32())
+            self.oid = d.str()
+            self.from_osd = d.s32()
+        dec.versioned(1, body)
+
+
+@register_message
+class MOSDPGPush(Message):
+    """source -> recovering OSD: object payload (MOSDPGPush analog).
+    attrs carries the per-object metadata including the "_v" version."""
+
+    TYPE = 117
+
+    def __init__(self, pgid: tuple[int, int] = (0, 0), oid: str = "",
+                 data: bytes = b"", omap: dict | None = None,
+                 attrs: dict | None = None):
+        super().__init__()
+        self.pgid = pgid
+        self.oid = oid
+        self.data = data
+        self.omap = omap or {}
+        self.attrs = attrs or {}
+
+    def encode_payload(self, enc: Encoder):
+        enc.versioned(1, 1, lambda e: (
+            e.s64(self.pgid[0]), e.u32(self.pgid[1]), e.str(self.oid),
+            e.bytes(self.data),
+            e.map(self.omap, lambda e2, k: e2.str(k),
+                  lambda e2, v: e2.bytes(v)),
+            e.map(self.attrs, lambda e2, k: e2.str(k),
+                  lambda e2, v: e2.bytes(v))))
+
+    def decode_payload(self, dec: Decoder, version):
+        def body(d, v):
+            self.pgid = (d.s64(), d.u32())
+            self.oid = d.str()
+            self.data = d.bytes()
+            self.omap = d.map(lambda d2: d2.str(), lambda d2: d2.bytes())
+            self.attrs = d.map(lambda d2: d2.str(), lambda d2: d2.bytes())
+        dec.versioned(1, body)
+
+
+def enc_version(v: tuple[int, int]) -> bytes:
+    return f"{v[0]}.{v[1]}".encode()
+
+
+def dec_version(blob: bytes | None) -> tuple[int, int] | None:
+    if not blob:
+        return None
+    try:
+        e, s = blob.decode().split(".")
+        return (int(e), int(s))
+    except ValueError:
+        return None
+
+
+class _InFlight:
+    """One client op waiting on replica/shard acks (in-flight repop)."""
+
+    def __init__(self, msg: MOSDOp, waiting: set[int], reply: MOSDOpReply):
+        self.msg = msg
+        self.waiting = waiting
+        self.reply = reply
+
+
+#: client_id used by internal EC recovery reads (cannot collide with real
+#: clients, whose ids are small monotonically assigned ints)
+#: store-name suffix for snapshot clones: head + CLONE_SEP + snap_seq.
+#: The GROUP SEPARATOR control char keeps internal clone names out of
+#: the client oid namespace — a client oid may contain "@" freely (rgw
+#: versioned data objects do), but control characters are rejected at
+#: the librados layer, so the suffix can never be ambiguous.  (The
+#: reference separates oid and snap structurally in hobject_t,
+#: src/common/hobject.h; this is the flattened-string equivalent.)
+CLONE_SEP = "\x1d@"
+
+RECOVERY_CLIENT = 0xFFFFFFFF00000000
+
+#: reqid client for the tier agent's guarded evict deletes
+TIER_AGENT_CLIENT = 0xFFFFFFFF00000001
+
+
+class OSDDaemon(Dispatcher):
+    def __init__(self, osd_id: int, mon_addr: str,
+                 ctx: CephTpuContext | None = None,
+                 store_type: str = "memstore", store_path: str = "",
+                 ms_type: str = "async", addr: str = "127.0.0.1:0",
+                 heartbeats: bool = True, auth_key=None,
+                 mgr_addr: str | None = None,
+                 cephx: tuple[str, str] | None = None,
+                 conf: dict | None = None, device=None):
+        if cephx is not None:
+            raise NotImplementedError(
+                "cephx needs ceph_tpu_torch/auth, not ported yet "
+                "(ROADMAP.md Queue 1 item 7)")
+        self.osd_id = osd_id
+        self.whoami = EntityName("osd", osd_id)
+        #: the daemon's context runs on ``device`` (the card by default):
+        #: its codecs keep their tables there and its two dispatch
+        #: engines and mapping service run there
+        self.ctx = ctx or CephTpuContext(f"osd.{osd_id}", device=device)
+        # startup config overrides (vstart.sh -o analog): applied at the
+        # CLI layer BEFORE any subsystem reads its options, so knobs
+        # consumed at construction (osd_op_queue, shard count, ...) see
+        # them — the central config-db only lands with the first map
+        for k, v in (conf or {}).items():
+            self.ctx.conf.set(k, v, source="cli")
+        #: True when the context (and so its dispatch engine) is ours
+        #: to tear down in shutdown(); a caller-supplied ctx may be
+        #: shared with other daemons
+        self._own_ctx = ctx is None
+        #: comma-separated monitor addresses (mon_host); boot/failure
+        #: reports go to every mon — the leader executes, peons ignore
+        self.mon_addr = mon_addr
+        self.mon_addrs = [a for a in mon_addr.split(",") if a]
+        self.mgr_addr = mgr_addr
+        self.store = create_objectstore(store_type, store_path,
+                                        ctx=self.ctx)
+        self.osdmap = OSDMap()
+        from ceph_tpu_torch.common.lockdep import make_lock
+        self._lock = make_lock(f"OSD::osd_lock({osd_id})")
+        self.pgs: dict[tuple[int, int], PG] = {}
+        self._in_flight: dict[tuple[int, int], _InFlight] = {}
+        #: ops from clients ahead of our map; flushed on map advance
+        self._waiting_for_map: list[MOSDOp] = []
+        #: inter-OSD ops parked until our map/splits catch up:
+        #: (handler, msg) pairs replayed after the next map applies
+        self._waiting_subops: list = []
+        #: reqid -> EC read/recovery state
+        self._ec_reads: dict[tuple[int, int], dict] = {}
+        self._recover_tid = 0
+        self._codecs: dict[int, object] = {}
+        self._osd_addr_cache: dict[int, str] = {}
+        self._hb_last: dict[int, float] = {}
+        #: peers I currently have failure reports filed against; a ping
+        #: from one triggers an alive-cancellation to the mons
+        self._failure_reported: set[int] = set()
+        self._last_sub_renew = 0.0
+        #: (pgid, oid) -> {client_id: connection} (watch/notify; session
+        #: scope — the reference persists watchers in object_info)
+        self._watchers: dict[tuple, dict[int, object]] = {}
+        #: notify_id -> pending notify state
+        self._notifies: dict[int, dict] = {}
+        self._notify_seq = 0
+        self._hb_timer: threading.Timer | None = None
+        self._tick_timer: threading.Timer | None = None
+        self._heartbeats = heartbeats
+        self._stop = False
+        #: fault injection (reference: OSD.h debug_heartbeat_drops_remaining)
+        self.debug_drop_rep_ops = 0
+        #: async EC write dispatch: the encode is SUBMITTED through the
+        #: context's coalescing engine and the transaction-build + shard
+        #: fan-out runs in the completion continuation, so concurrent
+        #: client writes share one device call.  Hot-togglable.
+        self._ec_async = bool(self.ctx.conf.get("osd_ec_dispatch_async"))
+        self.ctx.conf.add_observer(
+            "osd_ec_dispatch_async",
+            lambda _n, v: setattr(self, "_ec_async", bool(v)))
+        #: async EC decode dispatch: degraded reads, recovery pulls and
+        #: rmw gathers SUBMIT the decode through the context's decode
+        #: engine (heterogeneous-matrix batched kernel — mixed erasure
+        #: patterns share one device call) and finish reply/push/
+        #: overlay in the completion continuation.  Hot-togglable.
+        self._ec_decode_async = bool(
+            self.ctx.conf.get("osd_ec_decode_async"))
+        self.ctx.conf.add_observer(
+            "osd_ec_decode_async",
+            lambda _n, v: setattr(self, "_ec_decode_async", bool(v)))
+        #: shared epoch-keyed mapping cache: map consumption rides the
+        #: context's SharedPGMappingService — _scan_pgs walks only the
+        #: changed-PG delta + locally-held PGs, and per-PG reads are
+        #: cached-raw pipeline tails instead of scalar CRUSH.
+        #: Hot-togglable (off = seed's full scalar scan).
+        self._map_shared = bool(
+            self.ctx.conf.get("osdmap_mapping_shared"))
+        self.ctx.conf.add_observer(
+            "osdmap_mapping_shared",
+            lambda _n, v: setattr(self, "_map_shared", bool(v)))
+
+        self._auth_key = auth_key
+        self.msgr = Messenger.create(self.whoami, ms_type)
+        self.msgr.set_auth(auth_key)
+        from ceph_tpu_torch.common.moncmd import MonCommander, mon_targets
+        #: the daemon's own admin RPC path (rotating keys, tickets)
+        self.mon_cmd = MonCommander(self.msgr, self.mon_addrs,
+                                    osdmap_fn=lambda: self.osdmap)
+        from ceph_tpu_torch.common.clog import ClusterLogClient
+        #: central cluster log handle (LogClient): operator-significant
+        #: events (boot, pg recovered) batch to every mon
+        self.clog = ClusterLogClient(
+            self.msgr,
+            lambda: mon_targets(self.osdmap, self.mon_addrs),
+            f"osd.{osd_id}")
+        self.msgr.set_policy("client", ConnectionPolicy.lossy_client())
+        self.msgr.set_policy("osd", ConnectionPolicy.stateful_peer())
+        self.msgr.set_policy("mon", ConnectionPolicy.stateful_peer())
+        self.msgr.add_dispatcher_tail(self)
+        self._addr = addr
+
+        self.perf = (PerfCountersBuilder(f"osd.{osd_id}")
+                     .add_u64("op_w").add_u64("op_r").add_u64("op_rep")
+                     .add_u64("ec_encode_stripes").add_u64("recovery_pulls")
+                     .add_u64("peering_rounds").add_u64("log_entries")
+                     .add_u64("pg_splits")
+                     .add_u64("ec_rmw_gather").add_u64("ec_rmw_pipelined")
+                     .add_u64("ec_dispatch_submits")
+                     .add_u64("ec_dispatch_commits")
+                     .add_u64("ec_decode_submits")
+                     .add_u64("recovery_decode_stripes")
+                     .add_u64("map_epochs")
+                     .add_u64("map_pgs_scanned")
+                     .add_u64("map_pgs_changed")
+                     .add_u64("qos_reservation_served")
+                     .add_u64("qos_weight_served")
+                     .add_u64("qos_limit_served")
+                     .add_time_avg("op_w_latency")
+                     .add_time_avg("map_scan_latency")
+                     .add_time_avg("qos_wait")
+                     .create_perf_counters())
+        self.ctx.perf.add(self.perf)
+        # the messenger's and store's own counter sets live in the same
+        # collection: `perf dump` and the mgr report carry all of them
+        self.ctx.perf.add(self.msgr.perf)
+        if hasattr(self.store, "perf"):
+            self.ctx.perf.add(self.store.perf)
+        from ceph_tpu_torch.common.op_tracker import OpTracker
+        self.op_tracker = OpTracker(
+            complaint_time=float(
+                self.ctx.conf.get("osd_op_complaint_time")),
+            daemon=f"osd.{osd_id}")
+        self.ctx.admin.register_command(
+            "dump_ops_in_flight",
+            lambda **kw: self.op_tracker.dump_ops_in_flight(),
+            "in-flight client ops with event timelines")
+        self.ctx.admin.register_command(
+            "dump_historic_ops",
+            lambda **kw: self.op_tracker.dump_historic_ops(),
+            "recently completed + slowest ops")
+        self.ctx.admin.register_command(
+            "osd map epoch", lambda **kw: {"epoch": self.osdmap.epoch},
+            "current map epoch")
+        self.ctx.admin.register_command(
+            "pg dump", lambda **kw: self._pg_dump(), "pg states")
+
+        # sharded op queue with mClock/dmClock QoS (osd/OSD.h ShardedOpWQ
+        # over osd/mClock* + src/dmclock): ops shard by pgid, classes
+        # arbitrate by reservation/weight/limit with distributed
+        # (delta, rho) increments from the MOSDOp wire tags.  One worker
+        # per shard keeps per-PG FIFO order.  "direct" executes on
+        # dispatch threads (legacy/seed FIFO).
+        from ceph_tpu_torch.osd.op_queue import (
+            DEFAULT_CLASSES, ClassInfo, ShardedOpQueue)
+        self._use_opwq = str(self.ctx.conf.get("osd_op_queue")) == "mclock"
+        # the background_best_effort class (scrub's) joins with the
+        # scrub path (ROADMAP.md Queue 1 item 6)
+        opwq_classes = {n: ClassInfo(c.reservation, c.weight, c.limit)
+                        for n, c in DEFAULT_CLASSES.items()}
+        self._mclock_per_client = bool(int(
+            self.ctx.conf.get("osd_mclock_per_client")))
+        #: tenant lanes (osd_qos_tenant_lanes): client ops carrying an
+        #: authenticated tenant tag schedule as client.<tenant> with
+        #: the OSDMap qos_db's profile for that tenant
+        self._qos_tenant_lanes = bool(
+            self.ctx.conf.get("osd_qos_tenant_lanes"))
+        self.ctx.conf.add_observer(
+            "osd_qos_tenant_lanes",
+            lambda _n, v: setattr(self, "_qos_tenant_lanes", bool(v)))
+        self.opwq = (ShardedOpQueue(
+            self._opwq_handle,
+            n_shards=int(self.ctx.conf.get("osd_op_num_shards")),
+            classes=opwq_classes,
+            name=f"osd.{osd_id}",
+            client_template=ClassInfo(
+                reservation=float(self.ctx.conf.get(
+                    "osd_mclock_client_reservation")),
+                weight=float(self.ctx.conf.get(
+                    "osd_mclock_client_weight")),
+                limit=float(self.ctx.conf.get(
+                    "osd_mclock_client_limit"))),
+            max_client_backlog=int(self.ctx.conf.get(
+                "osd_op_queue_max_client_backlog")),
+            idle_timeout=float(self.ctx.conf.get(
+                "osd_qos_idle_client_timeout")))
+            if self._use_opwq else None)
+        if self.opwq is not None:
+            self.ctx.conf.add_observer(
+                "osd_qos_idle_client_timeout",
+                lambda _n, v: self.opwq.set_idle_timeout(float(v)))
+        #: the qos_db snapshot currently folded into the scheduler
+        self._qos_profiles_applied: dict = {}
+        #: pool_id -> (mode, alg) last pushed to the objectstore
+        self._pool_comp_applied: dict = {}
+        self.ctx.admin.register_command(
+            "dump_qos_stats", lambda **kw: self._dump_qos_stats(),
+            "per-tenant dmclock accounting: backlog, phase-served "
+            "counts, queue-wait totals, applied profiles")
+        from ceph_tpu_torch.ops import telemetry
+        self.ctx.admin.register_command(
+            "dump_tenant_usage",
+            lambda **kw: telemetry.tenant_dump(),
+            "tenant device-time ledger: per-tenant x engine x channel "
+            "device-seconds apportioned from coalesced dispatch "
+            "batches by stripe share, batch/request/stripe counts, "
+            "queue-wait histograms, and share-of-device gauges "
+            "(untagged work lands in the _untagged bucket)")
+        # recovery reservations (AsyncReserver / osd_max_backfills): a PG
+        # needs a slot before pulling; pulls run in a bounded window
+        from ceph_tpu_torch.osd.reserver import AsyncReserver
+        self.local_reserver = AsyncReserver(
+            int(self.ctx.conf.get("osd_max_backfills")),
+            name=f"osd.{osd_id}")
+        #: bytes queued in the op queue (osd_client_message_size_cap)
+        self._op_throttle = Throttle(
+            f"osd.{osd_id}-op-bytes",
+            int(self.ctx.conf.get("osd_client_message_size_cap")))
+
+        # cache-tier agent (PrimaryLogPG promote_object + TierAgent):
+        # promotions and flush/evict run on their own thread — they
+        # issue internal client ops that may land back on this OSD's own
+        # shard workers, so they must never run ON a shard worker
+        import queue as _queue
+        self._ms_type = ms_type
+        self._promoting: dict[tuple, list] = {}
+        self._agent_tid = 0
+        self._agent_q: "_queue.Queue" = _queue.Queue()
+        self._internal_client = None
+        self._agent_thread = threading.Thread(
+            target=self._agent_loop, name=f"osd.{osd_id}-tier-agent",
+            daemon=True)
+        self._agent_thread.start()
+        self.ctx.admin.register_command(
+            "dump_reservations", lambda **kw: self.local_reserver.dump(),
+            "recovery reservation slots")
+
+    def _opwq_handle(self, klass: str, item, served=None) -> None:
+        """Shard worker: run the dispatch handler bound at enqueue.
+        The worker JOINS the op's trace (the dispatch thread's
+        thread-local died at the queue boundary; the id lives on the
+        message).  ``served`` is the dmclock (phase, queue-wait) pair:
+        the phase is stamped onto the message for the reply's echo
+        (client rho accounting) and counted in the qos perf set, and a
+        traced op gets a ``qos_wait`` event so ``tracing show``
+        explains a throttled op."""
+        handler, msg, cost = item
+        from ceph_tpu_torch.common import tracing
+        # parent under the rx dispatch span deliver() stored on the msg
+        prev = tracing.set_current(getattr(msg, "trace_id", 0),
+                                   getattr(msg, "parent_span_id", 0))
+        try:
+            if served is not None:
+                phase, wait = served
+                msg._qos_phase = phase
+                if phase == PHASE_RESERVATION:
+                    self.perf.inc("qos_reservation_served")
+                elif phase == PHASE_WEIGHT:
+                    self.perf.inc("qos_weight_served")
+                elif phase == PHASE_LIMIT:
+                    self.perf.inc("qos_limit_served")
+                self.perf.tinc("qos_wait", wait)
+                if tracing.current():   # untraced majority skips the
+                    tracing.record(     # event formatting entirely
+                        f"osd.{self.osd_id}",
+                        f"qos_wait {wait * 1000.0:.2f}ms class={klass} "
+                        f"phase={PHASE_NAMES.get(phase, phase)}")
+            handler(msg)
+        finally:
+            tracing.set_current(prev)
+            self._op_throttle.put(cost)
+
+    def _client_class(self, msg) -> str:
+        """dmclock class for a client op: the authenticated TENANT lane
+        when the op carries one and osd_qos_tenant_lanes is on (the
+        MOSDOp v4 qos_tenant tag the RGW front stamps — its profile
+        comes from the OSDMap qos_db), else per-client tag streams when
+        osd_mclock_per_client is on (mClockClientQueue), else one
+        aggregate class (mClockOpClassQueue).
+
+        Trust boundary: the tenant tag is client-asserted, like this
+        reduction's client_id/epoch — the gateway (which authenticates
+        the S3 principal) is the trusted stamper, and a direct rados
+        client claiming another tenant's lane is equivalent to the
+        pre-existing client_id spoof.  Binding tenants to cephx
+        entity caps (the reference's osd cap profile machinery) is the
+        hardening step when untrusted direct clients matter; operators
+        running such clients today should leave per-client lanes on
+        and keep osd_qos_tenant_lanes for gateway-fronted pools."""
+        if self._qos_tenant_lanes:
+            tenant = getattr(msg, "qos_tenant", "")
+            if tenant:
+                return f"client.{tenant}"
+        if self._mclock_per_client:
+            return f"client.{getattr(msg, 'client_id', 0)}"
+        return "client"
+
+    def _dump_qos_stats(self) -> dict:
+        """Admin `dump_qos_stats`: the merged per-lane dmclock
+        accounting plus the qos_db snapshot this daemon scheduled
+        from."""
+        if self.opwq is None:
+            return {"queue": "direct", "classes": {},
+                    "profiles": dict(self._qos_profiles_applied)}
+        out = self.opwq.dump_qos()
+        out["queue"] = "mclock"
+        out["tenant_lanes"] = self._qos_tenant_lanes
+        out["profiles"] = dict(self._qos_profiles_applied)
+        return out
+
+    def _qos_digest(self) -> dict:
+        """Per-lane accounting digest for the MMgrReport v4 tail (the
+        mgr qos_feed -> ceph_qos_* prometheus families): client lanes
+        + the aggregate evicted rollup, totals only."""
+        if self.opwq is None:
+            return {}
+        d = self.opwq.dump_qos()
+        lanes = {}
+        for name, row in d["classes"].items():
+            lanes[name] = {"backlog": row["backlog"],
+                           "served": row["served"],
+                           "wait_sum_s": row["wait_sum_s"],
+                           # cumulative LATENCY_BOUNDS buckets: the mgr
+                           # slo module diffs these across report
+                           # intervals for a windowed p99 per lane
+                           "wait_buckets": row["wait_buckets"]}
+        return {"lanes": lanes, "evicted": d["evicted"]}
+
+    @staticmethod
+    def _op_cost(msg) -> int:
+        """Approximate queued-payload bytes (the data dominates)."""
+        cost = 256
+        for attr in ("data", "shard_data"):
+            v = getattr(msg, attr, None)
+            if v is not None:
+                cost += len(v)
+        for op in getattr(msg, "ops", ()) or ():
+            cost += len(getattr(op, "data", b"") or b"")
+        return cost
+
+    def _enqueue_op(self, klass: str, shard_key, handler, msg) -> None:
+        """Route through the sharded mClock queue (enqueue_op →
+        op_shardedwq → dequeue_op), or run inline when disabled.
+
+        Queued payload bytes ride a throttle (osd_client_message_size_cap
+        semantics): the messenger's dispatch throttle releases the moment
+        we enqueue, so without this a stuck shard would buffer peer
+        pushes/writes without bound.  get() blocks the dispatch thread —
+        exactly the backpressure the reference applies at the front door."""
+        if self.opwq is not None:
+            cost = min(self._op_cost(msg), self._op_throttle.max_amount)
+            self._op_throttle.get(cost)
+            if not self.opwq.enqueue(shard_key, klass,
+                                     (handler, msg, cost),
+                                     delta=getattr(msg, "qos_delta", 1),
+                                     rho=getattr(msg, "qos_rho", 1)):
+                # client backlog cap: refuse (no reply) — the client's
+                # timeout resend retries once the shard drains
+                self._op_throttle.put(cost)
+                trk = getattr(msg, "_trk", None)
+                if trk is not None:
+                    trk.mark_event("refused: client backlog at cap")
+                    trk.finish()
+        else:
+            handler(msg)
+
+    def _pg_dump(self) -> dict:
+        with self._lock:
+            return {f"{p[0]}.{p[1]}": {
+                "state": pg.state, "last_update": list(pg.info.last_update),
+                "log_len": len(pg.log), "missing": len(pg.missing),
+                "up": pg.up, "primary": pg.primary}
+                for p, pg in self.pgs.items()}
+
+    # -- lifecycle (OSD::init, ceph_osd.cc main) ------------------------------
+
+    def init(self) -> None:
+        self.store.mkfs_if_needed()
+        self.store.mount()
+        self._load_pgs()
+        self.msgr.bind(self._addr)
+        self.msgr.start()
+        self._maybe_reboot()
+        if self._heartbeats:
+            self._schedule_heartbeat()
+        self._schedule_tick()
+
+    def shutdown(self) -> None:
+        self._stop = True
+        if self._hb_timer:
+            self._hb_timer.cancel()
+        if self._tick_timer:
+            self._tick_timer.cancel()
+        if self.opwq is not None:
+            self.opwq.shutdown()
+        self._agent_q.put(None)
+        if self._internal_client is not None:
+            self._internal_client.shutdown()
+        # drain in-flight async EC commits while the messenger and
+        # store are still up (continuations fan out shards and reply),
+        # then stop the engine's threads.  Only when the ctx is ours:
+        # a caller-supplied context may serve other daemons.  Stragglers
+        # submitting after stop() run inline, so nothing can hang.
+        # decode first: its continuations (recovery re-encode, rmw
+        # drain) submit into the encode engine, which must still be
+        # live to take them; encode-side stragglers after its own stop
+        # run inline, so nothing can hang either way
+        engines = ([("decode", self.ctx._decode_dispatch),
+                    ("dispatch", self.ctx._dispatch)]
+                   if self._own_ctx else [])
+        for ename, eng in engines:
+            if eng is None:
+                continue
+            try:
+                drained = eng.flush(timeout=5.0)
+            except Exception as e:
+                # a WEDGED engine raises (its waiters were already
+                # failed loudly with EngineWedgedError): shutdown
+                # proceeds — there is nothing left to drain
+                dout("osd", 0, "osd.%d shutdown: %s engine wedged: "
+                     "%r", self.osd_id, ename, e)
+                drained = True
+            if not drained:
+                dout("osd", 0, "osd.%d shutdown: %s engine did "
+                     "not drain in 5s — in-flight EC completions may "
+                     "land on the unmounted store and be dropped",
+                     self.osd_id, ename)
+            if not eng.stop():
+                dout("osd", 0, "osd.%d shutdown: %s engine "
+                     "thread(s) still live past join timeout",
+                     self.osd_id, ename)
+        self.msgr.shutdown()
+        # store LAST: a bluestore commit during the drain window above
+        # runs its bluestore_data digest inline on a stopped engine
+        # (or scalar on failure), so umount never races a pending batch
+        self.store.umount()
+
+    # -- tick (OSD::tick analog: watchdog for stuck peering/recovery) ---------
+
+    TICK_INTERVAL = 0.5
+    STUCK_AFTER = 2.0
+
+    def _schedule_tick(self) -> None:
+        if self._stop:
+            return
+        self._tick_timer = threading.Timer(self.TICK_INTERVAL, self._tick)
+        self._tick_timer.daemon = True
+        self._tick_timer.start()
+
+    def _mgr_report(self) -> None:
+        # the map's active-mgr record (MgrMap) wins; the static
+        # constructor address is the pre-mgr_db fallback
+        mgr_db = self.osdmap.mgr_db or {}
+        mgr_addr = mgr_db.get("addr") or self.mgr_addr
+        if not mgr_addr:
+            return
+        mgr_name = mgr_db.get("active_name", "mgr.0")
+        try:
+            mgr_rank = int(mgr_name.split(".")[1])
+        except (IndexError, ValueError):
+            mgr_rank = 0
+        from ceph_tpu_torch.mgr import MMgrReport
+        states: dict[str, int] = {}
+        n_obj = n_bytes = 0
+        with self._lock:
+            for pg in self.pgs.values():
+                states[pg.state] = states.get(pg.state, 0) + 1
+        per_cid: dict[str, tuple[int, int]] = {}
+        for cid in self.store.list_collections():
+            c_obj = c_bytes = 0
+            try:
+                for oid in self.store.list_objects(cid):
+                    if oid.startswith(PG.PGMETA):
+                        continue
+                    c_obj += 1
+                    c_bytes += self.store.stat(cid, oid)["size"]
+            except KeyError:
+                continue
+            per_cid[cid] = (c_obj, c_bytes)
+            n_obj += c_obj
+            n_bytes += c_bytes
+        # per-PG stat records for the PGs this osd leads (pg_stat_t
+        # reduced): state, acting set, store usage, log bounds — the
+        # mgr's `pg dump` / `pg ls` truth
+        pg_stats: dict[str, dict] = {}
+        with self._lock:
+            pgids = list(self.pgs)
+        for pgid in pgids:
+            pool = self.osdmap.pools.get(pgid[0])
+            if pool is None or not (0 <= pgid[1] < pool.pg_num):
+                continue
+            _up, primary = self._pg_members(pgid)
+            if primary != self.osd_id:
+                continue
+            with self._lock:
+                pg = self.pgs.get(pgid)
+                if pg is None:
+                    continue
+                c_obj, c_bytes = per_cid.get(self._pg_cid(pgid), (0, 0))
+                tail = (pg.log.entries[0].version if pg.log.entries
+                        else pg.log.head)
+                pg_stats[f"{pgid[0]}.{pgid[1]}"] = {
+                    "state": pg.state, "up": list(pg.up),
+                    "num_objects": c_obj, "bytes": c_bytes,
+                    "missing": len(pg.missing),
+                    "log_size": len(pg.log.entries),
+                    "log_head": pg.log.head, "log_tail": tail}
+        counters = dict(self.perf._u64)
+        # v4 tail: completed slow traces (tail-sampled span trees),
+        # historic slow-op digests, and the pipeline-profile phase
+        # digest — the mgr insights module's feed
+        from ceph_tpu_torch.common import tracing
+        from ceph_tpu_torch.ops import telemetry
+        con = self.msgr.connect_to(mgr_addr, EntityName("mgr", mgr_rank))
+        con.send_message(MMgrReport(
+            osd_id=self.osd_id, counters=counters, pg_states=states,
+            num_objects=n_obj, bytes_used=n_bytes, pg_stats=pg_stats,
+            perf=self.ctx.perf.dump(),
+            slow_traces=tracing.slow_trace_digests(),
+            slow_ops=self.op_tracker.slow_digests(),
+            profile=telemetry.pipeline_profile_digest(),
+            qos=self._qos_digest(),
+            faults=self.ctx.fault_digest(),
+            tenant_usage=telemetry.tenant_usage_digest()))
+
+    def _tick(self) -> None:
+        try:
+            now = time.time()
+            self._maybe_reboot()
+            self._renew_map_subscription(now)
+            self._agent_scan(now)
+            self._mgr_report()
+            self.clog.flush()
+            # PG state summary to the mons (MPGStats flow): feeds the
+            # PG_DEGRADED health check
+            states, degraded = self._pg_stats_summary()
+            self._send_to_mons(lambda: MPGStats(
+                osd_id=self.osd_id, states=states,
+                degraded_objects=degraded, stamp=now))
+            for warn in self.op_tracker.check_ops_in_flight():
+                dout("osd", 1, "osd.%d %s", self.osd_id, warn)
+            with self._lock:
+                pgs = list(self.pgs.values())
+                # rmw gathers have no client resend to rescue them: a
+                # lost shard-read reply would wedge the object behind
+                # pg.rmw forever — time them out here
+                stuck_rmw = [
+                    (gid, st) for gid, st in self._ec_reads.items()
+                    if st["kind"] == "rmw"
+                    and now - st.get("started", now) > 8.0]
+                for gid, st in stuck_rmw:
+                    self._ec_reads.pop(gid, None)
+                    # fail atomically under this lock (see _rmw_fail):
+                    # releasing first would let a new write reclaim the
+                    # gate ahead of the queued older writes
+                    self._rmw_fail(st)
+                # a pending-write gate whose commits all landed but
+                # whose release was lost (a continuation died mid-
+                # commit) would wedge the object's readers forever:
+                # reap it defensively.  Gates with commits still in
+                # flight are left alone — the engine always resolves
+                # its futures, so the last continuation releases them
+                wpend_waiting: list = []
+                for gid, st in [
+                        (g, s) for g, s in self._ec_reads.items()
+                        if s.get("kind") == "wpend"
+                        and not s.get("pending")
+                        and now - s.get("started", now) > 8.0]:
+                    self._ec_reads.pop(gid, None)
+                    wpg = self.pgs.get(st["pgid"])
+                    if wpg is not None:
+                        if wpg.rmw.get(st["oid"]) == gid:
+                            wpg.rmw.pop(st["oid"], None)
+                        # parked pipelined writes re-dispatch before the
+                        # waiting readers — they arrived first, and the
+                        # release path (_ec_write_committed) keeps that
+                        # per-object order too
+                        wpend_waiting.extend(
+                            m for m, _op in st.get("queue") or [])
+                        wpend_waiting.extend(
+                            wpg.waiting_for_missing.pop(st["oid"], []))
+                # a dead watcher never acks: expire its notifies so the
+                # notifier gets its reply instead of a client timeout
+                stale_notifies = [
+                    nid for nid, st in self._notifies.items()
+                    if now - st.get("started", now) > 5.0]
+                expired = [self._notifies.pop(nid)
+                           for nid in stale_notifies]
+            for st in expired:
+                m = st["msg"]
+                self._op_send_reply(m, MOSDOpReply(
+                    tid=m.tid, result=0, epoch=self.osdmap.epoch))
+            for m in wpend_waiting:
+                self._handle_op(m)
+            for pg in pgs:
+                self._tick_pg(pg, now)
+        finally:
+            self._schedule_tick()
+
+    def _send_to_mons(self, make_msg) -> None:
+        """Send make_msg() to every monitor (reports are idempotent; the
+        leader executes, peons ignore).  Targets follow the COMMITTED
+        monmap when one exists, so runtime `mon add/rm` re-points the
+        daemon without a restart."""
+        from ceph_tpu_torch.common.moncmd import mon_targets
+        for rank, addr in mon_targets(self.osdmap, self.mon_addrs):
+            mon = self.msgr.connect_to(addr, EntityName("mon", rank))
+            mon.send_message(make_msg())
+
+    def _renew_map_subscription(self, now: float,
+                                force: bool = False) -> None:
+        """Periodically re-subscribe to the mon map stream (the
+        reference's MonClient renews subscriptions on an interval).  The
+        subscription carries our epoch, so a renewal from a current osd
+        costs the mon nothing; a stale osd — one that missed a commit
+        push in a connection hiccup — gets the map and converges instead
+        of monitoring peers against a stale view forever.  Forced
+        renewals (epoch gossip hits) keep a small floor so a ping storm
+        from many peers collapses into one subscribe."""
+        interval = float(self.ctx.conf.get("osd_map_renew_interval"))
+        floor = min(0.25, interval) if force else interval
+        if now - self._last_sub_renew < floor:
+            return
+        self._last_sub_renew = now
+        self._send_to_mons(lambda: MMonSubscribe(
+            name=str(self.whoami), addr=self.msgr.my_addr,
+            epoch=self.osdmap.epoch))
+
+    def _maybe_reboot(self) -> None:
+        """Re-send MOSDBoot until the map shows us up at our address —
+        the first boot can race the monitor election/bootstrap
+        (OSD::start_boot retry semantics)."""
+        m = self.osdmap
+        booted = (m.epoch > 0 and m.is_up(self.osd_id)
+                  and self.osd_id < len(m.osd_addrs)
+                  and m.osd_addrs[self.osd_id] == self.msgr.my_addr)
+        if booted:
+            return
+        self._renew_map_subscription(time.time(), force=True)
+        self._send_to_mons(lambda: MOSDBoot(osd_id=self.osd_id,
+                                            addr=self.msgr.my_addr))
+
+    def _tick_pg(self, pg: PG, now: float) -> None:
+        restart = False
+        repulls: list[str] = []
+        flush: list = []
+        with self._lock:
+            # defensive: re-dispatch waiters whose block condition cleared
+            if pg.state == STATE_ACTIVE:
+                for oid in list(pg.waiting_for_missing):
+                    if not self._blocked_on_recovery(pg, oid, True, True):
+                        flush.extend(pg.waiting_for_missing.pop(oid))
+                if pg.waiting_for_active:
+                    flush.extend(pg.waiting_for_active)
+                    pg.waiting_for_active = []
+        for m in flush:
+            self._handle_op(m)
+        with self._lock:
+            if (pg.primary == self.osd_id
+                    and pg.state in (STATE_GETINFO, STATE_GETLOG)
+                    and now - pg.peering_started > self.STUCK_AFTER):
+                restart = True   # a query/notify was lost; re-run the round
+            elif (pg.primary == self.osd_id
+                    and pg.state == STATE_INACTIVE
+                    and (pg.waiting_for_active or pg.waiting_for_missing)
+                    and now - pg.peering_started > self.STUCK_AFTER):
+                # ops parked on a primary that never started (or lost)
+                # its peering round — e.g. an op racing a pg-split scan
+                # under load: kick the round rather than strand them
+                restart = True
+            elif pg.state == STATE_RECOVERING:
+                # drop stuck pulls; the window refill below re-issues them
+                for oid, started in list(pg.recovering.items()):
+                    if now - started > self.STUCK_AFTER:
+                        del pg.recovering[oid]
+                        repulls.append(oid)
+        if restart:
+            self._start_peering(pg, pg.up, pg.primary)
+            return
+        if pg.state == STATE_RECOVERING:
+            if self.local_reserver.has(pg.pgid):
+                if repulls or pg.missing:
+                    self._start_recovery_ops(pg)
+            else:
+                # reservation lost (e.g. restored-from-disk state or a
+                # cancelled slot): re-request it
+                self.local_reserver.request(
+                    pg.pgid, lambda: self._start_recovery_ops(pg))
+
+    def _load_pgs(self) -> None:
+        """Rebuild in-memory PG state from persisted pgmeta
+        (OSD::load_pgs analog)."""
+        for cid in self.store.list_collections():
+            parts = cid.split(".")
+            if len(parts) != 2:
+                continue
+            try:
+                pgid = (int(parts[0]), int(parts[1]))
+            except ValueError:
+                continue
+            try:
+                meta = self.store.omap_get(cid, PG.PGMETA)
+            except KeyError:
+                continue
+            pg = PG(pgid)
+            info_blob = meta.get("info")
+            if info_blob:
+                pg.info = PG.decode_info(info_blob)
+            entries = [PG.decode_entry(v) for k, v in sorted(meta.items())
+                       if k.startswith("log.")]
+            pg.log.copy_from(entries)
+            missing_blob = meta.get("missing")
+            if missing_blob:
+                pg.decode_missing(missing_blob)
+            pg.next_seq = pg.log.head[1]
+            num_blob = meta.get("pg_num")
+            pg.split_num = (int(num_blob.decode()) if num_blob else 0)
+            self.pgs[pgid] = pg
+            dout("osd", 10, "osd.%d loaded pg %s: %d entries, head %s",
+                 self.osd_id, cid, len(entries), pg.log.head)
+
+    # -- map handling ---------------------------------------------------------
+
+    def _handle_map(self, msg: MOSDMapMsg) -> None:
+        with self._lock:
+            newmap, gapped = advance_map(self.osdmap, msg)
+            if newmap is None and not gapped:
+                return
+            if newmap is not None:
+                oldmap = self.osdmap
+                self.osdmap = newmap
+                self._codecs.clear()
+        if gapped:
+            # we were down across trimmed epochs: request a backfill
+            # (OSD::handle_osd_map request_full analog)
+            self._renew_map_subscription(time.time(), force=True)
+            return
+        dout("osd", 5, "osd.%d got map epoch %d", self.osd_id, newmap.epoch)
+        self._apply_config_db(newmap)
+        self._apply_qos_db(newmap)
+        self._apply_pool_compression(newmap)
+        self._split_pgs(newmap)
+        upd = None
+        if self._map_shared:
+            # advance the shared cache (daemons on one context share a
+            # single table build; a burst computes only the newest
+            # epoch) and take the exact changed-PG delta from OUR old
+            # epoch so the scan below is O(changed + local).  A card
+            # fault raises to the caller: no scalar scan hides it
+            upd = self.ctx.mapping_service().update_to(
+                newmap, from_epoch=oldmap.epoch)
+        del oldmap
+        self.perf.inc("map_epochs")
+        t_scan = time.time()
+        self._scan_pgs(upd)
+        self.perf.tinc("map_scan_latency", time.time() - t_scan)
+        with self._lock:
+            waiting = [m for m in self._waiting_for_map
+                       if m.epoch <= newmap.epoch]
+            self._waiting_for_map = [m for m in self._waiting_for_map
+                                     if m.epoch > newmap.epoch]
+            subops = self._waiting_subops
+            self._waiting_subops = []
+        for m in waiting:
+            self._handle_op(m)
+        for handler, m in subops:
+            handler(m)
+
+    def _apply_config_db(self, m: OSDMap) -> None:
+        """Fold the map's central config-db into this daemon's config
+        at the "mon" source layer (ConfigMonitor push -> md_config_t
+        observers): global < osd < osd.N precedence, with retraction
+        when a key leaves the db."""
+        desired: dict[str, str] = {}
+        for section in ("global", "osd", f"osd.{self.osd_id}"):
+            desired.update(m.config_db.get(section, {}))
+        applied = getattr(self, "_mon_config_applied", set())
+        for name in applied - set(desired):
+            try:
+                self.ctx.conf.rm(name, "mon")
+            except (KeyError, ValueError):
+                pass
+        for name, value in desired.items():
+            try:
+                self.ctx.conf.set(name, value, source="mon")
+            except (KeyError, ValueError):
+                dout("osd", 5, "osd.%d ignoring unknown config %s",
+                     self.osd_id, name)
+        self._mon_config_applied = set(desired)
+
+    def _apply_qos_db(self, m: OSDMap) -> None:
+        """Fold the map's per-tenant QoS profiles into the scheduler
+        (`ceph qos set/rm` -> qos_db -> every OSD's mClock lanes): the
+        dmclock class for tenant T is client.T, so a tenant's
+        reservation/weight/limit apply the moment its map lands —
+        including to lanes already backlogged."""
+        if self.opwq is None or m.qos_db == self._qos_profiles_applied:
+            return
+        from ceph_tpu_torch.osd.op_queue import ClassInfo
+        from ceph_tpu_torch.qos.dmclock import profiles_from_db
+        profiles = {
+            f"client.{tenant}": ClassInfo(reservation=p.reservation,
+                                          weight=p.weight,
+                                          limit=p.limit)
+            for tenant, p in profiles_from_db(m.qos_db).items()}
+        self.opwq.set_client_profiles(profiles)
+        self._qos_profiles_applied = dict(m.qos_db)
+        dout("osd", 5, "osd.%d applied qos_db (%d tenants)",
+             self.osd_id, len(profiles))
+
+    def _apply_pool_compression(self, m: OSDMap) -> None:
+        """Push the map's per-pool compression opts (`osd pool set <p>
+        compression_mode aggressive`) down to the objectstore; only
+        bluestore exposes the hook."""
+        setter = getattr(self.store, "set_pool_compression", None)
+        if setter is None:
+            return
+        for pool_id, pool in m.pools.items():
+            mode = getattr(pool, "compression_mode", "")
+            alg = getattr(pool, "compression_algorithm", "")
+            applied = self._pool_comp_applied.get(pool_id)
+            if applied != (mode, alg):
+                setter(pool_id, mode, alg)
+                self._pool_comp_applied[pool_id] = (mode, alg)
+        for pool_id in list(self._pool_comp_applied):
+            if pool_id not in m.pools:
+                setter(pool_id, "", "")
+                del self._pool_comp_applied[pool_id]
+
+    def _pg_stats_summary(self) -> tuple[dict, int]:
+        """(state -> count over primary PGs, degraded object count).
+
+        Primaries are judged against the CURRENT map, not the cached
+        pg.primary: a PG remapped away leaves a stale local object in
+        state "inactive" that must not count as degraded forever."""
+        states: dict[str, int] = {}
+        degraded = 0
+        with self._lock:
+            pgids = list(self.pgs)
+        for pgid in pgids:
+            pool = self.osdmap.pools.get(pgid[0])
+            if pool is None or not (0 <= pgid[1] < pool.pg_num):
+                continue
+            _up, primary = self._pg_members(pgid)
+            if primary != self.osd_id:
+                continue
+            with self._lock:
+                pg = self.pgs.get(pgid)
+                if pg is None:
+                    continue
+                states[pg.state] = states.get(pg.state, 0) + 1
+                degraded += len(pg.missing)
+                for ps in pg.peers.values():
+                    degraded += len(ps.missing)
+        return states, degraded
+
+    def _pg_cid(self, pgid) -> str:
+        return f"{pgid[0]}.{pgid[1]}"
+
+    def _get_pg(self, pgid) -> PG:
+        with self._lock:
+            pg = self.pgs.get(pgid)
+            if pg is None:
+                pg = PG(pgid)
+                pool = self.osdmap.pools.get(pgid[0])
+                pg.split_num = pool.pg_num if pool else 0
+                self.pgs[pgid] = pg
+                cid = self._pg_cid(pgid)
+                if cid not in self.store.list_collections():
+                    self.store.apply_transaction(
+                        Transaction().create_collection(cid)
+                        .touch(cid, PG.PGMETA)
+                        .omap_setkeys(cid, PG.PGMETA, {
+                            "pg_num": str(pg.split_num).encode()}))
+            return pg
+
+    def _split_pending(self, pool_id: int) -> bool:
+        """True while some local PG of the pool has not been split to the
+        current pg_num — the window between installing a grown map and
+        _split_pgs finishing.  Caller holds self._lock."""
+        pool = self.osdmap.pools.get(pool_id)
+        if pool is None:
+            return False
+        return any(pgid[0] == pool_id
+                   and 0 < pg.split_num < pool.pg_num
+                   for pgid, pg in self.pgs.items())
+
+    def _park_subop(self, handler, msg, pool) -> bool:
+        """Park an inter-OSD op that references a PG layout our map or
+        local splits have not reached yet (require_same_or_newer_map
+        analog): a child pgid beyond our pg_num means the sender runs a
+        newer map; a pending split means applying now would target the
+        pre-split collection.  Parked ops replay after the next map's
+        split+scan completes."""
+        with self._lock:
+            if (msg.pgid[1] >= pool.pg_num
+                    or self._split_pending(msg.pgid[0])):
+                if len(self._waiting_subops) < 10000:
+                    self._waiting_subops.append((handler, msg))
+                return True
+        return False
+
+    def _pgls_field(self, cid: str, ec: bool) -> "OSDOpField":
+        """One PG's client-visible object names (PrimaryLogPG do_pg_op
+        PGNLS): store names reduce to the base (snap clones and EC
+        shard suffixes stripped), LENGTH-PREFIX encoded — names may
+        contain any byte, including newlines."""
+        try:
+            raw = self.store.list_objects(cid)
+        except KeyError:
+            raw = []
+        names = sorted({self._base_oid(o, ec) for o in raw
+                        if not o.startswith(PG.PGMETA)
+                        and CLONE_SEP not in o})
+        enc = Encoder()
+        enc.list(names, lambda e, n: e.str(n))
+        return OSDOpField(OP_PGLS, 0, len(names), enc.tobytes())
+
+    @staticmethod
+    def _base_oid(oid: str, ec: bool) -> str:
+        """Logical object name of a store object: strips the CLONE_SEP
+        snap-clone suffix and, on EC pools, the ":shard" suffix — the
+        name the client hashed to place the object.  The shard strip is
+        safe for client names containing ":" because the OSD appends
+        exactly one suffix and rpartition takes the rightmost."""
+        base = oid.split(CLONE_SEP, 1)[0]
+        if ec and ":" in base:
+            head, _, tail = base.rpartition(":")
+            if tail.isdigit():
+                return head
+        return base
+
+    def _split_pgs(self, newmap: OSDMap) -> None:
+        """Split local PGs whose persisted pg_num watermark is behind the
+        pool's (PG::split_into, src/osd/PG.cc:2575; collection split via
+        the store-level collection_move primitive, os/ObjectStore.h
+        split_collection).
+
+        Driven by the per-PG "pg_num" watermark in pgmeta, NOT by a map
+        diff: an OSD that was down across the pg_num change boots
+        straight into the new map with no old map to compare, and its
+        unsplit PGs (stale logs still interleaving the children's
+        entries) would diverge from every peer's trimmed history.  The
+        watermark also collapses multi-step growth seen at once
+        (8->16->32 while down) into a single partition by the final
+        pg_num.
+
+        Children adopt the objects, log entries and missing-set items
+        whose placement seed maps to them under the new pg_num; every
+        replica computes the identical partition (it is a pure function
+        of object names), so peering after the split converges exactly
+        as before it.  With pgp_num unchanged, a child's placement seed
+        stable_mod's back to its parent's, so children start colocated
+        with their parents and data only moves when pgp_num is raised —
+        the reference's two-step semantics."""
+        for pool_id, pool in newmap.pools.items():
+            with self._lock:
+                # a pgmeta without the watermark predates the split
+                # feature, when pg_num was immutable — such a store is by
+                # definition already consistent with the pg_num it was
+                # created under; adopt the current one (backfill, never
+                # exempt: a zero watermark would skip every future split)
+                legacy = [pgid for pgid in self.pgs
+                          if pgid[0] == pool_id
+                          and self.pgs[pgid].split_num == 0]
+                for pgid in legacy:
+                    self.pgs[pgid].split_num = pool.pg_num
+                    self.store.apply_transaction(
+                        Transaction().touch(self._pg_cid(pgid), PG.PGMETA)
+                        .omap_setkeys(self._pg_cid(pgid), PG.PGMETA,
+                                      {"pg_num":
+                                       str(pool.pg_num).encode()}))
+                stale = [(pgid, self.pgs[pgid].split_num)
+                         for pgid in self.pgs
+                         if pgid[0] == pool_id
+                         and 0 < self.pgs[pgid].split_num < pool.pg_num
+                         and pgid[1] < self.pgs[pgid].split_num]
+            for pgid, old_num in sorted(stale):
+                children = [c for c in range(old_num, pool.pg_num)
+                            if pg_to_pgid(c, old_num) == pgid[1]]
+                if children:
+                    self._split_one(pgid, children, pool)
+                else:
+                    with self._lock:
+                        pg = self.pgs.get(pgid)
+                        if pg is not None:
+                            pg.split_num = pool.pg_num
+                            self.store.apply_transaction(
+                                Transaction().omap_setkeys(
+                                    self._pg_cid(pgid), PG.PGMETA,
+                                    {"pg_num":
+                                     str(pool.pg_num).encode()}))
+
+    def _split_one(self, pgid, children: list[int], pool) -> None:
+        pool_id, pnum = pgid
+        ec = pool.is_erasure()
+        new_num = pool.pg_num
+        with self._lock:
+            parent = self.pgs.get(pgid)
+            if parent is None:
+                return
+            pcid = self._pg_cid(pgid)
+            t = Transaction()
+            child_cids = {}
+            for c in children:
+                ccid = self._pg_cid((pool_id, c))
+                child_cids[c] = ccid
+                if ccid not in self.store.list_collections():
+                    t.create_collection(ccid)
+                t.touch(ccid, PG.PGMETA)
+
+            def target_of(oid: str) -> int:
+                return pg_to_pgid(
+                    ceph_str_hash_rjenkins(self._base_oid(oid, ec)),
+                    new_num)
+
+            # 1) objects: move every store object whose seed now maps to
+            # a child (snap clones and EC shards travel with their base)
+            moved = 0
+            for oid in self.store.list_objects(pcid):
+                if oid.startswith(PG.PGMETA):
+                    continue
+                tgt = target_of(oid)
+                if tgt != pnum:
+                    t.collection_move(pcid, oid, child_cids[tgt])
+                    moved += 1
+
+            # 2) log + missing: partition by the same function
+            child_pgs: dict[int, PG] = {}
+            for c in children:
+                cpg = self.pgs.get((pool_id, c))
+                if cpg is None:
+                    cpg = PG((pool_id, c))
+                    self.pgs[(pool_id, c)] = cpg
+                child_pgs[c] = cpg
+            keep_entries, moved_keys = [], []
+            child_entries: dict[int, list] = {c: [] for c in children}
+            for e in parent.log.entries:
+                tgt = target_of(e.oid)
+                if tgt == pnum:
+                    keep_entries.append(e)
+                else:
+                    child_entries[tgt].append(e)
+                    moved_keys.append(PG.log_key(e.version))
+            parent.log.copy_from(keep_entries)
+            for c, cpg in child_pgs.items():
+                cpg.log.copy_from(child_entries[c])
+                # both sides keep the parent's last_update (PG::split_into
+                # copies info); new writes use the current (bumped) epoch,
+                # so version monotonicity holds on both
+                cpg.info.last_update = parent.info.last_update
+                cpg.info.last_epoch_started = \
+                    parent.info.last_epoch_started
+                cpg.info.past_up = [list(iv)
+                                    for iv in parent.info.past_up]
+                cpg.missing = {o: m for o, m in parent.missing.items()
+                               if target_of(o) == c}
+                cpg.state = STATE_INACTIVE
+            parent.missing = {o: m for o, m in parent.missing.items()
+                              if target_of(o) == pnum}
+            parent.info.last_complete = parent.complete_to()
+
+            # 3) in-flight writes against the pre-split layout die here:
+            # repops requeue their client op (post-split dispatch dedups
+            # against the log), EC rmw gathers tear down with the gate
+            # (the same on_change teardown _start_peering does)
+            stale_infs = [rid for rid, inf in self._in_flight.items()
+                          if inf.msg.pgid == pgid]
+            for rid in stale_infs:
+                inf = self._in_flight.pop(rid)
+                trk = getattr(inf.msg, "_trk", None)
+                if trk is not None:
+                    trk.mark_event("repop torn down: pg split")
+                parent.waiting_for_active.append(inf.msg)
+            parent.rmw.clear()
+            dead = [gid for gid, st in self._ec_reads.items()
+                    if st["kind"] in ("rmw", "wpend")
+                    and st["pgid"] == pgid]
+            for gid in dead:
+                self._requeue_rmw_state(self._ec_reads.pop(gid, None),
+                                        parent)
+
+            # queued ops whose object moved: requeue on the child (the
+            # client also resends on the map change; the log dedups)
+            for c, cpg in child_pgs.items():
+                keep_waiting = []
+                for m in parent.waiting_for_active:
+                    (cpg.waiting_for_active
+                     if target_of(m.oid) == c else keep_waiting).append(m)
+                parent.waiting_for_active = keep_waiting
+            for o in list(parent.waiting_for_missing):
+                tgt = target_of(o)
+                if tgt != pnum:
+                    child_pgs[tgt].waiting_for_missing.setdefault(
+                        o, []).extend(parent.waiting_for_missing.pop(o))
+
+            # 4) persist the whole split atomically: child metadata, the
+            # object moves, and the parent's trimmed log in ONE txn
+            parent.split_num = new_num
+            if moved_keys:
+                t.omap_rmkeys(pcid, PG.PGMETA, moved_keys)
+            t.omap_setkeys(pcid, PG.PGMETA, {
+                "info": parent.encode_info(),
+                "missing": parent.encode_missing(),
+                "pg_num": str(new_num).encode()})
+            for c, cpg in child_pgs.items():
+                cpg.split_num = new_num
+                ccid = child_cids[c]
+                keys = {"info": cpg.encode_info(),
+                        "missing": cpg.encode_missing(),
+                        "pg_num": str(new_num).encode()}
+                for e in cpg.log.entries:
+                    keys[PG.log_key(e.version)] = PG.encode_entry(e)
+                t.omap_setkeys(ccid, PG.PGMETA, keys)
+            # the parent re-peers (cheap: same membership) so its
+            # requeued ops flush at activation; children peer as new PGs
+            parent.state = STATE_INACTIVE
+            self.store.apply_transaction(t)
+            self.perf.inc("pg_splits")
+            dout("osd", 3, "osd.%d split pg %s into %d children "
+                 "(%d objects moved)", self.osd_id, pgid, len(children),
+                 moved)
+
+    def _scan_pgs(self, upd=None) -> None:
+        """On every new map: (re)start peering for PGs whose membership
+        changed (the map-change edge of the peering statechart).
+
+        With a MapUpdate delta from the shared mapping service, only
+        the changed PGs plus every locally-held PG (current members AND
+        strays — their notify/teardown edges depend on OUR state, not
+        the map diff) are examined, and each read is a cached-raw
+        pipeline tail — O(changed + local) host work instead of
+        O(cluster PGs) scalar CRUSH.  Without a delta (shared cache
+        off, first map, or a chain gap) every PG is walked as before."""
+        m = self.osdmap
+        if upd is not None and not upd.full:
+            scan = set(upd.changed)
+            scan.update(self.pgs.keys())
+            pgids = sorted(scan)
+            self.perf.inc("map_pgs_changed", len(upd.changed))
+        else:
+            pgids = [(pool_id, pgnum)
+                     for pool_id, pool in m.pools.items()
+                     for pgnum in range(pool.pg_num)]
+        self.perf.inc("map_pgs_scanned", len(pgids))
+        for pool_id, pgnum in pgids:
+            pool = m.pools.get(pool_id)
+            if pool is None or not (0 <= pgnum < pool.pg_num):
+                continue   # locally-held PG of a deleted/shrunk pool
+            up, _upp, _acting, primary = \
+                self._pg_mapping(pool_id, pgnum)
+            pgid = (pool_id, pgnum)
+            if self.osd_id not in up:
+                pg = self.pgs.get(pgid)
+                if pg and pg.state != STATE_INACTIVE:
+                    pg.state = STATE_INACTIVE
+                    # no longer a member: a held/queued recovery slot
+                    # must not leak (it would wedge every later PG)
+                    self.local_reserver.cancel(pgid)
+                # stray notify (PG stray semantics): we hold data for
+                # a PG we are no longer (or never were) up for.  The
+                # new primary may have NOTHING — a child remapped
+                # onto fresh OSDs after pgp_num grew, or a wide
+                # reshuffle — and only learns prior holders from
+                # these notifies.
+                if (pg is not None and primary != self.osd_id
+                        and primary != CEPH_NOSD
+                        and (pg.log.entries
+                             or pg.info.last_update > EVERSION_ZERO)):
+                    con = self._osd_con(primary)
+                    if con:
+                        con.send_message(MOSDPGNotify(
+                            pgid=pgid,
+                            info=self._advertised_info(pg),
+                            epoch=m.epoch, from_osd=self.osd_id))
+                continue
+            pg = self._get_pg(pgid)
+            if pg.up != up or pg.primary != primary \
+                    or pg.state == STATE_INACTIVE:
+                self._start_peering(pg, up, primary)
+
+    def _pg_mapping(self, pool_id: int, pgnum: int
+                    ) -> tuple[list[int], int, list[int], int]:
+        """(up, up_primary, acting, acting_primary) for one PG — from
+        the shared mapping cache when enabled (falls back to the
+        scalar oracle on any epoch/object mismatch), else scalar."""
+        if self._map_shared:
+            return self.ctx.mapping_service().lookup(
+                self.osdmap, pool_id, pgnum)
+        return self.osdmap.pg_to_up_acting_osds(pool_id, pgnum)
+
+    def _start_peering(self, pg: PG, up: list[int], primary: int) -> None:
+        # interval change: the old interval's recovery slot is void
+        self.local_reserver.cancel(pg.pgid)
+        with self._lock:
+            if pg.up and pg.up != up:
+                self._merge_past_up(pg, [pg.up], new_up=up)
+            pg.up = list(up)
+            pg.primary = primary
+            pg.peering_epoch = self.osdmap.epoch
+            pg.peering_started = time.time()
+            # drop strays the map says are gone: a dead stray with the
+            # best last_update would otherwise be chosen as the GETLOG
+            # target forever and wedge peering
+            pg.strays = {o: i for o, i in pg.strays.items()
+                         if self.osdmap.exists(o) and self.osdmap.is_up(o)}
+            pg.peers = {o: PeerState(info=i)
+                        for o, i in pg.strays.items() if o not in up}
+            pg.recovering.clear()
+            # interval change: in-flight rmw gathers die with the gate;
+            # their client ops requeue (re-executed post-activation)
+            pg.rmw.clear()
+            dead = [gid for gid, st in self._ec_reads.items()
+                    if st["kind"] in ("rmw", "wpend")
+                    and st["pgid"] == pg.pgid]
+            for gid in dead:
+                self._requeue_rmw_state(
+                    self._ec_reads.pop(gid, None), pg,
+                    event="rmw gather torn down: interval change")
+            # ops queued against the old interval: requeue for re-check
+            # after this round settles (clients also resend on map change)
+            for ops in pg.waiting_for_missing.values():
+                pg.waiting_for_active.extend(ops)
+            pg.waiting_for_missing.clear()
+            # in-flight repops waiting on replicas from the OLD interval
+            # would hang forever on a dead peer's ack; the entry is in
+            # our log, peering converges the new replicas from it, so
+            # requeue the client op — post-activation it dedups against
+            # the log and acks (PrimaryLogPG on_change repop teardown)
+            stale_infs = [rid for rid, inf in self._in_flight.items()
+                          if inf.msg.pgid == pg.pgid]
+            for rid in stale_infs:
+                inf = self._in_flight.pop(rid)
+                trk = getattr(inf.msg, "_trk", None)
+                if trk is not None:
+                    trk.mark_event("repop torn down: interval change")
+                pg.waiting_for_active.append(inf.msg)
+            if primary != self.osd_id:
+                pg.state = STATE_REPLICA
+                for m in pg.waiting_for_active:   # clients re-target
+                    trk = getattr(m, "_trk", None)
+                    if trk is not None:
+                        trk.mark_event("discarded: no longer primary")
+                        trk.finish()
+                pg.waiting_for_active.clear()
+                return
+            self.perf.inc("peering_rounds")
+            peers = [o for o in up
+                     if o != self.osd_id and o != CEPH_NOSD]
+            if not peers:
+                self._pg_recover_or_activate(pg)
+                return
+            pg.state = STATE_GETINFO
+        for o in peers:
+            con = self._osd_con(o)
+            if con:
+                con.send_message(MOSDPGQuery(
+                    pgid=pg.pgid, qtype=MOSDPGQuery.INFO,
+                    epoch=pg.peering_epoch, from_osd=self.osd_id))
+
+    # -- peering (primary side) ----------------------------------------------
+
+    def _advertised_info(self, pg: PG) -> "PGInfo":
+        """Info snapshot for peering replies.  Includes my current up set
+        among the advertised intervals: if my map is older than the
+        asker's, what I call "current" is a past interval to them — and
+        it is where my shard chunks physically live."""
+        info = PGInfo(pgid=pg.info.pgid, last_update=pg.info.last_update,
+                      last_complete=pg.info.last_complete,
+                      last_epoch_started=pg.info.last_epoch_started,
+                      past_up=[list(iv) for iv in pg.info.past_up])
+        if pg.up and pg.up not in info.past_up:
+            info.past_up.append(list(pg.up))
+        return info
+
+    def _handle_pg_query(self, msg: MOSDPGQuery) -> None:
+        pg = self._get_pg(msg.pgid)
+        # reply over the incoming connection: a just-booted OSD may not
+        # have the asker's address in its (older) map yet
+        con = msg.connection or self._osd_con(msg.from_osd)
+        if con is None:
+            return
+        if msg.qtype == MOSDPGQuery.INFO:
+            con.send_message(MOSDPGNotify(
+                pgid=msg.pgid, info=self._advertised_info(pg),
+                epoch=msg.epoch, from_osd=self.osd_id))
+        else:
+            con.send_message(MOSDPGLog(
+                pgid=msg.pgid, info=self._advertised_info(pg),
+                entries=pg.log.entries, purpose=MOSDPGLog.REPLY,
+                epoch=msg.epoch, from_osd=self.osd_id))
+
+    def _handle_pg_notify(self, msg: MOSDPGNotify) -> None:
+        restart = False
+        with self._lock:
+            pg = self.pgs.get(msg.pgid)
+            if pg is None:
+                return
+            if msg.from_osd not in pg.up:
+                # a stray holder announced itself: record as a peering
+                # and recovery source
+                pg.strays[msg.from_osd] = msg.info
+                pg.peers.setdefault(msg.from_osd,
+                                    PeerState()).info = msg.info
+                self._merge_past_up(pg, msg.info.past_up)
+                considered = getattr(pg, "strays_considered", {})
+                if (pg.primary == self.osd_id
+                        and pg.state in (STATE_ACTIVE, STATE_RECOVERING)
+                        and msg.info.last_update > pg.info.last_update
+                        and msg.info.last_update
+                        > considered.get(msg.from_osd, EVERSION_ZERO)):
+                    # the stray has history we activated without (its
+                    # notify lost the race — possibly arriving mid-
+                    # GETLOG, after the GETINFO snapshot): re-peer with
+                    # it as a source.  Guarded on info a completed
+                    # peering round has NOT already considered: a stray
+                    # whose divergent tail the EC roll-forward trim
+                    # rejected re-notifies the same info on every map
+                    # epoch, and restarting for it each time would
+                    # re-peer the PG forever
+                    restart = True
+                if pg.state != STATE_GETINFO:
+                    pass_through = False
+                else:
+                    pass_through = True
+            else:
+                if (pg.state != STATE_GETINFO
+                        or msg.epoch != pg.peering_epoch):
+                    return
+                pg.peers[msg.from_osd] = PeerState(info=msg.info)
+                self._merge_past_up(pg, msg.info.past_up)
+                pass_through = True
+            target = None
+            if pass_through and pg.state == STATE_GETINFO:
+                expected = [o for o in pg.up
+                            if o != self.osd_id and o != CEPH_NOSD]
+                if not all(o in pg.peers for o in expected):
+                    return
+                # all infos in: pick the authoritative history among up
+                # members AND strays (PG::find_best_info over the prior
+                # set — longest last_update wins, self on ties)
+                cands = {o: pg.peers[o].info for o in expected}
+                for o, i in pg.strays.items():
+                    cands.setdefault(o, i)
+                # remember what this round evaluated: only genuinely
+                # NEWER stray info may trigger a post-activation re-peer
+                pg.strays_considered = {
+                    o: i.last_update for o, i in cands.items()}
+                # EC roll-forward bound (PGLog can_rollback_to collapsed
+                # to entry granularity): an entry held by fewer than k
+                # shard holders can neither be reconstructed nor have
+                # been acked (the client ack waits for ALL shard
+                # commits), so the authoritative history trims to the
+                # k-th highest last_update among known holders.  Without
+                # this, a torn write whose tail landed on one shard
+                # poisons recovery forever (gather: need > every
+                # reconstructable version).
+                pool = self.osdmap.pools.get(pg.pgid[0])
+                pg.ec_rollforward = None
+                if pool is not None and pool.is_erasure():
+                    lus = sorted(
+                        [pg.info.last_update]
+                        + [i.last_update for i in cands.values()],
+                        reverse=True)
+                    k = int(pool.ec_profile.get("k", 2))
+                    if len(lus) >= k:
+                        pg.ec_rollforward = lus[k - 1]
+                best = (max(cands, key=lambda o: cands[o].last_update)
+                        if cands else None)
+                if (best is not None
+                        and cands[best].last_update > pg.info.last_update):
+                    pg.state = STATE_GETLOG
+                    target = best
+            elif not restart:
+                return
+        if restart:
+            self._start_peering(pg, pg.up, pg.primary)
+            return
+        if target is None:
+            self._ec_trim_log(pg)
+            self._pg_recover_or_activate(pg)
+            return
+        con = self._osd_con(target)
+        if con:
+            con.send_message(MOSDPGQuery(
+                pgid=pg.pgid, qtype=MOSDPGQuery.LOG, since=EVERSION_ZERO,
+                epoch=pg.peering_epoch, from_osd=self.osd_id))
+
+    def _handle_pg_log(self, msg: MOSDPGLog) -> None:
+        with self._lock:
+            pg = self.pgs.get(msg.pgid)
+            if pg is None:
+                return
+            if msg.purpose == MOSDPGLog.REPLY:
+                if (pg.state != STATE_GETLOG
+                        or msg.epoch != pg.peering_epoch):
+                    return
+                self._merge_past_up(pg, msg.info.past_up)
+                self._pg_merge(pg, msg.entries)
+                self._ec_trim_log(pg)
+                self._pg_recover_or_activate(pg)
+                return
+            # ACTIVATE: primary's authoritative history
+            if msg.epoch < pg.peering_epoch or pg.primary == self.osd_id:
+                return
+            self._merge_past_up(pg, msg.info.past_up)
+            self._pg_merge(pg, msg.entries)
+            self._ec_positional_missing(pg)
+            pg.info.last_epoch_started = msg.info.last_epoch_started
+            degraded = bool(pg.missing)
+            if degraded:
+                pg.state = STATE_RECOVERING
+            else:
+                pg.state = STATE_ACTIVE
+                self._persist_info(pg)
+        if degraded:
+            # replica recovers behind its own reservation slot: pull-based
+            # recovery makes the puller the backfill target, so its local
+            # reserver plays the remote-reservation role too
+            self.local_reserver.request(
+                pg.pgid, lambda: self._start_recovery_ops(pg))
+
+    def _store_oid_fn(self, pg: PG):
+        """Shard-decorated store name for this OSD's copy of an object
+        (EC pools suffix the positional shard; one definition so merge,
+        trim and recovery address the same on-disk objects)."""
+        pool = self.osdmap.pools.get(pg.pgid[0])
+        ec = pool is not None and pool.is_erasure()
+        myshard = pg.up.index(self.osd_id) if ec \
+            and self.osd_id in pg.up else None
+
+        def store_oid(oid: str) -> str:
+            return f"{oid}:{myshard}" if ec else oid
+        return store_oid
+
+    def _pg_merge(self, pg: PG, entries: list[LogEntry]) -> None:
+        """merge_log + on-disk application of its consequences."""
+        cid = self._pg_cid(pg.pgid)
+        store_oid = self._store_oid_fn(pg)
+
+        def local_has(oid: str):
+            return dec_version(self._getattr_safe(cid, store_oid(oid), "_v"))
+
+        old_keys = {PG.log_key(e.version) for e in pg.log.entries}
+        to_remove, to_recover = pg.merge_log(entries, local_has)
+        t = Transaction()
+        for oid in to_remove:
+            t.remove(cid, store_oid(oid))
+        t.touch(cid, PG.PGMETA)
+        # only touch the delta: rewriting the whole untrimmed log per
+        # merge would make every map change O(full history)
+        new_keys = {}
+        cur_keys = set()
+        for e in pg.log.entries:
+            lk = PG.log_key(e.version)
+            cur_keys.add(lk)
+            if lk not in old_keys:
+                new_keys[lk] = PG.encode_entry(e)
+        stale = [k for k in old_keys if k not in cur_keys]
+        if stale:
+            t.omap_rmkeys(cid, PG.PGMETA, stale)
+        new_keys["info"] = pg.encode_info()
+        new_keys["missing"] = pg.encode_missing()
+        t.omap_setkeys(cid, PG.PGMETA, new_keys)
+        self.store.apply_transaction(t)
+        pg.next_seq = pg.log.head[1]
+        dout("osd", 10,
+             "osd.%d pg %s merged log: head %s, %d missing, %d removed",
+             self.osd_id, cid, pg.log.head, len(to_recover), len(to_remove))
+
+    def _ec_trim_log(self, pg: PG) -> None:
+        """Rewind an EC pg's authoritative log to the roll-forward bound
+        computed during GETINFO (entries beyond it are unreconstructable
+        AND unacked — see _handle_pg_notify).  Runs on the primary before
+        activation, so replicas adopt the trimmed history uniformly and
+        their own divergent tails roll back through the normal merge."""
+        bound = getattr(pg, "ec_rollforward", None)
+        if bound is None or pg.log.head <= bound:
+            return
+        cid = self._pg_cid(pg.pgid)
+        store_oid = self._store_oid_fn(pg)
+        divergent = pg.log.rewind(bound)
+        t = Transaction().touch(cid, PG.PGMETA)
+        t.omap_rmkeys(cid, PG.PGMETA,
+                      [PG.log_key(e.version) for e in divergent])
+        seen: set[str] = set()
+        for e in reversed(divergent):
+            if e.oid in seen:
+                continue
+            seen.add(e.oid)
+            ae = pg.log.index.get(e.oid)
+            if ae is None or ae.is_delete():
+                pg.missing.pop(e.oid, None)
+                t.remove(cid, store_oid(e.oid))
+            else:
+                have = dec_version(self._getattr_safe(
+                    cid, store_oid(e.oid), "_v"))
+                if have == ae.version:
+                    pg.missing.pop(e.oid, None)
+                else:
+                    pg.missing[e.oid] = MissingItem(
+                        need=ae.version, have=have or EVERSION_ZERO)
+        pg.info.last_update = pg.log.head
+        pg.info.last_complete = pg.complete_to()
+        pg.next_seq = pg.log.head[1]
+        t.omap_setkeys(cid, PG.PGMETA, {
+            "info": pg.encode_info(),
+            "missing": pg.encode_missing()})
+        self.store.apply_transaction(t)
+        dout("osd", 3, "osd.%d pg %s ec-trimmed log to %s "
+             "(%d entries rolled back)", self.osd_id, cid, bound,
+             len(divergent))
+
+    def _ec_positional_missing(self, pg: PG) -> None:
+        """EC pools: mark missing every logged object whose shard at this
+        OSD's current position is absent here or older than the log.
+
+        The log records which versions this OSD has seen, not which
+        shard it holds.  A remap can move an up OSD to another position
+        (an OSD joining or leaving the root reshuffles ``chooseleaf
+        indep`` positions); its log stays current while the new
+        position's shard was never written here.  Ceph keeps one PG
+        instance per shard and backfills the new one; this reduction
+        keeps one per OSD, so the check is a scan of the log's objects,
+        run on each peering round.  Caller holds ``self._lock``."""
+        pool = self.osdmap.pools.get(pg.pgid[0])
+        if pool is None or not pool.is_erasure() \
+                or self.osd_id not in pg.up:
+            return
+        cid = self._pg_cid(pg.pgid)
+        store_oid = self._store_oid_fn(pg)
+        for oid, e in pg.log.index.items():
+            if e.is_delete() or oid in pg.missing:
+                continue
+            have = dec_version(self._getattr_safe(cid, store_oid(oid),
+                                                  "_v"))
+            if have != e.version:
+                pg.missing[oid] = MissingItem(
+                    need=e.version, have=have or EVERSION_ZERO)
+
+    def _getattr_safe(self, cid, oid, name):
+        try:
+            return self.store.getattr(cid, oid, name)
+        except KeyError:
+            return None
+
+    def _persist_info(self, pg: PG) -> None:
+        cid = self._pg_cid(pg.pgid)
+        t = (Transaction().touch(cid, PG.PGMETA)
+             .omap_setkeys(cid, PG.PGMETA, {
+                 "info": pg.encode_info(),
+                 "missing": pg.encode_missing()}))
+        self.store.apply_transaction(t)
+
+    def _pg_recover_or_activate(self, pg: PG) -> None:
+        """Primary with the authoritative log: recover own missing objects
+        first (behind a reservation slot), then activate replicas."""
+        with self._lock:
+            self._ec_positional_missing(pg)
+            degraded = bool(pg.missing)
+            if degraded:
+                pg.state = STATE_RECOVERING
+        if degraded:
+            self.local_reserver.request(
+                pg.pgid, lambda: self._start_recovery_ops(pg))
+            return
+        self._pg_activate(pg)
+
+    def _start_recovery_ops(self, pg: PG) -> None:
+        """Issue pulls up to the osd_recovery_max_active window
+        (PrimaryLogPG::start_recovery_ops analog).  Runs on reservation
+        grant and again as each object lands; recovery thus pipelines
+        with client I/O instead of thundering in one burst."""
+        pool = self.osdmap.pools.get(pg.pgid[0])
+        ec = pool is not None and pool.is_erasure()
+        window = int(self.ctx.conf.get("osd_recovery_max_active"))
+        with self._lock:
+            if pg.state != STATE_RECOVERING:
+                self.local_reserver.cancel(pg.pgid)
+                return
+            room = window - len(pg.recovering)
+            # capture need under the lock: a racing push can delete the
+            # missing entry before the sends below run
+            todo = [(oid, pg.missing[oid].need)
+                    for oid in sorted(pg.missing)
+                    if oid not in pg.recovering][:max(0, room)]
+        for oid, need in todo:
+            if pg.primary == self.osd_id:
+                if ec:
+                    self._recover_ec_object(pg, oid, dest_osd=self.osd_id)
+                else:
+                    source = self._pick_source(pg, need)
+                    if source is not None:
+                        self._pull_object(pg, oid, source)
+            else:
+                self._pull_object(pg, oid, pg.primary)
+
+    def _pick_source(self, pg: PG, need) -> int | None:
+        candidates = [o for o, ps in pg.peers.items()
+                      if ps.info and ps.info.last_update >= need]
+        if not candidates:
+            return None
+        return max(candidates,
+                   key=lambda o: pg.peers[o].info.last_update)
+
+    def _pg_activate(self, pg: PG) -> None:
+        """Primary is complete: ship the authoritative log to every replica
+        and open for business (PG::activate)."""
+        with self._lock:
+            pg.state = STATE_ACTIVE
+            pg.info.last_epoch_started = pg.peering_epoch
+            peers = [o for o in pg.up
+                     if o != self.osd_id and o != CEPH_NOSD]
+            for o in peers:
+                ps = pg.peers.setdefault(o, PeerState())
+                last = ps.info.last_update if ps.info else EVERSION_ZERO
+                ps.missing = pg.peer_missing_from_log(last)
+            waiting = pg.waiting_for_active
+            pg.waiting_for_active = []
+        self._persist_info(pg)
+        for o in peers:
+            con = self._osd_con(o)
+            if con:
+                con.send_message(MOSDPGLog(
+                    pgid=pg.pgid, info=pg.info, entries=pg.log.entries,
+                    purpose=MOSDPGLog.ACTIVATE, epoch=pg.peering_epoch,
+                    from_osd=self.osd_id))
+        dout("osd", 5, "osd.%d pg %s active, head %s (%d queued ops)",
+             self.osd_id, self._pg_cid(pg.pgid), pg.log.head, len(waiting))
+        for m in waiting:
+            self._handle_op(m)
+
+    # -- recovery -------------------------------------------------------------
+
+    def _pull_object(self, pg: PG, oid: str, source: int,
+                     con=None) -> None:
+        pool = self.osdmap.pools.get(pg.pgid[0])
+        ec = pool is not None and pool.is_erasure()
+        with self._lock:
+            if oid in pg.recovering:
+                return
+            pg.recovering[oid] = time.time()
+        self.perf.inc("recovery_pulls")
+        wire_oid = oid
+        if ec:
+            if self.osd_id not in pg.up:
+                return
+            myshard = pg.up.index(self.osd_id)
+            wire_oid = f"{oid}:{myshard}"
+        con = con or self._osd_con(source)
+        if con:
+            con.send_message(MOSDPGPull(pgid=pg.pgid, oid=wire_oid,
+                                        from_osd=self.osd_id))
+
+    def _handle_pull(self, msg: MOSDPGPull) -> None:
+        pool = self.osdmap.pools.get(msg.pgid[0])
+        if pool is not None and self._park_subop(
+                self._handle_pull, msg, pool):
+            return
+
+        cid = f"{msg.pgid[0]}.{msg.pgid[1]}"
+        pool = self.osdmap.pools.get(msg.pgid[0])
+        pg = self.pgs.get(msg.pgid)
+        if pool is not None and pool.is_erasure():
+            logical, _, shard = msg.oid.rpartition(":")
+            if pg is None:
+                return
+            self._recover_ec_object(pg, logical, dest_osd=msg.from_osd,
+                                    dest_shard=int(shard))
+            return
+        try:
+            data = self.store.read(cid, msg.oid)
+            omap = self.store.omap_get(cid, msg.oid)
+            attrs = {}
+            v = self._getattr_safe(cid, msg.oid, "_v")
+            if v:
+                attrs["_v"] = v
+        except KeyError:
+            return
+        con = msg.connection or self._osd_con(msg.from_osd)
+        if con:
+            con.send_message(MOSDPGPush(pgid=msg.pgid, oid=msg.oid,
+                                        data=data, omap=omap, attrs=attrs))
+        self._peer_recovered(pg, msg.from_osd, msg.oid)
+
+    def _peer_recovered(self, pg: PG | None, peer: int, oid: str) -> None:
+        """Primary bookkeeping: a peer now has `oid` (unblocks writes)."""
+        if pg is None or pg.primary != self.osd_id:
+            return
+        logical = oid.rsplit(":", 1)[0] if ":" in oid else oid
+        with self._lock:
+            ps = pg.peers.get(peer)
+            if ps:
+                ps.missing.pop(logical, None)
+            waiting = pg.waiting_for_missing.pop(logical, [])
+        for m in waiting:
+            self._handle_op(m)
+
+    def _handle_push(self, msg: MOSDPGPush) -> None:
+        cid = f"{msg.pgid[0]}.{msg.pgid[1]}"
+        pg = self.pgs.get(msg.pgid)
+        push_v = dec_version(msg.attrs.get("_v"))
+        local_v = dec_version(self._getattr_safe(cid, msg.oid, "_v"))
+        if local_v is not None and push_v is not None and local_v > push_v:
+            return  # stale push; we already advanced past it
+        t = Transaction()
+        if cid not in self.store.list_collections():
+            t.create_collection(cid)
+        # replace wholesale: a divergent local copy's omap/attrs must not
+        # survive union-merged into the authoritative state
+        t.remove(cid, msg.oid)
+        t.write(cid, msg.oid, 0, msg.data)
+        if msg.omap:
+            t.omap_setkeys(cid, msg.oid, msg.omap)
+        for name, val in msg.attrs.items():
+            t.setattr(cid, msg.oid, name, val)
+        self.store.apply_transaction(t)
+        if pg is None:
+            return
+        logical = msg.oid.rsplit(":", 1)[0] if ":" in msg.oid else msg.oid
+        self._object_recovered(pg, logical, push_v)
+
+    def _object_recovered(self, pg: PG, oid: str,
+                          got_version) -> None:
+        """My own missing object arrived; maybe finish recovery."""
+        activate = False
+        done = False
+        with self._lock:
+            item = pg.missing.get(oid)
+            if item is not None and (got_version is None
+                                     or got_version >= item.need):
+                del pg.missing[oid]
+            pg.recovering.pop(oid, None)
+            if not pg.missing and pg.state == STATE_RECOVERING:
+                done = True
+                if pg.primary == self.osd_id:
+                    activate = True
+                else:
+                    pg.state = STATE_ACTIVE
+            pg.info.last_complete = pg.complete_to()
+            waiting = pg.waiting_for_missing.pop(oid, [])
+        self._persist_info(pg)
+        if done:
+            self.local_reserver.cancel(pg.pgid)  # release the slot
+            self.clog.info("pg %d.%d recovered on osd.%d",
+                           pg.pgid[0], pg.pgid[1], self.osd_id)
+        elif (pg.state == STATE_RECOVERING
+              and self.local_reserver.has(pg.pgid)):
+            # refill the pull window — only while we still hold the
+            # slot; a stale push after an interval change must not
+            # bypass osd_max_backfills (the queued re-request's grant
+            # restarts the window instead)
+            self._start_recovery_ops(pg)
+        if activate:
+            self._pg_activate(pg)
+        for m in waiting:
+            self._handle_op(m)
+
+    def _merge_past_up(self, pg: PG, intervals, new_up=None) -> None:
+        """Adopt prior-interval up sets (own or learned from peer infos)."""
+        cur = new_up if new_up is not None else pg.up
+        for iv in intervals:
+            iv = list(iv)
+            if iv and iv != cur and iv not in pg.info.past_up:
+                pg.info.past_up.append(iv)
+        del pg.info.past_up[:-8]
+
+    def _ec_shard_candidates(self, pg: PG, n: int) -> dict[int, list[int]]:
+        """Per-shard holder candidates: current position first, then the
+        holders from prior intervals (PastIntervals — after a remap the
+        chunk still lives on its old positional holder)."""
+        cand: dict[int, list[int]] = {}
+        intervals = [pg.up] + list(reversed(pg.info.past_up))
+        for s in range(n):
+            seen: list[int] = []
+            for iv in intervals:
+                if s < len(iv) and iv[s] != CEPH_NOSD \
+                        and iv[s] not in seen:
+                    seen.append(iv[s])
+            cand[s] = seen
+        return cand
+
+    def _recover_ec_object(self, pg: PG, oid: str, dest_osd: int,
+                           dest_shard: int | None = None) -> None:
+        """Reconstruct one EC object's shard at the logged version from k
+        live shards, then store (self) or push (peer) the chunk
+        (ECBackend recovery: objects_read_and_reconstruct)."""
+        entry = pg.log.index.get(oid)
+        if entry is None or entry.is_delete():
+            return
+        need = entry.version
+        if dest_shard is None:
+            if self.osd_id not in pg.up:
+                return
+            dest_shard = pg.up.index(self.osd_id)
+        pool = self.osdmap.pools.get(pg.pgid[0])
+        if pool is None:
+            return
+        with self._lock:
+            if dest_osd == self.osd_id:
+                if oid in pg.recovering:
+                    return
+                pg.recovering[oid] = time.time()
+            self._recover_tid += 1
+            reqid = (RECOVERY_CLIENT + self.osd_id, self._recover_tid)
+        self.perf.inc("recovery_pulls")
+        codec = self._codec(pool)
+        k = codec.get_data_chunk_count()
+        n = codec.get_chunk_count()
+        state = {"kind": "recover", "pool": pool, "pgid": pg.pgid,
+                 "oid": oid, "need": need, "dest_osd": dest_osd,
+                 "dest_shard": dest_shard, "shards": {}, "k": k,
+                 "active": set(), "cand": self._ec_shard_candidates(pg, n)}
+        with self._lock:
+            self._ec_reads[reqid] = state
+        self._ec_gather(reqid, state)
+
+    # -- heartbeats (OSD::heartbeat, osd/OSD.cc:4879) -------------------------
+
+    def _schedule_heartbeat(self) -> None:
+        if self._stop:
+            return
+        interval = float(self.ctx.conf.get("osd_heartbeat_interval"))
+        self._hb_timer = threading.Timer(interval, self._heartbeat_tick)
+        self._hb_timer.daemon = True
+        self._hb_timer.start()
+
+    def _heartbeat_tick(self) -> None:
+        try:
+            now = time.time()
+            grace = float(self.ctx.conf.get("osd_heartbeat_grace"))
+            m = self.osdmap
+            peers = [o for o in range(m.max_osd)
+                     if o != self.osd_id and m.is_up(o)]
+            for peer in peers:
+                con = self._osd_con(peer)
+                if con:
+                    con.send_message(MOSDPing(
+                        from_osd=self.osd_id, op=MOSDPing.PING, stamp=now,
+                        epoch=m.epoch))
+                # first contact starts the grace clock; a peer that never
+                # answers is as failed as one that stopped answering
+                last = self._hb_last.setdefault(peer, now)
+                if now - last > grace:
+                    self._failure_reported.add(peer)
+                    self._send_to_mons(lambda: MOSDFailure(
+                        reporter=self.osd_id, failed_osd=peer,
+                        failed_for=now - last, epoch=m.epoch))
+            # forget peers the map marked down: a reported peer needs no
+            # cancellation anymore, and its grace clock must restart from
+            # scratch when it reboots — a stale _hb_last would instantly
+            # re-report a healthy rebooted osd with a huge failed_for
+            self._failure_reported = {p for p in self._failure_reported
+                                      if m.is_up(p)}
+            for p in [p for p in self._hb_last if not m.is_up(p)]:
+                del self._hb_last[p]
+        finally:
+            self._schedule_heartbeat()
+
+    # -- dispatch -------------------------------------------------------------
+
+    def ms_dispatch(self, msg) -> bool:
+        if self._stop:
+            # a stopping daemon answers nothing (OSD::ms_dispatch
+            # is_stopping): a zombie reply — e.g. a ping ack over a
+            # connection accepted mid-shutdown — would keep peers'
+            # liveness clocks fresh for a dead osd
+            return True
+        if isinstance(msg, MOSDMapMsg):
+            self._handle_map(msg)
+            return True
+        from ceph_tpu_torch.messages import MMonCommandAck
+        if isinstance(msg, MMonCommandAck):
+            self.mon_cmd.handle_ack(msg)
+            return True
+        # queued classes (enqueue_op → op_shardedwq → dequeue_op): work
+        # items shard by pgid and ride the mClock scheduler; replies and
+        # control-plane traffic dispatch inline (ms_fast_dispatch)
+        if isinstance(msg, MOSDOp):
+            self._enqueue_op(self._client_class(msg), msg.pgid,
+                             self._handle_op, msg)
+            return True
+        if isinstance(msg, MOSDRepOp):
+            self._enqueue_op("subop", msg.pgid, self._handle_rep_op, msg)
+            return True
+        if isinstance(msg, MOSDRepOpReply):
+            self._handle_rep_reply(msg)
+            return True
+        if isinstance(msg, MOSDECSubOpWrite):
+            self._enqueue_op("subop", msg.pgid, self._handle_ec_write, msg)
+            return True
+        if isinstance(msg, MOSDECSubOpWriteReply):
+            self._handle_ec_write_reply(msg)
+            return True
+        if isinstance(msg, MOSDECSubOpRead):
+            self._enqueue_op("subop", msg.pgid, self._handle_ec_read, msg)
+            return True
+        if isinstance(msg, MOSDECSubOpReadReply):
+            self._handle_ec_read_reply(msg)
+            return True
+        if isinstance(msg, MOSDPing):
+            self._handle_ping(msg)
+            return True
+        if isinstance(msg, MOSDPGQuery):
+            self._handle_pg_query(msg)
+            return True
+        if isinstance(msg, MOSDPGNotify):
+            self._handle_pg_notify(msg)
+            return True
+        if isinstance(msg, MOSDPGLog):
+            self._handle_pg_log(msg)
+            return True
+        if isinstance(msg, MOSDPGPull):
+            self._enqueue_op("recovery", msg.pgid, self._handle_pull, msg)
+            return True
+        if isinstance(msg, MOSDPGPush):
+            self._enqueue_op("recovery", msg.pgid, self._handle_push, msg)
+            return True
+        if isinstance(msg, MWatchNotifyAck):
+            self._handle_notify_ack(msg)
+            return True
+        return False
+
+    def _handle_ping(self, msg: MOSDPing) -> None:
+        self._hb_last[msg.from_osd] = time.time()
+        if msg.epoch > self.osdmap.epoch:
+            # peer runs a newer map: catch up now (epoch gossip on the
+            # heartbeat channel — OSD map-sharing semantics)
+            self._renew_map_subscription(time.time(), force=True)
+        if msg.from_osd in self._failure_reported:
+            # the peer I reported as failed is talking again: retract
+            # (OSD::send_still_alive / MOSDFailure FLAG_ALIVE)
+            self._failure_reported.discard(msg.from_osd)
+            self._send_to_mons(lambda: MOSDFailure(
+                reporter=self.osd_id, failed_osd=msg.from_osd,
+                epoch=self.osdmap.epoch, alive=True))
+        if msg.op == MOSDPing.PING and msg.connection is not None:
+            msg.connection.send_message(MOSDPing(
+                from_osd=self.osd_id, op=MOSDPing.PING_REPLY,
+                stamp=msg.stamp, epoch=self.osdmap.epoch))
+
+    # -- cache-tier agent (promotion + flush/evict) ---------------------------
+
+    def _is_internal(self, msg) -> bool:
+        """Ops from the tier agent's embedded client must not re-enter
+        the tier machinery (no promotion parking, no dirty stamp, no
+        delete write-through) — they ARE the machinery."""
+        c = self._internal_client
+        return c is not None and msg.client_id == c.client_id
+
+    def _internal_io(self, pool_id: int):
+        """Lazy internal RadosClient (the reference uses OSD-to-OSD
+        copy_from; an embedded client is the lite equivalent)."""
+        from ceph_tpu_torch.client.rados import RadosClient
+        if self._internal_client is None:
+            c = RadosClient(self.mon_addr, ms_type=self._ms_type,
+                            timeout=8.0, auth_key=self._auth_key)
+            c.connect()
+            self._internal_client = c
+        # direct=True: agent I/O must hit the pool it names — a flush
+        # that followed the overlay would loop back into the cache
+        return self._internal_client.open_ioctx(pool_id, direct=True)
+
+    def _agent_loop(self) -> None:
+        from ceph_tpu_torch.common.logging import get_logger
+        while not self._stop:
+            try:
+                job = self._agent_q.get(timeout=0.25)
+            except Exception:
+                continue
+            if job is None:
+                return
+            try:
+                if job[0] == "promote":
+                    self._do_promote(job[1], job[2], job[3])
+                elif job[0] == "base_delete":
+                    try:
+                        self._internal_io(job[2]).remove(job[1])
+                    except OSError:
+                        pass
+                elif job[0] == "flush":
+                    self._do_flush(job[1], job[2], job[3], job[4])
+            except Exception:
+                get_logger("osd").exception(
+                    "osd.%d tier agent job %s failed", self.osd_id,
+                    job[0])
+                if job[0] == "promote":
+                    self._promote_done(job[1], job[2], fail_rc=-11)
+
+    def _do_promote(self, pgid, oid: str, base_pool: int) -> None:
+        """Copy the object (or learn it is absent) from the base pool,
+        install it CLEAN in the cache via the replicated write path,
+        then re-dispatch the parked ops."""
+        io = self._internal_io(base_pool)
+        try:
+            data = io.read(oid)
+            omap = io.get_omap(oid)
+        except OSError:
+            # no base copy: the ops proceed against an absent object
+            # (reads -> ENOENT, creates -> fresh object)
+            self._promote_done(pgid, oid)
+            return
+        cache_io = self._internal_io(pgid[0])
+        try:
+            cache_io.write_full(oid, data)
+            if omap:
+                cache_io.set_omap(oid, omap)
+        except OSError:
+            # a half-installed promotion must not release parked ops:
+            # a partial write would then create a truncated object that
+            # the agent later flushes OVER the intact base copy
+            self._promote_done(pgid, oid, fail_rc=-11)  # EAGAIN
+            return
+        self._promote_done(pgid, oid)
+
+    def _promote_done(self, pgid, oid: str, fail_rc: int = 0) -> None:
+        with self._lock:
+            waiting = self._promoting.pop((pgid, oid), [])
+        for m in waiting:
+            if fail_rc:
+                self._reply_err(m, fail_rc)
+            else:
+                m._tier_checked = True
+                self._enqueue_op(self._client_class(m), m.pgid,
+                                 self._handle_op, m)
+
+    def _do_flush(self, pgid, oid: str, base_pool: int,
+                  evict_only: bool) -> None:
+        """Writeback: push the dirty object to the base pool, then evict
+        it from the cache (the lite agent combines agent_maybe_flush +
+        agent_maybe_evict; a re-read re-promotes).  A client write that
+        races the flush keeps the object resident: the dirty stamp is
+        re-read before the evicting remove, and a changed (or appeared)
+        stamp aborts it — the next scan retries."""
+        cid = self._pg_cid(pgid)
+        stamp0 = self._getattr_safe(cid, oid, "_dirty")
+        if not evict_only:
+            if stamp0 is None:
+                return   # already flushed or vanished
+            try:
+                data = self.store.read(cid, oid)
+                omap = self.store.omap_get(cid, oid)
+            except KeyError:
+                return
+            base_io = self._internal_io(base_pool)
+            base_io.write_full(oid, data)
+            if omap:
+                base_io.set_omap(oid, omap)
+        self._evict_object(pgid, oid, stamp0)
+
+    def _evict_object(self, pgid, oid: str, stamp0) -> None:
+        """Guarded replicated delete: the dirty-stamp check and the
+        delete are ONE atomic step under the PG lock, so a client write
+        racing the agent can never be destroyed — it changes the stamp
+        and the evict aborts (the next scan retries)."""
+        with self._lock:
+            pg = self.pgs.get(pgid)
+            if (pg is None or pg.state != STATE_ACTIVE
+                    or pg.primary != self.osd_id):
+                return
+            cid = self._pg_cid(pgid)
+            if self._getattr_safe(cid, oid, "_dirty") != stamp0:
+                return   # raced a client write; keep the newer data
+            if not self.store.exists(cid, oid):
+                return
+            self._agent_tid += 1
+            reqid = (TIER_AGENT_CLIENT, self._agent_tid)
+            t = Transaction().remove(cid, oid)
+            entry = self._log_write(pg, t, oid, True, reqid)
+            self.store.apply_transaction(t)
+            up = pg.up
+            replicas = [o for o in up
+                        if o != self.osd_id and o != CEPH_NOSD]
+            if replicas:
+                fake = MOSDOp(client_id=TIER_AGENT_CLIENT,
+                              tid=self._agent_tid, pgid=pgid, oid=oid,
+                              ops=[OSDOpField(OP_DELETE)])
+                fake.connection = None
+                self._in_flight[reqid] = _InFlight(
+                    fake, set(replicas),
+                    MOSDOpReply(tid=self._agent_tid, result=0,
+                                epoch=self.osdmap.epoch))
+                blob = t.encode()
+                entry_blob = PG.encode_entry(entry)
+        for rep in replicas:
+            con = self._osd_con(rep)
+            if con is None:
+                self._ack_shard(reqid, rep, -107)
+                continue
+            con.send_message(MOSDRepOp(reqid=reqid, pgid=pgid, oid=oid,
+                                       txn=blob, pg_version=entry.version,
+                                       entry=entry_blob))
+
+    def _agent_scan(self, now: float) -> None:
+        """Tick-side: queue flush/evict work for cache PGs I lead."""
+        for pgid, pg in list(self.pgs.items()):
+            pool = self.osdmap.pools.get(pgid[0])
+            if (pool is None or pool.tier_of < 0
+                    or pool.cache_mode != "writeback"
+                    or pg.primary != self.osd_id
+                    or pg.state != STATE_ACTIVE):
+                continue
+            cid = self._pg_cid(pgid)
+            try:
+                oids = [o for o in self.store.list_objects(cid)
+                        if not o.startswith(PG.PGMETA)
+                        and CLONE_SEP not in o]
+            except KeyError:
+                continue
+            n_queued = 0
+            for oid in oids:
+                if n_queued >= 8:
+                    break
+                dirty = self._getattr_safe(cid, oid, "_dirty")
+                if dirty is not None:
+                    if now - float(dirty) >= pool.cache_min_flush_age:
+                        self._agent_q.put(("flush", pgid, oid,
+                                           pool.tier_of, False))
+                        n_queued += 1
+            if pool.target_max_objects \
+                    and len(oids) > pool.target_max_objects:
+                for oid in oids:
+                    if n_queued >= 8:
+                        break
+                    if self._getattr_safe(cid, oid, "_dirty") is None:
+                        self._agent_q.put(("flush", pgid, oid,
+                                           pool.tier_of, True))
+                        n_queued += 1
+
+    # -- op execution (PrimaryLogPG::do_op analog) ----------------------------
+
+    def _pg_members(self, pgid) -> tuple[list[int], int]:
+        """(up, acting_primary) — ops are accepted by the acting primary,
+        matching the client's _calc_target (osdc/Objecter.cc:2795)."""
+        up, _up_primary, _acting, acting_primary = \
+            self._pg_mapping(pgid[0], pgid[1])
+        return up, acting_primary
+
+    def _handle_op(self, msg: MOSDOp) -> None:
+        # replayed ops (map-advance, recovery waiters, promote-done)
+        # run on whatever thread flushed them: re-join the op's trace
+        # from the message so the fan-out stays attributed
+        tid = getattr(msg, "trace_id", 0)
+        from ceph_tpu_torch.common import tracing
+        if tid and tracing.current() != tid:
+            prev = tracing.set_current(
+                tid, getattr(msg, "parent_span_id", 0))
+            try:
+                return self._handle_op(msg)
+            finally:
+                tracing.set_current(prev)
+        if getattr(msg, "_trk", None) is None:
+            kinds = ",".join(str(op.op) for op in msg.ops)
+            msg._trk = self.op_tracker.create_request(
+                f"osd_op(client.{msg.client_id}.{msg.tid} "
+                f"{msg.pgid[0]}.{msg.pgid[1]} {msg.oid} ops=[{kinds}])")
+        else:
+            msg._trk.mark_event("requeued")
+        if msg.epoch > self.osdmap.epoch:
+            # client runs a newer map than us: park the op until our mon
+            # subscription catches us up (OSD::wait_for_new_map), never
+            # judge primaryship with a stale map
+            with self._lock:
+                if msg.epoch > self.osdmap.epoch:
+                    msg._trk.mark_event("waiting for newer osdmap")
+                    self._waiting_for_map.append(msg)
+                    return
+        pool = self.osdmap.pools.get(msg.pgid[0])
+        if pool is None:
+            self._reply_err(msg, -2)
+            return
+        # misdirected-op guard: after a PG split, a client on the old map
+        # still targets the parent pgid; executing there would strand the
+        # object in the wrong collection.  Drop and share our newer map —
+        # the client recomputes and resends (OSD::handle_op misdirected
+        # drop + maybe_share_map)
+        is_pgls = any(op.op == OP_PGLS for op in msg.ops)
+        if is_pgls:
+            # pg-targeted op: the pg IS the address (no oid to rehash);
+            # bounds-check against the pool's CURRENT pg_num
+            expect = msg.pgid[1] if msg.pgid[1] < pool.pg_num else -1
+        else:
+            expect = pg_to_pgid(ceph_str_hash_rjenkins(msg.oid),
+                                pool.pg_num)
+        if expect != msg.pgid[1]:
+            m = self.osdmap
+            if msg.epoch < m.epoch and msg.connection is not None:
+                msg.connection.send_message(MOSDMapMsg(
+                    epoch=m.epoch, map_blob=encode_osdmap(m)))
+            msg._trk.mark_event("dropped: misdirected (stale pg mapping)")
+            msg._trk.finish()
+            return
+        up, primary = self._pg_members(msg.pgid)
+        if primary != self.osd_id:
+            # not my op in this epoch: share my newer map with the stale
+            # sender so it re-targets (OSD maybe_share_map semantics);
+            # without this a client whose map never changes again would
+            # hang forever
+            dout("osd", 10, "osd.%d not primary for %s", self.osd_id,
+                 msg.pgid)
+            m = self.osdmap
+            if msg.epoch < m.epoch and msg.connection is not None:
+                msg.connection.send_message(MOSDMapMsg(
+                    epoch=m.epoch, map_blob=encode_osdmap(m)))
+            msg._trk.mark_event("dropped: not primary")
+            msg._trk.finish()
+            return
+        # check-and-enqueue must be atomic with the flush paths
+        # (_pg_activate / _peer_recovered / _object_recovered), or an op can
+        # slip into a waiting list just after its last flush ran
+        with self._lock:
+            pg = self.pgs.get(msg.pgid)
+            if pg is None and self._split_pending(msg.pgid[0]):
+                # between the new map installing and _split_pgs finishing:
+                # creating the child now would let a write land in a PG
+                # the imminent split is about to overwrite.  Park; the
+                # end of _handle_map replays us after split+scan
+                msg._trk.mark_event("waiting for pg split")
+                self._waiting_for_map.append(msg)
+                return
+            if pg is None and 0 <= msg.pgid[1] < pool.pg_num:
+                msg._trk.mark_event("creating pg (raced map advance)")
+                # op raced ahead of _scan_pgs creating this PG on the
+                # new map: create it, start its peering round now (the
+                # scan may already be past this pgid), park the op;
+                # activation flushes waiting_for_active
+                pg = self._get_pg(msg.pgid)
+                pg.waiting_for_active.append(msg)
+                self._start_peering(pg, up, primary)
+                return
+            if pg is None or pg.state != STATE_ACTIVE:
+                if pg is not None:
+                    msg._trk.mark_event(
+                        f"waiting for pg active (state={pg.state})")
+                    pg.waiting_for_active.append(msg)
+                else:
+                    # pgid out of range for the pool: drop, close the op
+                    msg._trk.mark_event("dropped: pgid out of range")
+                    msg._trk.finish()
+                return
+            is_write = any(op.op in (OP_WRITE, OP_WRITEFULL, OP_DELETE,
+                                     OP_OMAP_SET, OP_OMAP_RMKEYS)
+                           for op in msg.ops)
+            # pure EC writes ride the per-object write pipeline instead of
+            # parking behind an in-flight rmw gather (ExtentCache analog,
+            # src/osd/ExtentCache.h:1-491): _ec_write_op chains them onto
+            # the gather's projected content
+            ec_pipelinable = (pool.is_erasure() and bool(msg.ops)
+                              and all(op.op in (OP_WRITE, OP_WRITEFULL)
+                                      for op in msg.ops))
+            if self._blocked_on_recovery(pg, msg.oid, is_write,
+                                         pool.is_erasure(),
+                                         rmw_ok=ec_pipelinable):
+                msg._trk.mark_event("waiting for missing object")
+                pg.waiting_for_missing.setdefault(msg.oid, []).append(msg)
+                return
+            # cache tier: an op for an object this (cache) pool does not
+            # hold yet parks behind a promotion from the base pool
+            # (PrimaryLogPG::maybe_promote / promote_object)
+            if (pool.tier_of >= 0 and pool.cache_mode == "writeback"
+                    and not getattr(msg, "_tier_checked", False)
+                    and not self._is_internal(msg)
+                    and not self.store.exists(self._pg_cid(msg.pgid),
+                                              msg.oid)):
+                msg._trk.mark_event("waiting for promotion")
+                key = (msg.pgid, msg.oid)
+                waiting = self._promoting.get(key)
+                if waiting is not None:
+                    waiting.append(msg)
+                else:
+                    self._promoting[key] = [msg]
+                    self._agent_q.put(("promote", msg.pgid, msg.oid,
+                                       pool.tier_of))
+                return
+            # execute under the lock: version allocation + log append +
+            # store apply must be atomic against concurrent dispatch
+            # threads (each connection has its own reader thread) and the
+            # tick/activation requeue paths
+            if pool.is_erasure():
+                self._do_ec_op(msg, pool, pg)
+            else:
+                self._do_replicated_op(msg, pool, pg)
+                if pool.tier_of >= 0 and is_write \
+                        and not self._is_internal(msg) and any(
+                        op.op == OP_DELETE for op in msg.ops):
+                    # write-through for deletes: without it the base
+                    # copy would resurrect on the next promotion
+                    self._agent_q.put(("base_delete", msg.oid,
+                                       pool.tier_of))
+
+    def _blocked_on_recovery(self, pg: PG, oid: str, is_write: bool,
+                             ec: bool, rmw_ok: bool = False) -> bool:
+        """Block ops on objects still being recovered
+        (PrimaryLogPG objects_blocked_on_recovery semantics).  rmw_ok
+        lets pipelinable EC writes through an in-flight rmw gather —
+        they join the gather's write queue instead of parking — but ONLY
+        while nothing non-pipelinable is already parked on the object:
+        jumping a parked read/delete would break per-object op order."""
+        with self._lock:
+            if oid in pg.missing or oid in pg.recovering:
+                return True
+            if oid in pg.rmw and not (rmw_ok
+                                      and not pg.waiting_for_missing.get(oid)):
+                return True
+            if is_write or ec:
+                return any(oid in ps.missing for ps in pg.peers.values())
+        return False
+
+    def _op_send_reply(self, msg: MOSDOp, reply: "MOSDOpReply") -> None:
+        """Single client-reply chokepoint: closes the op's TrackedOp
+        timeline (OpRequest lifecycle), echoes the dmclock phase that
+        served the op (the client's ServiceTracker counts rho from
+        it), and sends."""
+        trk = getattr(msg, "_trk", None)
+        if trk is not None:
+            trk.mark_event(f"reply result={reply.result}")
+            trk.finish()
+        if not reply.qos_phase:
+            reply.qos_phase = getattr(msg, "_qos_phase", 0)
+        if msg.connection is not None:
+            msg.connection.send_message(reply)
+
+    def _reply_err(self, msg: MOSDOp, code: int) -> None:
+        self._op_send_reply(
+            msg, MOSDOpReply(tid=msg.tid, result=code,
+                             epoch=self.osdmap.epoch))
+
+    def _dedup_resend(self, pg: PG, reqid, msg: MOSDOp) -> bool:
+        """Client resent an op already in the log.  If the original is
+        still waiting on replica commits, attach the resend to it (reply
+        when it completes) instead of acking an under-replicated write."""
+        with self._lock:
+            if not pg.log.has_reqid(reqid):
+                return False
+            inf = self._in_flight.get(reqid)
+            if inf is not None:
+                if inf.msg is not msg:   # tcp resends are fresh objects
+                    trk = getattr(inf.msg, "_trk", None)
+                    if trk is not None:
+                        trk.mark_event("superseded by client resend")
+                        trk.finish()
+                inf.msg = msg      # reply goes to the latest connection
+                return True
+        self._op_send_reply(msg, MOSDOpReply(
+            tid=msg.tid, result=0, epoch=self.osdmap.epoch))
+        return True
+
+    def _stale_retry(self, pg: PG, msg: MOSDOp) -> bool:
+        """An op the client has ALREADY MOVED PAST: its tid is older
+        than the object's newest logged op from the same client.  A
+        timed-out-and-abandoned write can stay queued (peering,
+        recovery gates) and land after a newer acked write — executing
+        it would roll the object back under an acked state.  Drop it
+        (Objecter per-object submission ordering, enforced OSD-side)."""
+        last = pg.log.index.get(msg.oid)
+        return (last is not None
+                and last.reqid[0] == msg.client_id
+                and msg.tid < last.reqid[1])
+
+    def _log_write(self, pg: PG, t: Transaction, oid: str, is_delete: bool,
+                   reqid) -> LogEntry:
+        """Allocate a version, build the log entry, and fold the log append
+        + info update into the data transaction (one atomic commit)."""
+        cid = self._pg_cid(pg.pgid)
+        version = pg.next_version(self.osdmap.epoch)
+        prior = pg.log.index[oid].version if oid in pg.log.index \
+            else EVERSION_ZERO
+        entry = LogEntry(op=LOG_DELETE if is_delete else LOG_MODIFY,
+                         oid=oid, version=version, prior_version=prior,
+                         reqid=reqid)
+        pg.record(entry)
+        self.perf.inc("log_entries")
+        t.touch(cid, PG.PGMETA)
+        t.omap_setkeys(cid, PG.PGMETA, {
+            PG.log_key(version): PG.encode_entry(entry),
+            "info": pg.encode_info()})
+        return entry
+
+    # replicated pools ---------------------------------------------------------
+
+    def _do_replicated_op(self, msg: MOSDOp, pool, pg: PG) -> None:
+        up = pg.up
+        cid = self._pg_cid(pg.pgid)
+        reqid = (msg.client_id, msg.tid)
+        t = Transaction()
+        reply_ops: list[OSDOpField] = []
+        result = 0
+        is_write = False
+        is_delete = False
+        for op in msg.ops:
+            if op.op in (OP_WRITE, OP_WRITEFULL):
+                is_write = True
+                is_delete = False
+                if op.op == OP_WRITEFULL:
+                    t.truncate(cid, msg.oid, 0)
+                t.write(cid, msg.oid, op.offset, op.data)
+            elif op.op == OP_DELETE:
+                is_write = True
+                is_delete = True
+                t.remove(cid, msg.oid)
+            elif op.op == OP_OMAP_SET:
+                is_write = True
+                is_delete = False
+                keys = _decode_omap(op.data)
+                t.touch(cid, msg.oid)
+                t.omap_setkeys(cid, msg.oid, keys)
+            elif op.op == OP_OMAP_RMKEYS:
+                is_write = True
+                is_delete = False
+                t.omap_rmkeys(cid, msg.oid,
+                              Decoder(op.data).list(lambda d: d.str()))
+            elif op.op == OP_READ:
+                try:
+                    src_oid = msg.oid
+                    if msg.snapid:
+                        src_oid = self._resolve_snap(cid, msg.oid,
+                                                     msg.snapid)
+                    data = self.store.read(
+                        cid, src_oid, op.offset,
+                        op.length if op.length else None)
+                    reply_ops.append(OSDOpField(OP_READ, op.offset,
+                                                len(data), data))
+                    self.perf.inc("op_r")
+                except KeyError:
+                    result = -2
+            elif op.op == OP_STAT:
+                try:
+                    st = self.store.stat(cid, msg.oid)
+                    reply_ops.append(OSDOpField(
+                        OP_STAT, 0, st["size"], b""))
+                except KeyError:
+                    result = -2
+            elif op.op == OP_PGLS:
+                reply_ops.append(self._pgls_field(
+                    cid, pool.is_erasure()))
+            elif op.op == OP_OMAP_GET:
+                try:
+                    omap = self.store.omap_get(cid, msg.oid)
+                    reply_ops.append(OSDOpField(
+                        OP_OMAP_GET, 0, 0, _encode_omap(omap)))
+                except KeyError:
+                    result = -2
+            elif op.op == OP_WATCH:
+                with self._lock:
+                    self._watchers.setdefault(
+                        (msg.pgid, msg.oid), {})[msg.client_id] = \
+                        msg.connection
+                reply_ops.append(OSDOpField(OP_WATCH, 0, 0, b""))
+            elif op.op == OP_UNWATCH:
+                with self._lock:
+                    self._watchers.get((msg.pgid, msg.oid), {}).pop(
+                        msg.client_id, None)
+            elif op.op == OP_NOTIFY:
+                self._start_notify(msg, op)
+                return   # replied when watchers ack (or timeout)
+            elif op.op == OP_CALL:
+                # in-OSD object class (ClassHandler::ClassMethod::exec)
+                from ceph_tpu_torch import cls as _cls
+                try:
+                    cname, method, inp = op.data.split(b"\0", 2)
+                    handler = _cls.lookup(cname.decode(), method.decode())
+                    if handler is None:
+                        result = -95   # EOPNOTSUPP
+                    else:
+                        ctx = _cls.ClsContext(self.store, t, cid, msg.oid)
+                        out = handler(ctx, inp)
+                        if ctx.mutated:
+                            is_write = True
+                            is_delete = False
+                        reply_ops.append(OSDOpField(OP_CALL, 0, 0,
+                                                    out or b""))
+                except PermissionError:
+                    result = -13   # EACCES (e.g. cls_lock contention)
+                except Exception:
+                    result = -22
+            else:
+                result = -22
+        if not is_write or result != 0:
+            self._op_send_reply(msg, MOSDOpReply(
+                tid=msg.tid, result=result, epoch=self.osdmap.epoch,
+                ops=reply_ops))
+            return
+        # write path: dedup, log, local commit, replica fan-out (issue_repop)
+        if self._dedup_resend(pg, reqid, msg):
+            return
+        if self._stale_retry(pg, msg):
+            self._reply_err(msg, -125)   # ECANCELED: superseded op
+            return
+        self.perf.inc("op_w")
+        t0 = time.time()
+        # snapshot COW (PrimaryLogPG make_writeable): first write after
+        # a pool snap clones the pre-write object to oid+CLONE_SEP+seq;
+        # the clone's covered snap interval is (from_seq, snap_seq].
+        # The effective seq is max(my map, the op's SnapContext): a
+        # writer that learned of the snapshot before this OSD's map
+        # caught up still triggers the clone (the reference orders this
+        # through the per-op snapc, src/osd/PrimaryLogPG.cc
+        # make_writeable)
+        eff_seq = max(pool.snap_seq, getattr(msg, "write_snapc", 0))
+        if eff_seq:
+            obj_sc = int(self._getattr_safe(cid, msg.oid, "snapc")
+                         or b"0")
+            if obj_sc < eff_seq and self.store.exists(cid, msg.oid):
+                clone = f"{msg.oid}{CLONE_SEP}{eff_seq}"
+                pre = Transaction()
+                pre.clone(cid, msg.oid, clone)
+                pre.setattr(cid, clone, "from_seq", str(obj_sc).encode())
+                pre.ops.extend(t.ops)
+                t = pre
+            if not is_delete:
+                t.setattr(cid, msg.oid, "snapc",
+                          str(eff_seq).encode())
+        entry = self._log_write(pg, t, msg.oid, is_delete, reqid)
+        if not is_delete:
+            t.setattr(cid, msg.oid, "_v", enc_version(entry.version))
+            if pool.tier_of >= 0 and not self._is_internal(msg):
+                # cache tier: stamp dirtiness inside the SAME replicated
+                # txn (the flush agent reads the stamp's age); promotion
+                # installs (internal) stay clean
+                t.setattr(cid, msg.oid, "_dirty",
+                          str(time.time()).encode())
+        self.store.apply_transaction(t)
+        replicas = [o for o in up if o != self.osd_id and o != CEPH_NOSD]
+        reply = MOSDOpReply(tid=msg.tid, result=0, epoch=self.osdmap.epoch,
+                            ops=reply_ops)
+        if not replicas:
+            self.perf.tinc("op_w_latency", time.time() - t0)
+            self._op_send_reply(msg, reply)
+            return
+        with self._lock:
+            self._in_flight[reqid] = _InFlight(msg, set(replicas), reply)
+        blob = t.encode()
+        entry_blob = PG.encode_entry(entry)
+        for rep in replicas:
+            if self.debug_drop_rep_ops > 0:
+                self.debug_drop_rep_ops -= 1
+                continue
+            con = self._osd_con(rep)
+            if con is None:
+                # address unknown this epoch: count it as an instant nack so
+                # the op does not hang; the client retries on the next map
+                self._ack_shard(reqid, rep, -107)
+                continue
+            con.send_message(MOSDRepOp(reqid=reqid, pgid=msg.pgid,
+                                       oid=msg.oid, txn=blob,
+                                       pg_version=entry.version,
+                                       entry=entry_blob))
+        self.perf.tinc("op_w_latency", time.time() - t0)
+
+    def _handle_rep_op(self, msg: MOSDRepOp) -> None:
+        self.perf.inc("op_rep")
+        # a rep-op built before a PG split targets the parent; applying
+        # its transaction here would strand the object in the parent
+        # collection after this replica's own split.  Drop silently: the
+        # primary's repop stalls, its own split tears it down and the
+        # client's resend takes the post-split path
+        pool = self.osdmap.pools.get(msg.pgid[0])
+        if pool is not None:
+            if self._park_subop(self._handle_rep_op, msg, pool):
+                return
+            base = self._base_oid(msg.oid, pool.is_erasure())
+            if msg.oid and pg_to_pgid(ceph_str_hash_rjenkins(base),
+                                      pool.pg_num) != msg.pgid[1]:
+                return
+        pg = self._get_pg(msg.pgid)
+        entry = PG.decode_entry(msg.entry) if msg.entry else None
+        # head-check, txn apply and log append must be one atomic step:
+        # a concurrent peering merge advancing the head between them would
+        # apply the data but trip record()'s ordering assert
+        result = 0
+        with self._lock:
+            if entry is None or entry.version > pg.log.head:
+                t = Transaction.decode(msg.txn)
+                self.store.apply_transaction(t)
+                if entry is not None:
+                    pg.record(entry)
+            elif not self._is_dup_entry(pg, entry):
+                # an old interval's write racing a newer merged history:
+                # the txn was NOT applied, and acking it would let a
+                # deposed primary count a dropped write as committed
+                result = -116  # ESTALE
+        msg.connection.send_message(MOSDRepOpReply(
+            reqid=msg.reqid, pgid=msg.pgid, from_osd=self.osd_id,
+            result=result))
+
+    @staticmethod
+    def _is_dup_entry(pg: PG, entry: LogEntry) -> bool:
+        """True if this exact entry is already in the log (primary
+        resend), as opposed to a stale-interval write we discarded."""
+        have = pg.log.reqids.get(entry.reqid) if entry.reqid != (0, 0) \
+            else None
+        return have == entry.version
+
+    def _handle_rep_reply(self, msg: MOSDRepOpReply) -> None:
+        self._ack_shard(msg.reqid, msg.from_osd, msg.result)
+
+    def _ack_shard(self, reqid, from_osd: int, result: int) -> None:
+        with self._lock:
+            inf = self._in_flight.get(reqid)
+            if inf is None:
+                return
+            inf.waiting.discard(from_osd)
+            if result != 0:
+                inf.reply.result = result
+            if inf.waiting:
+                return
+            del self._in_flight[reqid]
+        self._op_send_reply(inf.msg, inf.reply)
+
+    # erasure pools ------------------------------------------------------------
+
+    def _codec(self, pool):
+        with self._lock:
+            c = self._codecs.get(pool.pool_id)
+            if c is None:
+                profile = dict(pool.ec_profile)
+                plugin = profile.pop("plugin", "jerasure")
+                profile.setdefault(
+                    "runtime", self.ctx.conf.get("erasure_code_runtime"))
+                c = registry_instance().factory(plugin, profile,
+                                                device=self.ctx.device)
+                self._codecs[pool.pool_id] = c
+            return c
+
+    def _ec_stripe_info(self, codec, pool):
+        """StripeInfo for MDS matrix codecs; None = whole-object layout
+        (shec/lrc/clay encode through their own bespoke paths).  The
+        stripe unit rounds up to the codec's per-chunk alignment quantum
+        — bitmatrix techniques need chunk % w == 0."""
+        if not getattr(codec, "supports_rmw_striping", False):
+            return None
+        from ceph_tpu_torch.osd.ec_util import StripeInfo
+        k = codec.get_data_chunk_count()
+        su = int(pool.ec_profile.get("stripe_unit", 4096))
+        quantum = max(1, codec.get_alignment() // k)
+        su = -(-su // quantum) * quantum
+        return StripeInfo(k, su)
+
+    @staticmethod
+    def _ec_live_shards(pg: PG, n: int) -> dict[int, int]:
+        """{shard: osd} for the up-set slots currently holding a live
+        OSD — every EC write path gates on this against min_size."""
+        up = pg.up
+        return {s: up[s] for s in range(min(n, len(up)))
+                if up[s] != CEPH_NOSD}
+
+    @staticmethod
+    def _ec_shard_columns(si, stripes, parity, n: int) -> dict[int, bytes]:
+        """Stack data+parity stripes, (S, n, su), and cut the per-shard
+        columns the transactions and replica fan-out carry."""
+        # parity is host numpy from the engine, or the codec's tensor on
+        # its device from the synchronous encode_chunks
+        full = np.concatenate([stripes, to_host(parity)], axis=1)
+        return {s: si.shard_column(full, s).tobytes() for s in range(n)}
+
+    @staticmethod
+    def _ec_encode_window(codec, si, data: bytes, s0: int,
+                          s1: int) -> dict[int, bytes]:
+        """Encode stripes [s0, s1) of `data` in one batched device call
+        (the ECUtil::encode batch point): {shard: column bytes}."""
+        n = codec.get_chunk_count()
+        window = np.frombuffer(data[s0 * si.width:s1 * si.width],
+                               dtype=np.uint8)
+        stripes = si.split(window)
+        return OSDDaemon._ec_shard_columns(
+            si, stripes, codec.encode_chunks(stripes), n)
+
+    def _ec_encode_object(self, codec, si, data: bytes) -> dict[int, bytes]:
+        """Full object -> {shard: shard bytes}."""
+        n = codec.get_chunk_count()
+        if si is None:
+            return codec.encode(set(range(n)), data)
+        return self._ec_encode_window(codec, si, data, 0,
+                                      si.object_stripes(len(data)))
+
+    def _do_ec_op(self, msg: MOSDOp, pool, pg: PG) -> None:
+        cid = self._pg_cid(pg.pgid)
+        for op in msg.ops:
+            if op.op in (OP_WRITE, OP_WRITEFULL):
+                self._ec_write_op(msg, pool, pg, op)
+                return
+            if op.op == OP_READ:
+                self.perf.inc("op_r")
+                self._start_ec_read(msg, pool, pg.up, cid, op)
+            elif op.op == OP_PGLS:
+                # listing needs no shard gather: the primary's own
+                # collection names every object (one shard each)
+                self._op_send_reply(msg, MOSDOpReply(
+                    tid=msg.tid, result=0, epoch=self.osdmap.epoch,
+                    ops=[self._pgls_field(cid, True)]))
+                return
+            else:
+                self._reply_err(msg, -22)
+                return
+
+    def _ec_write_op(self, msg: MOSDOp, pool, pg: PG, op) -> None:
+        """ECBackend::submit_transaction -> start_rmw: full writes encode
+        directly; partial writes first reconstruct the object (internal
+        gather), overlay, then re-encode only the affected stripes."""
+        codec = self._codec(pool)
+        k = codec.get_data_chunk_count()
+        n = codec.get_chunk_count()
+        reqid = (msg.client_id, msg.tid)
+        if self._dedup_resend(pg, reqid, msg):
+            return
+        if self._stale_retry(pg, msg):
+            self._reply_err(msg, -125)   # ECANCELED: superseded op
+            return
+        shard_osds = self._ec_live_shards(pg, n)
+        if len(shard_osds) < max(k, pool.min_size):
+            # below min_size the write could never be re-read
+            self._reply_err(msg, -11)
+            return
+        self.perf.inc("op_w")
+        with self._lock:
+            # ONE critical section from queue-join check through gate
+            # install and state registration: a second writer must see
+            # either no gate, or a fully-registered live gather — never
+            # a gate whose state isn't in _ec_reads yet.  (Callers
+            # already hold this RLock via _handle_op's dispatch block;
+            # taking it here makes the invariant local.)
+            #
+            # Per-object write pipeline (ExtentCache reduced,
+            # src/osd/ExtentCache.h:1-491): while an rmw gather is in
+            # flight for this object, later writes — partial OR full —
+            # join its queue in arrival order and will overlay onto the
+            # gather's projected content with no second disk/shard read
+            gid0 = pg.rmw.get(msg.oid)
+            if gid0 is not None:
+                st0 = self._ec_reads.get(gid0)
+                if st0 is not None and st0.get("kind") == "rmw":
+                    st0.setdefault("queue", []).append((msg, op))
+                    self.perf.inc("ec_rmw_pipelined")
+                    trk = getattr(msg, "_trk", None)
+                    if trk is not None:
+                        trk.mark_event("pipelined behind rmw gather")
+                    return
+                if st0 is not None and st0.get("kind") == "wpend":
+                    # async commits in flight for this object, and the
+                    # projected content is already known: chain directly
+                    # onto it — no gather, and the new encode coalesces
+                    # into the SAME device call as the pending one
+                    if reqid in st0.get("reqids", ()):
+                        # resend of a write whose commit is in flight:
+                        # tcp resends are fresh objects (_dedup_resend's
+                        # rule), so re-target the continuation's reply
+                        # at the latest connection — the original may
+                        # have arrived on one that is already dead
+                        st0.setdefault("resends", {})[reqid] = msg
+                        trk = getattr(msg, "_trk", None)
+                        if trk is not None:
+                            trk.mark_event(
+                                "resend of in-flight async write")
+                        return
+                    last = st0.get("tids", {}).get(msg.client_id)
+                    if last is not None and msg.tid < last:
+                        # abandoned older op landing behind a newer
+                        # in-flight write: executing it would roll the
+                        # object back (same rule as _stale_retry)
+                        self._reply_err(msg, -125)
+                        return
+                    if st0.get("failed"):
+                        # poisoned gate: the projected base embeds a
+                        # failed write's bytes — park until the gate
+                        # releases, then re-execute against the last
+                        # committed state
+                        st0.setdefault("queue", []).append((msg, op))
+                        return
+                    self.perf.inc("ec_rmw_pipelined")
+                    replace2 = op.op == OP_WRITEFULL
+                    self._ec_apply_write(
+                        msg, pool, pg, op,
+                        old_data=b"" if replace2
+                        else st0.get("base", b""),
+                        replace=replace2)
+                    return
+                # stale gate from a torn-down gather: reclaim it
+                pg.rmw.pop(msg.oid, None)
+            existing = pg.log.index.get(msg.oid)
+            fresh = existing is None or existing.is_delete()
+            if op.op == OP_WRITEFULL or fresh:
+                if op.op == OP_WRITEFULL or op.offset == 0:
+                    self._ec_apply_write(msg, pool, pg, op, old_data=b"",
+                                         replace=True)
+                else:
+                    # partial write to a fresh object: zero-fill base
+                    self._ec_apply_write(msg, pool, pg, op, old_data=b"",
+                                         replace=False)
+                return
+            # read-modify-write: gather the current object, then
+            # continue.  The object is gated (pg.rmw); overlapping reads
+            # park, further writes join this gather's pipeline queue
+            self._recover_tid += 1
+            gid = (RECOVERY_CLIENT + self.osd_id, self._recover_tid)
+            pg.rmw[msg.oid] = gid
+            si = self._ec_stripe_info(codec, pool)
+            cand = self._ec_shard_candidates(pg, n)
+            state = {"kind": "rmw", "msg": msg, "op": op, "pool": pool,
+                     "pgid": msg.pgid, "oid": msg.oid, "si": si,
+                     "shards": {}, "k": k, "active": set(), "cand": cand,
+                     "need": existing.version, "started": time.time(),
+                     "gid": gid, "queue": []}
+            self._ec_reads[gid] = state
+        self.perf.inc("ec_rmw_gather")
+        self._ec_gather(gid, state)
+
+    def _ec_rmw_ready(self, state: dict, old_data: bytes) -> None:
+        """The rmw gather finished: overlay and apply.  Runs on a reply
+        dispatch thread, so the apply (version allocation + log append +
+        store commit) must retake the PG lock _handle_op holds on the
+        direct path."""
+        msg = state["msg"]
+        pg = self.pgs.get(state["pgid"])
+        if pg is None:
+            # the PG left this OSD entirely (remap/removal): clients
+            # resend on the map change, so no reply/requeue here
+            with self._lock:
+                self._ec_reads.pop(state.get("gid"), None)
+            return
+        with self._lock:
+            if self._ec_reads.get(state.get("gid")) is not state:
+                # the stuck-rmw watchdog or a teardown path claimed this
+                # gather while the decode ran (popping it from _ec_reads
+                # is the claim): it already replied/requeued — applying
+                # here too would double-complete the op
+                return
+            if pg.rmw.get(msg.oid) != state.get("gid"):
+                # an interval change orphaned this gather; a newer one
+                # (or nobody) owns the gate now — applying pre-peering
+                # old_data here would overlay a stale base.  Head and
+                # pipelined writes requeue (never silently dropped);
+                # post-activation dispatch dedups against the log
+                self._ec_reads.pop(state.get("gid"), None)
+                self._requeue_rmw_state(
+                    state, pg, event="rmw gather orphaned: gate lost")
+                return
+            projected = self._ec_apply_write(msg, state["pool"], pg,
+                                             state["op"],
+                                             old_data=old_data,
+                                             replace=False)
+            base = old_data if projected is None else projected
+            # drain the write pipeline: each queued write overlays onto
+            # the previous write's projected content — ONE gather serves
+            # the whole burst (the ExtentCache win).  New arrivals keep
+            # appending under this same lock until the queue runs dry.
+            q = state.get("queue") or []
+            while q:
+                m2, op2 = q.pop(0)
+                # a map-change resend of an op already drained earlier in
+                # this queue is in the log now: dedup it here exactly like
+                # the direct path would, or it would apply twice.  With
+                # async dispatch the earlier drain may still be
+                # committing — its reqid sits in the state's pending set
+                # rather than the log, so check both.  Don't just drop
+                # it: the in-flight commit's reply must ride THIS (live)
+                # connection, the original may be dead (same re-target
+                # rule as the wpend branch and _dedup_resend's inf.msg)
+                if (m2.client_id, m2.tid) in state.get("reqids", ()):
+                    state.setdefault("resends", {})[
+                        (m2.client_id, m2.tid)] = m2
+                    continue
+                if self._dedup_resend(pg, (m2.client_id, m2.tid), m2):
+                    continue
+                if self._stale_retry(pg, m2):
+                    self._reply_err(m2, -125)
+                    continue
+                replace2 = op2.op == OP_WRITEFULL
+                nxt = self._ec_apply_write(
+                    m2, state["pool"], pg, op2,
+                    old_data=b"" if replace2 else base,
+                    replace=replace2)
+                if nxt is not None:
+                    base = nxt
+            if state.get("pending"):
+                # async encodes from this drain are still committing:
+                # convert the gather gate into a pending-write gate and
+                # let the LAST commit continuation release it — parked
+                # readers must not see pre-commit shards
+                state["kind"] = "wpend"
+                state["started"] = time.time()
+                waiting = []
+            else:
+                pg.rmw.pop(msg.oid, None)
+                self._ec_reads.pop(state.get("gid"), None)
+                waiting = pg.waiting_for_missing.pop(msg.oid, [])
+        for m in waiting:
+            self._handle_op(m)
+
+    def _ec_apply_write(self, msg: MOSDOp, pool, pg: PG, op,
+                        old_data: bytes, replace: bool) -> bytes | None:
+        """Start one EC write: overlay, encode, commit, shard fan-out.
+        With the dispatch engine on, the encode is SUBMITTED
+        (submit-and-continue): this method returns after handing the
+        affected stripes to the coalescing engine, and the
+        transaction-build + fan-out runs in the completion continuation
+        (_ec_write_committed) — the window in which a second client
+        write lands its encode into the SAME device call.  Returns the
+        full post-write object content — the projected base the rmw
+        pipeline chains the next queued write onto — or None if the
+        write was refused (reply already sent).  Caller holds
+        self._lock."""
+        codec = self._codec(pool)
+        n = codec.get_chunk_count()
+        k = codec.get_data_chunk_count()
+        si = self._ec_stripe_info(codec, pool)
+        shard_osds = self._ec_live_shards(pg, n)
+        # the rmw gather is asynchronous: re-check the min_size gate
+        # against the CURRENT up set before committing anything
+        if len(shard_osds) < max(k, pool.min_size):
+            self._reply_err(msg, -11)
+            return None
+        if replace:
+            data = bytes(op.data)
+        else:
+            new_size = max(len(old_data), op.offset + len(op.data))
+            buf = bytearray(new_size)
+            buf[:len(old_data)] = old_data
+            buf[op.offset:op.offset + len(op.data)] = op.data
+            data = bytes(buf)
+        self.perf.inc("ec_encode_stripes")
+        t_kernel = time.perf_counter()
+        if si is not None and not replace and old_data:
+            # ranged: encode ONLY the affected stripes (the batched
+            # device call covers [s0, s1)); only those columns travel
+            # on growth s1 from stripe_range already equals
+            # object_stripes(new_size): new_size = offset + len there
+            s0, s1 = si.stripe_range(op.offset, len(op.data))
+            shard_off = s0 * si.su
+            shard_len = si.shard_len(len(data))
+            truncate = False
+        elif si is not None:
+            s0, s1 = 0, si.object_stripes(len(data))
+            shard_off, truncate = 0, True
+            shard_len = si.shard_len(len(data))
+        else:
+            s0 = s1 = 0
+            shard_off, truncate = 0, True
+            shard_len = 0
+        engine = (self.ctx.dispatch_engine()
+                  if self._ec_async and si is not None else None)
+        if engine is None and si is not None:
+            # the async knob was toggled off with commits still in
+            # flight for this object: a synchronous commit here would
+            # log ahead of them and the object would roll back when
+            # their continuations land — ride the engine's per-key
+            # FIFO behind the pending writes instead
+            gid0 = pg.rmw.get(msg.oid)
+            st0 = (self._ec_reads.get(gid0)
+                   if gid0 is not None else None)
+            if (st0 is not None and st0.get("kind") == "wpend"
+                    and st0.get("pending")):
+                engine = self.ctx.dispatch_engine()
+        if engine is None:
+            # synchronous path: whole-object codecs (shec/lrc/clay
+            # encode through their own bespoke layouts) and the async
+            # knob off
+            if si is None:
+                sub = self._ec_encode_object(codec, si, data)
+                shard_len = (len(next(iter(sub.values())))
+                             if sub else 0)
+            else:
+                sub = self._ec_encode_window(codec, si, data, s0, s1)
+            # device residency on the op's timeline (and, via the trace
+            # id, in the cross-daemon span ring): a traced client op
+            # shows where its TPU time went
+            trk = getattr(msg, "_trk", None)
+            if trk is not None:
+                trk.mark_event(
+                    "ec_encode kernel "
+                    f"{(time.perf_counter() - t_kernel) * 1e3:.3f}ms")
+            self._ec_write_commit(msg, pool, pg, sub, data, shard_osds,
+                                  shard_off, shard_len, truncate)
+            return data
+        # submit-and-continue: gate the object (readers park, later
+        # writes chain onto the projected base), stack the affected
+        # stripes onto the engine's batch axis, return
+        st = self._ec_wpend_state(pg, msg.oid)
+        reqid = (msg.client_id, msg.tid)
+        st.setdefault("reqids", set()).add(reqid)
+        tids = st.setdefault("tids", {})
+        if msg.tid >= tids.get(msg.client_id, 0):
+            tids[msg.client_id] = msg.tid
+        st["pending"] = st.get("pending", 0) + 1
+        st["base"] = data
+        window = np.frombuffer(data[s0 * si.width:s1 * si.width],
+                               dtype=np.uint8)
+        stripes = si.split(window)
+        fut = codec.submit_chunks(
+            engine, stripes,
+            cost_tag=(getattr(msg, "qos_tenant", "") or "client",
+                      "client"))
+        self.perf.inc("ec_dispatch_submits")
+        trk = getattr(msg, "_trk", None)
+        if trk is not None:
+            trk.mark_event(
+                f"ec_encode submitted ({stripes.shape[0]} stripes)")
+        cctx = {"msg": msg, "pool": pool, "pgid": pg.pgid,
+                "oid": msg.oid, "gid": st["gid"], "state": st,
+                "data": data, "stripes": stripes, "n": n, "k": k,
+                "si": si, "shard_off": shard_off,
+                "shard_len": shard_len, "truncate": truncate,
+                "t0": t_kernel}
+        fut.add_done_callback(
+            lambda f, c=cctx: self._ec_write_committed(c, f))
+        return data
+
+    def _ec_wpend_state(self, pg: PG, oid: str) -> dict:
+        """Find or create the pending-write gate for an object with
+        async commits in flight (kind "wpend").  An in-flight rmw
+        gather's state doubles as the gate until _ec_rmw_ready's drain
+        converts it.  Caller holds self._lock."""
+        gid = pg.rmw.get(oid)
+        st = self._ec_reads.get(gid) if gid is not None else None
+        if st is None or st.get("oid") != oid:
+            self._recover_tid += 1
+            gid = (RECOVERY_CLIENT + self.osd_id, self._recover_tid)
+            st = {"kind": "wpend", "pgid": pg.pgid, "oid": oid,
+                  "gid": gid, "queue": [], "started": time.time(),
+                  "pending": 0, "reqids": set(), "tids": {},
+                  "base": b""}
+            pg.rmw[oid] = gid
+            self._ec_reads[gid] = st
+        return st
+
+    def _ec_write_committed(self, c: dict, fut) -> None:
+        """Completion continuation for a submitted EC write (runs on
+        the engine's completion thread, in per-object submission order
+        — the engine's delivery contract IS the log/commit ordering):
+        build the transactions, apply locally, fan out, reply, and
+        release the pending-write gate once the last in-flight commit
+        for the object lands."""
+        msg = c["msg"]
+        # re-join the op's trace: this engine thread has no trace
+        # context, but the commit's shard fan-out must carry the op's
+        # trace id so replica dispatch spans stitch into one tree
+        tid = getattr(msg, "trace_id", 0)
+        from ceph_tpu_torch.common import tracing
+        if tid and tracing.current() != tid:
+            prev = tracing.set_current(
+                tid, getattr(msg, "parent_span_id", 0))
+            try:
+                return self._ec_write_committed(c, fut)
+            finally:
+                tracing.set_current(prev)
+        st = c["state"]
+        reqid = (msg.client_id, msg.tid)
+        waiting: list = []
+        requeue: list = []
+        try:
+            self._ec_write_committed_locked(c, fut, msg, st, reqid,
+                                            waiting, requeue)
+        finally:
+            # OUTER finally: an exception escaping the commit (store or
+            # send error) must not strand the ops the gate release just
+            # popped out of every parking structure — nothing else
+            # (tick reap, map change) would ever replay them
+            for m in requeue:
+                self._handle_op(m)
+            for m in waiting:
+                self._handle_op(m)
+
+    def _ec_write_committed_locked(self, c: dict, fut, msg, st: dict,
+                                   reqid, waiting: list,
+                                   requeue: list) -> None:
+        """Locked half of _ec_write_committed.  Ops to re-dispatch are
+        EXTENDED into waiting/requeue (never rebound) so the caller's
+        outer finally sees them even if the commit raises."""
+        with self._lock:
+            pg = self.pgs.get(c["pgid"])
+            live = (pg is not None
+                    and self._ec_reads.get(c["gid"]) is st
+                    and pg.rmw.get(c["oid"]) == c["gid"])
+            if not live:
+                # the gate was torn down (interval change, split, PG
+                # removal) before this commit landed: nothing was
+                # logged or applied for this write yet, so drop it
+                # whole — the map change that tore the gate down makes
+                # the client resend and the write re-executes fresh
+                trk = getattr(msg, "_trk", None)
+                if trk is not None:
+                    trk.mark_event(
+                        "async commit dropped: gate torn down")
+                return
+            m2 = st.get("resends", {}).pop(reqid, None)
+            if m2 is not None and m2 is not msg:
+                # client resent while this commit was in flight: the
+                # reply must ride the resend's (live) connection
+                trk = getattr(msg, "_trk", None)
+                if trk is not None:
+                    trk.mark_event("superseded by client resend")
+                    trk.finish()
+                msg = c["msg"] = m2
+            st["pending"] = st.get("pending", 1) - 1
+            st.get("reqids", set()).discard(reqid)
+            try:
+                err = fut.exception()
+                if err is not None or st.get("failed"):
+                    # a failed commit poisons the gate: every later
+                    # in-flight encode chained onto st["base"] embeds
+                    # the failed write's bytes, and committing it
+                    # would durably apply data whose client was told
+                    # "error".  Fail the whole chain; retries re-
+                    # execute against the last COMMITTED state once
+                    # the gate releases
+                    st["failed"] = True
+                    if err is not None:
+                        dout("osd", 1, "osd.%d async ec encode failed "
+                             "for %s: %r", self.osd_id, c["oid"], err)
+                    self._reply_err(msg, -5)
+                else:
+                    n, si, pool = c["n"], c["si"], c["pool"]
+                    shard_osds = self._ec_live_shards(pg, n)
+                    if len(shard_osds) < max(c["k"], pool.min_size):
+                        st["failed"] = True
+                        self._reply_err(msg, -11)
+                    else:
+                        sub = self._ec_shard_columns(
+                            si, c["stripes"], fut.result(), n)
+                        trk = getattr(msg, "_trk", None)
+                        if trk is not None:
+                            trk.mark_event(
+                                "ec_encode kernel "
+                                f"{(time.perf_counter() - c['t0']) * 1e3:.3f}"
+                                "ms (async)")
+                        self._ec_write_commit(
+                            msg, pool, pg, sub, c["data"], shard_osds,
+                            c["shard_off"], c["shard_len"],
+                            c["truncate"])
+                        self.perf.inc("ec_dispatch_commits")
+            finally:
+                if not st.get("pending") and st.get("kind") == "wpend":
+                    pg.rmw.pop(c["oid"], None)
+                    self._ec_reads.pop(c["gid"], None)
+                    requeue.extend(
+                        m for m, _op in st.get("queue") or [])
+                    waiting.extend(
+                        pg.waiting_for_missing.pop(c["oid"], []))
+
+    def _ec_write_commit(self, msg: MOSDOp, pool, pg: PG, sub: dict,
+                         data: bytes, shard_osds: dict, shard_off: int,
+                         shard_len: int, truncate: bool) -> None:
+        """Commit one encoded EC write: version allocation + log append
+        + local shard transactions + replica fan-out + client reply.
+        Caller holds self._lock (the direct path holds it across the
+        encode; the async continuation retakes it)."""
+        cid = self._pg_cid(pg.pgid)
+        reqid = (msg.client_id, msg.tid)
+        reply = MOSDOpReply(tid=msg.tid, result=0, epoch=self.osdmap.epoch)
+        meta_t = Transaction()
+        entry = self._log_write(pg, meta_t, msg.oid, is_delete=False,
+                                reqid=reqid)
+        entry_blob = PG.encode_entry(entry)
+        v_attr = enc_version(entry.version)
+        size_attr = str(len(data)).encode()
+        from ceph_tpu_torch.osd.ec_util import HashInfo
+        waiting = set()
+        for shard, osd in shard_osds.items():
+            if osd != self.osd_id:
+                waiting.add(osd)
+                continue
+            soid = f"{msg.oid}:{shard}"
+            new_shard, base_ok = self._patched_shard(
+                pg.pgid, msg.oid, shard, sub[shard], shard_off,
+                shard_len, truncate,
+                expected_prior=entry.prior_version)
+            t = Transaction()
+            if base_ok:
+                (t.truncate(cid, soid, 0)
+                 .write(cid, soid, 0, new_shard)
+                 .setattr(cid, soid, "size", size_attr)
+                 .setattr(cid, soid, "_v", v_attr)
+                 .setattr(cid, soid, "hinfo",
+                          HashInfo.compute(new_shard)))
+            # unusable base: the shard stays untouched with its stale
+            # version/hash (detected-bad everywhere) until the scheduled
+            # repair rewrites it; only the log entry lands now
+            t.ops.extend(meta_t.ops)
+            self.store.apply_transaction(t)
+        with self._lock:
+            if waiting:
+                self._in_flight[reqid] = _InFlight(msg, set(waiting),
+                                                   reply)
+        for shard, osd in shard_osds.items():
+            if osd == self.osd_id:
+                continue
+            con = self._osd_con(osd)
+            if con is None:
+                self._ack_shard(reqid, osd, -107)
+                continue
+            con.send_message(MOSDECSubOpWrite(
+                reqid=reqid, pgid=msg.pgid, oid=f"{msg.oid}:{shard}",
+                shard=shard, chunk=sub[shard], epoch=self.osdmap.epoch,
+                obj_size=len(data), entry=entry_blob,
+                offset=shard_off, shard_len=shard_len,
+                truncate=truncate))
+        if not waiting:
+            self._op_send_reply(msg, reply)
+
+    def _patched_shard(self, pgid, oid: str, shard: int, chunk: bytes,
+                       offset: int, shard_len: int, truncate: bool,
+                       expected_prior=None) -> tuple[bytes, bool]:
+        """(full post-write shard bytes, base_ok).  Whole replacements
+        are the chunk itself; ranged writes patch the existing shard in
+        memory — but ONLY onto a trustworthy base: the old bytes must
+        pass their checksum AND sit at the write's prior_version (a
+        shard that silently missed an intermediate write must not be
+        patched into mixed-version content with a fresh valid hash).
+        A bad base is left untouched — its stale version/hash keep it
+        detected-bad in every gather — and a repair is scheduled."""
+        from ceph_tpu_torch.osd.ec_util import HashInfo
+        if truncate:
+            return chunk, True
+        cid = f"{pgid[0]}.{pgid[1]}"
+        soid = f"{oid}:{shard}"
+        try:
+            old = self.store.read(cid, soid)
+        except KeyError:
+            old = b""
+        base_ok = HashInfo.matches(old, self._getattr_safe(cid, soid,
+                                                           "hinfo"))
+        if base_ok and expected_prior is not None:
+            have = dec_version(self._getattr_safe(cid, soid, "_v"))
+            base_ok = have == expected_prior
+        if not base_ok:
+            dout("osd", 1, "osd.%d shard %s/%s base unusable for ranged "
+                 "write (corrupt or missed a prior write); scheduling "
+                 "repair", self.osd_id, cid, soid)
+            pg = self.pgs.get(pgid)
+            if pg is not None:
+                self._recover_ec_object(pg, oid, dest_osd=self.osd_id,
+                                        dest_shard=shard)
+            return old, False
+        buf = bytearray(max(shard_len, len(old)))
+        buf[:len(old)] = old
+        buf[offset:offset + len(chunk)] = chunk
+        out = bytes(buf[:shard_len]) if shard_len else bytes(buf)
+        return out, True
+
+    def _handle_ec_write(self, msg: MOSDECSubOpWrite) -> None:
+        pool = self.osdmap.pools.get(msg.pgid[0])
+        if pool is not None:
+            if self._park_subop(self._handle_ec_write, msg, pool):
+                return
+            base = self._base_oid(msg.oid, True)
+            if msg.oid and pg_to_pgid(ceph_str_hash_rjenkins(base),
+                                      pool.pg_num) != msg.pgid[1]:
+                return   # pre-split shard write: see _handle_rep_op
+
+        oid = msg.oid
+        cid = f"{msg.pgid[0]}.{msg.pgid[1]}"
+        pg = self._get_pg(msg.pgid)
+        entry = PG.decode_entry(msg.entry) if msg.entry else None
+        from ceph_tpu_torch.osd.ec_util import HashInfo
+        # atomic head-check + apply + append (see _handle_rep_op)
+        result = 0
+        logical, _, shard_s = oid.rpartition(":")
+        with self._lock:
+            if entry is None or entry.version > pg.log.head:
+                new_shard, base_ok = self._patched_shard(
+                    msg.pgid, logical, int(shard_s), msg.chunk,
+                    msg.offset, msg.shard_len, msg.truncate,
+                    expected_prior=(entry.prior_version
+                                    if entry is not None else None))
+                t = Transaction()
+                if base_ok:
+                    (t.truncate(cid, oid, 0)
+                     .write(cid, oid, 0, new_shard)
+                     .setattr(cid, oid, "size",
+                              str(msg.obj_size).encode())
+                     .setattr(cid, oid, "hinfo",
+                              HashInfo.compute(new_shard)))
+                    if entry is not None:
+                        t.setattr(cid, oid, "_v",
+                                  enc_version(entry.version))
+                if entry is not None:
+                    t.touch(cid, PG.PGMETA)
+                    pg.record(entry)
+                    t.omap_setkeys(cid, PG.PGMETA, {
+                        PG.log_key(entry.version): PG.encode_entry(entry),
+                        "info": pg.encode_info()})
+                self.store.apply_transaction(t)
+            elif not self._is_dup_entry(pg, entry):
+                result = -116  # ESTALE: stale-interval shard write dropped
+        msg.connection.send_message(MOSDECSubOpWriteReply(
+            reqid=msg.reqid, shard=msg.shard, from_osd=self.osd_id,
+            result=result))
+
+    def _handle_ec_write_reply(self, msg: MOSDECSubOpWriteReply) -> None:
+        self._ack_shard(msg.reqid, msg.from_osd, msg.result)
+
+    def _start_ec_read(self, msg: MOSDOp, pool, up, cid: str,
+                       op=None) -> None:
+        """objects_read_and_reconstruct analog: gather k shards, decode.
+        op carries the byte range; today full shards travel and the
+        whole object decodes before slicing (ranged shard reads over
+        the wire are a known optimization, not yet done)."""
+        codec = self._codec(pool)
+        k = codec.get_data_chunk_count()
+        n = codec.get_chunk_count()
+        reqid = (msg.client_id, msg.tid)
+        pg = self.pgs.get(msg.pgid)
+        cand = (self._ec_shard_candidates(pg, n) if pg is not None
+                else {s: [up[s]] for s in range(min(n, len(up)))
+                      if up[s] != CEPH_NOSD})
+        if sum(1 for c in cand.values() if c) < k:
+            # fewer than k shards locatable: unreadable this epoch
+            self._reply_err(msg, -5)
+            return
+        entry = pg.log.index.get(msg.oid) if pg is not None else None
+        state = {"kind": "client", "msg": msg, "pool": pool,
+                 "pgid": msg.pgid, "oid": msg.oid,
+                 "off": op.offset if op is not None else 0,
+                 "len": op.length if op is not None else 0,
+                 # the logged version pins the stripe: past-interval
+                 # holders may serve stale chunks that must not be mixed
+                 # into the decode
+                 "need": entry.version if entry is not None
+                 and not entry.is_delete() else None,
+                 "shards": {}, "k": k, "active": set(), "cand": cand}
+        with self._lock:
+            self._ec_reads[reqid] = state
+        self._ec_gather(reqid, state)
+
+    def _ec_gather(self, reqid, state: dict) -> None:
+        """Keep enough shard reads in flight to reach k results
+        (get_min_avail_to_read_shards + the retry ladder, unified)."""
+        while True:
+            with self._lock:
+                if reqid not in self._ec_reads:
+                    return
+                have = len(state["shards"]) + len(state["active"])
+                if have >= state["k"]:
+                    return
+                # lowest-index shard with a candidate left, not already
+                # satisfied or in flight (prefer data shards)
+                pick = None
+                for s in sorted(state["cand"]):
+                    if (s not in state["shards"]
+                            and s not in state["active"]
+                            and state["cand"][s]):
+                        pick = s
+                        break
+                if pick is None:
+                    del self._ec_reads[reqid]
+                    give_up = True
+                    if state["kind"] == "rmw":
+                        # fail while still holding the lock (_rmw_fail
+                        # contract: no gate-reclaim window)
+                        self._rmw_fail(state)
+                        return
+                else:
+                    give_up = False
+                    osd = state["cand"][pick].pop(0)
+                    state["active"].add(pick)
+            if give_up:
+                self._ec_read_give_up(state)
+                return
+            self._ec_ask(reqid, state, pick, osd)
+
+    def _ec_ask(self, reqid, state: dict, shard: int, osd: int) -> None:
+        pgid = state["pgid"]
+        oid = state["oid"]
+        if osd == self.osd_id:
+            self._ec_read_local(reqid, oid, f"{pgid[0]}.{pgid[1]}", shard)
+            return
+        con = self._osd_con(osd) if self.osdmap.is_up(osd) else None
+        if con is None:
+            # a holder the map marks down never answers (a past
+            # interval's holder of a shard whose position is now NONE):
+            # the gather moves on to the next candidate or shard
+            self._ec_read_failed(reqid, shard)
+            return
+        con.send_message(MOSDECSubOpRead(
+            reqid=reqid, pgid=pgid, oid=oid, shard=shard))
+
+    def _read_shard_verified(self, pgid, oid: str, shard):
+        """(chunk, size, ver) of a local shard, or None on absence OR a
+        HashInfo checksum mismatch — a corrupt shard is as good as
+        missing, and a repair reconstruct is scheduled (ECUtil HashInfo
+        semantics)."""
+        from ceph_tpu_torch.osd.ec_util import HashInfo
+        cid = f"{pgid[0]}.{pgid[1]}"
+        soid = f"{oid}:{shard}"
+        try:
+            chunk = self.store.read(cid, soid)
+            size = int(self.store.getattr(cid, soid, "size"))
+        except (KeyError, TypeError):
+            return None
+        hinfo = self._getattr_safe(cid, soid, "hinfo")
+        if not HashInfo.matches(chunk, hinfo):
+            dout("osd", 1, "osd.%d shard %s/%s failed checksum; "
+                 "scheduling repair", self.osd_id, cid, soid)
+            pg = self.pgs.get(pgid)
+            if pg is not None:
+                self._recover_ec_object(pg, oid, dest_osd=self.osd_id,
+                                        dest_shard=shard)
+            return None
+        ver = dec_version(self._getattr_safe(cid, soid, "_v")) \
+            or EVERSION_ZERO
+        return chunk, size, ver
+
+    def _ec_read_local(self, reqid, oid: str, cid: str, shard) -> None:
+        state = self._ec_reads.get(reqid)
+        pgid = state["pgid"] if state else tuple(
+            int(x) for x in cid.split("."))
+        got = self._read_shard_verified(pgid, oid, shard)
+        if got is None:
+            self._ec_read_failed(reqid, shard)
+            return
+        self._ec_read_done(reqid, shard, *got)
+
+    def _handle_ec_read(self, msg: MOSDECSubOpRead) -> None:
+        pool = self.osdmap.pools.get(msg.pgid[0])
+        if pool is not None and self._park_subop(
+                self._handle_ec_read, msg, pool):
+            return
+
+        got = self._read_shard_verified(msg.pgid, msg.oid, msg.shard)
+        if got is None:
+            msg.connection.send_message(MOSDECSubOpReadReply(
+                reqid=msg.reqid, shard=msg.shard, from_osd=self.osd_id,
+                result=-2, chunk=b""))
+            return
+        chunk, size, ver = got
+        msg.connection.send_message(MOSDECSubOpReadReply(
+            reqid=msg.reqid, shard=msg.shard, from_osd=self.osd_id,
+            result=0, ver=ver,
+            chunk=chunk + size.to_bytes(8, "little")))
+
+    def _handle_ec_read_reply(self, msg: MOSDECSubOpReadReply) -> None:
+        if msg.result != 0:
+            self._ec_read_failed(msg.reqid, msg.shard)
+            return
+        chunk, size = msg.chunk[:-8], int.from_bytes(msg.chunk[-8:],
+                                                     "little")
+        self._ec_read_done(msg.reqid, msg.shard, chunk, size, msg.ver)
+
+    def _ec_read_failed(self, reqid, shard: int) -> None:
+        with self._lock:
+            state = self._ec_reads.get(reqid)
+            if state is None:
+                return
+            state["active"].discard(shard)
+        self._ec_gather(reqid, state)
+
+    def _ec_read_give_up(self, state: dict) -> None:
+        """Terminal gather failure for client reads and recovery pulls.
+        rmw gathers go through _rmw_fail instead (atomically, under the
+        lock that popped them)."""
+        if state["kind"] == "client":
+            self._reply_err(state["msg"], -5)
+            return
+        pg = self.pgs.get(state["pgid"])
+        if pg is not None:
+            with self._lock:
+                pg.recovering.pop(state["oid"], None)
+
+    def _rmw_fail(self, state: dict) -> None:
+        """Fail an rmw gather whose state the CALLER just popped from
+        _ec_reads, while STILL HOLDING self._lock: the gate release, the
+        head's error reply, and the re-dispatch of pipelined writes all
+        land before any new write can observe the stale gate — a new
+        write slipping in between would reclaim the gate and apply ahead
+        of the older queued writes (per-object order inversion)."""
+        pg = self.pgs.get(state["pgid"])
+        if pg is not None and pg.rmw.get(state["oid"]) == state.get("gid"):
+            pg.rmw.pop(state["oid"], None)
+        self._reply_err(state["msg"], -5)
+        # pipelined writes re-dispatch in order: the first starts a fresh
+        # gather and the rest join its queue, all under this lock
+        for m2, _op2 in state.get("queue") or []:
+            self._handle_op(m2)
+
+    def _requeue_rmw_state(self, st: dict | None, dest_pg: PG,
+                           event: str | None = None) -> None:
+        """Requeue a torn-down rmw gather's client op and its pipelined
+        queue onto dest_pg.waiting_for_active (caller holds the lock;
+        split and interval-change teardown share this)."""
+        if st is None:
+            return
+        m = st.get("msg")
+        if m is not None:
+            if event:
+                trk = getattr(m, "_trk", None)
+                if trk is not None:
+                    trk.mark_event(event)
+            dest_pg.waiting_for_active.append(m)
+        for m2, _op2 in st.get("queue") or []:
+            dest_pg.waiting_for_active.append(m2)
+
+    def _ec_read_done(self, reqid, shard: int, chunk: bytes,
+                      size: int, ver) -> None:
+        with self._lock:
+            state = self._ec_reads.get(reqid)
+            if state is None:
+                return
+            state["active"].discard(shard)
+            need = state.get("need")
+            stale = need is not None and ver != need
+            if not stale:
+                state["shards"][shard] = chunk
+                state["size"] = size
+                if len(state["shards"]) < state["k"]:
+                    return
+        if stale:
+            self._ec_gather(reqid, state)
+            return
+        if self._ec_submit_decode(reqid, state):
+            # submit-and-continue: the decode rides the decode engine
+            # (coalescing with every other in-flight gather's decode —
+            # even under DIFFERENT erasure patterns) and the completion
+            # continuation finishes the read
+            return
+        try:
+            data = self._ec_decode_state(state)
+        except (ValueError, IOError):
+            # non-MDS codecs cannot decode from every k-subset: widen
+            # the gather by one shard and keep going.  IOError is the
+            # bitmatrix/shec spelling; a plain matrix codec whose
+            # chosen rows are singular raises ValueError from
+            # recovery_matrix (unreachable for the bundled MDS codecs,
+            # but a third-party generator must widen, not wedge)
+            with self._lock:
+                state["k"] = len(state["shards"]) + 1
+            self._ec_gather(reqid, state)
+            return
+        self._ec_read_finish(reqid, state, data)
+
+    def _ec_submit_decode(self, reqid, state: dict) -> bool:
+        """Submit the gather's reconstruction through the decode
+        dispatch engine: True when the completion continuation now owns
+        the rest of the read.  False falls back to the synchronous
+        path — whole-object codecs (si None), packet-level bitmatrix
+        codecs, the knob off, a widened (non-MDS) gather, no missing
+        data rows, or a singular chosen set (the widen ladder handles
+        that one just like the sync decode's IOError)."""
+        if not self._ec_decode_async:
+            return False
+        pool = state["pool"]
+        codec = self._codec(pool)
+        if not getattr(codec, "supports_submit_decode", False):
+            return False
+        si = self._ec_stripe_info(codec, pool)
+        if si is None:
+            return False
+        k = codec.get_data_chunk_count()
+        if state["k"] != k:
+            return False
+        # cheap pre-check BEFORE any array assembly: a healthy read
+        # (all k data shards gathered) needs no device call, and the
+        # sync fallback would otherwise redo the whole assembly
+        if all(s < k for s in sorted(state["shards"])[:k]):
+            return False
+        size = state["size"]
+        chosen, arr, targets, stripes = self._ec_gathered_stripes(
+            si, k, state["shards"], size)
+        # targets cannot be empty here: the pre-check above bailed on
+        # the all-data-shards case, so at least one parity shard is in
+        # `chosen` and at least one data row is missing
+        engine = self.ctx.decode_dispatch_engine()
+        if state["kind"] == "recover":
+            tag = ("recovery", "recovery")
+        else:
+            tag = (getattr(state.get("msg"), "qos_tenant", "")
+                   or "client", "client")
+        try:
+            fut = codec.submit_decode_chunks(engine, chosen, arr,
+                                             targets, cost_tag=tag)
+        except (ValueError, IOError):
+            return False
+        self.perf.inc("ec_decode_submits")
+        if state["kind"] == "recover":
+            self.perf.inc("recovery_decode_stripes", int(arr.shape[0]))
+        trk = getattr(state.get("msg"), "_trk", None)
+        if trk is not None:
+            trk.mark_event(
+                f"ec_decode submitted ({arr.shape[0]} stripes, "
+                f"{len(targets)} targets)")
+        cctx = (reqid, state, si, stripes, targets, size)
+        fut.add_done_callback(
+            lambda f, c=cctx: self._ec_decode_done(*c, f))
+        return True
+
+    def _ec_decode_done(self, reqid, state: dict, si, stripes, targets,
+                        size: int, fut) -> None:
+        """Decode-engine completion continuation (runs on the decode
+        engine's completion thread): overlay the rebuilt rows and
+        finish the gather — client reply, rmw overlay-and-drain, or
+        recovery store/push."""
+        err = fut.exception()
+        if err is not None:
+            # device-side failure: re-enter the retry ladder exactly
+            # like the synchronous decode's IOError widen
+            dout("osd", 1, "osd.%d async ec decode failed for %s: %r",
+                 self.osd_id, state.get("oid"), err)
+            with self._lock:
+                if self._ec_reads.get(reqid) is not state:
+                    return
+                state["k"] = len(state["shards"]) + 1
+            self._ec_gather(reqid, state)
+            return
+        # analysis: allow[blocking] -- fut already delivered: engine futures carry host numpy
+        rec = np.asarray(fut.result())
+        for idx, d in enumerate(targets):
+            stripes[:, d, :] = rec[:, idx, :]
+        data = si.join(stripes).tobytes()[:size]
+        # re-join the op's trace: the completion thread has no trace
+        # context, but the reply / shard fan-out must stitch into the
+        # op's span tree (same rule as _ec_write_committed)
+        msg = state.get("msg")
+        tid = getattr(msg, "trace_id", 0) if msg is not None else 0
+        from ceph_tpu_torch.common import tracing
+        if tid and tracing.current() != tid:
+            prev = tracing.set_current(
+                tid, getattr(msg, "parent_span_id", 0))
+            try:
+                self._ec_read_finish(reqid, state, data)
+            finally:
+                tracing.set_current(prev)
+            return
+        self._ec_read_finish(reqid, state, data)
+
+    def _ec_read_finish(self, reqid, state: dict, data: bytes) -> None:
+        """Reconstructed object bytes in hand (synchronous decode or
+        decode-engine continuation): complete the gather by kind."""
+        if state["kind"] == "rmw":
+            # the rmw state stays registered in _ec_reads until the
+            # pipeline drain completes: a write arriving in this window
+            # must find it live and join its queue, not mistake the gate
+            # for a torn-down gather and usurp it (_ec_rmw_ready pops;
+            # it also detects a gate lost to an interval change while
+            # an async decode was in flight and requeues instead)
+            self._ec_rmw_ready(state, data)
+            return
+        with self._lock:
+            if self._ec_reads.get(reqid) is not state:
+                # superseded while the decode was in flight (a client
+                # resend re-registered this reqid with a fresh gather,
+                # or a teardown claimed the state): the live owner
+                # replies — a completion here would double-reply or
+                # double-push
+                return
+            self._ec_reads.pop(reqid, None)
+        if state["kind"] == "client":
+            msg = state["msg"]
+            off = state.get("off", 0)
+            length = state.get("len", 0)
+            data = data[off:off + length] if length else data[off:]
+            self._op_send_reply(msg, MOSDOpReply(
+                tid=msg.tid, result=0, epoch=self.osdmap.epoch,
+                ops=[OSDOpField(OP_READ, off, len(data), data)]))
+            return
+        self._ec_recover_done(state, data)
+
+    @staticmethod
+    def _ec_gathered_stripes(si, k: int, shards: dict, size: int):
+        """Shared shard-to-array assembly for the sync and async decode
+        paths (they MUST reconstruct identically whatever the
+        osd_ec_decode_async setting): (chosen, arr (S, k_chosen, su) of
+        gathered columns, missing data-row targets, stripes buffer
+        with the surviving data rows scattered in)."""
+        shard_len = si.shard_len(size)
+        chosen = sorted(shards)[:k]
+        cols = []
+        for s in chosen:
+            b = shards[s]
+            if len(b) < shard_len:    # short shard: zero-extend
+                b = b + bytes(shard_len - len(b))
+            cols.append(np.frombuffer(b[:shard_len], dtype=np.uint8)
+                        .reshape(-1, si.su))
+        arr = np.stack(cols, axis=1)             # (S, k, su)
+        targets = [d for d in range(k) if d not in set(chosen)]
+        stripes = np.zeros((arr.shape[0], k, si.su), dtype=np.uint8)
+        for i, s in enumerate(chosen):
+            if s < k:
+                stripes[:, s, :] = arr[:, i, :]
+        return chosen, arr, targets, stripes
+
+    def _ec_decode_state(self, state: dict) -> bytes:
+        """Gathered shards -> full object bytes.  Striped pools decode
+        all stripes in one batched device call; whole-object pools go
+        through the codec's own decode."""
+        pool = state["pool"]
+        codec = self._codec(pool)
+        k = codec.get_data_chunk_count()
+        si = self._ec_stripe_info(codec, pool)
+        size = state["size"]
+        shards = state["shards"]
+        if si is None:
+            decoded = codec.decode(set(range(k)), dict(shards))
+            return b"".join(decoded[i] for i in range(k))[:size]
+        chosen, arr, targets, stripes = self._ec_gathered_stripes(
+            si, k, shards, size)
+        if targets:
+            # the synchronous decode returns a tensor on the codec's device
+            rec = to_host(codec.decode_chunks(chosen, arr, targets))
+            for idx, d in enumerate(targets):
+                stripes[:, d, :] = rec[:, idx, :]
+        return si.join(stripes).tobytes()[:size]
+
+    def _ec_recover_done(self, state: dict, data: bytes) -> None:
+        """Reconstructed the full object: re-encode and deliver the
+        destination shard's chunk.  With async dispatch on, the
+        re-encode SUBMITS through the encode engine — the reservation
+        window's concurrent in-flight pulls coalesce their re-encodes
+        into one device call — and the store/push runs in the
+        continuation."""
+        pool = state["pool"]
+        codec = self._codec(pool)
+        si = self._ec_stripe_info(codec, pool)
+        if self._ec_async and si is not None:
+            stripes = si.split(np.frombuffer(data, dtype=np.uint8))
+            n = codec.get_chunk_count()
+            fut = codec.submit_chunks(self.ctx.dispatch_engine(),
+                                      stripes,
+                                      cost_tag=("recovery", "recovery"))
+            self.perf.inc("ec_dispatch_submits")
+            fut.add_done_callback(
+                lambda f, c=(state, data, si, stripes, n):
+                self._ec_recover_encoded(*c, f))
+            return
+        chunks = self._ec_encode_object(codec, si, data)
+        self._ec_recover_store(state, data, chunks)
+
+    def _ec_recover_encoded(self, state: dict, data: bytes, si,
+                            stripes, n: int, fut) -> None:
+        """Encode-engine continuation for a recovery re-encode."""
+        err = fut.exception()
+        if err is not None:
+            # the pull itself succeeded; a failed re-encode just
+            # releases the recovering gate so the recovery window can
+            # retry the object (it is still missing)
+            dout("osd", 1, "osd.%d recovery re-encode failed for "
+                 "%s: %r", self.osd_id, state.get("oid"), err)
+            pg = self.pgs.get(state["pgid"])
+            if pg is not None:
+                with self._lock:
+                    pg.recovering.pop(state["oid"], None)
+            return
+        chunks = self._ec_shard_columns(si, stripes, fut.result(), n)
+        # keep the submit/commit pair convergent: operators read
+        # in-flight encodes as submits - commits
+        self.perf.inc("ec_dispatch_commits")
+        self._ec_recover_store(state, data, chunks)
+
+    def _ec_recover_store(self, state: dict, data: bytes,
+                          chunks: dict) -> None:
+        """Store (self) or push (peer) the recovered shard."""
+        pgid = state["pgid"]
+        oid = state["oid"]
+        need = state["need"]
+        dest_shard = state["dest_shard"]
+        cid = f"{pgid[0]}.{pgid[1]}"
+        shard_oid = f"{oid}:{dest_shard}"
+        from ceph_tpu_torch.osd.ec_util import HashInfo
+        attrs = {"size": str(len(data)).encode(), "_v": enc_version(need),
+                 "hinfo": HashInfo.compute(chunks[dest_shard])}
+        pg = self.pgs.get(pgid)
+        if state["dest_osd"] == self.osd_id:
+            t = (Transaction().truncate(cid, shard_oid, 0)
+                 .write(cid, shard_oid, 0, chunks[dest_shard]))
+            for name, val in attrs.items():
+                t.setattr(cid, shard_oid, name, val)
+            self.store.apply_transaction(t)
+            if pg is not None:
+                self._object_recovered(pg, oid, need)
+            return
+        con = self._osd_con(state["dest_osd"])
+        if con:
+            con.send_message(MOSDPGPush(
+                pgid=pgid, oid=shard_oid, data=chunks[dest_shard],
+                attrs=attrs))
+        self._peer_recovered(pg, state["dest_osd"], shard_oid)
+
+    # -- snapshots (PrimaryLogPG snap resolution) -----------------------------
+
+    def _resolve_snap(self, cid: str, oid: str, snapid: int) -> str:
+        """Object name serving a read as-of pool snapshot `snapid`: the
+        head if unchanged since, else the oldest clone whose covered
+        interval (from_seq, clone_seq] contains snapid."""
+        head_sc = self._getattr_safe(cid, oid, "snapc")
+        # "snapc" records the pool snap_seq at the last write: the head
+        # is the snap-s state only if last written BEFORE snap s existed
+        if self.store.exists(cid, oid) and int(head_sc or b"0") < snapid:
+            return oid
+        clones = []
+        for o in self.store.list_objects(cid):
+            if o.startswith(oid + CLONE_SEP):
+                try:
+                    clones.append((int(o.rsplit(CLONE_SEP, 1)[1]), o))
+                except ValueError:
+                    continue
+        for seq, name in sorted(clones):
+            if seq >= snapid:
+                frm = int(self._getattr_safe(cid, name, "from_seq")
+                          or b"0")
+                if frm < snapid:
+                    return name
+                break   # object did not exist at that snap
+        raise KeyError(f"{oid} has no state at snap {snapid}")
+
+    # -- watch / notify (PrimaryLogPG watch paths) ----------------------------
+
+    def _start_notify(self, msg: MOSDOp, op) -> None:
+        with self._lock:
+            watchers = dict(self._watchers.get((msg.pgid, msg.oid), {}))
+            watchers.pop(msg.client_id, None)   # not the notifier itself
+            if not watchers:
+                pass
+            else:
+                self._notify_seq += 1
+                nid = self._notify_seq
+                self._notifies[nid] = {
+                    "msg": msg, "waiting": set(watchers),
+                    "started": time.time()}
+        if not watchers:
+            self._op_send_reply(msg, MOSDOpReply(
+                tid=msg.tid, result=0, epoch=self.osdmap.epoch))
+            return
+        note = MWatchNotify(pool=msg.pgid[0], oid=msg.oid,
+                            notify_id=nid, payload=op.data)
+        for cid_, con in watchers.items():
+            con.send_message(note)
+
+    def _handle_notify_ack(self, msg: MWatchNotifyAck) -> None:
+        done = None
+        with self._lock:
+            st = self._notifies.get(msg.notify_id)
+            if st is None:
+                return
+            # the ack connection's peer is the watcher; match by any —
+            # acks are per notify_id, one per watcher
+            if st["waiting"]:
+                st["waiting"].pop()
+            if not st["waiting"]:
+                done = self._notifies.pop(msg.notify_id)
+        if done is not None:
+            m = done["msg"]
+            self._op_send_reply(m, MOSDOpReply(
+                tid=m.tid, result=0, epoch=self.osdmap.epoch))
+
+    # -- peers ----------------------------------------------------------------
+
+    def set_osd_addr(self, osd: int, addr: str) -> None:
+        self._osd_addr_cache[osd] = addr
+
+    def _osd_con(self, osd: int):
+        addr = None
+        if 0 <= osd < len(self.osdmap.osd_addrs):
+            addr = self.osdmap.osd_addrs[osd] or None
+        if addr is None:
+            addr = self._osd_addr_cache.get(osd)
+        if addr is None:
+            return None
+        return self.msgr.connect_to(addr, EntityName("osd", osd))
+
+
+def _encode_omap(d: dict) -> bytes:
+    e = Encoder()
+    e.map(d, lambda e2, k2: e2.str(k2), lambda e2, v: e2.bytes(v))
+    return e.tobytes()
+
+
+def _decode_omap(data: bytes) -> dict:
+    return Decoder(data).map(lambda d: d.str(), lambda d: d.bytes())

@@ -1,0 +1,284 @@
+"""vstart-style in-process cluster harness (src/vstart.sh +
+qa/standalone/ceph-helpers.sh analog).
+
+Starts one mon and N osds in this process over the chosen messenger stack,
+returns a handle with run_mon/run_osd/kill_osd/wait_for_clean-style helpers,
+and a connected RadosClient factory — the surface the standalone QA tier
+drives (SURVEY.md §4 tier 3).
+
+Every daemon and client builds its own context on ``device`` (the CUDA card
+by default; the tests pass ``device="cpu"``).  The mgr and MDS daemons,
+cephx and the multi-process ``ProcCluster`` are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import time
+
+from ceph_tpu_torch.client import RadosClient
+from ceph_tpu_torch.mon import Monitor
+from ceph_tpu_torch.osd.daemon import OSDDaemon
+
+
+class MiniCluster:
+    _instances = 0
+
+    def __init__(self, n_osds: int = 3, ms_type: str = "async",
+                 store_type: str = "memstore", base_path: str = "",
+                 heartbeats: bool = False, n_mons: int = 1,
+                 auth_key=None, cephx: bool = False,
+                 osd_conf: dict | None = None, device=None):
+        if cephx:
+            raise NotImplementedError(
+                "cephx needs ceph_tpu_torch/auth, not ported yet "
+                "(ROADMAP.md Queue 1 item 7)")
+        # namespace loopback addresses per cluster: sequential tests reuse
+        # names like "mon.0", and a timer from a dying daemon of the
+        # previous cluster must never reach this one
+        MiniCluster._instances += 1
+        self._ns = f"c{MiniCluster._instances}."
+        self.ms_type = ms_type
+        #: the torch device every daemon's and client's context runs on
+        self.device = device
+        self.store_type = store_type
+        self.base_path = base_path
+        self.heartbeats = heartbeats
+        self.mons: dict[int, Monitor] = {}
+        self.monmap: list[str] = []
+        self.osds: dict[int, OSDDaemon] = {}
+        self.clients: list[RadosClient] = []
+        self._n_initial = n_osds
+        self._n_mons = n_mons
+        self.auth_key = auth_key
+        #: startup config overrides applied to every OSD's context at
+        #: construction (vstart.sh -o analog): knobs read before the
+        #: first map lands (osd_op_queue, shard count, qos timeouts)
+        self.osd_conf = dict(osd_conf or {})
+
+    def _is_wire(self) -> bool:
+        """TCP-style stacks bind host:port; loopback/ici bind names."""
+        return self.ms_type not in ("loopback", "ici")
+
+    @property
+    def mon(self) -> Monitor:
+        """A live monitor (prefer the leader — its map is freshest)."""
+        for m in self.mons.values():
+            if m.is_leader():
+                return m
+        return next(iter(self.mons.values()))
+
+    @property
+    def mon_host(self) -> str:
+        return ",".join(self.monmap)
+
+    # -- lifecycle ------------------------------------------------------------
+
+    def start(self) -> "MiniCluster":
+        # bind all mons first (TCP ports are ephemeral), then hand every
+        # mon the complete monmap so elections can begin
+        for i in range(self._n_mons):
+            self.run_mon(i, defer_monmap=True)
+        self.monmap = [self.mons[i].addr for i in range(self._n_mons)]
+        for m in self.mons.values():
+            m.set_monmap(self.monmap)
+        for i in range(self._n_initial):
+            self.run_osd(i)
+        return self
+
+    def run_mon(self, mon_id: int, defer_monmap: bool = False) -> Monitor:
+        addr = ("127.0.0.1:0" if self._is_wire()
+                else f"{self._ns}mon.{mon_id}")
+        path = (f"{self.base_path}/mon.{mon_id}" if self.base_path else None)
+        mon = Monitor(mon_id=mon_id, ms_type=self.ms_type, addr=addr,
+                      store_path=path, auth_key=self.auth_key,
+                      device=self.device)
+        if defer_monmap:
+            mon.init(monmap=[])   # bind only; set_monmap comes later
+        else:
+            # rejoin: reuse the recorded monmap slot (loopback addrs are
+            # stable; TCP rejoin needs the same port, so record it)
+            mon.init(monmap=[])
+            if self.monmap:
+                self.monmap[mon_id] = mon.addr
+                monmap = list(self.monmap)
+                mon.set_monmap(monmap)
+                for other in self.mons.values():
+                    other.monmap[mon_id] = mon.addr
+        self.mons[mon_id] = mon
+        return mon
+
+    def kill_mon(self, mon_id: int) -> None:
+        mon = self.mons.pop(mon_id)
+        mon.shutdown()
+
+    def add_mon(self, mon_id: int, timeout: float = 30.0) -> Monitor:
+        """GROW the mon cluster at runtime (`ceph mon add` + probe):
+        the new mon starts probing the existing quorum, the membership
+        commits through paxos, and this returns once the joiner has
+        entered the committed monmap and elections settled."""
+        import json as _json
+        import time as _time
+        addr = ("127.0.0.1:0" if self._is_wire()
+                else f"{self._ns}mon.{mon_id}")
+        path = (f"{self.base_path}/mon.{mon_id}" if self.base_path
+                else None)
+        seeds = [m.addr for m in self.mons.values()]
+        mon = Monitor(mon_id=mon_id, ms_type=self.ms_type, addr=addr,
+                      store_path=path, auth_key=self.auth_key,
+                      device=self.device)
+        mon.init(probe=seeds)
+        client = self.client(timeout=20.0)
+        rc, out = client.mon_command({"prefix": "mon add",
+                                      "id": mon_id, "addr": mon.addr})
+        if rc != 0:
+            mon.shutdown()
+            raise RuntimeError(f"mon add failed: {out}")
+        self.mons[mon_id] = mon
+        while len(self.monmap) <= mon_id:
+            self.monmap.append("")
+        self.monmap[mon_id] = mon.addr
+        deadline = _time.time() + timeout
+        while _time.time() < deadline:
+            if mon.elector is not None and not mon.elector.electing \
+                    and mon.mon_id in (mon.quorum() or []):
+                return mon
+            _time.sleep(0.1)
+        self.mons.pop(mon_id, None)
+        mon.shutdown()
+        raise TimeoutError(
+            f"mon.{mon_id} did not join quorum: elector="
+            f"{mon.elector is not None}, quorum={mon.quorum()}")
+
+    def replace_mon(self, mon_id: int, timeout: float = 30.0) -> Monitor:
+        """Kill a mon, WIPE its store, and rejoin it via probe +
+        store-sync (the dead-mon-replacement flow: the fresh store pulls
+        the paxos tail from the quorum before electing)."""
+        import shutil
+        import time as _time
+        if mon_id in self.mons:
+            self.kill_mon(mon_id)
+        path = (f"{self.base_path}/mon.{mon_id}" if self.base_path
+                else None)
+        if path:
+            shutil.rmtree(path, ignore_errors=True)
+        addr = ("127.0.0.1:0" if self._is_wire()
+                else f"{self._ns}mon.{mon_id}")
+        seeds = [m.addr for m in self.mons.values()]
+        mon = Monitor(mon_id=mon_id, ms_type=self.ms_type, addr=addr,
+                      store_path=path, auth_key=self.auth_key,
+                      device=self.device)
+        mon.init(probe=seeds)
+        if self._is_wire():
+            # the wiped mon's new ephemeral port must replace the old
+            # monmap entry before the probe can match it
+            client = self.client(timeout=20.0)
+            client.mon_command({"prefix": "mon add", "id": mon_id,
+                                "addr": mon.addr})
+        self.mons[mon_id] = mon
+        if mon_id < len(self.monmap):
+            self.monmap[mon_id] = mon.addr
+        deadline = _time.time() + timeout
+        while _time.time() < deadline:
+            if mon.elector is not None and not mon.elector.electing:
+                return mon
+            _time.sleep(0.1)
+        # clean up the half-joined mon: leaving it registered (and its
+        # threads running) would let a later run_mon bind a SECOND
+        # monitor over the same address/store
+        self.mons.pop(mon_id, None)
+        mon.shutdown()
+        raise TimeoutError(f"replaced mon.{mon_id} did not rejoin")
+
+    def run_mgr(self, mgr_id: int = 0):
+        raise NotImplementedError(
+            "the mgr daemon is not ported yet (ROADMAP.md Queue 1 item 7)")
+
+    def run_mds(self, metadata_pool: int, data_pool: int):
+        raise NotImplementedError(
+            "the MDS daemon is not ported yet (ROADMAP.md Queue 1 item 7)")
+
+    def run_fs_mds(self, n: int = 1):
+        raise NotImplementedError(
+            "the MDS daemon is not ported yet (ROADMAP.md Queue 1 item 7)")
+
+    def run_osd(self, osd_id: int) -> OSDDaemon:
+        addr = (f"127.0.0.1:0" if self._is_wire()
+                else f"{self._ns}osd.{osd_id}")
+        path = (f"{self.base_path}/osd.{osd_id}" if self.base_path else "")
+        osd = OSDDaemon(osd_id, self.mon_host, store_type=self.store_type,
+                        store_path=path, ms_type=self.ms_type, addr=addr,
+                        heartbeats=self.heartbeats,
+                        auth_key=self.auth_key, conf=self.osd_conf,
+                        device=self.device)
+        osd.init()
+        self.osds[osd_id] = osd
+        return osd
+
+    def kill_osd(self, osd_id: int) -> None:
+        """Hard kill (Thrasher kill_osd analog)."""
+        osd = self.osds.pop(osd_id)
+        osd.shutdown()
+
+    def client(self, timeout: float = 10.0) -> RadosClient:
+        c = RadosClient(self.mon_host, ms_type=self.ms_type,
+                        timeout=timeout, auth_key=self.auth_key,
+                        device=self.device)
+        c.connect()
+        self.clients.append(c)
+        return c
+
+    def stop(self) -> None:
+        for c in self.clients:
+            c.shutdown()
+        for osd in list(self.osds.values()):
+            osd.shutdown()
+        self.osds.clear()
+        for mon in list(self.mons.values()):
+            mon.shutdown()
+        self.mons.clear()
+
+    # -- helpers (ceph-helpers.sh analog) -------------------------------------
+
+    def wait_for_epoch(self, epoch: int, timeout: float = 10.0) -> None:
+        """All live daemons have seen at least `epoch`."""
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            if all(o.osdmap.epoch >= epoch for o in self.osds.values()):
+                return
+            time.sleep(0.02)
+        raise TimeoutError(f"cluster did not reach epoch {epoch}")
+
+    def wait_for_osd_count(self, n: int, timeout: float = 10.0) -> None:
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            if self.mon.status()["num_up_osds"] == n:
+                return
+            time.sleep(0.02)
+        raise TimeoutError(f"never saw {n} up osds")
+
+    def create_pool(self, client: RadosClient, *,
+                    epoch_timeout: float = 10.0, **cmd) -> int:
+        """``epoch_timeout``: a new pool's first map application can
+        pay a cold jit trace+compile inside _handle_map (the fused
+        placement ladder, when osdmap_mapping_min_pgs admits toy
+        pools) — tens of seconds on a 1-core host; callers running
+        fused-on-toy-pools setups pass a compile-sized timeout."""
+        res, out = client.mon_command(
+            dict({"prefix": "osd pool create"}, **cmd))
+        assert res == 0, out
+        pool_id = int(out.split()[1])
+        epoch = self.mon.osdmap.epoch
+        self.wait_for_epoch(epoch, timeout=epoch_timeout)
+        client.wait_for_epoch(epoch)
+        return pool_id
+
+
+class ProcCluster:
+    """Multi-process cluster harness over the TCP stack: not ported yet
+    (ROADMAP.md Queue 1 item 7, with the TCP messengers)."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "ProcCluster needs the TCP messenger stacks, not ported yet "
+            "(ROADMAP.md Queue 1 item 7)")

@@ -166,9 +166,35 @@ Runs ceph_tpu_torch (never JAX, never ceph_tpu) at the bench's full size:
              then pool 1 at the one width both pools shared before (W = 12)
              with the first version of the kernel (ab_kernels.py,
              ab_ladder.cu), beside this kernel, in turns
- 10. prints  the {"engine": ...} line, the {"mapping": ...} line, the
-             {"kernels": [...]} line (gf_matvec's row also carries the EC
-             shapes of phase 7 as "ec_shapes"; pg_finish_ladder's its
+ 10. cluster the OSD data path on a MiniCluster on the card (every daemon's
+             context on it): 12 OSDs on memstore over the loopback
+             messenger, 1 mon, an erasure pool jerasure reed_sol_van k=8
+             m=4 (chooseleaf indep over the flat root, stripe_unit 4,096,
+             pg_num 128: Ceph's documented defaults), the pool's PGs
+             active first; then rados bench's traffic (4 MiB objects, 16
+             in flight through aio_write_full/aio_read), each sub-phase
+             with the launch counts at 0 just before it and read just
+             after: 10a writes 256 objects, 10b reads them back, 10c
+             kills an OSD, marks it down and reads everything again
+             (degraded reads through the decode channel), 10d starts a
+             new OSD, marks the dead one out and waits until every
+             object's 12 shards sit with a matching hinfo on the OSDs the
+             new map names, then reads everything once more.  Each prints
+             MB/s by the host clock, gf_matvec launches, the OSDs' summed
+             EC counters and the engines' phase ledgers.  Checks: every
+             read equals the bytes written; gf_matvec launched in 10a, 10c
+             and 10d, ec_decode_submits > 0 in 10c; 8 sampled objects'
+             shards == the numpy oracle's encode with matching hinfo (after
+             10a and 10d); gf_matvec == its plain version on one object's
+             (128, 8, 4096) stripes; every context's fault_digest() zero;
+             no engine thread alive after stop() (the threads and
+             torch.cuda.memory_allocated() printed).  The card's busy share
+             over degraded reads of 32 objects, from torch.profiler
+ 11. prints  the {"engine": ...} line, the {"mapping": ...} line, the
+             {"cluster": ...} line, the {"kernels": [...]} line (gf_matvec's
+             row also carries the EC shapes of phase 7 as "ec_shapes" and
+             its launches by cluster sub-phase as "cluster";
+             pg_finish_ladder's its
              launches per epoch, each pool's shape and times, and the first
              version's times; pg_osd_words's its launches per epoch), then
              {"ok": true, "device": ...}
@@ -306,6 +332,29 @@ LADDER_WIDTHS, LADDER_PAIRS, LADDER_NS = tuple(range(1, 33)), (1, 2, 4), \
 #: (128 rows), so the last tile is ragged
 LADDER_BIG_N = 128 * 400 + 77
 
+#: the cluster phase (10): a MiniCluster at Ceph's documented defaults —
+#: 12 OSDs on memstore over the loopback messenger, 1 mon, an erasure pool
+#: jerasure reed_sol_van k=8 m=4 whose rule is chooseleaf indep over the
+#: flat root (failure domain: the OSD), stripe_unit 4,096 B
+#: (osd_pool_erasure_code_stripe_unit), pg_num 128 (nautilus's
+#: mon_target_pg_per_osd 100: 12 x 100 / 12 to a power of two); traffic
+#: at rados bench's defaults: 4 MiB objects, 16 ops in flight
+CLUSTER_OSDS, CLUSTER_K, CLUSTER_M, CLUSTER_PG_NUM = 12, 8, 4, 128
+CLUSTER_STRIPE_UNIT = 4096
+CLUSTER_OBJ_BYTES = 4 << 20
+#: rados bench's run is 256 such objects here (1 GiB); at 256 the phase
+#: passed its budget on the H100 (10d still had 634 of 3,072 shards to
+#: place after 300 s), so it runs CLUSTER_OBJECTS and prints the cut
+CLUSTER_FULL_OBJECTS = 256
+CLUSTER_OBJECTS = 64
+CLUSTER_IN_FLIGHT = 16
+CLUSTER_SAMPLE = 8                   # objects held against the oracle
+CLUSTER_VICTIM = 5                   # the OSD 10c kills and 10d outs
+CLUSTER_BUSY_OBJECTS = 32            # degraded reads under the profiler
+CLUSTER_OP_TIMEOUT = 300.0
+CLUSTER_RECOVERY_S = 300.0
+CLUSTER_BUDGET_S = 120.0
+
 
 def rows_of(m, rid: int, xs, rw_list) -> "np.ndarray":
     """crush_do_rule's rows for ``xs``, NONE-padded to NUMREP."""
@@ -327,12 +376,15 @@ def check(cond: bool, what: str) -> None:
     print(f"  ok  {what}")
 
 
-def assert_no_faults(where: str) -> None:
+def assert_no_faults(where: str, digest: dict | None = None) -> None:
     """The ladder must not hide the card: outside the armed sub-phase no
     retry, no fallback batch, no probe, no thread death, every breaker
-    closed."""
+    closed.  ``digest``: one context's ``fault_digest()`` (default: the
+    process-wide counters)."""
     from ceph_tpu_torch.ops import telemetry
-    for eng, d in telemetry.fault_digest().items():
+    if digest is None:
+        digest = telemetry.fault_digest()
+    for eng, d in digest.items():
         moved = {k: v for k, v in d.items()
                  if k != "breaker_states" and v}
         open_ = {c: s for c, s in d["breaker_states"].items()
@@ -1398,6 +1450,372 @@ def mapping_phase(dev, tag: str) -> tuple[dict, list]:
     rows.append(words_row(dev, m4, words_launches))
     ctx.stop()
     return summary, rows
+
+
+def _cluster_counters(osds) -> dict:
+    """The EC data path's perf counters summed over the OSDs."""
+    names = ("ec_dispatch_submits", "ec_decode_submits",
+             "recovery_decode_stripes", "recovery_pulls")
+    return {n: sum(o.perf.dump().get(n, 0) for o in osds) for n in names}
+
+
+def _wait_active(c, pool: int, pg_num: int, timeout: float) -> float:
+    """Seconds until every PG of the pool is active on its primary (the
+    peering that follows a map change); raises past ``timeout``."""
+    from ceph_tpu_torch.osd.pg import STATE_ACTIVE
+    t0 = time.perf_counter()
+    while True:
+        active = sum(1 for o in list(c.osds.values())
+                     for pgid, pg in list(o.pgs.items())
+                     if pgid[0] == pool and pg.primary == o.osd_id
+                     and pg.state == STATE_ACTIVE)
+        if active == pg_num:
+            return time.perf_counter() - t0
+        if time.perf_counter() - t0 > timeout:
+            raise SmokeFailure(f"{active}/{pg_num} PGs of pool {pool} "
+                               f"active after {timeout} s")
+        time.sleep(0.1)
+
+
+def _rados_bench(names, submit, done) -> float:
+    """rados bench's loop: CLUSTER_IN_FLIGHT ops outstanding, the oldest
+    waited for first; ``done(name, completion)`` checks each.  Seconds by
+    the host clock, first submit to last completion."""
+    from collections import deque
+    pending: deque = deque()
+    t0 = time.perf_counter()
+
+    def finish(name, comp):
+        if not comp.wait_for_complete(CLUSTER_OP_TIMEOUT) \
+                or comp.get_return_value() != 0:
+            raise SmokeFailure(f"cluster op on {name} failed: "
+                               f"rc {comp.get_return_value()}")
+        done(name, comp)
+
+    for name in names:
+        if len(pending) >= CLUSTER_IN_FLIGHT:
+            finish(*pending.popleft())
+        pending.append((name, submit(name)))
+    while pending:
+        finish(*pending.popleft())
+    return time.perf_counter() - t0
+
+
+def _shard_placement(c, pool: int, names, deep: bool) -> tuple[list, int]:
+    """(object, shard, osd) of every shard that is not on the OSD the
+    mon's map names with its hinfo matching (``deep``), or not there at
+    all (``deep`` off: existence and an hinfo attribute only); and the
+    count of positions the map leaves without an OSD (chooseleaf indep
+    can leave a hole when the pool's width equals the OSDs in)."""
+    from ceph_tpu_torch.client.rados import ceph_str_hash_rjenkins
+    from ceph_tpu_torch.osd.ec_util import HashInfo
+    from ceph_tpu_torch.osd.osdmap import CEPH_NOSD, pg_to_pgid
+    m = c.mon.osdmap
+    bad, holes = [], 0
+    for name in names:
+        pg = pg_to_pgid(ceph_str_hash_rjenkins(name), m.pools[pool].pg_num)
+        up = m.pg_to_up_acting_osds(pool, pg)[0]
+        cid = f"{pool}.{pg}"
+        for s, osd_id in enumerate(up):
+            if osd_id == CEPH_NOSD:
+                holes += 1
+                continue
+            osd = c.osds.get(osd_id)
+            soid = f"{name}:{s}"
+            try:
+                hinfo = osd.store.getattr(cid, soid, "hinfo")
+                ok = hinfo is not None and (
+                    not deep or HashInfo.matches(osd.store.read(cid, soid),
+                                                 hinfo))
+            except (KeyError, AttributeError):
+                ok = False
+            if not ok:
+                bad.append((name, s, osd_id))
+    return bad, holes
+
+
+def _oracle_shards(c, pool: int, name: str, payload: bytes, gen,
+                   k: int) -> None:
+    """One object's stored shards on the OSDs the map names == the numpy
+    oracle's encode of its payload, each with a matching hinfo."""
+    import numpy as np
+
+    from ceph_tpu_torch.client.rados import ceph_str_hash_rjenkins
+    from ceph_tpu_torch.ops.gf_kernel import ec_encode_ref
+    from ceph_tpu_torch.osd.ec_util import HashInfo, StripeInfo
+    from ceph_tpu_torch.osd.osdmap import CEPH_NOSD, pg_to_pgid
+    si = StripeInfo(k, CLUSTER_STRIPE_UNIT)
+    stripes = si.split(np.frombuffer(payload, dtype=np.uint8))
+    full = np.concatenate([stripes, ec_encode_ref(gen[k:], stripes)], axis=1)
+    m = c.mon.osdmap
+    pg = pg_to_pgid(ceph_str_hash_rjenkins(name), m.pools[pool].pg_num)
+    up = m.pg_to_up_acting_osds(pool, pg)[0]
+    for s, osd_id in enumerate(up):
+        if osd_id == CEPH_NOSD:
+            continue
+        store = c.osds[osd_id].store
+        blob = store.read(f"{pool}.{pg}", f"{name}:{s}")
+        if blob != si.shard_column(full, s).tobytes() or not \
+                HashInfo.matches(blob, store.getattr(
+                    f"{pool}.{pg}", f"{name}:{s}", "hinfo")):
+            raise SmokeFailure(f"{name} shard {s} on osd.{osd_id} != the "
+                               f"numpy oracle's encode (or its hinfo)")
+
+
+def cluster_phase(dev, tag: str, n_objects: int = CLUSTER_OBJECTS,
+                  obj_bytes: int = CLUSTER_OBJ_BYTES) -> tuple[dict, dict]:
+    """Phase 10: the OSD data path on a MiniCluster (see the docstring).
+    Returns the {"cluster": ...} summary and gf_matvec's launches by
+    sub-phase with its time at one object's stripes."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from ceph_tpu_torch.ec import registry_instance
+    from ceph_tpu_torch.ops import _build, telemetry
+    from ceph_tpu_torch.ops import gf_kernel as gk
+    from ceph_tpu_torch.osd.ec_util import StripeInfo
+    from ceph_tpu_torch.tools.vstart import MiniCluster
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    if n_objects < CLUSTER_FULL_OBJECTS:
+        print(f"cluster: object count cut from {CLUSTER_FULL_OBJECTS} to "
+              f"{n_objects}: at {CLUSTER_FULL_OBJECTS} the phase passed its "
+              f"{CLUSTER_BUDGET_S:.0f} s budget (10d's recovery)")
+    telemetry.reset()
+    mem0 = torch.cuda.memory_allocated() if on_card else 0
+    names = [f"bench_{i:04d}" for i in range(n_objects)]
+    gen_ = torch.Generator(device=dev).manual_seed(10)
+    payload = {}
+    for lo in range(0, n_objects, 16):
+        block = torch.randint(0, 256, (min(16, n_objects - lo), obj_bytes),
+                              dtype=torch.uint8, device=dev,
+                              generator=gen_).cpu().numpy()
+        for j, row in enumerate(block):
+            payload[names[lo + j]] = row.tobytes()
+    total_mb = n_objects * obj_bytes / 1e6
+    c = MiniCluster(n_osds=CLUSTER_OSDS, ms_type="loopback",
+                    store_type="memstore", device=dev).start()
+    contexts = []
+    client = io = None
+    peer_s = None
+    subs: dict = {}
+    launches: dict = {}
+    try:
+        c.wait_for_osd_count(CLUSTER_OSDS, timeout=CLUSTER_OP_TIMEOUT)
+        client = c.client(timeout=CLUSTER_OP_TIMEOUT)
+        contexts = [c.mon.ctx, client.ctx] + [o.ctx for o in c.osds.values()]
+        pool = c.create_pool(client, pool_type="erasure", plugin="jerasure",
+                             technique="reed_sol_van", k=CLUSTER_K,
+                             m=CLUSTER_M, pg_num=CLUSTER_PG_NUM,
+                             epoch_timeout=CLUSTER_OP_TIMEOUT)
+        peer_s = _wait_active(c, pool, CLUSTER_PG_NUM, CLUSTER_OP_TIMEOUT)
+        print(f"cluster: pool created, all {CLUSTER_PG_NUM} PGs active "
+              f"{peer_s:.1f} s later (each daemon maps the pool with the "
+              f"scalar rule engine and peers every PG)  {tag}")
+        io = client.open_ioctx(pool)
+        k = CLUSTER_K
+        gen = registry_instance().factory(
+            "jerasure", {"k": str(k), "m": str(CLUSTER_M),
+                         "technique": "reed_sol_van", "runtime": "cpu"},
+            device="cpu").generator
+        print(f"cluster: {CLUSTER_OSDS} OSDs (memstore, loopback), 1 mon, "
+              f"pool {pool} jerasure reed_sol_van k={k} m={CLUSTER_M} "
+              f"pg_num {CLUSTER_PG_NUM} stripe_unit {CLUSTER_STRIPE_UNIT}; "
+              f"{n_objects} objects of {obj_bytes} B, {CLUSTER_IN_FLIGHT} in "
+              f"flight  {tag}")
+
+        def sub_phase(label, body):
+            live = list(c.osds.values())
+            before = _cluster_counters(live)
+            telemetry.dispatch_stats().clear()
+            telemetry.decode_dispatch_stats().clear()
+            _build.reset_launches()
+            secs = body()
+            if on_card:
+                torch.cuda.synchronize()
+            gf = _build.LAUNCHES["gf_matvec"]
+            after = _cluster_counters(c.osds.values())
+            moved = {n: after[n] - before[n] for n in after}
+            rec = {"objects": n_objects, "seconds": secs,
+                   "MB_s": total_mb / secs, "gf_matvec_launches": gf,
+                   "counters": moved,
+                   "encode_phases": telemetry.dispatch_stats()
+                   .phases.summary(),
+                   "decode_phases": telemetry.decode_dispatch_stats()
+                   .phases.summary()}
+            subs[label] = rec
+            launches[label] = gf
+            print(f"cluster {label}: {total_mb:.1f} MB in {secs:.3f} s = "
+                  f"{rec['MB_s']:.1f} MB/s (host clock); gf_matvec "
+                  f"launches {gf}; {moved}  {tag}")
+            for side in ("encode", "decode"):
+                for fam, v in rec[f"{side}_phases"]["kernels"].items():
+                    print(f"cluster {label}: {side} engines {fam}: "
+                          f"{v['batches']} batches, seconds "
+                          + ", ".join(f"{ph} {s:.4f}" for ph, s in
+                                      v["seconds"].items()) + f"  {tag}")
+            return rec
+
+        def check_read(name, comp):
+            if comp.reply.ops[0].data != payload[name]:
+                raise SmokeFailure(f"{name} read back != the bytes written")
+
+        def read_all():
+            return _rados_bench(names, io.aio_read, check_read)
+
+        # 10a: the writes
+        sub_phase("10a_write", lambda: _rados_bench(
+            names, lambda n: io.aio_write_full(n, payload[n]),
+            lambda n, comp: None))
+        check(not on_card or launches["10a_write"] >= 1,
+              f"10a: gf_matvec launched by the writes "
+              f"({launches['10a_write']})")
+        sample = names[:: max(1, n_objects // CLUSTER_SAMPLE)][
+            :CLUSTER_SAMPLE]
+        for name in sample:
+            _oracle_shards(c, pool, name, payload[name], gen, k)
+        check(True, f"10a: {len(sample)} sampled objects' 12 shards on the "
+              f"mapped OSDs == the numpy oracle's encode, hinfo matching")
+        # 10b: the reads
+        sub_phase("10b_read", read_all)
+        check(True, f"10b: all {n_objects} objects read back byte-equal")
+        # 10c: one OSD lost, every object read again
+        c.kill_osd(CLUSTER_VICTIM)
+        rc, out = client.mon_command({"prefix": "osd down",
+                                      "id": str(CLUSTER_VICTIM)})
+        check(rc == 0, f"osd down {CLUSTER_VICTIM}: {out}")
+        epoch = c.mon.osdmap.epoch
+        c.wait_for_epoch(epoch, timeout=CLUSTER_OP_TIMEOUT)
+        client.wait_for_epoch(epoch)
+        rec = sub_phase("10c_degraded_read", read_all)
+        check(rec["counters"]["ec_decode_submits"] > 0
+              and (not on_card or rec["gf_matvec_launches"] >= 1),
+              f"10c: degraded reads decode through the decode channel "
+              f"({rec['counters']['ec_decode_submits']} submits, "
+              f"{rec['gf_matvec_launches']} gf_matvec launches); all "
+              f"{n_objects} objects byte-equal")
+        # 10d: a new OSD, the dead one out, the cluster heals
+        def recover():
+            t0 = time.perf_counter()
+            c.run_osd(CLUSTER_OSDS)
+            c.wait_for_osd_count(CLUSTER_OSDS, timeout=CLUSTER_OP_TIMEOUT)
+            rc_, out_ = client.mon_command({"prefix": "osd out",
+                                            "id": str(CLUSTER_VICTIM)})
+            if rc_ != 0:
+                raise SmokeFailure(f"osd out: {out_}")
+            c.wait_for_epoch(c.mon.osdmap.epoch, timeout=CLUSTER_OP_TIMEOUT)
+            deadline = time.time() + CLUSTER_RECOVERY_S
+            while True:
+                bad, holes = _shard_placement(c, pool, names, deep=False)
+                if not bad:
+                    bad, holes = _shard_placement(c, pool, names, deep=True)
+                    if not bad:
+                        subs["holes"] = holes
+                        return time.perf_counter() - t0
+                if time.time() > deadline:
+                    raise SmokeFailure(
+                        f"10d: {len(bad)} shards not on their mapped OSDs "
+                        f"with a matching hinfo after {CLUSTER_RECOVERY_S} "
+                        f"s, e.g. {bad[:4]}")
+                time.sleep(0.25)
+        rec = sub_phase("10d_recovery", recover)
+        rec["map_holes"] = subs.pop("holes")
+        contexts.append(c.osds[CLUSTER_OSDS].ctx)
+        check(not on_card or rec["gf_matvec_launches"] >= 1,
+              f"10d: every object's shards on the OSDs the new map names "
+              f"with matching hinfo in {rec['seconds']:.3f} s "
+              f"({rec['map_holes']} of {n_objects * (k + CLUSTER_M)} "
+              f"positions the map leaves without an OSD); gf_matvec "
+              f"launched {rec['gf_matvec_launches']} times")
+        for name in sample:
+            _oracle_shards(c, pool, name, payload[name], gen, k)
+        t0 = time.perf_counter()
+        read_all()
+        subs["10d_recovery"]["reread_MB_s"] = total_mb / (
+            time.perf_counter() - t0)
+        check(True, f"10d: all {n_objects} objects byte-equal after "
+              f"recovery ({subs['10d_recovery']['reread_MB_s']:.1f} MB/s); "
+              f"sample == the oracle again")
+        # the card's busy share over degraded reads of a few objects
+        if on_card:
+            few = names[:CLUSTER_BUSY_OBJECTS]
+            c.kill_osd(CLUSTER_OSDS)
+            rc, _ = client.mon_command({"prefix": "osd down",
+                                        "id": str(CLUSTER_OSDS)})
+            c.wait_for_epoch(c.mon.osdmap.epoch, timeout=CLUSTER_OP_TIMEOUT)
+            client.wait_for_epoch(c.mon.osdmap.epoch)
+            busy = _busy(lambda: _rados_bench(few, io.aio_read, check_read),
+                         lambda: None)
+            subs["busy_degraded_read"] = {
+                "objects": len(few), "busy_share": busy["busy_share"],
+                "window_ms": busy["window_ms"], "busy_ms": busy["busy_ms"],
+                "complete": busy["complete"]}
+            print(f"cluster: card busy share over degraded reads of "
+                  f"{len(few)} objects: "
+                  + (f"{busy['busy_share']:.4f}" if busy["busy_share"]
+                     is not None else "not measured")
+                  + f" (window {busy['window_ms']:.1f} ms)  {tag}")
+        # the kernel at one object's stripes, against its plain version
+        si = StripeInfo(k, CLUSTER_STRIPE_UNIT)
+        stripes = torch.from_numpy(si.split(np.frombuffer(
+            payload[names[0]], dtype=np.uint8))).to(dev)
+        tab = torch.from_numpy(gk.pack_rows(gen[k:][None])).to(dev)
+        pidx = torch.zeros((stripes.shape[0],), dtype=torch.int32,
+                           device=dev)
+        got = gk.gf_matvec(tab, pidx, stripes, CLUSTER_M)
+        want = gk.gf_matvec_plain(tab, pidx, stripes, CLUSTER_M)
+        err = int((got.long() - want.long()).abs().max())
+        check(err == 0, f"gf_matvec == plain torch on one object's "
+              f"{tuple(stripes.shape)} stripes")
+        for ctx in contexts:
+            assert_no_faults(f"10: {ctx.name}", ctx.fault_digest())
+        gf_row = {"launches_by_sub_phase": launches, "max_abs_err": err,
+                  "shape": f"{tuple(stripes.shape)} -> "
+                           f"({stripes.shape[0]}, {CLUSTER_M}, "
+                           f"{stripes.shape[2]})"}
+        if on_card:
+            out_ = torch.empty_like(got)
+            ms = graph_ms(lambda: launch_gf(tab, pidx, stripes, out_), 20)
+            b_ms, b_by = gf_work(stripes.shape[0], k, CLUSTER_M,
+                                 stripes.shape[2], tab.nbytes)
+            gf_row.update(ms=ms, bound_ms=b_ms, bound_by=b_by)
+            print(f"gf_matvec       cluster object {gf_row['shape']} kernel "
+                  f"{ms:.4f} ms (graph replay)  bound {b_ms:.4f} ms "
+                  f"({b_by})  {tag}")
+    finally:
+        c.stop()
+    # the daemons' contexts (their codecs' tables on the card) go with them;
+    # their engines' threads are named after them ("osd.3-dispatch-...")
+    ctx_names = {ctx.name for ctx in contexts}
+    c = client = io = contexts = None
+    gc.collect()
+    deadline = time.time() + 10
+    alive = []
+    while time.time() < deadline:
+        alive = [t.name for t in threading.enumerate() if t.is_alive()
+                 and t.name.split("-")[0] in ctx_names]
+        if not alive:
+            break
+        time.sleep(0.05)
+    mem = torch.cuda.memory_allocated() if on_card else 0
+    print(f"cluster: after stop(): {threading.active_count()} threads alive, "
+          f"engine threads of the cluster's {len(ctx_names)} contexts "
+          f"{alive or 'none'}; torch.cuda.memory_allocated() {mem} B "
+          f"({mem - mem0:+d} B against the phase's start)  {tag}")
+    check(not alive, "after stop(): no engine thread alive")
+    secs = time.perf_counter() - t_phase
+    print(f"cluster: phase 10 took {secs:.1f} s (budget "
+          f"{CLUSTER_BUDGET_S:.0f} s)  {tag}")
+    summary = {"osds": CLUSTER_OSDS, "k": CLUSTER_K, "m": CLUSTER_M,
+               "pg_num": CLUSTER_PG_NUM, "objects": n_objects,
+               "pool_peering_seconds": peer_s,
+               "object_bytes": obj_bytes, "in_flight": CLUSTER_IN_FLIGHT,
+               "sub_phases": subs, "phase_seconds": secs,
+               "cuda_memory_allocated_after_stop": mem,
+               "cuda_memory_allocated_delta": mem - mem0}
+    return summary, gf_row
 
 
 def words_row(dev, m, launches: list) -> dict:
@@ -2851,9 +3269,14 @@ def run() -> None:
     mapping, ladder_rows = mapping_phase(dev, tag)
     kernels.extend(ladder_rows)
 
+    print("== 10. the OSD data path on a MiniCluster")
+    cluster, gf_cluster = cluster_phase(dev, tag)
+    row_of["gf_matvec"]["cluster"] = gf_cluster
+
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"engine": engine}))
     print(json.dumps({"mapping": mapping}))
+    print(json.dumps({"cluster": cluster}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

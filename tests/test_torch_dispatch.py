@@ -440,3 +440,18 @@ def test_pinned_buffer_waits_for_its_copy_before_reuse():
     assert a is not b
     c = fresh.take((8,), np.int32, skip={id(a), id(b)})
     assert c is not a and c is not b and fresh.allocated == 3
+
+
+def test_stopped_engine_releases_its_pinned_buffers():
+    """stop() leaves no pinned host memory behind: the pool waits for
+    each buffer's last copy, then drops every buffer."""
+    from ceph_tpu_torch.ops.dispatch import DeviceDispatchEngine
+    pool = _FakePool.make(depth=2)
+    for shape in ((4, 2), (8,)):
+        e = pool.take(shape, np.uint8)
+        pool.copied(e, None)
+    eng = DeviceDispatchEngine(device="cpu", name="release-test")
+    eng._staging = pool
+    assert eng.stop()
+    assert not pool._bufs
+    assert [ev.waited for ev in pool.events] == [1, 1]

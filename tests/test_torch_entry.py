@@ -59,7 +59,22 @@ PORT_MODULES = [
     "ceph_tpu_torch.osd.map_codec", "ceph_tpu_torch.osd.mapping",
     "ceph_tpu_torch.ops.placement_kernel",
     "ceph_tpu_torch.ops.placement_cuda", "ceph_tpu_torch.tools.crushtool",
-    "ceph_tpu_torch.tools.osdmap_test", "ceph_tpu_torch.tools.psim"]
+    "ceph_tpu_torch.tools.osdmap_test", "ceph_tpu_torch.tools.psim",
+    "ceph_tpu_torch.common.throttle", "ceph_tpu_torch.common.moncmd",
+    "ceph_tpu_torch.common.clog", "ceph_tpu_torch.common.op_tracker",
+    "ceph_tpu_torch.msg.features", "ceph_tpu_torch.msg.message",
+    "ceph_tpu_torch.msg.messenger", "ceph_tpu_torch.msg.loopback",
+    "ceph_tpu_torch.messages.osd_msgs",
+    "ceph_tpu_torch.messages.peering_msgs",
+    "ceph_tpu_torch.objectstore.transaction",
+    "ceph_tpu_torch.objectstore.kv",
+    "ceph_tpu_torch.objectstore.objectstore",
+    "ceph_tpu_torch.qos.dmclock", "ceph_tpu_torch.osd.pg",
+    "ceph_tpu_torch.osd.reserver", "ceph_tpu_torch.osd.op_queue",
+    "ceph_tpu_torch.osd.daemon", "ceph_tpu_torch.mon.paxos",
+    "ceph_tpu_torch.mon.elector", "ceph_tpu_torch.mon.monitor",
+    "ceph_tpu_torch.mgr.daemon", "ceph_tpu_torch.client.rados",
+    "ceph_tpu_torch.cls", "ceph_tpu_torch.tools.vstart"]
 
 
 def test_import_loads_neither_jax_nor_reference():
