@@ -127,6 +127,52 @@ register_options([
            "recent per-batch pipeline-profile records retained per "
            "dispatch engine (the dump_pipeline_profile ring); "
            "aggregated phase histograms are unbounded-time regardless"),
+    Option("osd_scrub_batched", OPT_BOOL, True,
+           "compute scrub-map digests as one coalesced device batch "
+           "per chunk through the scrub_digest dispatch channel (crc32 + "
+           "GF shard digest over stacked object/omap rows); off = the "
+           "per-object host shard_crc loop.  A card fault fails the "
+           "scrub; it never turns into host digests"),
+    Option("osd_scrub_chunk_timeout", OPT_FLOAT, 15.0,
+           "seconds a scrubbing primary waits for replica scrub maps "
+           "per gather round; peers the osdmap marks down are "
+           "recorded as missing immediately instead of waited out"),
+    Option("osd_scrub_retry_backoff_ms", OPT_FLOAT, 150.0,
+           "backoff before the single MOSDScrub re-request to a "
+           "replica that never answered the first gather round; a "
+           "peer still silent after the retry lands in the report's "
+           "missing_peers and the PG is never reported clean"),
+    Option("osd_scrub_verify_repairs", OPT_BOOL, True,
+           "re-fetch each repaired copy's digest (a follow-up scrub "
+           "of just the repaired oids) before counting it repaired; "
+           "repairs that never verify surface as repair_unverified"),
+    Option("osd_scrub_verify_timeout", OPT_FLOAT, 6.0,
+           "seconds to keep re-checking a pending repair (pushes and "
+           "recovery pulls apply asynchronously) before reporting it "
+           "repair_unverified"),
+    Option("osd_scrub_background_weight", OPT_FLOAT, 1.0,
+           "dmclock weight of the background_best_effort class scrub "
+           "ops schedule in: background integrity shares only excess "
+           "capacity, so a full-cluster deep scrub cannot starve "
+           "tenant reservations"),
+    Option("osd_scrub_background_limit", OPT_FLOAT, 0.0,
+           "ops/s cap on the background_best_effort class (0 = "
+           "unlimited — weight-arbitrated only)"),
+    Option("osd_scrub_cost", OPT_INT, 4,
+           "dmclock cost units one scrub map-build CHUNK charges (the "
+           "delta its background tag advances by)"),
+    Option("osd_scrub_chunk_objects", OPT_INT, 16,
+           "store objects per scrub map-build chunk (chunky scrub): "
+           "each background lane op reads+digests at most this many "
+           "objects, so scrub's service quantum stays small-op sized"),
+    Option("osd_scrub_sleep", OPT_FLOAT, 0.004,
+           "seconds between scrub map-build chunks (the reference's "
+           "osd_scrub_sleep, a delayed requeue so neither a shard "
+           "worker nor an engine thread parks); 0 = no pacing"),
+    Option("osd_scrub_auto_interval", OPT_FLOAT, 0.0,
+           "seconds between automatic full deep-scrub sweeps "
+           "(scrub_all_pgs) this osd starts for the PGs it leads; "
+           "0 disables the continuous sweep"),
     Option("kernel_fence_for_timing", OPT_BOOL, False,
            "fence (synchronize a CUDA event) each instrumented kernel "
            "call so telemetry latency samples are real device time; "

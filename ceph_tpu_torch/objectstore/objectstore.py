@@ -359,7 +359,7 @@ class FileStore(MemStore):
 def create(store_type: str, path: str = "", ctx=None) -> ObjectStore:
     """ObjectStore::create (os/ObjectStore.h:85) analog.  ``ctx`` is the
     daemon's CephTpuContext, which only bluestore reads; bluestore comes
-    with the checksum channel (ROADMAP.md Queue 1 item 6)."""
+    with the bluestore_data channel (ROADMAP.md Queue 1 item 6.3)."""
     if store_type == "memstore":
         return MemStore(path)
     if store_type == "filestore":
@@ -367,5 +367,6 @@ def create(store_type: str, path: str = "", ctx=None) -> ObjectStore:
     if store_type == "bluestore":
         raise NotImplementedError(
             "objectstore 'bluestore' is not ported yet (ROADMAP.md Queue 1 "
-            "item 6, with the checksum channel); use memstore or filestore")
+            "item 6.3, with the bluestore_data channel); use memstore or "
+            "filestore")
     raise ValueError(f"unknown objectstore type {store_type!r}")

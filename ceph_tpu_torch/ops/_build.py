@@ -8,7 +8,7 @@ call, keyed by a hash of the sources, headers and flags, into
 ``ceph_tpu_torch/_build/`` (git-ignored); importing this module needs no nvcc.
 
 Each C launcher takes ``c_void_p`` pointers (``tensor.data_ptr()``), ``c_int``
-sizes, ``c_float`` scalars and the stream as ``c_void_p``
+sizes, ``c_uint`` words, ``c_float`` scalars and the stream as ``c_void_p``
 (``torch.cuda.current_stream().cuda_stream``), launches on that stream
 without synchronising, and returns ``cudaGetLastError()``; ``launch`` raises
 ``KernelLaunchError`` when that is not 0.  A failed build raises
@@ -40,7 +40,7 @@ _OUT = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 
 #: C launcher -> argument types (every launcher returns a cudaError_t int)
 SIGNATURES = {
@@ -68,12 +68,16 @@ SIGNATURES = {
                                 _I, _I, _I, _I, _P, _P],
     # state, weight, affinity, m_osd, out, stream
     "pg_osd_words_launch": [_P, _P, _P, _I, _P, _P],
+    # data, mats, invp, crc, gexp, glog, zcols, alpha, levels, init, S, W,
+    # tpb, part, out, stream
+    "scrub_digest_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _U, _I, _I,
+                            _I, _P, _P, _P],
 }
 
 #: kernel name -> launches made by its wrapper since the last reset
 LAUNCHES = {"gf_matvec": 0, "straw2_root": 0, "straw2_leaf": 0,
             "firstn_consume": 0, "straw2_froot": 0, "ln_f32_table": 0,
-            "pg_finish_ladder": 0, "pg_osd_words": 0}
+            "pg_finish_ladder": 0, "pg_osd_words": 0, "scrub_digest": 0}
 
 _LOCK = lockdep.make_lock("ops._build")
 

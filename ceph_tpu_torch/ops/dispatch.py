@@ -1598,3 +1598,45 @@ def submit_finish_ladder(engine: DeviceDispatchEngine, operands, *,
     return engine.submit(key, fn, operands.raw, aux=operands.aux(),
                          label="pg_finish", fallback=host_oracle,
                          cost_tag=cost_tag, keep_device=keep_device)
+
+
+def submit_scrub_digest(engine: DeviceDispatchEngine, blobs,
+                        key=None, cost_tag=None) -> DispatchFuture:
+    """Submit a batch of byte blobs (object payloads, omap blobs) for
+    integrity digesting through the engine — the FIFTH kernel channel
+    (``scrub_digest``), with everything the other four have: the
+    bit-exact host oracle (the literal ``shard_crc`` loop) on the retry →
+    breaker → oracle ladder, the channel-tagged device-boundary
+    failpoints, and a card fault that fans to the futures at once.
+    Returns a DispatchFuture of (len(blobs), 2) uint32 — col 0 crc32
+    (== ``osd.ec_util.shard_crc``), col 1 the packed GF shard digest.
+
+    Rows zero-pad to a shared pow-2 width (checksum_kernel.row_width)
+    and the key is just that width, so concurrent scrubs of DIFFERENT
+    PGs — or different daemons on one context — coalesce into one
+    device call; the lengths and the per-row unpad operands (the crc
+    Z^-pad matrix columns and the GF alpha^-t lane multipliers) ride the
+    aux channel in lockstep.  Omap blobs pad to the width of the data
+    rows they share a batch with, as in the reference."""
+    from ceph_tpu_torch.ops import checksum_kernel as ck
+    lengths = np.array([len(b) for b in blobs], dtype=np.int64)
+    w = ck.row_width(int(lengths.max()) if len(blobs) else 0)
+    data = np.zeros((len(blobs), w), dtype=np.uint8)
+    for i, b in enumerate(blobs):
+        if len(b):
+            data[i, :len(b)] = np.frombuffer(b, dtype=np.uint8)
+    mats, invp = ck.digest_operands(lengths, w)
+    if key is None:
+        key = ("scrub_digest", w)
+
+    def fn(batch, lens, m, p):
+        return ck.scrub_digest_batched(batch, m, p)
+
+    def host_oracle(batch, lens, m, p):
+        return ck.scrub_digest_ref(batch, lens)
+
+    return engine.submit(key, fn, data, aux=(lengths, mats, invp),
+                         label="scrub_digest", fallback=host_oracle,
+                         cost_tag=cost_tag if cost_tag is not None
+                         else (BACKGROUND_BEST_EFFORT,
+                               BACKGROUND_BEST_EFFORT))

@@ -31,9 +31,9 @@ tracer, so every call here is a timed call.
 Surfaces: ``dump()`` (admin socket ``dump_kernel_stats``) and
 ``summary()`` (a one-line digest: launch-signature misses, p50/p99
 latency, occupancy); ``MappingStats`` (the shared PG mapping service,
-admin socket ``dump_mapping_stats``).  The reference's ``ScrubStats`` and
-``BlueStoreStats`` sinks wait for the scrub and BlueStore channels that
-feed them.
+admin socket ``dump_mapping_stats``); ``ScrubStats`` (deep scrub and its
+verified repairs, admin socket ``dump_scrub_stats``).  The reference's
+``BlueStoreStats`` sink waits for the BlueStore channel that feeds it.
 """
 
 from __future__ import annotations
@@ -910,6 +910,60 @@ class MappingStats:
             }
 
 
+class ScrubStats:
+    """Background-integrity counters (deep scrub + verified repair).
+
+    Process-global like the dispatch sinks: every OSD in the process
+    folds its scrub accounting in (the per-daemon copies feed
+    ``dump_scrub_stats`` and the MMgrReport scrub tail), so this sink is
+    the cluster-wide roll-up — "every injected corruption detected and
+    repaired" is a claim about the whole MiniCluster, not one daemon.
+    ``scalar_fallbacks`` counts chunks digested by the host loop, which
+    the port takes only by configuration (``osd_scrub_batched`` off, or
+    a row above ``checksum_kernel.MAX_WIDTH``), never for a card fault."""
+
+    #: the counter vocabulary (unknown keys are still accepted — the
+    #: sink must never make a daemon's accounting throw)
+    FIELDS = ("sweeps", "pgs_scrubbed", "objects_scrubbed",
+              "digest_batches", "digest_objects", "scalar_fallbacks",
+              "inconsistent", "repaired", "repair_unverified",
+              "missing_peer_scrubs", "missing_peer_retries")
+
+    def __init__(self):
+        self._lock = lockdep.make_lock("ScrubStats::lock")
+        self._counts: dict[str, int] = {f: 0 for f in self.FIELDS}
+
+    def inc(self, name: str, n: int = 1) -> None:
+        with self._lock:
+            self._counts[name] = self._counts.get(name, 0) + int(n)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._counts = {f: 0 for f in self.FIELDS}
+
+    def dump(self) -> dict:
+        with self._lock:
+            return dict(self._counts)
+
+    def summary(self) -> dict:
+        """The integrity story in a few numbers: how much was checked,
+        how it was digested (batched vs scalar), and whether every found
+        inconsistency ended in a VERIFIED repair."""
+        with self._lock:
+            c = dict(self._counts)
+        return {
+            "objects_scrubbed": c.get("objects_scrubbed", 0),
+            "pgs_scrubbed": c.get("pgs_scrubbed", 0),
+            "digest_batches": c.get("digest_batches", 0),
+            "batched_digest_objects": c.get("digest_objects", 0),
+            "scalar_fallback_batches": c.get("scalar_fallbacks", 0),
+            "inconsistent": c.get("inconsistent", 0),
+            "repaired": c.get("repaired", 0),
+            "repair_unverified": c.get("repair_unverified", 0),
+            "missing_peer_scrubs": c.get("missing_peer_scrubs", 0),
+        }
+
+
 class TenantDeviceStats:
     """Tenant-attributed device-time ledger (per-tenant × engine ×
     channel).
@@ -1042,6 +1096,7 @@ class KernelTelemetry:
         self.decode_dispatch = DecodeDispatchStats()
         self.mapping = MappingStats()
         self.tenant = TenantDeviceStats()
+        self.scrub = ScrubStats()
         #: synchronize a CUDA event before closing each latency sample
         self.fence_for_timing = False
         #: master switch; off-path cost when False is one attribute read
@@ -1070,6 +1125,7 @@ class KernelTelemetry:
         self.decode_dispatch.clear()
         self.mapping.clear()
         self.tenant.clear()
+        self.scrub.clear()
 
     def summary(self) -> dict:
         """Compact digest (bench.py prints this next to its JSON)."""
@@ -1153,6 +1209,20 @@ def mapping_dump() -> dict:
 
 def mapping_summary() -> dict:
     return _REG.mapping.summary()
+
+
+def scrub_stats() -> ScrubStats:
+    """The process-global background-integrity counters: every OSD's
+    scrub path feeds this alongside its own per-daemon accounting."""
+    return _REG.scrub
+
+
+def scrub_dump() -> dict:
+    return _REG.scrub.dump()
+
+
+def scrub_summary() -> dict:
+    return _REG.scrub.summary()
 
 
 def tenant_stats() -> TenantDeviceStats:

@@ -35,9 +35,16 @@ so replay after restart reconstructs exactly the logged history
 The daemon's context runs on one torch device (the card unless the caller
 asks for another): its codecs keep their tables there, its encode and
 decode dispatch engines and its PG mapping service run there, and a card
-fault raises rather than falling back to the host.  The scrub path
-(deep-scrub digests on the scrub_digest channel, MOSDScrub) comes with the
-integrity channels (ROADMAP.md Queue 1 item 6).
+fault raises rather than falling back to the host.
+
+Deep scrub (PG::scrub / chunky scrub): the primary builds its scrub map in
+chunks on the background_best_effort dmclock lane, each chunk's object and
+omap blobs digested as one batch on the scrub_digest channel (the CUDA
+kernel of csrc/digest.cu), gathers the replicas' maps over
+MOSDScrub/MOSDScrubReply, compares them, repairs the divergent copy (EC
+shards rebuilt through the batched decode) and verifies every repair by
+re-digesting it.  A card fault fails that PG's scrub: it is raised, or
+reported in the scrub's report; it never becomes host digests.
 """
 
 from __future__ import annotations
@@ -59,8 +66,8 @@ from ceph_tpu_torch.messages import (
 from ceph_tpu_torch.messages.osd_msgs import (
     OP_CALL, OP_DELETE, OP_NOTIFY, OP_OMAP_GET, OP_OMAP_RMKEYS, OP_PGLS,
     OP_OMAP_SET, OP_READ,
-    OP_STAT, OP_UNWATCH, OP_WATCH, OP_WRITE, OP_WRITEFULL,
-    MWatchNotify, MWatchNotifyAck, OSDOpField)
+    OP_STAT, OP_UNWATCH, OP_WATCH, OP_WRITE, OP_WRITEFULL, MOSDScrub,
+    MOSDScrubReply, MWatchNotify, MWatchNotifyAck, OSDOpField)
 from ceph_tpu_torch.messages.peering_msgs import (
     MOSDPGLog, MOSDPGNotify, MOSDPGQuery)
 from ceph_tpu_torch.mon.monitor import MMonSubscribe, MOSDBoot
@@ -71,8 +78,9 @@ from ceph_tpu_torch.msg.messenger import (
 from ceph_tpu_torch.objectstore import Transaction, create_objectstore
 from ceph_tpu_torch.osd.map_codec import advance_map, encode_osdmap
 from ceph_tpu_torch.osd.osdmap import CEPH_NOSD, OSDMap, pg_to_pgid
+from ceph_tpu_torch.ops.dispatch import BACKGROUND_BEST_EFFORT
 from ceph_tpu_torch.qos.dmclock import (
-    PHASE_LIMIT, PHASE_NAMES, PHASE_RESERVATION, PHASE_WEIGHT)
+    PHASE_LIMIT, PHASE_NAMES, PHASE_NONE, PHASE_RESERVATION, PHASE_WEIGHT)
 from ceph_tpu_torch.client.rados import ceph_str_hash_rjenkins
 from ceph_tpu_torch.osd.pg import (
     EVERSION_ZERO, LOG_DELETE, LOG_MODIFY, PG, LogEntry, MissingItem,
@@ -148,6 +156,12 @@ class MOSDPGPush(Message):
         dec.versioned(1, body)
 
 
+#: scrub-map sentinel for a copy whose read failed checksum
+#: verification; shaped like the (size, data_crc, omap_crc) triple so it
+#: rides MOSDScrubReply's fixed wire format
+SCRUB_CORRUPT = (2 ** 64 - 1, 0, 0)
+
+
 def enc_version(v: tuple[int, int]) -> bytes:
     return f"{v[0]}.{v[1]}".encode()
 
@@ -186,6 +200,27 @@ RECOVERY_CLIENT = 0xFFFFFFFF00000000
 
 #: reqid client for the tier agent's guarded evict deletes
 TIER_AGENT_CLIENT = 0xFFFFFFFF00000001
+
+
+class _ScrubChunk:
+    """Queue item for one background deep-scrub chunk: shaped like a
+    message for the opwq handler's getattr probes (trace/qos tags), so a
+    sweep's chunks ride the sharded mClock queue in the
+    background_best_effort class like any op."""
+
+    __slots__ = ("pgid", "trace_id", "parent_span_id", "_qos_phase",
+                 "qos_delta", "qos_rho")
+
+    def __init__(self, pgid: tuple[int, int], cost: int = 1):
+        self.pgid = pgid
+        self.trace_id = 0
+        self.parent_span_id = 0
+        #: stamped by the opwq handler with the dmclock phase served
+        self._qos_phase = PHASE_NONE
+        #: dmclock cost scaling (osd_scrub_cost): a chunk's weight tag
+        #: advances by that many units
+        self.qos_delta = max(1, int(cost))
+        self.qos_rho = 0
 
 
 class OSDDaemon(Dispatcher):
@@ -236,6 +271,9 @@ class OSDDaemon(Dispatcher):
         self._waiting_subops: list = []
         #: reqid -> EC read/recovery state
         self._ec_reads: dict[tuple[int, int], dict] = {}
+        #: why client reads decoded: reason -> data shards gone without
+        self.read_decode_reasons: dict[str, int] = {}
+        self._read_decode_lock = make_lock(f"OSD::read_decodes({osd_id})")
         self._recover_tid = 0
         self._codecs: dict[int, object] = {}
         self._osd_addr_cache: dict[int, str] = {}
@@ -250,6 +288,9 @@ class OSDDaemon(Dispatcher):
         #: notify_id -> pending notify state
         self._notifies: dict[int, dict] = {}
         self._notify_seq = 0
+        #: scrub_id -> gathered scrub maps
+        self._scrubs: dict[int, dict] = {}
+        self._scrub_seq = 0
         self._hb_timer: threading.Timer | None = None
         self._tick_timer: threading.Timer | None = None
         self._heartbeats = heartbeats
@@ -321,9 +362,16 @@ class OSDDaemon(Dispatcher):
                      .add_u64("qos_reservation_served")
                      .add_u64("qos_weight_served")
                      .add_u64("qos_limit_served")
+                     .add_u64("scrub_objects")
+                     .add_u64("scrub_inconsistent")
+                     .add_u64("scrub_repaired")
+                     .add_u64("scrub_repair_unverified")
+                     .add_u64("scrub_digest_batches")
+                     .add_u64("scrub_missing_peers")
                      .add_time_avg("op_w_latency")
                      .add_time_avg("map_scan_latency")
                      .add_time_avg("qos_wait")
+                     .add_time_avg("scrub_chunk_latency")
                      .create_perf_counters())
         self.ctx.perf.add(self.perf)
         # the messenger's and store's own counter sets live in the same
@@ -349,6 +397,12 @@ class OSDDaemon(Dispatcher):
             "current map epoch")
         self.ctx.admin.register_command(
             "pg dump", lambda **kw: self._pg_dump(), "pg states")
+        self.ctx.admin.register_command(
+            "dump_read_decodes",
+            lambda **kw: dict(self.read_decode_reasons),
+            "client EC reads that decoded: data shards read without, "
+            "counted by reason (no OSD at the position, a stale version, "
+            "a failed read)")
 
         # sharded op queue with mClock/dmClock QoS (osd/OSD.h ShardedOpWQ
         # over osd/mClock* + src/dmclock): ops shard by pgid, classes
@@ -359,10 +413,19 @@ class OSDDaemon(Dispatcher):
         from ceph_tpu_torch.osd.op_queue import (
             DEFAULT_CLASSES, ClassInfo, ShardedOpQueue)
         self._use_opwq = str(self.ctx.conf.get("osd_op_queue")) == "mclock"
-        # the background_best_effort class (scrub's) joins with the
-        # scrub path (ROADMAP.md Queue 1 item 6)
+        # deep-scrub chunks and replica scrub-map ops schedule in the
+        # background_best_effort class (the reference's mClockScheduler
+        # class of the same name): weight/limit from the osd_scrub_*
+        # knobs, never a reservation — background integrity runs in the
+        # excess so tenant floors hold under a full-cluster scrub storm
         opwq_classes = {n: ClassInfo(c.reservation, c.weight, c.limit)
                         for n, c in DEFAULT_CLASSES.items()}
+        opwq_classes[BACKGROUND_BEST_EFFORT] = ClassInfo(
+            reservation=0.0,
+            weight=float(self.ctx.conf.get(
+                "osd_scrub_background_weight")),
+            limit=float(self.ctx.conf.get(
+                "osd_scrub_background_limit")))
         self._mclock_per_client = bool(int(
             self.ctx.conf.get("osd_mclock_per_client")))
         #: tenant lanes (osd_qos_tenant_lanes): client ops carrying an
@@ -411,6 +474,26 @@ class OSDDaemon(Dispatcher):
             "batches by stripe share, batch/request/stripe counts, "
             "queue-wait histograms, and share-of-device gauges "
             "(untagged work lands in the _untagged bucket)")
+
+        #: background-integrity accounting (dump_scrub_stats / the
+        #: MMgrReport scrub tail)
+        self._scrub_lock = make_lock(f"OSD::scrub_stats({osd_id})")
+        self._scrub_stats: dict = {
+            "sweeps": 0, "pgs_scrubbed": 0, "objects_scrubbed": 0,
+            "digest_batches": 0, "digest_objects": 0,
+            "scalar_fallbacks": 0, "inconsistent": 0, "repaired": 0,
+            "repair_unverified": 0, "missing_peer_scrubs": 0,
+            "missing_peer_retries": 0, "last_sweep": {}}
+        self._scrub_sweeping = False
+        self._scrub_auto_last = time.time()
+        self.ctx.admin.register_command(
+            "dump_scrub_stats", lambda **kw: self._dump_scrub_stats(),
+            "background-integrity accounting: sweep/PG/object counts, "
+            "batched-digest vs host-loop split, inconsistencies "
+            "found / repairs verified / repairs unverified, "
+            "missing-peer rounds, the last sweep's report, and the "
+            "background_best_effort dmclock lane this daemon's scrub "
+            "ops ride")
         # recovery reservations (AsyncReserver / osd_max_backfills): a PG
         # needs a slot before pulling; pulls run in a bounded window
         from ceph_tpu_torch.osd.reserver import AsyncReserver
@@ -726,6 +809,7 @@ class OSDDaemon(Dispatcher):
             profile=telemetry.pipeline_profile_digest(),
             qos=self._qos_digest(),
             faults=self.ctx.fault_digest(),
+            scrub=self._scrub_digest_report(),
             tenant_usage=telemetry.tenant_usage_digest()))
 
     def _tick(self) -> None:
@@ -734,6 +818,7 @@ class OSDDaemon(Dispatcher):
             self._maybe_reboot()
             self._renew_map_subscription(now)
             self._agent_scan(now)
+            self._maybe_auto_scrub(now)
             self._mgr_report()
             self.clog.flush()
             # PG state summary to the mons (MPGStats flow): feeds the
@@ -2123,6 +2208,19 @@ class OSDDaemon(Dispatcher):
             return True
         if isinstance(msg, MWatchNotifyAck):
             self._handle_notify_ack(msg)
+            return True
+        if isinstance(msg, MOSDScrub):
+            # replica scrub-map building is background work too: it
+            # rides the same background_best_effort lane as the
+            # primary's chunks, cost-scaled
+            msg.qos_delta = max(1, int(self.ctx.conf.get(
+                "osd_scrub_cost")))
+            msg.qos_rho = 0
+            self._enqueue_op(BACKGROUND_BEST_EFFORT, msg.pgid,
+                             self._handle_scrub, msg)
+            return True
+        if isinstance(msg, MOSDScrubReply):
+            self._handle_scrub_reply(msg)
             return True
         return False
 
@@ -3521,7 +3619,11 @@ class OSDDaemon(Dispatcher):
                  # into the decode
                  "need": entry.version if entry is not None
                  and not entry.is_delete() else None,
-                 "shards": {}, "k": k, "active": set(), "cand": cand}
+                 "shards": {}, "k": k, "active": set(), "cand": cand,
+                 # data shard -> why the read went without it (logged
+                 # and counted when the read decodes)
+                 "why": {s: "no OSD at the position" for s in range(k)
+                         if not cand.get(s)}}
         with self._lock:
             self._ec_reads[reqid] = state
         self._ec_gather(reqid, state)
@@ -3646,6 +3748,9 @@ class OSDDaemon(Dispatcher):
             if state is None:
                 return
             state["active"].discard(shard)
+            if "why" in state:
+                state["why"][shard] = ("read failed (absent, checksum "
+                                       "mismatch or holder down)")
         self._ec_gather(reqid, state)
 
     def _ec_read_give_up(self, state: dict) -> None:
@@ -3702,6 +3807,8 @@ class OSDDaemon(Dispatcher):
             state["active"].discard(shard)
             need = state.get("need")
             stale = need is not None and ver != need
+            if stale and "why" in state:
+                state["why"][shard] = f"stale version {ver} != {need}"
             if not stale:
                 state["shards"][shard] = chunk
                 state["size"] = size
@@ -3776,6 +3883,8 @@ class OSDDaemon(Dispatcher):
         self.perf.inc("ec_decode_submits")
         if state["kind"] == "recover":
             self.perf.inc("recovery_decode_stripes", int(arr.shape[0]))
+        if "why" in state:
+            self._note_read_decode(state, k)
         trk = getattr(state.get("msg"), "_trk", None)
         if trk is not None:
             trk.mark_event(
@@ -3785,6 +3894,21 @@ class OSDDaemon(Dispatcher):
         fut.add_done_callback(
             lambda f, c=cctx: self._ec_decode_done(*c, f))
         return True
+
+    def _note_read_decode(self, state: dict, k: int) -> None:
+        """A client read that decodes: log which data shards it went
+        without and why, and count the reasons (``read_decode_reasons``,
+        admin ``dump_read_decodes``)."""
+        missing = [s for s in range(k) if s not in state["shards"]]
+        why = {s: state["why"].get(s, "not asked") for s in missing}
+        dout("osd", 1, "osd.%d read of %s decodes without data shards %s",
+             self.osd_id, state["oid"], why)
+        with self._read_decode_lock:
+            for reason in why.values():
+                key = reason.split(" ", 1)[0] if reason.startswith(
+                    "stale") else reason
+                self.read_decode_reasons[key] = \
+                    self.read_decode_reasons.get(key, 0) + 1
 
     def _ec_decode_done(self, reqid, state: dict, si, stripes, targets,
                         size: int, fut) -> None:
@@ -4043,6 +4167,735 @@ class OSDDaemon(Dispatcher):
             m = done["msg"]
             self._op_send_reply(m, MOSDOpReply(
                 tid=m.tid, result=0, epoch=self.osdmap.epoch))
+
+    # -- scrub (PG::scrub / chunky_scrub: batched digests, verified ----------
+    # repair, background QoS lane) --------------------------------------------
+
+    #: wait budget for one coalesced digest batch (covers the engine's
+    #: whole retry/oracle ladder for transient faults)
+    SCRUB_DIGEST_TIMEOUT = 30.0
+
+    #: _scrub_stats key -> per-daemon perf counter
+    _SCRUB_PERF = {"objects_scrubbed": "scrub_objects",
+                   "inconsistent": "scrub_inconsistent",
+                   "repaired": "scrub_repaired",
+                   "repair_unverified": "scrub_repair_unverified",
+                   "digest_batches": "scrub_digest_batches",
+                   "missing_peer_scrubs": "scrub_missing_peers"}
+
+    def _scrub_note(self, **counts) -> None:
+        """Fold counts into this daemon's scrub accounting, the
+        process-global telemetry sink, and the registered perf
+        counters."""
+        from ceph_tpu_torch.ops import telemetry
+        sink = telemetry.scrub_stats()
+        with self._scrub_lock:
+            for k, v in counts.items():
+                if v:
+                    self._scrub_stats[k] = self._scrub_stats.get(k, 0) + v
+        for k, v in counts.items():
+            if not v:
+                continue
+            sink.inc(k, int(v))
+            c = self._SCRUB_PERF.get(k)
+            if c:
+                self.perf.inc(c, int(v))
+
+    def _scrub_on_card(self, blobs: list) -> bool:
+        """True when ``blobs`` digest on the scrub_digest channel; False
+        sends them to the host loop, by configuration only: the knob off,
+        no blobs, or a row wider than the kernel's cap."""
+        if not blobs or not bool(self.ctx.conf.get("osd_scrub_batched")):
+            return False
+        from ceph_tpu_torch.ops import checksum_kernel as ck
+        return max(len(b) for b in blobs) <= ck.MAX_WIDTH
+
+    def _scrub_digest_rows(self, blobs: list) -> "np.ndarray | None":
+        """(len(blobs), 2) uint32 digests via ONE coalesced batch on the
+        scrub_digest channel, or None when ``_scrub_on_card`` sends them
+        to the host loop.  A fault of the channel (a card fault, or a
+        transient one past the engine's ladder) raises: the reference
+        caught it here and digested on the host, which would report a
+        clean scrub from a card that did no work."""
+        if not self._scrub_on_card(blobs):
+            return None
+        from ceph_tpu_torch.ops.dispatch import submit_scrub_digest
+        fut = submit_scrub_digest(self.ctx.decode_dispatch_engine(), blobs)
+        # analysis: allow[blocking] -- scrub chunks are background ops; the future carries host numpy once delivered
+        digs = np.asarray(fut.result(timeout=self.SCRUB_DIGEST_TIMEOUT))
+        self._scrub_note(digest_batches=1, digest_objects=len(blobs))
+        return digs
+
+    def _scrub_read_rows(self, cid: str, oids: list | None = None,
+                         names: list | None = None) -> tuple:
+        """Bulk-read one scrub chunk's objects: returns (sentinels, rows,
+        versions) where sentinels maps oids whose store read failed
+        checksum to SCRUB_CORRUPT (diverges from every healthy map entry,
+        so the compare pass repairs this copy from a clean peer), rows
+        are (oid, data, omap_blob, hinfo) awaiting digests, and versions
+        maps every seen oid to its raw "_v" blob (the version-skew guard
+        the compare pass needs)."""
+        out: dict = {}
+        rows: list = []
+        vers: dict = {}
+        if names is None:
+            try:
+                names = self.store.list_objects(cid)
+            except KeyError:
+                return out, rows, vers
+            if oids is not None:
+                sel = set(oids)
+                names = [o for o in names if o in sel]
+        pool = None
+        try:
+            pool = self.osdmap.pools.get(int(cid.split(".", 1)[0]))
+        except ValueError:
+            pass
+        ec = pool is not None and pool.is_erasure()
+        for oid in names:
+            if oid.startswith(PG.PGMETA):
+                continue
+            try:
+                data = self.store.read(cid, oid)
+                omap = self.store.omap_get(cid, oid)
+            except KeyError:
+                continue
+            except IOError:
+                out[oid] = SCRUB_CORRUPT
+                vers[oid] = self._getattr_safe(cid, oid, "_v") or b""
+                continue
+            oblob = repr(sorted(omap.items())).encode()
+            hinfo = (self._getattr_safe(cid, oid, "hinfo")
+                     if ec and ":" in oid else None)
+            vers[oid] = self._getattr_safe(cid, oid, "_v") or b""
+            rows.append((oid, data, oblob, hinfo))
+        return out, rows, vers
+
+    def _scrub_fill(self, out: dict, rows: list, digs) -> dict:
+        """Fill the (size, data_crc, omap_crc) triples from a digest
+        matrix (crc32 column; None = the host shard_crc loop, bit-exact
+        either way) and apply the EC hinfo sweep: a shard whose bytes
+        diverge from their write-time checksum is this copy's
+        SCRUB_CORRUPT."""
+        from ceph_tpu_torch.osd.ec_util import shard_crc
+        n = len(rows)
+        if digs is None and n:
+            self._scrub_note(scalar_fallbacks=1)
+        for i, (oid, data, oblob, hinfo) in enumerate(rows):
+            if digs is not None:
+                dcrc, ocrc = int(digs[i, 0]), int(digs[n + i, 0])
+            else:
+                dcrc, ocrc = shard_crc(data), shard_crc(oblob)
+            if hinfo and dcrc.to_bytes(4, "little") != hinfo:
+                out[oid] = SCRUB_CORRUPT
+                continue
+            out[oid] = (len(data), dcrc, ocrc)
+        return out
+
+    def _scrub_map(self, cid: str,
+                   oids: list | None = None) -> tuple[dict, dict]:
+        """({oid: (size, data_crc, omap_crc)}, {oid: "_v" blob}) for
+        every object in the collection (pgmeta excluded), or just
+        ``oids`` (repair verification), built synchronously: every
+        payload and omap blob in ONE digest batch.  A digest fault
+        raises."""
+        out, rows, vers = self._scrub_read_rows(cid, oids=oids)
+        digs = self._scrub_digest_rows(
+            [r[1] for r in rows] + [r[2] for r in rows])
+        return self._scrub_fill(out, rows, digs), vers
+
+    def _scrub_digest_async(self, rows: list, finish) -> None:
+        """Submit one chunk's digest batch and continue in the engine's
+        completion callback, so a shard worker's quantum is reads +
+        submit, never device turnaround.  ``finish(digs, exc)``: digs
+        None = the host loop (by configuration); exc = the channel's
+        fault, which fails the map build."""
+        blobs = [r[1] for r in rows] + [r[2] for r in rows]
+        if not self._scrub_on_card(blobs):
+            finish(None, None)
+            return
+        try:
+            from ceph_tpu_torch.ops.dispatch import submit_scrub_digest
+            fut = submit_scrub_digest(
+                self.ctx.decode_dispatch_engine(), blobs)
+        except Exception as e:
+            finish(None, e)
+            return
+
+        def cb(f) -> None:
+            exc = f.exception()
+            if exc is not None:
+                finish(None, exc)
+                return
+            self._scrub_note(digest_batches=1,
+                             digest_objects=len(blobs))
+            # analysis: allow[blocking] -- delivered engine futures carry host numpy; asarray here is a view, not d2h
+            finish(np.asarray(f.result()), None)
+
+        fut.add_done_callback(cb)
+
+    def _scrub_map_lane(self, cid: str, pgid, done,
+                        oids: list | None = None,
+                        cancelled=None) -> None:
+        """Build a scrub map through the background dmclock lane in
+        CHUNKS of osd_scrub_chunk_objects store objects per op (the
+        reference's chunky scrub), each chunk carrying the cost-scaled
+        background tag (osd_scrub_cost).  ``done((map, versions, exc))``
+        fires after the last chunk, or after the first chunk whose digest
+        failed (exc set: the map is incomplete).  With the op queue off
+        the map builds synchronously and a fault raises."""
+        if self.opwq is None:
+            m, v = self._scrub_map(cid, oids=oids)
+            done((m, v, None))
+            return
+        try:
+            names = [o for o in self.store.list_objects(cid)
+                     if not o.startswith(PG.PGMETA)]
+        except KeyError:
+            names = []
+        if oids is not None:
+            sel = set(oids)
+            names = [o for o in names if o in sel]
+        if not names:
+            done(({}, {}, None))
+            return
+        step = max(1, int(self.ctx.conf.get("osd_scrub_chunk_objects")))
+        cost = int(self.ctx.conf.get("osd_scrub_cost"))
+        acc: dict = {}
+        acc_vers: dict = {}
+        state = {"i": 0}
+
+        def chunk(_msg) -> None:
+            if cancelled is not None and cancelled():
+                return     # caller gave up (jam): stop here
+            i = state["i"]
+            state["i"] = i + step
+            out, rows, vers = self._scrub_read_rows(
+                cid, names=names[i:i + step])
+            acc_vers.update(vers)
+
+            def finish(digs, exc) -> None:
+                if exc is None:
+                    try:
+                        acc.update(self._scrub_fill(out, rows, digs))
+                    except Exception as e:
+                        exc = e
+                if cancelled is not None and cancelled():
+                    return
+                if exc is not None:
+                    dout("osd", 0, "osd.%d scrub of %s failed: %r",
+                         self.osd_id, cid, exc)
+                    done((acc, acc_vers, exc))
+                    return
+                if state["i"] >= len(names) or self._stop:
+                    # shutdown mid-chain: deliver what we have — the
+                    # stopped op queue would never serve another chunk
+                    done((acc, acc_vers, None))
+                    return
+                # osd_scrub_sleep as a DELAYED REQUEUE: the chain
+                # advances from a timer thread, because _enqueue_op can
+                # block on the op-byte throttle and pacing must park
+                # neither a shard worker nor the engine completion thread
+                t = threading.Timer(
+                    max(0.0, float(self.ctx.conf.get(
+                        "osd_scrub_sleep"))),
+                    lambda: self._enqueue_op(
+                        BACKGROUND_BEST_EFFORT, pgid, chunk,
+                        _ScrubChunk(pgid, cost=cost)))
+                t.daemon = True
+                t.start()
+
+            self._scrub_digest_async(rows, finish)
+
+        self._enqueue_op(BACKGROUND_BEST_EFFORT, pgid, chunk,
+                         _ScrubChunk(pgid, cost=cost))
+
+    def _handle_scrub(self, msg: MOSDScrub) -> None:
+        """Replica scrub-map request: the map builds through THIS
+        daemon's background lane in chunks, and the reply goes out when
+        the last chunk lands.  A map whose digest failed is not sent:
+        the primary records this replica as missing and the PG is not
+        clean."""
+        cid = f"{msg.pgid[0]}.{msg.pgid[1]}"
+        con = msg.connection or self._osd_con(msg.from_osd)
+        if con is None:
+            return
+
+        def reply(mve) -> None:
+            m, vers, exc = mve
+            if exc is not None:
+                return
+            con.send_message(MOSDScrubReply(
+                pgid=msg.pgid, scrub_id=msg.scrub_id,
+                from_osd=self.osd_id, scrub_map=m, versions=vers))
+
+        try:
+            self._scrub_map_lane(cid, msg.pgid, reply,
+                                 oids=getattr(msg, "oids", None))
+        except Exception as e:
+            # the synchronous build (op queue off) raised: no map is sent
+            dout("osd", 0, "osd.%d scrub of %s failed: %r", self.osd_id,
+                 cid, e)
+
+    def _handle_scrub_reply(self, msg: MOSDScrubReply) -> None:
+        with self._lock:
+            st = self._scrubs.get(msg.scrub_id)
+            if st is None:
+                return
+            st["maps"][msg.from_osd] = msg.scrub_map
+            st["vers"][msg.from_osd] = getattr(msg, "versions", {})
+            if set(st["maps"]) >= st["expect"]:
+                st["event"].set()
+
+    def _scrub_gather(self, pgid, peers: list, timeout: float,
+                      oids: list | None = None) -> tuple[dict, dict]:
+        """One replica scrub-map gather round: ask ``peers``, wait up to
+        ``timeout``, return ({osd: map}, {osd: versions}) for whatever
+        arrived (the caller owns retry and missing-peer accounting)."""
+        if not peers:
+            return {}, {}
+        with self._lock:
+            self._scrub_seq += 1
+            sid = self._scrub_seq
+            st = {"maps": {}, "vers": {}, "expect": set(peers),
+                  "event": threading.Event()}
+            self._scrubs[sid] = st
+        for o in peers:
+            con = self._osd_con(o)
+            if con:
+                con.send_message(MOSDScrub(pgid=pgid, scrub_id=sid,
+                                           from_osd=self.osd_id,
+                                           oids=oids))
+        st["event"].wait(timeout)
+        with self._lock:
+            self._scrubs.pop(sid, None)
+            return dict(st["maps"]), dict(st["vers"])
+
+    def scrub_pg(self, pgid: tuple[int, int],
+                 timeout: float | None = None) -> dict:
+        """Primary-driven deep scrub: gather per-replica object maps
+        (each built as batched digest calls), compare the packed triples
+        vectorized, repair divergent copies (authority = the most common
+        healthy triple, the primary pushing when it agrees and repulling
+        when it is the outlier; EC shards rebuild through the batched
+        decode path), and VERIFY every repair by re-fetching the repaired
+        copy's digest before counting it.
+
+        Report keys: ``checked``, ``inconsistent``, ``repaired`` (verified
+        only), ``repair_unverified``, ``missing_peers`` (replicas that
+        never answered — a replica whose digest failed sends nothing),
+        ``clean`` (no inconsistency, every peer reported, no error), and
+        ``errors`` only when the primary's own map build failed on the
+        lane: then nothing is compared or repaired.  On the synchronous
+        path (op queue off, repair verification) a digest fault raises to
+        the caller."""
+        pg = self.pgs.get(pgid)
+        if pg is None or pg.primary != self.osd_id:
+            raise ValueError(f"not primary for {pgid}")
+        if timeout is None:
+            timeout = float(self.ctx.conf.get("osd_scrub_chunk_timeout"))
+        t0 = time.monotonic()
+        cid = self._pg_cid(pgid)
+        pool = self.osdmap.pools.get(pgid[0])
+        peers = [o for o in pg.up
+                 if o != self.osd_id and o != CEPH_NOSD]
+        # peers the map already marks down go straight to missing_peers
+        live = [o for o in peers if self.osdmap.is_up(o)]
+        # start the primary's own chunked lane build FIRST (it only
+        # enqueues), then gather — the replicas build their maps
+        # concurrently with ours
+        own_box: dict = {"dead": False}
+        own_ev = threading.Event()
+
+        def _own_done(mve) -> None:
+            own_box["map"] = mve
+            own_ev.set()
+
+        self._scrub_map_lane(cid, pgid, _own_done,
+                             cancelled=lambda: own_box["dead"])
+        got, gvers = self._scrub_gather(pgid, live, timeout)
+        if own_ev.wait(4.0 * float(self.ctx.conf.get(
+                "osd_scrub_chunk_timeout"))) and "map" in own_box:
+            own_map, own_vers, own_err = own_box["map"]
+        else:
+            # lane jammed: cancel the chain and build directly rather
+            # than wedge the sweep (a digest fault raises here)
+            own_box["dead"] = True
+            own_map, own_vers = self._scrub_map(cid)
+            own_err = None
+        maps = {self.osd_id: own_map}
+        vers = {self.osd_id: own_vers}
+        maps.update(got)
+        vers.update(gvers)
+        missing = set(peers) - set(maps)
+        retry = sorted(missing & set(live))
+        if retry:
+            # a silent replica is retried ONCE with backoff
+            self._scrub_note(missing_peer_retries=1)
+            time.sleep(float(self.ctx.conf.get(
+                "osd_scrub_retry_backoff_ms")) / 1e3)
+            got, gvers = self._scrub_gather(pgid, retry, timeout)
+            maps.update(got)
+            vers.update(gvers)
+            missing = set(peers) - set(maps)
+        report = {"checked": 0, "inconsistent": [], "repaired": [],
+                  "repair_unverified": [],
+                  "missing_peers": sorted(missing), "clean": False}
+        if own_err is not None:
+            report["errors"] = [f"osd.{self.osd_id} {cid}: {own_err!r}"]
+        elif pool is not None and pool.is_erasure():
+            pending = self._scrub_compare_ec(pg, pgid, maps, vers,
+                                             report)
+            self._scrub_verify_repairs(pgid, cid, pending, report)
+        else:
+            pending = self._scrub_compare_replicated(
+                pg, pgid, cid, maps, vers, report)
+            self._scrub_verify_repairs(pgid, cid, pending, report)
+        # never report a PG clean when a peer map is missing
+        report["clean"] = (not report["inconsistent"] and not missing
+                           and not report["repair_unverified"]
+                           and own_err is None)
+        self._scrub_note(
+            pgs_scrubbed=1, objects_scrubbed=report["checked"],
+            inconsistent=len(report["inconsistent"]),
+            repaired=len(report["repaired"]),
+            repair_unverified=len(report["repair_unverified"]),
+            missing_peer_scrubs=1 if missing else 0)
+        self.perf.tinc("scrub_chunk_latency", time.monotonic() - t0)
+        return report
+
+    def _scrub_compare_replicated(self, pg: PG, pgid, cid: str,
+                                  maps: dict, vers: dict,
+                                  report: dict) -> list:
+        """Replicated compare, vectorized: the per-osd maps pack into
+        (oid x responder) size/crc/presence tables and one numpy pass
+        finds the divergent rows — the seed walked a python dict per
+        oid.  Authority semantics unchanged: the most common HEALTHY
+        triple wins (a checksum-failed copy can never be
+        authoritative, even as a majority); the primary pushes its
+        copy when it agrees, repulls from a healthy peer when it is
+        the outlier.  Returns the tentative repairs [(oid, osd, want)]
+        for the verification pass."""
+        all_oids = sorted({o for m in maps.values() for o in m})
+        report["checked"] += len(all_oids)
+        if not all_oids:
+            return []
+        osds = sorted(maps)
+        rows, n = len(all_oids), len(osds)
+        sizes = np.zeros((rows, n), dtype=np.uint64)
+        dcrc = np.zeros((rows, n), dtype=np.uint64)
+        ocrc = np.zeros((rows, n), dtype=np.uint64)
+        present = np.zeros((rows, n), dtype=bool)
+        idx = {oid: i for i, oid in enumerate(all_oids)}
+        for j, osd in enumerate(osds):
+            for oid, val in maps[osd].items():
+                i = idx[oid]
+                present[i, j] = True
+                sizes[i, j], dcrc[i, j], ocrc[i, j] = val
+        p = osds.index(self.osd_id)
+        same = (present == present[:, p:p + 1]) & (
+            ~present | ((sizes == sizes[:, p:p + 1])
+                        & (dcrc == dcrc[:, p:p + 1])
+                        & (ocrc == ocrc[:, p:p + 1])))
+        pending = []
+        for i in np.nonzero(~same.all(axis=1))[0]:
+            oid = all_oids[int(i)]
+            if not self._scrub_settled(pg, oid, maps, vers, osds):
+                # version-skewed divergence: an in-flight write,
+                # delete, or recovery — the replication machinery owns
+                # it, and a scrub "repair" here would push a STALE
+                # copy over an acked newer write (or mark the
+                # primary's own newer copy missing).  Only
+                # SAME-version divergence is corruption.
+                continue
+            report["inconsistent"].append(oid)
+            vals = {osd: maps[osd].get(oid) for osd in osds}
+            want = vals.get(self.osd_id)
+            healthy = {osd: val for osd, val in vals.items()
+                       if val is not None and val != SCRUB_CORRUPT}
+            hcounts: dict = {}
+            for val in healthy.values():
+                hcounts[val] = hcounts.get(val, 0) + 1
+            hmaj = max(hcounts,
+                       key=lambda v: (hcounts[v], v == want)) \
+                if hcounts else None
+            if want == hmaj and want is not None:
+                # the primary agrees with the healthy majority: push
+                # its copy over every divergent (or corrupt) replica
+                try:
+                    data = self.store.read(cid, oid)
+                    omap = self.store.omap_get(cid, oid)
+                except (KeyError, IOError):
+                    continue
+                attrs = {}
+                for name in ("_v", "snapc", "from_seq"):
+                    v = self._getattr_safe(cid, oid, name)
+                    if v:
+                        attrs[name] = v
+                for osd, val in vals.items():
+                    if osd == self.osd_id or val == want:
+                        continue
+                    con = self._osd_con(osd)
+                    if con:
+                        con.send_message(MOSDPGPush(
+                            pgid=pgid, oid=oid, data=data, omap=omap,
+                            attrs=attrs))
+                        pending.append((oid, osd, want))
+            else:
+                # the primary is the outlier (divergent or corrupt):
+                # repull from a healthy peer holding the
+                # healthy-majority value
+                good = next((osd for osd, val in healthy.items()
+                             if val == hmaj and osd != self.osd_id),
+                            None)
+                ent = pg.log.index.get(oid)
+                if good is not None and ent is not None:
+                    with self._lock:
+                        pg.missing[oid] = MissingItem(need=ent.version)
+                        pg.state = STATE_RECOVERING
+                    self._pull_object(pg, oid, good)
+                    pending.append((oid, self.osd_id, hmaj))
+        return pending
+
+    def _scrub_settled(self, pg: PG, oid: str, maps: dict,
+                       vers: dict, osds) -> bool:
+        """True when every PRESENT copy of ``oid`` reports the version
+        the pg log currently heads for it (legacy copies without a
+        "_v" blob count as settled — there is nothing to judge), and
+        the object is live in the log.  Scrub maps are gathered
+        seconds apart under load: only same-version divergence is
+        corruption; version skew means a write/delete/recovery is in
+        flight and the next sweep will see it converged."""
+        ent = pg.log.index.get(oid)
+        if ent is not None and ent.is_delete():
+            return False        # delete in flight
+        if ent is None:
+            # trimmed history: no logged head to compare against —
+            # settled iff every present copy agrees on ITS version
+            # (same-version divergence on a cold object is exactly
+            # the corruption scrub exists for)
+            vs = {(vers.get(osd) or {}).get(oid) for osd in osds
+                  if maps[osd].get(oid) is not None}
+            vs.discard(None)
+            vs.discard(b"")
+            return len(vs) <= 1
+        want = enc_version(ent.version)
+        for osd in osds:
+            if maps[osd].get(oid) is None:
+                continue        # absence is handled by the repair path
+            v = (vers.get(osd) or {}).get(oid)
+            if v and v != want:
+                return False
+        return True
+
+    def _scrub_compare_ec(self, pg: PG, pgid, maps: dict, vers: dict,
+                          report: dict) -> list:
+        """EC PGs: shards differ by construction, so cross-copy
+        compare is meaningless — integrity is (a) each owner's hinfo
+        sweep, which surfaces a shard whose bytes diverge from their
+        write-time checksum as SCRUB_CORRUPT in that owner's own map,
+        and (b) an existence sweep (a shard absent from its responding
+        owner while the object lives in the pg log).  Bad shards
+        rebuild through the batched decode path (_recover_ec_object ->
+        submit_decode_chunks) and verify like every repair — the
+        seed's EC branch only reported, never repaired."""
+        up = list(pg.up)
+        logicals = sorted({soid.rsplit(":", 1)[0]
+                           for m in maps.values() for soid in m
+                           if ":" in soid})
+        pending = []
+        for logical in logicals:
+            report["checked"] += 1
+            ent = pg.log.index.get(logical)
+            live = ent is not None and not ent.is_delete()
+            if live:
+                # version-skew guard (see _scrub_settled): any present
+                # shard off the logged head means the write/recovery
+                # is still propagating — not corruption
+                want = enc_version(ent.version)
+                skewed = False
+                for owner in up:
+                    if owner == CEPH_NOSD or owner not in maps:
+                        continue
+                    for sh in range(len(up)):
+                        v = (vers.get(owner) or {}).get(
+                            f"{logical}:{sh}")
+                        if v and v != want:
+                            skewed = True
+                if skewed:
+                    continue
+            for s, owner in enumerate(up):
+                if owner == CEPH_NOSD or owner not in maps:
+                    continue   # down/silent peer: missing_peers owns it
+                soid = f"{logical}:{s}"
+                val = maps[owner].get(soid)
+                if not (val == SCRUB_CORRUPT or (val is None and live)):
+                    continue
+                report["inconsistent"].append(soid)
+                if live:
+                    self._recover_ec_object(pg, logical,
+                                            dest_osd=owner,
+                                            dest_shard=s)
+                    # want=None: verified by ANY healthy follow-up
+                    # triple — the rebuilt chunk's digest is not
+                    # knowable on the primary
+                    pending.append((soid, owner, None))
+        return pending
+
+    def _scrub_verify_repairs(self, pgid, cid: str, pending: list,
+                              report: dict) -> None:
+        """The fire-and-forget fix: a repair only counts once the
+        repaired copy's digest is re-fetched (one follow-up scrub of
+        JUST the repaired oids) and matches the authority triple
+        (``want``; None accepts any healthy value — EC shard
+        rebuilds).  Pushes and recovery pulls apply asynchronously, so
+        this polls until osd_scrub_verify_timeout; what never verifies
+        lands in repair_unverified, never silently in repaired."""
+        if not pending:
+            return
+        if not bool(self.ctx.conf.get("osd_scrub_verify_repairs")):
+            report["repaired"].extend(
+                (oid, osd) for oid, osd, _ in pending)
+            return
+        left = {(oid, osd): want for oid, osd, want in pending}
+        deadline = time.monotonic() + float(
+            self.ctx.conf.get("osd_scrub_verify_timeout"))
+        while left:
+            by_osd: dict[int, list] = {}
+            for (oid, osd) in left:
+                by_osd.setdefault(osd, []).append(oid)
+            gto = max(0.5, min(
+                float(self.ctx.conf.get("osd_scrub_chunk_timeout")),
+                deadline - time.monotonic()))
+            for osd, oids in sorted(by_osd.items()):
+                if osd == self.osd_id:
+                    m, _v = self._scrub_map(cid, oids=sorted(oids))
+                else:
+                    m = self._scrub_gather(
+                        pgid, [osd], timeout=gto,
+                        oids=sorted(oids))[0].get(osd, {})
+                for oid in sorted(oids):
+                    want = left[(oid, osd)]
+                    got = m.get(oid)
+                    if (got is not None and got != SCRUB_CORRUPT
+                            and (want is None or got == want)):
+                        report["repaired"].append((oid, osd))
+                        del left[(oid, osd)]
+            if not left or time.monotonic() >= deadline:
+                break
+            time.sleep(0.2)
+        report["repair_unverified"].extend(sorted(left))
+
+    def scrub_all_pgs(self, timeout: float = 300.0) -> dict:
+        """One full deep-scrub sweep of every PG this OSD leads, run on
+        the CALLING thread.  Every piece of scrub WORK — the primary's
+        map build and each replica's — is an op served through the
+        background_best_effort dmclock lane, so a continuous
+        full-cluster deep scrub competes only for the excess; the
+        network waits (replica gathers, repair verification) park here
+        and never hold a shard worker.  A PG whose scrub raised (a
+        digest fault) makes the sweep not clean and lands in ``errors``
+        (present only then).  Returns the aggregate report."""
+        with self._lock:
+            pgids = [pgid for pgid, pg in self.pgs.items()
+                     if pg.primary == self.osd_id]
+        agg = {"pgs": 0, "checked": 0, "inconsistent": [],
+               "repaired": [], "repair_unverified": [],
+               "missing_peers": [], "clean": True}
+        errors: list = []
+        t0 = time.monotonic()
+        deadline = t0 + timeout
+        sleep = float(self.ctx.conf.get("osd_scrub_sleep"))
+        for i, pgid in enumerate(pgids):
+            if time.monotonic() >= deadline or self._stop:
+                break
+            if i and sleep > 0:
+                # osd_scrub_sleep between PGs too: a sweep's per-PG
+                # python-side work is what the serving threads contend
+                # with
+                time.sleep(sleep)
+            try:
+                rep = self.scrub_pg(pgid)
+            except (ValueError, KeyError):
+                continue    # primaryship moved mid-sweep (map churn)
+            except Exception as e:
+                dout("osd", 0, "osd.%d scrub of %s failed: %r",
+                     self.osd_id, pgid, e)
+                errors.append(f"osd.{self.osd_id} {pgid[0]}.{pgid[1]}: "
+                              f"{e!r}")
+                continue
+            agg["pgs"] += 1
+            agg["checked"] += rep["checked"]
+            for k in ("inconsistent", "repaired", "repair_unverified",
+                      "missing_peers"):
+                agg[k].extend(rep[k])
+            errors.extend(rep.get("errors", ()))
+            agg["clean"] = agg["clean"] and rep["clean"]
+        if errors:
+            agg["errors"] = errors
+            agg["clean"] = False
+        summary = {
+            "pgs": agg["pgs"], "checked": agg["checked"],
+            "inconsistent": len(agg["inconsistent"]),
+            "repaired": len(agg["repaired"]),
+            "repair_unverified": len(agg["repair_unverified"]),
+            "missing_peers": sorted(set(agg["missing_peers"])),
+            "clean": agg["clean"],
+            "seconds": round(time.monotonic() - t0, 3)}
+        if errors:
+            summary["errors"] = len(errors)
+        with self._scrub_lock:
+            self._scrub_stats["sweeps"] += 1
+            self._scrub_stats["last_sweep"] = summary
+        from ceph_tpu_torch.ops import telemetry
+        telemetry.scrub_stats().inc("sweeps", 1)
+        return agg
+
+    def _maybe_auto_scrub(self, now: float) -> None:
+        """The continuous background-integrity sweep: every
+        osd_scrub_auto_interval seconds one full scrub_all_pgs sweep of
+        the PGs this osd leads, on its own thread (a sweep blocks on
+        replica maps; the tick timer must not)."""
+        iv = float(self.ctx.conf.get("osd_scrub_auto_interval"))
+        if (iv <= 0 or self._scrub_sweeping or self._stop
+                or now - self._scrub_auto_last < iv):
+            return
+        self._scrub_sweeping = True
+        threading.Thread(target=self._scrub_auto_sweep,
+                         name=f"osd.{self.osd_id}-scrub",
+                         daemon=True).start()
+
+    def _scrub_auto_sweep(self) -> None:
+        try:
+            self.scrub_all_pgs()
+        except Exception as e:
+            dout("osd", 0, "osd.%d auto scrub sweep failed: %r",
+                 self.osd_id, e)
+        finally:
+            self._scrub_auto_last = time.time()
+            self._scrub_sweeping = False
+
+    def _dump_scrub_stats(self) -> dict:
+        """Admin ``dump_scrub_stats``: the daemon's background-
+        integrity accounting plus the dmclock lane its scrub ops
+        ride."""
+        with self._scrub_lock:
+            out = dict(self._scrub_stats)
+            out["last_sweep"] = dict(self._scrub_stats["last_sweep"])
+        out["qos_class"] = BACKGROUND_BEST_EFFORT
+        out["batched"] = bool(self.ctx.conf.get("osd_scrub_batched"))
+        out["auto_interval"] = float(
+            self.ctx.conf.get("osd_scrub_auto_interval"))
+        if self.opwq is not None:
+            out["background_lane"] = self.opwq.dump_qos()[
+                "classes"].get(BACKGROUND_BEST_EFFORT)
+        return out
+
+    def _scrub_digest_report(self) -> dict:
+        """Compact per-daemon scrub counters for the MMgrReport tail."""
+        with self._scrub_lock:
+            return {k: v for k, v in self._scrub_stats.items()
+                    if k != "last_sweep"}
 
     # -- peers ----------------------------------------------------------------
 

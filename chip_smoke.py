@@ -190,8 +190,28 @@ Runs ceph_tpu_torch (never JAX, never ceph_tpu) at the bench's full size:
              no engine thread alive after stop() (the threads and
              torch.cuda.memory_allocated() printed).  The card's busy share
              over degraded reads of 32 objects, from torch.profiler
- 11. prints  the {"engine": ...} line, the {"mapping": ...} line, the
-             {"cluster": ...} line, the {"kernels": [...]} line (gf_matvec's
+ 11. scrub   deep scrub on phase 10's cluster before it stops (after 10d,
+             12 OSDs up): a replicated pool at the defaults (size 3, pg_num
+             32) takes 16 rados bench objects of 4 MiB; then three passes
+             of scrub_all_pgs on every OSD at once, each with the launch
+             counts at 0 just before it and read just after: 11a clean
+             (every PG of both pools, every peer reporting; the card's busy
+             share from torch.profiler), 11b after one replica's object and
+             one EC shard are corrupted at the store (exactly those two
+             found inconsistent, repaired — the shard rebuilt through
+             gf_matvec — and verified, the stores holding the original
+             bytes again), 11c clean again.  Each pass prints its MB read
+             and digested per second by the host clock and its launches;
+             checks: every scrub_digest batch == the plain version on the
+             card and its crc column == zlib.crc32 of each unpadded row on
+             the host, the rows digested on the card == the rows the scrubs
+             read, no host-loop batch, every context's fault_digest() zero.
+             Then the kernel alone at a 16-object chunk of each pool (32
+             rows of 512 KiB and of 4 MiB) by graph replay beside its bound
+             and the plain version's time; the phase's seconds (budget 90)
+ 12. prints  the {"engine": ...} line, the {"mapping": ...} line, the
+             {"cluster": ...} line, the {"scrub": ...} line, the
+             {"kernels": [...]} line (gf_matvec's
              row also carries the EC shapes of phase 7 as "ec_shapes" and
              its launches by cluster sub-phase as "cluster";
              pg_finish_ladder's its
@@ -354,6 +374,12 @@ CLUSTER_BUSY_OBJECTS = 32            # degraded reads under the profiler
 CLUSTER_OP_TIMEOUT = 300.0
 CLUSTER_RECOVERY_S = 300.0
 CLUSTER_BUDGET_S = 120.0
+# phase 11: deep scrub on phase 10's cluster, plus a replicated pool at the
+# defaults osd_pool_default_size 3 and osd_pool_default_pg_num 32, holding
+# rados bench objects; a scrub chunk is osd_scrub_chunk_objects (16)
+SCRUB_REP_SIZE, SCRUB_REP_PG_NUM, SCRUB_REP_OBJECTS = 3, 32, 16
+SCRUB_CHUNK_OBJECTS = 16
+SCRUB_BUDGET_S = 90.0
 
 
 def rows_of(m, rid: int, xs, rw_list) -> "np.ndarray":
@@ -1534,6 +1560,20 @@ def _shard_placement(c, pool: int, names, deep: bool) -> tuple[list, int]:
     return bad, holes
 
 
+def _data_holes(c, pool: int, names, k: int) -> list:
+    """The objects whose PG the mon's map leaves without an OSD at a data
+    position (shard < k): a read of one must decode."""
+    from ceph_tpu_torch.client.rados import ceph_str_hash_rjenkins
+    from ceph_tpu_torch.osd.osdmap import CEPH_NOSD, pg_to_pgid
+    m = c.mon.osdmap
+    out = []
+    for name in names:
+        pg = pg_to_pgid(ceph_str_hash_rjenkins(name), m.pools[pool].pg_num)
+        if CEPH_NOSD in m.pg_to_up_acting_osds(pool, pg)[0][:k]:
+            out.append(name)
+    return out
+
+
 def _oracle_shards(c, pool: int, name: str, payload: bytes, gen,
                    k: int) -> None:
     """One object's stored shards on the OSDs the map names == the numpy
@@ -1563,10 +1603,13 @@ def _oracle_shards(c, pool: int, name: str, payload: bytes, gen,
 
 
 def cluster_phase(dev, tag: str, n_objects: int = CLUSTER_OBJECTS,
-                  obj_bytes: int = CLUSTER_OBJ_BYTES) -> tuple[dict, dict]:
-    """Phase 10: the OSD data path on a MiniCluster (see the docstring).
-    Returns the {"cluster": ...} summary and gf_matvec's launches by
-    sub-phase with its time at one object's stripes."""
+                  obj_bytes: int = CLUSTER_OBJ_BYTES,
+                  scrub: bool = True) -> tuple:
+    """Phase 10: the OSD data path on a MiniCluster (see the docstring),
+    then (``scrub``) phase 11 on the same cluster.  Returns the
+    {"cluster": ...} summary, gf_matvec's launches by sub-phase with its
+    time at one object's stripes, and phase 11's (summary, kernels row) or
+    None."""
     import threading
 
     import numpy as np
@@ -1602,6 +1645,7 @@ def cluster_phase(dev, tag: str, n_objects: int = CLUSTER_OBJECTS,
     peer_s = None
     subs: dict = {}
     launches: dict = {}
+    scrubbed = None
     try:
         c.wait_for_osd_count(CLUSTER_OSDS, timeout=CLUSTER_OP_TIMEOUT)
         client = c.client(timeout=CLUSTER_OP_TIMEOUT)
@@ -1678,9 +1722,27 @@ def cluster_phase(dev, tag: str, n_objects: int = CLUSTER_OBJECTS,
             _oracle_shards(c, pool, name, payload[name], gen, k)
         check(True, f"10a: {len(sample)} sampled objects' 12 shards on the "
               f"mapped OSDs == the numpy oracle's encode, hinfo matching")
-        # 10b: the reads
-        sub_phase("10b_read", read_all)
+        # 10b: the reads; a healthy read decodes only where it goes
+        # without a data shard: each OSD counts why (dump_read_decodes),
+        # and the map's NONE positions are counted beside it
+        rec = sub_phase("10b_read", read_all)
         check(True, f"10b: all {n_objects} objects read back byte-equal")
+        why: dict = {}
+        for osd in c.osds.values():
+            for reason, n in osd.ctx.admin.execute(
+                    "dump_read_decodes").items():
+                why[reason] = why.get(reason, 0) + n
+        holes = _data_holes(c, pool, names, k)
+        rec["decode_reasons"] = why
+        rec["objects_with_a_data_hole"] = holes
+        print(f"cluster 10b: reads that decoded went without data shards "
+              f"for {why or 'no reason: none decoded'}; objects whose map "
+              f"leaves a data position without an OSD: {holes}  {tag}")
+        check(rec["counters"]["ec_decode_submits"] == len(holes)
+              and set(why) <= {"no OSD at the position"},
+              f"10b: every healthy read that decoded "
+              f"({rec['counters']['ec_decode_submits']}) is an object whose "
+              f"map leaves a data position without an OSD ({len(holes)})")
         # 10c: one OSD lost, every object read again
         c.kill_osd(CLUSTER_VICTIM)
         rc, out = client.mon_command({"prefix": "osd down",
@@ -1738,6 +1800,10 @@ def cluster_phase(dev, tag: str, n_objects: int = CLUSTER_OBJECTS,
         check(True, f"10d: all {n_objects} objects byte-equal after "
               f"recovery ({subs['10d_recovery']['reread_MB_s']:.1f} MB/s); "
               f"sample == the oracle again")
+        if scrub:
+            print("== 11. deep scrub on the MiniCluster")
+            scrubbed = scrub_phase(c, client, pool, names, dev, tag,
+                                   obj_bytes)
         # the card's busy share over degraded reads of a few objects
         if on_card:
             few = names[:CLUSTER_BUSY_OBJECTS]
@@ -1806,6 +1872,8 @@ def cluster_phase(dev, tag: str, n_objects: int = CLUSTER_OBJECTS,
           f"({mem - mem0:+d} B against the phase's start)  {tag}")
     check(not alive, "after stop(): no engine thread alive")
     secs = time.perf_counter() - t_phase
+    if scrubbed is not None:
+        secs -= scrubbed[0]["phase_seconds"]
     print(f"cluster: phase 10 took {secs:.1f} s (budget "
           f"{CLUSTER_BUDGET_S:.0f} s)  {tag}")
     summary = {"osds": CLUSTER_OSDS, "k": CLUSTER_K, "m": CLUSTER_M,
@@ -1815,7 +1883,334 @@ def cluster_phase(dev, tag: str, n_objects: int = CLUSTER_OBJECTS,
                "sub_phases": subs, "phase_seconds": secs,
                "cuda_memory_allocated_after_stop": mem,
                "cuda_memory_allocated_delta": mem - mem0}
-    return summary, gf_row
+    return summary, gf_row, scrubbed
+
+
+class _DigestTap:
+    """Phase 11's instrumentation: every scrub_digest batch the engines
+    run (its card tensors and its host lengths, kept for the checks after
+    each pass) and every row the scrubs read.  It wraps
+    ``checksum_kernel.scrub_digest_batched`` (the channel's fn calls it by
+    module attribute) and ``OSDDaemon._scrub_read_rows``; ``close()`` puts
+    both back."""
+
+    def __init__(self):
+        import threading
+
+        import numpy as np
+
+        from ceph_tpu_torch.ops import checksum_kernel as ck
+        from ceph_tpu_torch.ops.dispatch import launch_host_aux
+        from ceph_tpu_torch.osd.daemon import OSDDaemon
+        self._ck, self._daemon = ck, OSDDaemon
+        self._digest = ck.scrub_digest_batched
+        self._read = OSDDaemon._scrub_read_rows
+        self._lock = threading.Lock()
+        self.batches: list = []
+        self.rows_read = 0
+        self.bytes_read = 0
+        tap = self
+
+        def digest(data, mats, invp):
+            out = tap._digest(data, mats, invp)
+            aux = launch_host_aux()
+            lens = np.array(aux[0], dtype=np.int64) if aux else None
+            with tap._lock:
+                tap.batches.append((data, mats, invp, out, lens))
+            return out
+
+        def read_rows(osd, *a, **kw):
+            out, rows, vers = tap._read(osd, *a, **kw)
+            with tap._lock:
+                tap.rows_read += 2 * len(rows)
+                tap.bytes_read += sum(len(r[1]) + len(r[2]) for r in rows)
+            return out, rows, vers
+
+        ck.scrub_digest_batched = digest
+        OSDDaemon._scrub_read_rows = read_rows
+
+    def reset(self) -> None:
+        with self._lock:
+            self.batches = []
+            self.rows_read = 0
+            self.bytes_read = 0
+
+    def close(self) -> None:
+        self._ck.scrub_digest_batched = self._digest
+        self._daemon._scrub_read_rows = self._read
+
+    def check(self, where: str) -> int:
+        """Every batch since the last reset: the kernel's output == the
+        plain version on the card (batches of one width stacked into one
+        plain call), and its crc column == zlib.crc32 of each unpadded
+        row on the host.  Returns the batches checked."""
+        import zlib
+
+        import numpy as np
+        import torch
+        torch.cuda.synchronize()
+        by_w: dict = {}
+        for b in self.batches:
+            by_w.setdefault(int(b[0].shape[1]), []).append(b)
+        for w, bs in sorted(by_w.items()):
+            data = torch.cat([b[0] for b in bs])
+            want = self._ck.scrub_digest_plain(
+                data, torch.cat([b[1] for b in bs]),
+                torch.cat([b[2] for b in bs]))
+            got = torch.cat([b[3] for b in bs])
+            same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+            check(same, f"{where}: scrub_digest == plain torch on all "
+                  f"{len(bs)} batches of width {w} ({data.shape[0]} rows)")
+            host = data.cpu().numpy()
+            crc = got.cpu().numpy()[:, 0]
+            lens = np.concatenate([b[4] for b in bs])
+            bad = [i for i in range(host.shape[0])
+                   if zlib.crc32(host[i, :lens[i]].tobytes()) != crc[i]]
+            check(not bad, f"{where}: crc column == zlib.crc32 of each "
+                  f"unpadded row of width {w} on the host ({bad[:4]})")
+        return len(self.batches)
+
+
+def scrub_phase(c, client, ec_pool: int, ec_names, dev, tag: str,
+                obj_bytes: int = CLUSTER_OBJ_BYTES) -> tuple:
+    """Phase 11: deep scrub on phase 10's MiniCluster (see the docstring).
+    Returns the {"scrub": ...} summary and scrub_digest's kernels row."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from ceph_tpu_torch.client.rados import ceph_str_hash_rjenkins
+    from ceph_tpu_torch.objectstore import Transaction
+    from ceph_tpu_torch.ops import _build, telemetry
+    from ceph_tpu_torch.ops import checksum_kernel as ck
+    from ceph_tpu_torch.ops import digest_cuda as dc
+    from ceph_tpu_torch.osd.osdmap import CEPH_NOSD, pg_to_pgid
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    look0 = telemetry.mapping_summary()
+    rpool = c.create_pool(client, epoch_timeout=CLUSTER_OP_TIMEOUT)
+    p = c.mon.osdmap.pools[rpool]
+    check(p.size == SCRUB_REP_SIZE and p.pg_num == SCRUB_REP_PG_NUM,
+          f"11: replicated pool {rpool} at the defaults: size {p.size}, "
+          f"pg_num {p.pg_num}")
+    peer_s = _wait_active(c, rpool, SCRUB_REP_PG_NUM, CLUSTER_OP_TIMEOUT)
+    look1 = telemetry.mapping_summary()
+    lookups = {k: look1[k] - look0[k] for k in ("lookups",
+                                                 "lookup_fallbacks")}
+    print(f"scrub: the pool's map epoch: {lookups['lookups']} PG lookups "
+          f"on the daemons' mapping services, {lookups['lookup_fallbacks']} "
+          f"of them served by the scalar oracle  {tag}")
+    gen_ = torch.Generator(device=dev).manual_seed(11)
+    names = [f"rbench_{i:04d}" for i in range(SCRUB_REP_OBJECTS)]
+    block = torch.randint(0, 256, (len(names), obj_bytes), dtype=torch.uint8,
+                          device=dev, generator=gen_).cpu().numpy()
+    payload = {n: block[i].tobytes() for i, n in enumerate(names)}
+    rio = client.open_ioctx(rpool)
+    write_s = _rados_bench(names, lambda n: rio.aio_write_full(
+        n, payload[n]), lambda n, comp: None)
+    print(f"scrub: replicated pool {rpool} (size {SCRUB_REP_SIZE}, pg_num "
+          f"{SCRUB_REP_PG_NUM}) active {peer_s:.1f} s after create; "
+          f"{len(names)} objects of {obj_bytes} B written in {write_s:.2f} s"
+          f"  {tag}")
+    osds = list(c.osds.values())
+    tap = _DigestTap()
+    passes: dict = {}
+
+    def sweep() -> list:
+        out = [None] * len(osds)
+
+        def one(i):
+            out[i] = osds[i].scrub_all_pgs()
+        th = [threading.Thread(target=one, args=(i,)) for i in range(len(osds))]
+        for t in th:
+            t.start()
+        for t in th:
+            t.join()
+        return out
+
+    def run_pass(label: str, busy: bool = False) -> dict:
+        tap.reset()
+        telemetry.scrub_stats().clear()
+        _build.reset_launches()
+        box: dict = {}
+
+        def go():
+            t0 = time.perf_counter()
+            box["aggs"] = sweep()
+            if on_card:
+                torch.cuda.synchronize()
+            box["secs"] = time.perf_counter() - t0
+        prof = None
+        if busy and on_card:
+            prof = _busy(go, lambda: None, tries=1)
+        else:
+            go()
+        launches = dict(_build.LAUNCHES)
+        aggs, secs = box["aggs"], box["secs"]
+        st = telemetry.scrub_summary()
+        rec = {"seconds": secs, "pgs": sum(a["pgs"] for a in aggs),
+               "checked": sum(a["checked"] for a in aggs),
+               "inconsistent": sorted(o for a in aggs
+                                      for o in a["inconsistent"]),
+               "repaired": sorted(list(r) for a in aggs
+                                  for r in a["repaired"]),
+               "repair_unverified": sorted(list(r) for a in aggs
+                                           for r in a["repair_unverified"]),
+               "missing_peers": sorted({o for a in aggs
+                                        for o in a["missing_peers"]}),
+               "clean": all(a["clean"] for a in aggs),
+               "errors": [e for a in aggs for e in a.get("errors", ())],
+               "rows_read": tap.rows_read, "MB_read": tap.bytes_read / 1e6,
+               "MB_s": tap.bytes_read / 1e6 / secs,
+               "scrub_digest_launches": launches["scrub_digest"],
+               "gf_matvec_launches": launches["gf_matvec"],
+               "digest_batches": st["digest_batches"],
+               "digest_rows": st["batched_digest_objects"],
+               "scalar_batches": st["scalar_fallback_batches"]}
+        if prof is not None:
+            rec["busy_share"] = prof["busy_share"]
+            rec["busy_window_ms"] = prof["window_ms"]
+        rec["batches_checked"] = tap.check(f"11 {label}") if on_card else 0
+        passes[label] = rec
+        print(f"scrub {label}: {rec['pgs']} PGs, {rec['checked']} objects, "
+              f"{rec['MB_read']:.1f} MB read and digested in {secs:.3f} s = "
+              f"{rec['MB_s']:.1f} MB/s (host clock); scrub_digest launches "
+              f"{rec['scrub_digest_launches']}, gf_matvec "
+              f"{rec['gf_matvec_launches']}; {rec['digest_batches']} digest "
+              f"batches, {rec['digest_rows']} rows on the card of "
+              f"{rec['rows_read']} read, {rec['scalar_batches']} host-loop "
+              f"batches; inconsistent {rec['inconsistent']}, repaired "
+              f"{rec['repaired']}"
+              + (f"; card busy share {rec['busy_share']}" if "busy_share"
+                 in rec else "") + f"  {tag}")
+        check(not rec["errors"] and not rec["missing_peers"],
+              f"11 {label}: every peer reported, no scrub error "
+              f"({rec['errors'][:2]}, {rec['missing_peers']})")
+        check(rec["pgs"] == CLUSTER_PG_NUM + SCRUB_REP_PG_NUM,
+              f"11 {label}: every PG of both pools scrubbed by its primary")
+        check(rec["digest_rows"] == rec["rows_read"] > 0
+              and rec["scalar_batches"] == 0
+              and (not on_card or rec["scrub_digest_launches"] > 0),
+              f"11 {label}: all {rec['rows_read']} rows read digested on "
+              f"the card, none by the host loop, scrub_digest launched")
+        for osd in c.osds.values():
+            assert_no_faults(f"11 {label}: {osd.ctx.name}",
+                             osd.ctx.fault_digest())
+        return rec
+
+    try:
+        p1 = run_pass("11a_clean", busy=True)
+        check(p1["clean"] and not p1["inconsistent"],
+              "11a: every PG of both pools scrubs clean")
+        # 11b: one replica's object and one EC shard corrupted at the store
+        m = c.mon.osdmap
+        victim_obj = names[3]
+        pg = pg_to_pgid(ceph_str_hash_rjenkins(victim_obj),
+                        m.pools[rpool].pg_num)
+        up, primary = m.pg_to_up_acting_osds(rpool, pg)[:2]
+        rep_osd = next(o for o in up if o != primary and o != CEPH_NOSD)
+        rcid = f"{rpool}.{pg}"
+        c.osds[rep_osd].store.apply_transaction(
+            Transaction().truncate(rcid, victim_obj, 0)
+            .write(rcid, victim_obj, 0, bytes(obj_bytes)))
+        ec_obj = ec_names[7]
+        pg = pg_to_pgid(ceph_str_hash_rjenkins(ec_obj),
+                        m.pools[ec_pool].pg_num)
+        up, primary = m.pg_to_up_acting_osds(ec_pool, pg)[:2]
+        shard = next(s for s, o in enumerate(up)
+                     if o != primary and o != CEPH_NOSD)
+        ec_osd = up[shard]
+        ecid, soid = f"{ec_pool}.{pg}", f"{ec_obj}:{shard}"
+        good = c.osds[ec_osd].store.read(ecid, soid)
+        c.osds[ec_osd].store.apply_transaction(
+            Transaction().truncate(ecid, soid, 0)
+            .write(ecid, soid, 0, bytes(b ^ 0x5A for b in good)))
+        print(f"scrub 11b: corrupted {victim_obj} on osd.{rep_osd} (a "
+              f"replica) and shard {soid} on osd.{ec_osd}  {tag}")
+        p2 = run_pass("11b_corrupt")
+        check(p2["inconsistent"] == sorted([victim_obj, soid])
+              and p2["repaired"] == sorted([[victim_obj, rep_osd],
+                                            [soid, ec_osd]])
+              and not p2["repair_unverified"],
+              f"11b: exactly the two corruptions found inconsistent, "
+              f"repaired and verified ({p2['inconsistent']}, "
+              f"{p2['repaired']}, unverified {p2['repair_unverified']})")
+        check(c.osds[rep_osd].store.read(rcid, victim_obj)
+              == payload[victim_obj]
+              and c.osds[ec_osd].store.read(ecid, soid) == good
+              and (not on_card or p2["gf_matvec_launches"] > 0),
+              "11b: both copies hold their original bytes again, the EC "
+              "shard rebuilt through gf_matvec")
+        p3 = run_pass("11c_clean_again")
+        check(p3["clean"] and not p3["inconsistent"],
+              "11c: a third pass is clean")
+    finally:
+        tap.close()
+    launches = p1["scrub_digest_launches"]
+    # the kernel alone at the phase's two batch shapes (a 16-object chunk:
+    # 16 data and 16 omap rows), by graph replay, against its plain version
+    rng = np.random.default_rng(11)
+    shapes, err = {}, 0
+    for w in (obj_bytes // CLUSTER_K, obj_bytes):
+        s = 2 * SCRUB_CHUNK_OBJECTS
+        lens = np.concatenate([np.full(s // 2, w),
+                               rng.integers(0, 64, s // 2)])
+        data = torch.randint(0, 256, (s, w), dtype=torch.uint8, device=dev,
+                             generator=gen_)
+        for i, n in enumerate(lens):
+            data[i, int(n):] = 0
+        mats_np, invp_np = ck.digest_operands(lens, w)
+        mats = torch.from_numpy(mats_np).to(dev)
+        invp = torch.from_numpy(invp_np).to(dev)
+        got = ck.scrub_digest_batched(data, mats, invp)
+        want = ck.scrub_digest_plain(data, mats, invp)
+        e = int((got.view(torch.int32).long()
+                 - want.view(torch.int32).long()).abs().max())
+        err = max(err, e)
+        check(e == 0, f"scrub_digest == plain torch at ({s}, {w})")
+        row = {"shape": f"({s}, {w})"}
+        if on_card:
+            row["ms"] = graph_ms(lambda: dc.scrub_digest(data, mats, invp), 10)
+            row["plain_ms"] = time_ms(
+                lambda: ck.scrub_digest_plain(data, mats, invp), 1, reps=3)
+            row["bound_ms"], row["bound_by"] = bound(
+                s * w + mats.nbytes + invp.nbytes + s * 8, 0)
+            row["GB_s"] = s * w / row["ms"] / 1e6
+            print(f"scrub_digest    ({s}, {w}) kernel {row['ms']:.4f} ms "
+                  f"(graph replay) = {row['GB_s']:.1f} GB/s  bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']})  plain "
+                  f"{row['plain_ms']:.2f} ms  {tag}")
+        shapes[w] = row
+    big = shapes[obj_bytes]
+    kernel_row = {"name": "scrub_digest", "route": "cuda",
+                  "source": "ceph_tpu_torch/csrc/digest.cu",
+                  "replaces": "ceph_tpu/ops/checksum_kernel.py:286",
+                  "launches": launches,
+                  "launches_by_pass": {k: v["scrub_digest_launches"]
+                                       for k, v in passes.items()},
+                  "max_abs_err": err, "matches_plain": err == 0,
+                  "ms": big.get("ms"), "plain_ms": big.get("plain_ms"),
+                  "bound_ms": big.get("bound_ms"),
+                  "bound_by": big.get("bound_by"), "library_ms": None,
+                  "shape": big["shape"],
+                  "shapes": {v["shape"]: v for v in shapes.values()}}
+    secs = time.perf_counter() - t_phase
+    print(f"scrub: phase 11 took {secs:.1f} s (budget {SCRUB_BUDGET_S:.0f} "
+          f"s)  {tag}")
+    summary = {"replicated_pool": {"size": SCRUB_REP_SIZE,
+                                   "pg_num": SCRUB_REP_PG_NUM,
+                                   "objects": len(names),
+                                   "object_bytes": obj_bytes,
+                                   "peering_seconds": peer_s,
+                                   "peering_lookups": lookups,
+                                   "write_seconds": write_s},
+               "ec_pool": {"k": CLUSTER_K, "m": CLUSTER_M,
+                           "pg_num": CLUSTER_PG_NUM,
+                           "objects": len(ec_names),
+                           "shard_bytes": obj_bytes // CLUSTER_K},
+               "passes": passes, "phase_seconds": secs}
+    return summary, kernel_row
 
 
 def words_row(dev, m, launches: list) -> dict:
@@ -3270,13 +3665,15 @@ def run() -> None:
     kernels.extend(ladder_rows)
 
     print("== 10. the OSD data path on a MiniCluster")
-    cluster, gf_cluster = cluster_phase(dev, tag)
+    cluster, gf_cluster, (scrub, scrub_row) = cluster_phase(dev, tag)
     row_of["gf_matvec"]["cluster"] = gf_cluster
+    kernels.append(scrub_row)
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"engine": engine}))
     print(json.dumps({"mapping": mapping}))
     print(json.dumps({"cluster": cluster}))
+    print(json.dumps({"scrub": scrub}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -74,7 +74,8 @@ PORT_MODULES = [
     "ceph_tpu_torch.osd.daemon", "ceph_tpu_torch.mon.paxos",
     "ceph_tpu_torch.mon.elector", "ceph_tpu_torch.mon.monitor",
     "ceph_tpu_torch.mgr.daemon", "ceph_tpu_torch.client.rados",
-    "ceph_tpu_torch.cls", "ceph_tpu_torch.tools.vstart"]
+    "ceph_tpu_torch.cls", "ceph_tpu_torch.tools.vstart",
+    "ceph_tpu_torch.ops.checksum_kernel", "ceph_tpu_torch.ops.digest_cuda"]
 
 
 def test_import_loads_neither_jax_nor_reference():
