@@ -34,6 +34,14 @@ called raw on the same operands at the paths' shapes:
         primary affinity 0x8000 on 5% and 0 on 1% of the OSDs, and the same
         at the pool's own W = 3; then the design variants of ab_ladder.cu (``ladder_variants``) on the same
         operands at W = 12 and cut to the pool's own W = 3
+  scrub_digest  at chip_smoke.DIGEST_SHAPES: (32, 2^22) and (32, 2^19) with
+        16 full rows and 16 omap rows under 64 bytes, (32, 2^22) with every
+        row full, and BlueStore's (1,024, 4,096); each checkout, digest.cu's
+        design variants (DIGEST_VARIANTS: fewer table copies, the loads
+        alone, the stages alone; each digest.cu with a few lines replaced,
+        built alone) and this checkout at every run of DIGEST_RUNS
+        (``digest_ab``), each output held equal to the plain version; with
+        ptxas's registers and spills (-Xptxas -v) of every build
 
 Launcher forms are known by their argument count: the root kernels' dividing
 form (root: xs, n, R, ids, w, S, ln_tab, pos, id; filter: xs, n, R, ids, w,
@@ -51,7 +59,11 @@ table's form without D (out, n) and its fused form (ln_tab, out, d_bits, n);
 the ladder's vector form (raw, pps, raw_len, up_rows, up_len, items,
 temp_rows, temp_len, ptemp, state, weight, affinity, m_osd, n, w, P,
 erasure, out) and its word form (..., ptemp, words, m_osd, n, w, P,
-erasure, out), whose word table this checkout's ``osd_words`` packs.
+erasure, out), whose word table this checkout's ``osd_words`` packs; the
+digest's tiled form (data, mats, invp, crc, gexp, glog, zcols, alpha, levels,
+init, S, W, tpb, part, out: no lengths, 64-byte segments) and its form with
+lengths and a run (data, lens, mats, invp, crc, gaps, gexp, glog, zcols,
+zbytes, levels, init, S, W, run, scratch, out).
 A checkout without a kernel's launcher is left out of that kernel's rows.
 Every checkout's outputs must equal this one's (for the ln table: the table,
 and D, which an unfused checkout reduces in torch).  Times are CUDA events,
@@ -95,10 +107,14 @@ SHAPES = {
     "ln_f32_table": [("table and D", "ln", 65536, 0)],
     "pg_finish_ladder": [("override epoch", "ladder", 262144, 12),
                          ("override epoch, W=3", "ladder", 262144, 3)],
+    # (label, half omap, S, W): chip_smoke.DIGEST_SHAPES
+    "scrub_digest": [(label, omap, s, w)
+                     for label, s, w, omap in cs.DIGEST_SHAPES],
 }
 LAUNCHERS = ("straw2_root_launch", "straw2_froot_launch", "straw2_leaf_launch",
              "gf_matvec_launch", "firstn_consume_launch",
-             "ln_f32_table_launch", "pg_finish_ladder_launch")
+             "ln_f32_table_launch", "pg_finish_ladder_launch",
+             "scrub_digest_launch")
 
 
 def load_build(root: str, tag: str):
@@ -218,6 +234,32 @@ class Lib:
                        op["packed"].data_ptr(), pidx.data_ptr(),
                        out.data_ptr(), S, k, t, B)
 
+
+    def digest(self, b, out, run=None):
+        """scrub_digest on batch ``b`` (chip_smoke.digest_batch plus its
+        operands) into ``out``: the tiled form of the first version (no
+        lengths, 64-byte segments, its own split and partials), or this
+        form at the plan's run (or ``run``) with the lengths."""
+        s, w = b["data"].shape
+        if self._argc("scrub_digest_launch") == 16:
+            p = b["first"]
+            self._call("scrub_digest_launch", b["data"].data_ptr(),
+                       b["mats"].data_ptr(), b["invp"].data_ptr(),
+                       p["crc"].data_ptr(), p["exp"].data_ptr(),
+                       p["log"].data_ptr(), p["zcols"].data_ptr(),
+                       p["alpha"].data_ptr(), p["levels"], p["init"], s, w,
+                       p["tpb"], p["part"].data_ptr(), out.data_ptr())
+        else:
+            run = b["run"] if run is None else run
+            o = b["ops"][run]
+            self._call("scrub_digest_launch", b["data"].data_ptr(),
+                       b["lens"].data_ptr(), b["mats"].data_ptr(),
+                       b["invp"].data_ptr(), o["crc"].data_ptr(),
+                       o["gaps"].data_ptr(), o["exp"].data_ptr(),
+                       o["log"].data_ptr(),
+                       o["zcols"].data_ptr(), o["zbytes"].data_ptr(),
+                       o["levels"], o["init"], s, w, run,
+                       b["scratch"].data_ptr(), out.data_ptr())
 
     def ladder(self, t, n, out, words):
         w = t[0].shape[1]
@@ -409,6 +451,221 @@ def ladder_variants(t12, erasure: bool = False, card: str = "",
     return res
 
 
+_COPIES = "constexpr int kCopies = 16;"
+#: scrub_digest's design variants, each digest.cu with a few lines replaced
+#: (old, new; each old text must occur once) and built alone: (label,
+#: replacements).  The "loads only" build reads the same bytes the same way
+#: and digests nothing, the "stop" builds end after the tables or before
+#: the joins (their output is not the digest and is not checked): what the
+#: access pattern and each stage cost
+DIGEST_VARIANTS = (
+    ("crc tables x1 (one copy, bank conflicts)",
+     [(_COPIES, "constexpr int kCopies = 1;")]),
+    ("crc tables x4", [(_COPIES, "constexpr int kCopies = 4;")]),
+    ("crc tables x8", [(_COPIES, "constexpr int kCopies = 8;")]),
+    ("stop: the tables alone",
+     [("  __syncthreads();\n  const uint32_t* tc",
+       "  __syncthreads();\n"
+       "  if (L < 0) out[0] = t.crc[0][threadIdx.x] ^ next.x;\n"
+       "  return;\n  const uint32_t* tc")]),
+    ("stop: the digests without joins",
+     [("      item_tail(t, row, j, lg_ipr, span, wide, c, g, init, mats, "
+       "invp,\n                scratch, out, lane);",
+       "      if (c == 0x12345678u && g == 0x9abcdef0u) out[0] = c;")]),
+    ("loads only",
+     [("  if (!first) g = gf_gap(gm, g);\n",
+       "  crc ^= v.x ^ v.y;\n  g ^= v.z ^ v.w;\n  return;\n")]),
+)
+#: other runs a lane, timed on this checkout's launcher at each shape
+DIGEST_RUNS = (64, 128, 256, 512, 1024)
+
+
+def _first_tiles_per_block(s: int, width: int) -> int:
+    """The first version's split of a wide row (its digest_cuda.
+    tiles_per_block): 16 KiB tiles, one a block until more than 1,056
+    blocks, then doubled, and at most 256 partials a row."""
+    tpr = width // 16384
+    tpb = 1
+    while tpb * 2 <= tpr and s * tpr // (tpb * 2) >= 132 * 8:
+        tpb *= 2
+    while tpr // tpb > 256:
+        tpb *= 2
+    return tpb
+
+
+def digest_operands(dev, rng, s: int, w: int, omap: bool) -> dict:
+    """A chip_smoke.digest_batch and every form's operands: this
+    checkout's at each run of DIGEST_RUNS that splits the row (and the
+    wrapper's run), the scratch, and the first version's (64-byte segment
+    levels, alpha, its tile split and partials)."""
+    import numpy as np
+    import torch
+
+    from ceph_tpu_torch.gf.tables import gf_exp, gf_log
+    from ceph_tpu_torch.ops import checksum_kernel as ck
+    from ceph_tpu_torch.ops import _build
+    from ceph_tpu_torch.ops import digest_cuda as dc
+    b = cs.digest_batch(dev, rng, s, w, omap)
+    b["run"], spans = dc.plan(s, w)
+    runs = {b["run"]: spans}
+    for run in DIGEST_RUNS:         # those that split the row
+        try:
+            runs[run] = dc.plan(s, w, run)[1]
+        except _build.KernelLaunchError:
+            pass
+    b["ops"] = {run: dc._operands(dev, w, run) for run in sorted(runs)}
+    # room for every run's spans
+    b["scratch"] = torch.empty((max(1, *runs.values()), 2),
+                               dtype=torch.int32, device=dev)
+    zcols, alpha = ck.shift_operands(w, 64)
+    log = gf_log()
+    log[0] = 0
+    tpb = _first_tiles_per_block(s, w) if w > 16384 else 1
+    b["first"] = {
+        "crc": dc._u32(ck._crc_tables()).to(dev),
+        "exp": torch.from_numpy(gf_exp().astype(np.uint8)).to(dev),
+        "log": torch.from_numpy(log.astype(np.uint8)).to(dev),
+        "zcols": dc._u32(zcols.reshape(-1)).to(dev),
+        "alpha": torch.from_numpy(alpha.copy()).to(dev),
+        "levels": int(zcols.shape[0]), "init": ck.init_term(w), "tpb": tpb,
+        "part": torch.empty((max(1, s * (w // 16384) // tpb), 2),
+                            dtype=torch.int32, device=dev)}
+    return b
+
+
+def ptxas_lines(src: str, flags: list) -> subprocess.Popen:
+    """nvcc -Xptxas -v on one source (compiled, not kept), started."""
+    from ceph_tpu_torch.ops import _build
+    return subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-Xptxas", "-v", "-c",
+         "-o", os.devnull, src], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def _ptxas_summary(text: str) -> str:
+    return "\n".join(line.strip() for line in text.splitlines()
+                     if "registers" in line or "spill" in line
+                     or "Compiling entry" in line)
+
+
+def build_digest_variants(variants=DIGEST_VARIANTS) -> dict:
+    """digest.cu with each variant's lines replaced, built alone (nvcc
+    -Xptxas -v, all started together) into ceph_tpu_torch/_build/; label ->
+    the library, its launcher typed as _build.SIGNATURES has it.  Prints
+    ptxas's registers and spills of each."""
+    import hashlib
+
+    from ceph_tpu_torch.ops import _build
+    with open(os.path.join(_build._CSRC, "digest.cu")) as f:
+        body = f.read()
+    os.makedirs(_build._OUT, exist_ok=True)
+    procs = {}
+    for label, replacements in variants:
+        text = body
+        for old, new in replacements:
+            if text.count(old) != 1:
+                raise RuntimeError(f"digest variant {label}: {old!r} is not "
+                                   f"in digest.cu exactly once")
+            text = text.replace(old, new)
+        h = hashlib.sha256((text + " ".join(_build.NVCC_FLAGS))
+                           .encode()).hexdigest()[:16]
+        src = os.path.join(_build._OUT, f"ab_digest_{h}.cu")
+        with open(src, "w") as f:
+            f.write(text)
+        out = os.path.join(_build._OUT, f"libab_digest_{h}.so")
+        tmp = f"{out}.{os.getpid()}.tmp"
+        procs[label] = (out, tmp, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
+             "-shared", "-o", tmp, src], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for label, (out, tmp, proc) in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"digest variant {label}: nvcc failed\n{text}")
+        os.replace(tmp, out)
+        print(f"ptxas, digest variant {label}:\n{_ptxas_summary(text)}")
+        so = ctypes.CDLL(out)
+        so.scrub_digest_launch.argtypes = _build.SIGNATURES[
+            "scrub_digest_launch"]
+        so.scrub_digest_launch.restype = ctypes.c_int
+        libs[label] = so
+    return libs
+
+
+def digest_ab(libs, dev, rng, card: str) -> list:
+    """scrub_digest of every checkout (``libs``: this first), of this
+    checkout's design variants and at every run, at each of SHAPES's
+    scrub_digest shapes: every output held equal to this checkout's and to
+    the plain version, then timed by graph replay (``ms``) and issued
+    (``host_ms``), median of 7 runs of 20 launches, in turns (the order,
+    then reversed), each the mean of its two turns."""
+    import torch
+
+    from ceph_tpu_torch.ops import checksum_kernel as ck
+    variants = build_digest_variants()
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    rows = []
+    for what, omap, s, w in SHAPES["scrub_digest"]:
+        b = digest_operands(dev, rng, s, w, omap)
+        outs = {}
+
+        def out_of(key):
+            if key not in outs:
+                outs[key] = torch.empty((s, 2), dtype=torch.int32,
+                                        device=dev)
+            return outs[key]
+
+        entries = [(lib.tag, lambda lib=lib: lib.digest(
+            b, out_of(lib.tag))) for lib in libs
+            if "scrub_digest_launch" in lib.launchers]
+
+        def variant(so, label):
+            o = b["ops"][b["run"]]
+            err = so.scrub_digest_launch(
+                b["data"].data_ptr(), b["lens"].data_ptr(),
+                b["mats"].data_ptr(), b["invp"].data_ptr(),
+                o["crc"].data_ptr(), o["gaps"].data_ptr(),
+                o["exp"].data_ptr(), o["log"].data_ptr(),
+                o["zcols"].data_ptr(), o["zbytes"].data_ptr(), o["levels"],
+                o["init"], s, w, b["run"], b["scratch"].data_ptr(),
+                out_of(label).data_ptr(), stream())
+            if err:
+                raise RuntimeError(f"digest variant {label}: error {err}")
+
+        entries += [(label, lambda so=so, label=label: variant(so, label))
+                    for label, so in variants.items()]
+        this = libs[0]
+        entries += [(f"this, run {run}", lambda run=run: this.digest(
+            b, out_of(f"this, run {run}"), run)) for run in b["ops"]
+            if run != b["run"]]
+        for _tag, fn in entries:
+            fn()
+        torch.cuda.synchronize()
+        want = ck.scrub_digest_plain(b["data"], b["mats"], b["invp"])
+        for tag, _fn in entries:
+            if not tag.startswith(("loads only", "stop")):
+                cs.check(torch.equal(outs[tag], want.view(torch.int32)),
+                         f"scrub_digest {what}: {tag} == the plain version")
+        graph = {tag: [] for tag, _fn in entries}
+        host = {tag: [] for tag, _fn in entries}
+        for tag, fn in entries + entries[::-1]:
+            g, h = cs.paired_times(fn, 20)
+            graph[tag].append(sorted(g)[len(g) // 2])
+            host[tag].append(sorted(h)[len(h) // 2])
+        row = {"kernel": "scrub_digest", "shape": what, "S": s, "W": w,
+               "run": b["run"],
+               "ms": {t: sum(v) / len(v) for t, v in graph.items()},
+               "host_ms": {t: sum(v) / len(v) for t, v in host.items()},
+               "runs": graph, "host_runs": host}
+        rows.append(row)
+        for tag in graph:
+            print(f"scrub_digest {what:24s} {tag:44s} {row['ms'][tag]:.4f} "
+                  f"ms (graph replay; {row['host_ms'][tag]:.4f} issued)  "
+                  f"run {b['run']}  [{card}]")
+    return rows
+
+
 def ladder_operands(dev, rng, n: int, w: int = 12, p: int = 4,
                     m_osd: int = 10000):
     """pg_finish_ladder's operands (finish_ladder's order) for a replicated
@@ -509,6 +766,10 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     libs = [Lib(here, "this")] + [Lib(os.path.abspath(d), f"other{i}")
                                   for i, d in enumerate(args.others)]
+    ptxas = {lib: ptxas_lines(os.path.join(lib.checkout, "ceph_tpu_torch",
+                                           "csrc", "digest.cu"), [])
+             for lib in libs if "scrub_digest" in kernels
+             and "scrub_digest_launch" in lib.launchers}
     for lib in libs:
         print(f"== {lib.tag}: {lib.checkout} ({lib.path})")
         try:
@@ -516,24 +777,26 @@ def main() -> int:
         except (OSError, subprocess.CalledProcessError) as e:
             print(f"SASS: not measured ({e})")
 
-    m_flag, rid_flag, rw_flag = cs.bench_map()
-    m_wide, rid_wide, rw_wide = cs.bench_map(cs.WIDE_HOSTS, cs.WIDE_PER_HOST)
-    m_flat, _r, rid_flat = build_flat_map(cs.FLAT_OSDS)
-    fms = {"flag": FastMapper(detect(m_flag, rid_flag)),
-           "wide": FastMapper(detect(m_wide, rid_wide)),
-           "flat": FastMapper(detect(m_flat, rid_flat))}
-    cols = {which: fm.cols for which, fm in fms.items()}
-    reweights = {"flag": torch.from_numpy(rw_flag).to(dev),
-                 "wide": torch.from_numpy(rw_wide).to(dev)}
     rng = np.random.default_rng(0)
-    xs = torch.from_numpy(rng.integers(0, 2 ** 32, (65536,),
-                                       dtype=np.uint32).astype(np.int64))
-    x32 = sc.xs_i32(xs).contiguous().to(dev)
-    xs = xs.to(dev)
-    table = sf.ln_f32_table(dev)
-    D = sf.ln_f32_bound(dev)
-    data, gf_ops = gf_operands(dev, rng)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if any(k != "scrub_digest" for k in kernels):  # the CRUSH and EC operands
+        m_flag, rid_flag, rw_flag = cs.bench_map()
+        m_wide, rid_wide, rw_wide = cs.bench_map(cs.WIDE_HOSTS,
+                                                 cs.WIDE_PER_HOST)
+        m_flat, _r, rid_flat = build_flat_map(cs.FLAT_OSDS)
+        fms = {"flag": FastMapper(detect(m_flag, rid_flag)),
+               "wide": FastMapper(detect(m_wide, rid_wide)),
+               "flat": FastMapper(detect(m_flat, rid_flat))}
+        cols = {which: fm.cols for which, fm in fms.items()}
+        reweights = {"flag": torch.from_numpy(rw_flag).to(dev),
+                     "wide": torch.from_numpy(rw_wide).to(dev)}
+        xs = torch.from_numpy(rng.integers(0, 2 ** 32, (65536,),
+                                           dtype=np.uint32).astype(np.int64))
+        x32 = sc.xs_i32(xs).contiguous().to(dev)
+        xs = xs.to(dev)
+        table = sf.ln_f32_table(dev)
+        D = sf.ln_f32_bound(dev)
+        data, gf_ops = gf_operands(dev, rng)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def consume_operands(which, n, R):
         """The consume launch's columns as the fast path makes them: stage
@@ -562,6 +825,13 @@ def main() -> int:
 
     results = []
     for kernel in kernels:
+        if kernel == "scrub_digest":
+            for lib, proc in ptxas.items():
+                text, _ = proc.communicate()
+                print(f"ptxas, {lib.tag}'s digest.cu:\n"
+                      f"{_ptxas_summary(text)}")
+            results += digest_ab(libs, dev, np.random.default_rng(13), card)
+            continue
         for what, which, n, R in SHAPES[kernel]:
             outs = {}
             steps = {}      # what a caller pays, issued from Python

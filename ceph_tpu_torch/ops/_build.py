@@ -42,7 +42,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 
-#: C launcher -> argument types (every launcher returns a cudaError_t int)
+#: C entry -> argument types (every entry returns a cudaError_t int)
 SIGNATURES = {
     # data, packed table, pidx, out, S, k, t, B, stream
     "gf_matvec_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -68,10 +68,13 @@ SIGNATURES = {
                                 _I, _I, _I, _I, _P, _P],
     # state, weight, affinity, m_osd, out, stream
     "pg_osd_words_launch": [_P, _P, _P, _I, _P, _P],
-    # data, mats, invp, crc, gexp, glog, zcols, alpha, levels, init, S, W,
-    # tpb, part, out, stream
-    "scrub_digest_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _U, _I, _I,
-                            _I, _P, _P, _P],
+    # data, lens, mats, invp, crc, gaps, gexp, glog, zcols, zbytes, levels,
+    # init, S, W, run, scratch, out, stream
+    "scrub_digest_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _U,
+                            _I, _I, _I, _P, _P, _P],
+    # S, W, run (int*, in and out), spans (long long*, out); no stream: not
+    # a launch, the split the launcher checks
+    "scrub_digest_plan": [_I, _I, _P, _P],
 }
 
 #: kernel name -> launches made by its wrapper since the last reset

@@ -24,15 +24,18 @@ Two digests per row, both over row[:L] of a zero-padded (S, W) batch:
   g(A‖B) = α^(|B|/4)·g(A) ⊕ g(B).
 
 So the card never runs the W/4 sequential steps of the reference's scan
-(``ceph_tpu/ops/checksum_kernel.py`` ``_jit_digest``): each row is cut into
-segments of ``segment_bytes(W)``, every segment is digested from zero in
-parallel, and a tree joins neighbouring segments with the shift operands
-of ``shift_operands`` (Z^(s·2^j) and α^(s/4·2^j) for level j).  The CUDA
-kernel ``csrc/digest.cu`` (``digest_cuda.scrub_digest``) and the plain
-version here (``scrub_digest_plain``) run that same algorithm;
-``scrub_digest_batched`` picks by the tensor's device — a CUDA tensor
-launches the kernel or raises, a CPU tensor runs the plain version.  The
-host oracle ``scrub_digest_ref`` is the literal per-row loop.
+(``ceph_tpu/ops/checksum_kernel.py`` ``_jit_digest``).  The plain version
+here (``scrub_digest_plain``) cuts each row into segments of
+``segment_bytes(W)``, digests every segment from zero in parallel, and
+joins neighbouring segments by a tree with the shift operands of
+``shift_operands`` (Z^(s·2^j) and α^(s/4·2^j) for level j).  The CUDA
+kernel ``csrc/digest.cu`` (``digest_cuda.scrub_digest``) cuts rows by the
+same identities into the card's shapes: warp items whose lanes interleave
+16-byte chunks (``chunk_gap_tables``), joined by ``tree_tables`` and
+``shift_operands`` at the run it is given.  ``scrub_digest_batched`` picks
+by the tensor's device — a CUDA tensor launches the kernel or raises, a
+CPU tensor runs the plain version.  The host oracle ``scrub_digest_ref``
+is the literal per-row loop.
 
 Importing this module builds nothing: torch tensors of the tables are made
 on first use, per device, and the kernel is built at its first launch.
@@ -262,9 +265,11 @@ def row_width(max_len: int) -> int:
 # the segment join's operands
 # ---------------------------------------------------------------------------
 
-def segment_bytes(width: int) -> int:
-    """Bytes one segment of a row of ``width`` covers."""
-    return min(SEG_BYTES, int(width))
+def segment_bytes(width: int, run: int = SEG_BYTES) -> int:
+    """Bytes one segment of a row of ``width`` covers, for segments of
+    ``run`` bytes (the plain version's SEG_BYTES, or the CUDA kernel's run
+    a lane)."""
+    return min(int(run), int(width))
 
 
 @functools.lru_cache(maxsize=32)
@@ -284,17 +289,21 @@ def _check_width(width: int) -> int:
     return width.bit_length() - 1
 
 
-@functools.lru_cache(maxsize=32)
-def shift_operands(width: int) -> tuple[np.ndarray, np.ndarray]:
+@functools.lru_cache(maxsize=64)
+def shift_operands(width: int, run: int = SEG_BYTES
+                   ) -> tuple[np.ndarray, np.ndarray]:
     """The join tree's operands for rows of ``width``: (zcols (L, 32)
     uint32, alpha (L,) uint8) with L = log2(width / s) levels for
-    segments of s = ``segment_bytes(width)``.  Level j joins two spans of
+    segments of s = ``segment_bytes(width, run)``.  Level j joins two spans of
     s·2^j bytes: zcols[j] are the columns of Z^(s·2^j), which moves the
     left span's crc register across the right span, and alpha[j] is
     α^(s/4·2^j), which moves each GF lane across its s/4·2^j Horner
     steps."""
     lg = _check_width(width)
-    seg = segment_bytes(width)
+    seg = segment_bytes(width, run)
+    if seg < 4 or seg & (seg - 1):
+        raise ValueError(f"segment of {seg} bytes is not a power of two "
+                         f">= 4")
     lg_seg = seg.bit_length() - 1
     levels = lg - lg_seg
     zcols = np.zeros((levels, 32), dtype=np.uint32)
@@ -304,6 +313,71 @@ def shift_operands(width: int) -> tuple[np.ndarray, np.ndarray]:
         zcols[j] = _zero_pow2_cols(lg_seg + j)
         alpha[j] = exp[((seg // 4) << j) % 255]
     return zcols, alpha
+
+
+#: levels of the CUDA kernel's in-warp join tree (log2 of a warp's lanes)
+TREE_LEVELS = 5
+
+
+@functools.lru_cache(maxsize=16)
+def tree_tables(run: int) -> np.ndarray:
+    """(TREE_LEVELS, 4, 256) uint32: the in-warp join levels' Z^(run·2^k)
+    byte-sliced, entry [k, b, v] = Z^(run·2^k) applied to v << 8b, so that
+    a register c crosses 2^k runs of zeros as the XOR of four lookups, one
+    a byte of c (the same split as the slicing-by-4 crc tables)."""
+    run = int(run)
+    if run < 1 or run & (run - 1):
+        raise ValueError(f"run of {run} bytes is not a power of two")
+    lg = run.bit_length() - 1
+    vals = np.arange(256, dtype=np.uint32)
+    out = np.zeros((TREE_LEVELS, 4, 256), dtype=np.uint32)
+    for k in range(TREE_LEVELS):
+        cols = _zero_pow2_cols(lg + k)
+        for b in range(4):
+            out[k, b] = _apply_cols(cols, vals << np.uint32(8 * b))
+    return out
+
+
+#: bytes one lane of the CUDA kernel loads at once, and the lanes of a warp
+#: that interleave their chunks (csrc/digest.cu kChunk, kLanes)
+CHUNK_BYTES = 16
+LANES = 32
+
+
+def _zero_pow_cols(n: int) -> np.ndarray:
+    """Columns of Z^n for any n >= 0 (a product of the Z^(2^i))."""
+    cols = _unpad_cols(0)
+    for i in range(int(n).bit_length()):
+        if (int(n) >> i) & 1:
+            cols = _apply_cols(_zero_pow2_cols(i), cols)
+    return cols
+
+
+def slicing_tables(shift: int) -> np.ndarray:
+    """(4, 256) uint32: Z^shift of each byte of a word in the slicing-by-4
+    layout, entry [k, v] = Z^shift (v << 8(3 - k)); at shift 4 these are
+    the crc tables themselves."""
+    cols = _zero_pow_cols(shift)
+    vals = np.arange(256, dtype=np.uint32)
+    return np.stack([_apply_cols(cols, vals << np.uint32(8 * (3 - k)))
+                     for k in range(4)])
+
+
+@functools.lru_cache(maxsize=1)
+def chunk_gap_tables() -> np.ndarray:
+    """(1280,) uint32: what the CUDA kernel's lanes need to cross the other
+    lanes' chunks.  A warp reads 512 contiguous bytes a load, lane l the
+    16-byte chunks l, l + 32, ..., so between two of its chunks lie 31 of
+    the others' (496 bytes, 124 words).  [0:1024]: ``slicing_tables(4 +
+    496)``, the crc step of a chunk's last word followed by that gap;
+    [1024:1280]: alpha^124 · b for each byte b, repeated in all four bytes
+    of the word (each GF lane across the gap)."""
+    mt = mul_table()
+    a124 = int(gf_exp()[(LANES - 1) * CHUNK_BYTES // 4 % 255])
+    prod = mt[a124].astype(np.uint32)
+    gf = prod * np.uint32(0x01010101)
+    return np.concatenate([slicing_tables(4 + (LANES - 1) * CHUNK_BYTES)
+                           .reshape(-1), gf]).astype(np.uint32)
 
 
 @functools.lru_cache(maxsize=32)
@@ -411,15 +485,20 @@ def scrub_digest_plain(data: torch.Tensor, mats: torch.Tensor,
 # the entry point
 # ---------------------------------------------------------------------------
 
-def _operands(data, mats, invp):
-    """The three operands as tensors (host numpy becomes CPU tensors),
-    shape-checked."""
+def _operands(data, mats, invp, lens=None):
+    """The operands as tensors (host numpy becomes CPU tensors),
+    shape-checked; ``lens`` stays None when not given."""
     def t(x, dtype):
         if isinstance(x, torch.Tensor):
             return x
         return torch.from_numpy(np.ascontiguousarray(x, dtype=dtype))
     data, mats, invp = t(data, np.uint8), t(mats, np.uint32), t(invp,
                                                                   np.uint8)
+    if lens is not None:
+        lens = t(lens, np.int32)
+        if tuple(lens.shape) != (data.shape[0],) or lens.dtype not in (
+                torch.int32, torch.int64):
+            raise ValueError(f"lens must be ({data.shape[0]},) int32")
     if data.dim() != 2 or data.dtype != torch.uint8:
         raise ValueError("data must be (S, W) uint8")
     s, w = data.shape
@@ -430,23 +509,26 @@ def _operands(data, mats, invp):
         raise ValueError(f"mats must be ({s}, 32) uint32")
     if tuple(invp.shape) != (s, 4) or invp.dtype != torch.uint8:
         raise ValueError(f"invp must be ({s}, 4) uint8")
-    return data, mats, invp
+    return data, mats, invp, lens
 
 
-def scrub_digest_batched(data, mats, invp) -> torch.Tensor:
+def scrub_digest_batched(data, mats, invp, lens=None) -> torch.Tensor:
     """One batched digest call: data (S, W) uint8 zero-padded rows,
-    mats/invp from ``digest_operands``.  Returns (S, 2) uint32 on the
-    data's device — col 0 crc32 (== shard_crc of the unpadded row), col 1
-    the packed GF Horner digest — bit-exact with ``scrub_digest_ref``.
-    A CUDA tensor launches ``csrc/digest.cu`` (and raises on a fault);
-    a CPU tensor (or host numpy) runs ``scrub_digest_plain``."""
-    data, mats, invp = _operands(data, mats, invp)
+    mats/invp from ``digest_operands``, ``lens`` (S,) the rows' lengths
+    (optional: every byte of each row past its length is zero, so the
+    kernel reads each row only up to its length; without them it reads
+    whole rows).  Returns (S, 2) uint32 on the data's device — col 0 crc32
+    (== shard_crc of the unpadded row), col 1 the packed GF Horner digest —
+    bit-exact with ``scrub_digest_ref``.  A CUDA tensor launches
+    ``csrc/digest.cu`` (and raises on a fault); a CPU tensor (or host
+    numpy) runs ``scrub_digest_plain`` over the whole padded rows."""
+    data, mats, invp, lens = _operands(data, mats, invp, lens)
     s, w = data.shape
     if data.is_cuda:
         from ceph_tpu_torch.ops import digest_cuda
 
         def run():
-            return digest_cuda.scrub_digest(data, mats, invp)
+            return digest_cuda.scrub_digest(data, mats, invp, lens)
     else:
         def run():
             return scrub_digest_plain(data, mats, invp)

@@ -1619,7 +1619,7 @@ def submit_scrub_digest(engine: DeviceDispatchEngine, blobs,
     aux channel in lockstep.  Omap blobs pad to the width of the data
     rows they share a batch with, as in the reference."""
     from ceph_tpu_torch.ops import checksum_kernel as ck
-    lengths = np.array([len(b) for b in blobs], dtype=np.int64)
+    lengths = np.array([len(b) for b in blobs], dtype=np.int32)
     w = ck.row_width(int(lengths.max()) if len(blobs) else 0)
     data = np.zeros((len(blobs), w), dtype=np.uint8)
     for i, b in enumerate(blobs):
@@ -1630,7 +1630,7 @@ def submit_scrub_digest(engine: DeviceDispatchEngine, blobs,
         key = ("scrub_digest", w)
 
     def fn(batch, lens, m, p):
-        return ck.scrub_digest_batched(batch, m, p)
+        return ck.scrub_digest_batched(batch, m, p, lens=lens)
 
     def host_oracle(batch, lens, m, p):
         return ck.scrub_digest_ref(batch, lens)

@@ -206,9 +206,16 @@ Runs ceph_tpu_torch (never JAX, never ceph_tpu) at the bench's full size:
              card and its crc column == zlib.crc32 of each unpadded row on
              the host, the rows digested on the card == the rows the scrubs
              read, no host-loop batch, every context's fault_digest() zero.
-             Then the kernel alone at a 16-object chunk of each pool (32
-             rows of 512 KiB and of 4 MiB) by graph replay beside its bound
-             and the plain version's time; the phase's seconds (budget 90)
+             Then the kernel alone at DIGEST_SHAPES: a 16-object chunk of
+             each pool (32 rows of 4 MiB and of 512 KiB, half of them omap
+             rows under 64 bytes, with their lengths), the first with every
+             row full, and BlueStore's 1,024 blocks of 4 KiB; each held
+             against the plain version on the card, timed by graph replay
+             beside the launches issued from Python, beside two bounds (the
+             padded rows' bytes, and the bytes the lengths need: each row
+             up to its length, in 32-byte sectors) and at or above the
+             second, with the plain version's time; the phase's seconds
+             (budget 90)
  12. prints  the {"engine": ...} line, the {"mapping": ...} line, the
              {"cluster": ...} line, the {"scrub": ...} line, the
              {"kernels": [...]} line (gf_matvec's
@@ -380,6 +387,36 @@ CLUSTER_BUDGET_S = 120.0
 SCRUB_REP_SIZE, SCRUB_REP_PG_NUM, SCRUB_REP_OBJECTS = 3, 32, 16
 SCRUB_CHUNK_OBJECTS = 16
 SCRUB_BUDGET_S = 90.0
+#: scrub_digest alone, at phase 11's two batch shapes (a 16-object chunk of
+#: each pool: half the rows data, half omap rows under 64 bytes, zero
+#: padded to the data width), at the first with every row full, and at
+#: BlueStore's 4 KiB blocks: (label, rows, width, half omap)
+DIGEST_SHAPES = (("(32, 2^22) half omap", 32, 1 << 22, True),
+                 ("(32, 2^19) half omap", 32, 1 << 19, True),
+                 ("(32, 2^22) full rows", 32, 1 << 22, False),
+                 ("(1024, 4096) full rows", 1024, 4096, False))
+
+
+def digest_batch(dev, rng, s: int, w: int, omap: bool) -> dict:
+    """A scrub_digest batch on ``dev``: s rows of width w, the second half
+    omap rows of 0-63 bytes when ``omap`` (else every row full), random
+    bytes up to each length and zeros past it; its lengths (int32, on the
+    card and on the host) and unpad operands."""
+    import numpy as np
+    import torch
+
+    from ceph_tpu_torch.ops import checksum_kernel as ck
+    lens = np.full(s, w, dtype=np.int32)
+    if omap:
+        lens[s // 2:] = rng.integers(0, 64, s - s // 2)
+    data = torch.from_numpy(rng.integers(0, 256, (s, w), dtype=np.uint8)
+                            ).to(dev)
+    col = torch.arange(w, device=dev)[None, :]
+    data *= (col < torch.from_numpy(lens).to(dev)[:, None]).to(torch.uint8)
+    mats, invp = ck.digest_operands(lens, w)
+    return {"data": data, "lens": torch.from_numpy(lens).to(dev),
+            "lens_np": lens, "mats": torch.from_numpy(mats).to(dev),
+            "invp": torch.from_numpy(invp).to(dev)}
 
 
 def rows_of(m, rid: int, xs, rw_list) -> "np.ndarray":
@@ -1911,8 +1948,8 @@ class _DigestTap:
         self.bytes_read = 0
         tap = self
 
-        def digest(data, mats, invp):
-            out = tap._digest(data, mats, invp)
+        def digest(data, mats, invp, lens=None):
+            out = tap._digest(data, mats, invp, lens=lens)
             aux = launch_host_aux()
             lens = np.array(aux[0], dtype=np.int64) if aux else None
             with tap._lock:
@@ -1977,14 +2014,11 @@ def scrub_phase(c, client, ec_pool: int, ec_names, dev, tag: str,
     Returns the {"scrub": ...} summary and scrub_digest's kernels row."""
     import threading
 
-    import numpy as np
     import torch
 
     from ceph_tpu_torch.client.rados import ceph_str_hash_rjenkins
     from ceph_tpu_torch.objectstore import Transaction
     from ceph_tpu_torch.ops import _build, telemetry
-    from ceph_tpu_torch.ops import checksum_kernel as ck
-    from ceph_tpu_torch.ops import digest_cuda as dc
     from ceph_tpu_torch.osd.osdmap import CEPH_NOSD, pg_to_pgid
     on_card = dev.type == "cuda"
     t_phase = time.perf_counter()
@@ -2148,53 +2182,9 @@ def scrub_phase(c, client, ec_pool: int, ec_names, dev, tag: str,
     finally:
         tap.close()
     launches = p1["scrub_digest_launches"]
-    # the kernel alone at the phase's two batch shapes (a 16-object chunk:
-    # 16 data and 16 omap rows), by graph replay, against its plain version
-    rng = np.random.default_rng(11)
-    shapes, err = {}, 0
-    for w in (obj_bytes // CLUSTER_K, obj_bytes):
-        s = 2 * SCRUB_CHUNK_OBJECTS
-        lens = np.concatenate([np.full(s // 2, w),
-                               rng.integers(0, 64, s // 2)])
-        data = torch.randint(0, 256, (s, w), dtype=torch.uint8, device=dev,
-                             generator=gen_)
-        for i, n in enumerate(lens):
-            data[i, int(n):] = 0
-        mats_np, invp_np = ck.digest_operands(lens, w)
-        mats = torch.from_numpy(mats_np).to(dev)
-        invp = torch.from_numpy(invp_np).to(dev)
-        got = ck.scrub_digest_batched(data, mats, invp)
-        want = ck.scrub_digest_plain(data, mats, invp)
-        e = int((got.view(torch.int32).long()
-                 - want.view(torch.int32).long()).abs().max())
-        err = max(err, e)
-        check(e == 0, f"scrub_digest == plain torch at ({s}, {w})")
-        row = {"shape": f"({s}, {w})"}
-        if on_card:
-            row["ms"] = graph_ms(lambda: dc.scrub_digest(data, mats, invp), 10)
-            row["plain_ms"] = time_ms(
-                lambda: ck.scrub_digest_plain(data, mats, invp), 1, reps=3)
-            row["bound_ms"], row["bound_by"] = bound(
-                s * w + mats.nbytes + invp.nbytes + s * 8, 0)
-            row["GB_s"] = s * w / row["ms"] / 1e6
-            print(f"scrub_digest    ({s}, {w}) kernel {row['ms']:.4f} ms "
-                  f"(graph replay) = {row['GB_s']:.1f} GB/s  bound "
-                  f"{row['bound_ms']:.4f} ms ({row['bound_by']})  plain "
-                  f"{row['plain_ms']:.2f} ms  {tag}")
-        shapes[w] = row
-    big = shapes[obj_bytes]
-    kernel_row = {"name": "scrub_digest", "route": "cuda",
-                  "source": "ceph_tpu_torch/csrc/digest.cu",
-                  "replaces": "ceph_tpu/ops/checksum_kernel.py:286",
-                  "launches": launches,
-                  "launches_by_pass": {k: v["scrub_digest_launches"]
-                                       for k, v in passes.items()},
-                  "max_abs_err": err, "matches_plain": err == 0,
-                  "ms": big.get("ms"), "plain_ms": big.get("plain_ms"),
-                  "bound_ms": big.get("bound_ms"),
-                  "bound_by": big.get("bound_by"), "library_ms": None,
-                  "shape": big["shape"],
-                  "shapes": {v["shape"]: v for v in shapes.values()}}
+    kernel_row = digest_row(dev, tag, on_card)
+    kernel_row.update(launches=launches, launches_by_pass={
+        k: v["scrub_digest_launches"] for k, v in passes.items()})
     secs = time.perf_counter() - t_phase
     print(f"scrub: phase 11 took {secs:.1f} s (budget {SCRUB_BUDGET_S:.0f} "
           f"s)  {tag}")
@@ -2211,6 +2201,70 @@ def scrub_phase(c, client, ec_pool: int, ec_names, dev, tag: str,
                            "shard_bytes": obj_bytes // CLUSTER_K},
                "passes": passes, "phase_seconds": secs}
     return summary, kernel_row
+
+
+def digest_row(dev, tag: str, on_card: bool) -> dict:
+    """scrub_digest alone at DIGEST_SHAPES, each held against its plain
+    version on the same card inputs (exact), timed by graph replay beside
+    the launches issued from Python, beside two bounds: the padded rows'
+    bytes (S*W, as the first version was measured) and the bytes the
+    lengths need (each row up to its length, in 32-byte sectors).  Returns the kernels row: its headline numbers at the
+    first shape, every shape under "shapes"."""
+    import numpy as np
+    import torch
+
+    from ceph_tpu_torch.ops import checksum_kernel as ck
+    from ceph_tpu_torch.ops import digest_cuda as dc
+    rng = np.random.default_rng(11)
+    shapes, err = [], 0
+    for label, s, w, omap in DIGEST_SHAPES:
+        if not on_card:     # a rehearsal on the CPU: narrow rows
+            w = min(w, 1 << 12)
+        b = digest_batch(dev, rng, s, w, omap)
+        args = (b["data"], b["mats"], b["invp"])
+        got = ck.scrub_digest_batched(*args, lens=b["lens"])
+        want = ck.scrub_digest_plain(*args)
+        e = int((got.view(torch.int32).long()
+                 - want.view(torch.int32).long()).abs().max())
+        err = max(err, e)
+        check(e == 0, f"scrub_digest == plain torch at {label}")
+        row = {"shape": label, "S": s, "W": w}
+        if on_card:
+            run = dc.plan(s, w)[0]
+            g, h = paired_times(lambda: dc.scrub_digest(*args, b["lens"]),
+                                10)
+            ops_bytes = (b["mats"].nbytes + b["invp"].nbytes
+                         + b["lens"].nbytes + s * 8)
+            # the rows' bytes up to their lengths, in the 32-byte sectors
+            # the memory reads
+            need = int(sum(-(-int(n) // 32) * 32 for n in b["lens_np"]))
+            row.update(run=run, ms=statistics.median(g),
+                       host_ms=statistics.median(h))
+            row["plain_ms"] = time_ms(lambda: ck.scrub_digest_plain(*args),
+                                      1, reps=3)
+            row["bound_padded_ms"], _by = bound(s * w + ops_bytes, 0)
+            row["bound_ms"], row["bound_by"] = bound(need + ops_bytes, 0)
+            row["GB_s"] = s * w / row["ms"] / 1e6
+            print(f"scrub_digest    {label} run {run} kernel {row['ms']:.4f} "
+                  f"ms (graph replay; {row['host_ms']:.4f} issued) = "
+                  f"{row['GB_s']:.1f} GB/s of padded rows  bound "
+                  f"{row['bound_ms']:.4f} ms by the lengths, "
+                  f"{row['bound_padded_ms']:.4f} ms padded ({row['bound_by']})"
+                  f"  plain {row['plain_ms']:.2f} ms  {tag}")
+            check(row["ms"] >= row["bound_ms"],
+                  f"scrub_digest {label}: graph replay {row['ms']:.4f} ms at "
+                  f"or above its bound {row['bound_ms']:.4f} ms")
+        shapes.append(row)
+    big = shapes[0]
+    return {"name": "scrub_digest", "route": "cuda",
+            "source": "ceph_tpu_torch/csrc/digest.cu",
+            "replaces": "ceph_tpu/ops/checksum_kernel.py:286",
+            "max_abs_err": err, "matches_plain": err == 0,
+            "ms": big.get("ms"), "host_ms": big.get("host_ms"),
+            "plain_ms": big.get("plain_ms"), "bound_ms": big.get("bound_ms"),
+            "bound_padded_ms": big.get("bound_padded_ms"),
+            "bound_by": big.get("bound_by"), "library_ms": None,
+            "shape": big["shape"], "shapes": shapes}
 
 
 def words_row(dev, m, launches: list) -> dict:

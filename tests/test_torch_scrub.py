@@ -138,6 +138,39 @@ class TestDigestKernel:
         assert ck.row_width(4096) == 4096
         assert ck.row_width(4097) == 8192
 
+    def test_channel_passes_row_lengths_to_the_digest(self, monkeypatch):
+        """The channel's fn hands the kernel every row's length (int32, in
+        lockstep with the rows, the pow-2 bucket's pad rows included), and
+        the digests it returns equal scrub_digest_ref."""
+        seen = []
+        digest = ck.scrub_digest_batched
+
+        def spy(data, mats, invp, lens=None):
+            seen.append((np.asarray(data).shape, None if lens is None
+                         else np.asarray(lens).copy()))
+            return digest(data, mats, invp, lens=lens)
+
+        monkeypatch.setattr(ck, "scrub_digest_batched", spy)
+        rng = np.random.default_rng(13)
+        sizes = [0, 1, 3, 5, 63, 64, 1000, 4096, 2047]
+        blobs = [rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+                 for n in sizes]
+        eng = _engine()
+        try:
+            got = np.asarray(submit_scrub_digest(eng, blobs).result(60))
+        finally:
+            eng.stop()
+        w = ck.row_width(max(sizes))
+        batch = np.zeros((len(blobs), w), np.uint8)
+        for i, b in enumerate(blobs):
+            batch[i, :len(b)] = np.frombuffer(b, np.uint8)
+        assert np.array_equal(got, ck.scrub_digest_ref(batch, sizes))
+        assert len(seen) == 1
+        shape, lens = seen[0]
+        assert lens is not None and lens.dtype == np.int32
+        assert shape[0] == len(lens) >= len(sizes) and shape[1] == w
+        assert lens[:len(sizes)].tolist() == sizes
+
     def test_transient_fault_retries_bit_exact(self):
         eng = _engine()
         try:
