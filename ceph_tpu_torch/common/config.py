@@ -301,9 +301,45 @@ register_options([
     Option("ms_type", OPT_STR, "async",
            "messenger implementation: loopback (async, threaded and ici "
            "are not ported yet)"),
+    Option("bluestore_batched_csum", OPT_BOOL, True,
+           "settle each bluestore transaction batch's write-time "
+           "block checksums as ONE coalesced device digest through "
+           "the bluestore_data dispatch channel (the scrub_digest "
+           "kernel's crc32 column over the stored payloads); off = a "
+           "scalar zlib.crc32 per block on the host"),
+    Option("bluestore_batched_csum_min", OPT_INT, 4,
+           "minimum pending blocks before a commit's checksum batch "
+           "rides the card; smaller batches take the scalar path (a "
+           "one-block digest is cheaper on the host)"),
+    Option("bluestore_data_timeout", OPT_FLOAT, 30.0,
+           "seconds a bluestore commit or batched read waits on its "
+           "bluestore_data digest future; past it the transaction (or "
+           "the read) fails and nothing of it is committed"),
+    Option("bluestore_batched_read_verify", OPT_BOOL, True,
+           "verify wide reads' block checksums as one bluestore_data "
+           "digest call instead of a scalar crc32 per block"),
+    Option("bluestore_batched_read_min", OPT_INT, 8,
+           "minimum checksummed blocks a read must cover before its "
+           "verification batches to the card"),
+    Option("bluestore_compression_mode", OPT_STR, "none",
+           "default objectstore block compression mode when a pool "
+           "sets none: none | aggressive | force (per-pool "
+           "compression_mode overrides; passive is not carried — "
+           "client hints do not exist in this stack)"),
+    Option("bluestore_compression_algorithm", OPT_STR, "tpu_bitplane",
+           "default compressor plugin for block compression "
+           "(compressor registry name: tpu_bitplane | zlib | lzma)"),
+    Option("bluestore_compression_required_ratio", OPT_FLOAT, 0.875,
+           "a compressed block is kept only if stored_size <= "
+           "block_size * ratio; otherwise it is stored raw "
+           "(compress_rejected)"),
+    Option("bluestore_compression_verify", OPT_BOOL, True,
+           "round-trip every compressed block (decompress and "
+           "compare byte-identical) before committing it; a "
+           "mismatch stores the block raw and counts "
+           "compress_roundtrip_failures"),
     Option("objectstore", OPT_STR, "memstore",
-           "object store backend: memstore | filestore (bluestore is "
-           "not ported yet)"),
+           "object store backend: memstore | filestore | bluestore"),
 ])
 
 

@@ -3,11 +3,11 @@
 A storage system's "weights" are its coding matrices (already numpy), its
 CRUSH map and its OSDMap, and its data is what its object stores hold.
 These readers copy a map, an OSDMap, a fast-path rule, a codec's generator,
-a flat map's bucket operands or a MemStore's collections out of any object
-that carries the reference's attributes (duck typing: nothing of the
-reference package is imported), so tests can feed both packages, and both
-dispatch engines, the same state, and a port OSD can start on a reference
-OSD's data.
+a flat map's bucket operands or a MemStore's or a BlueStoreLite's
+collections out of any object that carries the reference's attributes (duck
+typing: nothing of the reference package is imported), so tests can feed
+both packages, and both dispatch engines, the same state, and a port OSD can
+start on a reference OSD's data.
 """
 
 from __future__ import annotations
@@ -145,17 +145,38 @@ def reweight_vector(weights) -> np.ndarray:
     return np.array(np.asarray(weights), dtype=np.int64).reshape(-1)
 
 
-def objectstore_from_reference(store):
-    """A port MemStore holding a reference MemStore's collections, objects,
-    xattrs and omap (its ``_colls`` of objects with ``data``, ``omap`` and
-    ``attrs``), written through one port Transaction.  A port OSD whose
+def objectstore_from_reference(store, path: str = "", ctx=None):
+    """A port store holding a reference store's collections, objects,
+    xattrs and omap, written through one port Transaction.  A reference
+    MemStore (its ``_colls`` of objects with ``data``, ``omap`` and
+    ``attrs``) becomes a port MemStore.  A reference BlueStoreLite (its
+    ``_block_path`` and ``_meta``) becomes a port BlueStoreLite at ``path``,
+    a new directory, on ``ctx``: every object is read through the reference
+    store, so every block's crc is verified on the way.  A port OSD whose
     ``store`` it becomes before ``init()`` keeps the data and serves it."""
     from ceph_tpu_torch.objectstore import Transaction
     from ceph_tpu_torch.objectstore.objectstore import MemStore
-    with store._lock:
-        colls = {cid: {oid: (bytes(o.data), dict(o.omap), dict(o.attrs))
-                       for oid, o in objs.items()}
-                 for cid, objs in store._colls.items()}
+    if hasattr(store, "_block_path"):
+        if not path:
+            raise ValueError("a BlueStoreLite copy needs a directory path")
+        colls = {}
+        for cid in store.list_collections():
+            colls[cid] = {}
+            for oid in store.list_objects(cid):
+                meta = store._meta(cid, oid)
+                colls[cid][oid] = (
+                    store.read(cid, oid), store.omap_get(cid, oid),
+                    {k: bytes.fromhex(v) for k, v in meta["attrs"].items()})
+        from ceph_tpu_torch.objectstore.bluestore import BlueStoreLite
+        out = BlueStoreLite(path, ctx=ctx)
+        out.mkfs()
+    else:
+        with store._lock:
+            colls = {cid: {oid: (bytes(o.data), dict(o.omap),
+                                 dict(o.attrs))
+                           for oid, o in objs.items()}
+                     for cid, objs in store._colls.items()}
+        out = MemStore()
     t = Transaction()
     for cid in sorted(colls):
         t.create_collection(cid)
@@ -167,7 +188,6 @@ def objectstore_from_reference(store):
                 t.omap_setkeys(cid, oid, omap)
             for name in sorted(attrs):
                 t.setattr(cid, oid, name, bytes(attrs[name]))
-    out = MemStore()
     out.mount()
     out.apply_transaction(t)
     return out

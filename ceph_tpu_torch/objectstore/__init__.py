@@ -5,9 +5,11 @@ hold objects with byte data and omap key/value attributes; all mutations ride
 atomic compound Transactions (os/ObjectStore.h:306) applied via
 queue_transactions (os/ObjectStore.h:1460).
 
-Backends: MemStore (the unit-test fake, src/os/memstore/) and FileStore
+Backends: MemStore (the unit-test fake, src/os/memstore/), FileStore
 (directory tree + write-ahead journal with crc'd frames and mount-time replay,
-src/os/filestore/ structure).  KeyValueDB (src/kv/KeyValueDB.h) backs the mon
+src/os/filestore/ structure) and BlueStoreLite (``bluestore.py``: a block file
+with a crc per block, metadata and deferred writes in a LogDB, block
+compression; src/os/bluestore/ structure).  KeyValueDB (src/kv/KeyValueDB.h) backs the mon
 store, with MemDB and a compacting file-backed LogDB.
 """
 

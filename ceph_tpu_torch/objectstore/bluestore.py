@@ -1,0 +1,1102 @@
+"""BlueStore-lite — a disk-backed object store in the BlueStore shape
+(src/os/bluestore/: raw block device + RocksDB metadata).
+
+Architecture mirrors the reference's split:
+
+  block file       object DATA lives in fixed-size extents of one flat
+                   file ("the raw device"), handed out by a bitmap
+                   allocator (BitmapAllocator analog) and returned on
+                   delete/overwrite — data is NOT resident in RAM,
+                   every read hits the block file.
+  KV (LogDB)       all METADATA — per-object extent maps, sizes, attrs,
+                   omap, collection membership — in the append-only KV
+                   store standing in for RocksDB, giving atomic
+                   transaction commits and replay-on-mount for free.
+
+Crash consistency is BlueStore's: block-content updates are
+COPY-ON-WRITE (a patched block lands in a freshly allocated extent;
+the object's extent map flips to it only inside the KV commit), data
+is fsync'd before the ONE KV transaction that references it, and the
+displaced blocks return to the allocator only after that commit
+succeeds.  A crash anywhere leaves the old metadata pointing at
+untouched old blocks.  The allocator itself is never trusted from a
+snapshot: mount rebuilds the free list from the committed extent maps
+(BlueStore fsck/allocation-recovery analog), so a hard kill can never
+resurrect in-use blocks as free.
+
+On the card.  With a context, a transaction batch's block checksums are one
+coalesced digest through the ``bluestore_data`` dispatch channel (the
+``scrub_digest`` kernel's crc32 column over the stored payloads), wide reads
+verify through the same channel, and compressed writes pack their blocks'
+bit planes in one ``bitplane_pack`` launch (the ``tpu_bitplane`` plugin).
+A card fault on either channel raises to the caller of
+``queue_transactions``, ``apply_transaction`` or ``read``, and nothing of
+that batch is committed.  The host computes a checksum only where the
+configuration says so (``bluestore_batched_csum`` off, a batch under
+``bluestore_batched_csum_min``, a commit on an engine's own thread, a read
+under ``bluestore_batched_read_min`` blocks or of one block), and those
+blocks count in ``csum_scalar_blocks``; the engine's retry, breaker and
+host-oracle ladder serves failpoint-armed outages bit-exact.
+
+The on-disk format is the reference's (``ceph_tpu/objectstore/
+bluestore.py``): the block file, the ``LogDB`` journal under ``kv/`` with
+the ``obj``, ``coll`` and ``wal`` prefixes, JSON metas with the same keys
+in the same order, compressed extents as [algorithm, stored length].  A
+directory either package writes mounts in the other.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import struct
+import zlib
+
+_WAL_HDR = struct.Struct("<II")   # block index, intra-block offset
+
+from ceph_tpu_torch import compressor as _comp
+from ceph_tpu_torch.common import lockdep
+from ceph_tpu_torch.ops import telemetry
+from ceph_tpu_torch.ops.dispatch import submit_bluestore_data
+
+from .kv import LogDB
+from .objectstore import ObjectStore
+from .transaction import (
+    OP_CLONE, OP_COLL_MOVE, OP_MKCOLL, OP_OMAP_RMKEYS, OP_OMAP_SETKEYS,
+    OP_REMOVE, OP_RMCOLL, OP_SETATTR, OP_TOUCH, OP_TRUNCATE, OP_WRITE,
+    OP_ZERO,
+    Transaction)
+
+BLOCK = 4096          # allocation unit ("min_alloc_size")
+
+#: deferred-write entries per object before they fold into blocks
+#: (bluestore_prefer_deferred_size-style knob, entry-count flavored)
+WAL_MAX = 16
+
+
+class BitmapAllocator:
+    """Free-extent tracking over the block file
+    (os/bluestore/BitmapAllocator analog, block granularity)."""
+
+    def __init__(self):
+        self._free: set[int] = set()
+        self._next = 0
+        self._lock = lockdep.make_lock(f"BitmapAllocator::lock({id(self)})")
+
+    def allocate(self, n_blocks: int) -> list[int]:
+        with self._lock:
+            out = []
+            while self._free and len(out) < n_blocks:
+                out.append(self._free.pop())
+            while len(out) < n_blocks:
+                out.append(self._next)
+                self._next += 1
+            return sorted(out)
+
+    def release(self, blocks: list[int]) -> None:
+        with self._lock:
+            self._free.update(blocks)
+
+    def restore(self, next_block: int, free: list[int]) -> None:
+        with self._lock:
+            self._next = next_block
+            self._free = set(free)
+
+
+def _okey(cid: str, oid: str) -> str:
+    return f"{cid}\x00{oid}"
+
+
+#: compression_mode values that compress (the reference's "passive"
+#: compresses only on client hints, which this stack does not carry)
+_COMP_MODES_ON = ("aggressive", "force")
+
+
+class BlueStoreLite(ObjectStore):
+    """ObjectStore on a block file + KV metadata.
+
+    With a context, write-time block checksums batch into the
+    ``bluestore_data`` dispatch channel (one coalesced device digest
+    call per transaction batch, coalescing further across concurrent
+    txcs/stores at the engine), reads above a threshold verify through
+    the same channel, and per-pool/global ``compression_mode`` runs
+    blocks through a compressor plugin before they hit the block file.
+    Without one (or with the knobs off) every checksum is a scalar
+    ``zlib.crc32`` on the host."""
+
+    def __init__(self, path: str, ctx=None):
+        if not path:
+            raise ValueError("bluestore needs a directory path")
+        self.path = path
+        self._ctx = ctx
+        self._block_path = os.path.join(path, "block")
+        self._db = LogDB(os.path.join(path, "kv"))
+        self._alloc = BitmapAllocator()
+        self._f = None
+        # store-level perf set (l_bluestore_* analog); the owning daemon
+        # registers it into its context's collection
+        from ceph_tpu_torch.common.perf_counters import PerfCountersBuilder
+        self.perf = (PerfCountersBuilder("bluestore")
+                     .add_u64("txc")
+                     .add_time_avg("commit_lat")
+                     .add_time_avg("apply_lat")
+                     .add_u64("csum_batches")
+                     .add_u64("csum_blocks")
+                     .add_u64("csum_scalar_blocks")
+                     .add_u64("csum_fallbacks")
+                     .add_u64("read_verify_batches")
+                     .add_u64("read_verify_blocks")
+                     .add_u64("compress_blocks")
+                     .add_u64("compress_rejected")
+                     .add_u64("compress_roundtrip_failures")
+                     .add_u64("kv_journal_truncated")
+                     .create_perf_counters())
+        self._lock = lockdep.make_lock(f"BlueStore::lock({path})")
+        #: blocks displaced by the in-flight transaction batch; returned
+        #: to the allocator only after its KV commit lands
+        self._freed: list[int] = []
+        #: freshly allocated block -> STORED payload whose crc32 the
+        #: in-flight batch still owes; ONE coalesced device call at
+        #: commit fills them (a csum is never committed unset)
+        self._pending_csum: dict[int, bytes] = {}
+        #: engine the in-flight batch rides (None = scalar batch)
+        self._batch_eng = None
+        #: cid -> resolved compression policy, cached per batch so the
+        #: hot per-block path reads the conf once per collection
+        self._comp_cache: dict[str, tuple | None] = {}
+        #: pool id -> (compression_mode, compression_algorithm) pushed
+        #: from the osdmap's per-pool fields (set_pool_compression)
+        self._pool_comp: dict[int, tuple[str, str]] = {}
+        #: algorithm -> plugin instance (compressor.create is registry-
+        #: locked; the write path must not take that lock per block)
+        self._compressors: dict[str, object] = {}
+        #: whether the in-flight batch wrote any block (a pure deferred-
+        #: write batch skips the block-file fsync entirely — the whole
+        #: point of the WAL path: one KV commit, no data syncs)
+        self._block_dirty = False
+        #: deferred-write entries of the in-flight batch, per object key:
+        #: committed as individual "wal" column keys alongside the meta
+        #: (RocksDB deferred-write keys in the reference) — NOT inlined
+        #: into the meta blob, which would make every commit rewrite the
+        #: accumulated patch bytes
+        self._wal_pending: dict[str, list] = {}
+        self._wal_rms: list[str] = []
+        #: okey -> sorted committed wal keys (avoids a store-wide column
+        #: scan per read of a WAL-bearing object); rebuilt at mount,
+        #: maintained at commit
+        self._wal_index: dict[str, list[str]] = {}
+        #: store-global WAL key sequence: per-meta counters reset when
+        #: an object is removed+recreated in one batch, and a reused key
+        #: would collide with its own pending deletion inside the same
+        #: KV transaction (sets apply before rms)
+        self._wal_seq = 0
+
+    # -- lifecycle ------------------------------------------------------------
+
+    def mkfs(self) -> None:
+        os.makedirs(self.path, exist_ok=True)
+        open(self._block_path, "wb").close()
+        kv = os.path.join(self.path, "kv")
+        if os.path.isdir(kv):
+            shutil.rmtree(kv)
+        elif os.path.exists(kv):
+            os.unlink(kv)
+
+    def mkfs_if_needed(self) -> None:
+        if not os.path.exists(self._block_path):
+            self.mkfs()
+
+    def mount(self) -> None:
+        self._db.open()
+        # surface the KV journal's replay-truncation ledger: a chopped
+        # journal means lost transactions, and it must be visible as a
+        # counter (perf + the process-global sink), never just a log line
+        tf = getattr(self._db, "truncated_frames", 0)
+        if tf:
+            self.perf.inc("kv_journal_truncated", tf)
+            telemetry.bluestore_stats().inc("kv_journal_truncated", tf)
+            telemetry.bluestore_stats().inc(
+                "kv_journal_lost_bytes",
+                getattr(self._db, "truncated_bytes", 0))
+        self._f = open(self._block_path, "r+b")
+        # rebuild the allocator from the committed extent maps — the
+        # only crash-safe source of truth (fsck-style recovery; a
+        # snapshot written at umount would be stale after a hard kill
+        # and hand out live blocks)
+        used: set[int] = set()
+        for blob in self._db.get_range("obj").values():
+            meta = json.loads(blob.decode())
+            used.update(b for b in meta["extents"] if b >= 0)
+        nxt = max(used) + 1 if used else 0
+        self._alloc.restore(nxt, sorted(set(range(nxt)) - used))
+        self._wal_index = {}
+        self._wal_seq = 0
+        for k in sorted(self._db.get_range("wal")):
+            okey, _, seq = k.rpartition("\x00")
+            self._wal_index.setdefault(okey, []).append(k)
+            self._wal_seq = max(self._wal_seq, int(seq))
+
+    def umount(self) -> None:
+        if self._f is not None:
+            self._f.close()
+            self._f = None
+        self._db.close()
+
+    # -- metadata helpers -----------------------------------------------------
+
+    def _meta(self, cid: str, oid: str) -> dict | None:
+        blob = self._db.get("obj", _okey(cid, oid))
+        if blob is None:
+            return None
+        return json.loads(blob.decode())
+
+    def _put_meta(self, kvt, cid: str, oid: str, meta: dict) -> None:
+        kvt.set("obj", _okey(cid, oid), json.dumps(meta).encode())
+
+    @staticmethod
+    def _new_meta() -> dict:
+        return {"size": 0, "extents": [], "attrs": {}, "omap": {},
+                "csum": [], "comp": [], "wal_n": 0, "wal_seq": 0}
+
+    # -- config / engine / compression plumbing -------------------------------
+
+    def _conf(self, key: str, default):
+        """A registered option off the owning context's conf, or the
+        default for bare stores (tools, tests without a context)."""
+        if self._ctx is None:
+            return default
+        return self._ctx.conf.get(key)
+
+    def _batch_engine(self):
+        """The engine this batch's ``bluestore_data`` submissions ride
+        — or None for the scalar path.  None when: no context, knob
+        off, or the CALLER is an engine worker thread (store commits
+        run on completion threads via EC-write and recovery
+        continuations; blocking on a future there would starve the
+        thread that delivers it).  The channel rides the decode engine
+        so store digests coalesce with scrub's — one checksum
+        definition, one width-bucketed batch stream."""
+        if self._ctx is None or not bool(
+                self._conf("bluestore_batched_csum", True)):
+            return None
+        eng = self._ctx.decode_dispatch_engine()
+        enc = self._ctx.dispatch_engine()
+        if eng.owns_current_thread() or enc.owns_current_thread():
+            return None
+        return eng
+
+    def set_pool_compression(self, pool_id: int, mode: str,
+                             algorithm: str = "") -> None:
+        """Per-pool compression override, pushed by the owning OSD
+        when the osdmap's pool table changes (`osd pool set <p>
+        compression_mode aggressive`); empty strings fall back to the
+        ``bluestore_compression_*`` conf."""
+        with self._lock:
+            if mode or algorithm:
+                self._pool_comp[int(pool_id)] = (str(mode),
+                                                 str(algorithm))
+            else:
+                self._pool_comp.pop(int(pool_id), None)
+            self._comp_cache.clear()
+
+    def _comp_policy(self, okey: str | None):
+        """(algorithm, required_ratio) when the block should try
+        compression, else None — per-pool mode/algorithm first (cid
+        prefix "pool.pg"), then the global conf; cached per cid for
+        the batch."""
+        if okey is None:
+            return None
+        cid = okey.split("\x00", 1)[0]
+        if cid in self._comp_cache:
+            return self._comp_cache[cid]
+        mode = alg = ""
+        head = cid.split(".", 1)[0]
+        if head.lstrip("-").isdigit():
+            mode, alg = self._pool_comp.get(int(head), ("", ""))
+        if not mode:
+            mode = str(self._conf("bluestore_compression_mode", "none"))
+        pol = None
+        if mode in _COMP_MODES_ON:
+            if not alg:
+                alg = str(self._conf("bluestore_compression_algorithm",
+                                     "tpu_bitplane"))
+            pol = (alg, float(self._conf(
+                "bluestore_compression_required_ratio", 0.875)))
+        self._comp_cache[cid] = pol
+        return pol
+
+    def _compressor(self, alg: str):
+        """The plugin instance for ``alg``; ``tpu_bitplane`` packs its
+        planes on the context's device (the card unless the context runs
+        on the CPU)."""
+        c = self._compressors.get(alg)
+        if c is None:
+            kw = {}
+            if alg == "tpu_bitplane" and self._ctx is not None:
+                kw["device"] = self._ctx.device
+            c = _comp.create(alg, **kw)
+            self._compressors[alg] = c
+        return c
+
+    def _compress_block(self, padded: bytes, policy):
+        """(stored_bytes, comp_entry|None) for one logical block."""
+        if policy is None:
+            return padded, None
+        return self._compress_blocks([padded], policy)[0]
+
+    def _compress_blocks(self, blocks: list, policy) -> list:
+        """(stored_bytes, comp_entry|None) for each logical block: plugins
+        with ``compress_batch`` (tpu_bitplane) pack the whole span in ONE
+        kernel call, others compress block by block.  A block whose body
+        misses the required ratio, or (``bluestore_compression_verify``)
+        does not decompress back byte-identical, is stored raw: both are
+        checks of the data.  A fault of the plugin or of the card raises
+        to the transaction's caller."""
+        alg, ratio = policy
+        comp = self._compressor(alg)
+        batch = getattr(comp, "compress_batch", None)
+        bodies = (batch(list(blocks)) if batch is not None
+                  else [comp.compress(b) for b in blocks])
+        bs = telemetry.bluestore_stats()
+        verify = bool(self._conf("bluestore_compression_verify", True))
+        out = []
+        for b, body in zip(blocks, bodies):
+            if len(body) > int(BLOCK * ratio):
+                bs.inc("compress_rejected")
+                out.append((b, None))
+                continue
+            if verify:
+                try:
+                    ok = comp.decompress(body) == b
+                except _comp.CompressionError:
+                    ok = False
+                if not ok:
+                    bs.inc("compress_roundtrip_failures")
+                    out.append((b, None))
+                    continue
+            bs.inc("compress_blocks")
+            self.perf.inc("compress_blocks")
+            out.append((body, [alg, len(body)]))
+        return out
+
+    def _flush_pending_csums(self, cache) -> None:
+        """Fill every csum slot the batch left pending with ONE
+        coalesced device digest over the stored payloads — the
+        ``bluestore_data`` channel, reusing the scrub digest kernel
+        (crc32 column).  The engine coalesces this call with scrub
+        digests and other stores' batches at equal width buckets.  A
+        batch under ``bluestore_batched_csum_min`` blocks, or one without
+        an engine (see ``_batch_engine``), takes the scalar
+        ``zlib.crc32``.  A card fault, or a digest that does not come
+        within ``bluestore_data_timeout``, raises and fails the batch.
+        Runs after apply, before the fsync/KV build, so the final metas
+        carry real checksums."""
+        if not self._pending_csum:
+            return
+        # blocks written then displaced within this same batch (COW
+        # overwrite of a fresh block) owe nothing
+        for b in self._freed:
+            self._pending_csum.pop(b, None)
+        pending, self._pending_csum = self._pending_csum, {}
+        if not pending:
+            return
+        blocks = sorted(pending)
+        blobs = [pending[b] for b in blocks]
+        bs = telemetry.bluestore_stats()
+        eng = self._batch_eng
+        if eng is not None and len(blobs) >= int(
+                self._conf("bluestore_batched_csum_min", 4)):
+            dig = submit_bluestore_data(
+                eng, blobs, cost_tag=("_bluestore", "client")).result(
+                timeout=float(self._conf("bluestore_data_timeout", 30.0)))
+            crc_map = {b: int(dig[i, 0]) & 0xFFFFFFFF
+                       for i, b in enumerate(blocks)}
+            bs.inc("csum_batches")
+            bs.inc("csum_blocks", len(blocks))
+            self.perf.inc("csum_batches")
+            self.perf.inc("csum_blocks", len(blocks))
+        else:
+            crc_map = {b: zlib.crc32(pending[b]) for b in blocks}
+            bs.inc("csum_scalar_blocks", len(blocks))
+            self.perf.inc("csum_scalar_blocks", len(blocks))
+        # fill the slots: every pending block is a fresh, unique
+        # allocation, so walking the batch cache's extent maps finds
+        # each exactly once (clones may alias a crc to two slots —
+        # both get the same stored-payload digest)
+        for key, m in cache.items():
+            if key[0] == "__coll__" or m is None:
+                continue
+            cs = self._csums(m)
+            for bi, b in enumerate(m["extents"]):
+                if b in crc_map and cs[bi] is None:
+                    cs[bi] = crc_map[b]
+
+    # -- block I/O ------------------------------------------------------------
+
+    def _read_block(self, block: int) -> bytes:
+        self._f.seek(block * BLOCK)
+        data = self._f.read(BLOCK)
+        return data + bytes(BLOCK - len(data))
+
+    def _stored_read(self, block: int, crc, comp=None) -> bytes:
+        """The STORED payload of a block — compressed body or raw
+        padded block — verified against its crc32.  A block staged by
+        the in-flight batch serves from memory (its crc is computed at
+        the commit's coalesced flush)."""
+        pend = self._pending_csum.get(block)
+        if pend is not None:
+            return pend
+        data = self._read_block(block)
+        stored = data[:comp[1]] if comp else data
+        if crc is not None and zlib.crc32(stored) != crc:
+            telemetry.bluestore_stats().inc("csum_errors")
+            raise IOError(
+                f"bluestore checksum mismatch on block {block}: "
+                f"stored {crc:#x}, computed {zlib.crc32(stored):#x}")
+        return stored
+
+    def _decompress_stored(self, block: int, stored: bytes,
+                           comp) -> bytes:
+        """Stored payload -> logical BLOCK bytes.  Decompression
+        failures surface as IOError (EIO), exactly like a checksum
+        mismatch — the typed CompressionError never leaks to RADOS."""
+        if not comp:
+            return stored
+        try:
+            out = self._compressor(comp[0]).decompress(stored)
+        except (_comp.CompressionError, KeyError) as e:
+            # a corrupt body, or an algorithm this registry does not know
+            telemetry.bluestore_stats().inc("decompress_errors")
+            raise IOError(
+                f"bluestore decompression failed on block {block} "
+                f"(alg {comp[0]}): {e}") from e
+        if len(out) != BLOCK:
+            telemetry.bluestore_stats().inc("decompress_errors")
+            raise IOError(
+                f"bluestore decompression length mismatch on block "
+                f"{block}: {len(out)} != {BLOCK}")
+        return out
+
+    def _read_verified(self, block: int, crc, comp=None) -> bytes:
+        """Read + verify a block against its stored crc32 and return
+        its LOGICAL bytes (BlueStore verifies every blob checksum on
+        read; None = legacy/no csum)."""
+        return self._decompress_stored(
+            block, self._stored_read(block, crc, comp), comp)
+
+    @staticmethod
+    def _csums(meta: dict) -> list:
+        cs = meta.setdefault("csum", [])
+        while len(cs) < len(meta["extents"]):
+            cs.append(None)
+        return cs
+
+    @staticmethod
+    def _comps(meta: dict) -> list:
+        """Per-extent compression entries ([alg, stored_len] | None),
+        parallel to csum; absent in pre-compression metas."""
+        co = meta.setdefault("comp", [])
+        while len(co) < len(meta["extents"]):
+            co.append(None)
+        return co
+
+    def _stage_csum(self, nb: int, stored: bytes, cs: list,
+                    bi: int) -> None:
+        """Record a freshly written block's checksum obligation: into
+        the batch's pending map when this batch rides the engine (one
+        coalesced device call at commit), else the scalar crc32 inline
+        (no context, ``bluestore_batched_csum`` off, or a commit on an
+        engine's own thread), counted in ``csum_scalar_blocks``."""
+        if self._batch_eng is not None:
+            self._pending_csum[nb] = stored
+            cs[bi] = None
+        else:
+            cs[bi] = zlib.crc32(stored)
+            telemetry.bluestore_stats().inc("csum_scalar_blocks")
+            self.perf.inc("csum_scalar_blocks")
+
+    def _patch_block(self, meta: dict, bi: int, boff: int,
+                     chunk: bytes, okey: str | None = None,
+                     pre=None) -> None:
+        """COW-patch one block, route it through the compression
+        policy, and stage its checksum.  The extent map grows with
+        holes as needed — a truncate-extended region has size >
+        extents coverage, and deferred writes may land there.
+        ``pre``: (stored, comp_entry) already produced by a batched
+        compression pass for full-block writes."""
+        while len(meta["extents"]) <= bi:
+            meta["extents"].append(-1)
+        cs = self._csums(meta)
+        co = self._comps(meta)
+        old_block = meta["extents"][bi]
+        if boff == 0 and len(chunk) == BLOCK:
+            patched = chunk
+        elif old_block >= 0:
+            old = self._read_verified(old_block, cs[bi], co[bi])
+            patched = old[:boff] + chunk + old[boff + len(chunk):]
+        else:
+            patched = bytes(boff) + chunk
+        padded = patched[:BLOCK].ljust(BLOCK, b"\x00")
+        if pre is not None:
+            stored, centry = pre
+        else:
+            stored, centry = self._compress_block(
+                padded, self._comp_policy(okey))
+        nb = self._alloc.allocate(1)[0]
+        self._write_block(nb, stored, pad=centry is None)
+        meta["extents"][bi] = nb
+        co[bi] = centry
+        self._stage_csum(nb, stored, cs, bi)
+        if old_block >= 0:
+            self._freed.append(old_block)
+
+    def _wal_key(self, okey: str, seq: int) -> str:
+        return f"{okey}\x00{seq:010d}"
+
+    def _wal_entries(self, okey: str, meta: dict) -> list:
+        """Deferred entries for one object, oldest first: committed KV
+        keys plus this batch's pending ones."""
+        if not meta.get("wal_n"):
+            return []
+        out = []
+        # keys this batch already queued for deletion (a purge from an
+        # overwrite/remove earlier in the SAME batch) are dead: a
+        # recreated object at the same okey must not overlay them
+        dead = set(self._wal_rms)
+        for k in self._wal_index.get(okey, []):
+            if k in dead:
+                continue
+            v = self._db.get("wal", k)
+            if v is None:
+                continue
+            bi, boff = _WAL_HDR.unpack_from(v)
+            out.append((k, bi, boff, v[_WAL_HDR.size:]))
+        for seq, bi, boff, data in self._wal_pending.get(okey, []):
+            out.append((None, bi, boff, data))
+        return out
+
+    def _purge_wal(self, okey: str, meta: dict | None) -> None:
+        """Queue every WAL entry of an object (committed + pending) for
+        deletion — overwriting or dropping a destination must not leave
+        stale deferred bytes to overlay the new content.  _wal_index is
+        NOT touched here: all index maintenance happens after the KV
+        commit lands, so ANY pre-commit failure (a later op in the
+        batch, the fsync, the KV submit itself) leaves committed
+        deferred writes readable — nothing was deleted."""
+        for k in self._wal_index.get(okey, []):
+            self._wal_rms.append(k)
+        self._wal_pending.pop(okey, None)
+        if meta is not None:
+            meta["wal_n"] = 0
+
+    def _fold_wal(self, okey: str, meta: dict) -> None:
+        """Apply deferred small-write entries to their blocks (the WAL
+        drain, BlueStore's _deferred_submit).  Runs before any
+        non-deferrable mutation so block-level operations always see
+        folded content; the entry keys are deleted in the same commit
+        that persists the patched extent map."""
+        for key, bi, boff, data in self._wal_entries(okey, meta):
+            self._patch_block(meta, bi, boff, data, okey=okey)
+            if key is not None:
+                self._wal_rms.append(key)
+        self._wal_pending.pop(okey, None)
+        meta["wal_n"] = 0
+
+    def _write_block(self, block: int, data: bytes,
+                     pad: bool = True) -> None:
+        """Write a block's STORED payload.  ``pad=False`` (compressed
+        payloads) writes only the stored bytes — the block's tail
+        keeps whatever it held, and reads slice to the comp entry's
+        stored length before verifying."""
+        self._f.seek(block * BLOCK)
+        self._f.write(data[:BLOCK].ljust(BLOCK, b"\x00") if pad
+                      else data[:BLOCK])
+        self._block_dirty = True
+
+    def _batch_read_submit(self, meta: dict, offset: int, end: int,
+                           cs: list, co: list):
+        """Under the store lock: the stored payloads of a wide read's
+        checksummed blocks, submitted as ONE digest call on the same
+        ``bluestore_data`` channel write commits use (cost-tagged as read
+        work).  Returns (block indices, stored payloads, future), or None
+        for the scalar per-block path (the knob off, fewer blocks than
+        ``bluestore_batched_read_min``, no engine)."""
+        if not bool(self._conf("bluestore_batched_read_verify", True)):
+            return None
+        bis = []
+        for bi in range(offset // BLOCK, -(-end // BLOCK)):
+            if (bi < len(meta["extents"]) and meta["extents"][bi] >= 0
+                    and bi < len(cs) and cs[bi] is not None
+                    and meta["extents"][bi] not in self._pending_csum):
+                bis.append(bi)
+        if len(bis) < int(self._conf("bluestore_batched_read_min", 8)):
+            return None
+        eng = self._batch_engine()
+        if eng is None:
+            return None
+        stored = []
+        for bi in bis:
+            comp = co[bi] if bi < len(co) else None
+            data = self._read_block(meta["extents"][bi])
+            stored.append(data[:comp[1]] if comp else data)
+        return bis, stored, submit_bluestore_data(
+            eng, stored, cost_tag=("_bluestore", "read"))
+
+    def _batch_read_verify(self, meta: dict, cs: list, co: list, bis: list,
+                           stored: list, fut) -> dict[int, bytes]:
+        """Outside the store lock (a reader waiting on the engine must
+        not stall the engine's own threads on this store): each digest
+        against its block's crc, then the logical bytes, {bi: bytes}.  A
+        card fault raises to the read's caller."""
+        dig = fut.result(timeout=float(self._conf("bluestore_data_timeout",
+                                                  30.0)))
+        out = {}
+        for i, bi in enumerate(bis):
+            crc = int(dig[i, 0]) & 0xFFFFFFFF
+            if crc != cs[bi]:
+                telemetry.bluestore_stats().inc("csum_errors")
+                raise IOError(
+                    f"bluestore checksum mismatch on block "
+                    f"{meta['extents'][bi]}: stored {cs[bi]:#x}, "
+                    f"computed {crc:#x}")
+            out[bi] = self._decompress_stored(
+                meta["extents"][bi], stored[i],
+                co[bi] if bi < len(co) else None)
+        bs = telemetry.bluestore_stats()
+        bs.inc("read_verify_batches")
+        bs.inc("read_verify_blocks", len(bis))
+        return out
+
+    @staticmethod
+    def _assemble(blocks: dict, wal: list, offset: int, end: int) -> bytes:
+        """The read's bytes from its blocks' logical bytes ({bi: bytes},
+        holes absent) with the deferred writes overlaid (newer than the
+        blocks, in WAL order; WAL bytes are covered by the KV log's own
+        crc framing)."""
+        out = bytearray()
+        pos = offset
+        while pos < end:
+            bi = pos // BLOCK
+            boff = pos % BLOCK
+            n = min(BLOCK - boff, end - pos)
+            blk = blocks.get(bi)
+            out += blk[boff:boff + n] if blk is not None else bytes(n)
+            pos += n
+        for _key, wbi, wboff, wdata in wal:
+            wstart = wbi * BLOCK + wboff
+            lo = max(wstart, offset)
+            hi = min(wstart + len(wdata), end)
+            if lo < hi:
+                out[lo - offset:hi - offset] = \
+                    wdata[lo - wstart:hi - wstart]
+        return bytes(out)
+
+    def _obj_write(self, okey: str, meta: dict, offset: int,
+                   data: bytes) -> None:
+        end = offset + len(data)
+        # deferred small write (BlueStore deferred/WAL path): a strictly
+        # partial single-block overwrite inside the current size lands
+        # as a KV-journaled patch — no block read, no block write, no
+        # data fsync on the commit path; reads overlay it and it folds
+        # into the block once the entry count tops WAL_MAX
+        if (0 < len(data) < BLOCK and end <= meta["size"]
+                and offset // BLOCK == (end - 1) // BLOCK):
+            self._wal_seq += 1
+            self._wal_pending.setdefault(okey, []).append(
+                (self._wal_seq, offset // BLOCK, offset % BLOCK,
+                 bytes(data)))
+            meta["wal_n"] = meta.get("wal_n", 0) + 1
+            if meta["wal_n"] > WAL_MAX:
+                self._fold_wal(okey, meta)
+            return
+        self._fold_wal(okey, meta)
+        need_blocks = -(-max(end, meta["size"]) // BLOCK)
+        while len(meta["extents"]) < need_blocks:
+            meta["extents"].append(-1)
+        # pre-compress the write's aligned full blocks in ONE batched
+        # plugin call (tpu_bitplane: one device plane-extraction for
+        # the whole span instead of one per block)
+        pres: dict[int, tuple] = {}
+        policy = self._comp_policy(okey)
+        if policy is not None:
+            first = -(-offset // BLOCK) * BLOCK
+            full = [(pos // BLOCK, data[pos - offset:pos - offset + BLOCK])
+                    for pos in range(first, end - BLOCK + 1, BLOCK)]
+            if len(full) > 1:
+                pres = dict(zip(
+                    (bi for bi, _ in full),
+                    self._compress_blocks([c for _, c in full],
+                                          policy)))
+        pos = offset
+        di = 0
+        while pos < end:
+            bi = pos // BLOCK
+            boff = pos % BLOCK
+            n = min(BLOCK - boff, end - pos)
+            # COW via the checksum-maintaining patcher: the old extent
+            # stays valid until the KV commit flips the map
+            self._patch_block(meta, bi, boff, data[di:di + n],
+                              okey=okey, pre=pres.get(bi))
+            pos += n
+            di += n
+        meta["size"] = max(meta["size"], end)
+
+    def _obj_zero(self, okey: str, meta: dict, offset: int,
+                  length: int) -> None:
+        """Punch holes instead of writing zeros: full blocks drop to
+        extent -1 (reads synthesize zeros), edges COW-patch."""
+        self._fold_wal(okey, meta)
+        cs = self._csums(meta)
+        co = self._comps(meta)
+        end = offset + length
+        pos = offset
+        while pos < end:
+            bi = pos // BLOCK
+            boff = pos % BLOCK
+            n = min(BLOCK - boff, end - pos)
+            if bi < len(meta["extents"]) and meta["extents"][bi] >= 0:
+                if boff == 0 and n == BLOCK:
+                    self._freed.append(meta["extents"][bi])
+                    meta["extents"][bi] = -1
+                    cs[bi] = None
+                    co[bi] = None
+                else:
+                    self._patch_block(meta, bi, boff, bytes(n),
+                                      okey=okey)
+            pos += n
+        if end > meta["size"]:
+            while len(meta["extents"]) < -(-end // BLOCK):
+                meta["extents"].append(-1)
+                cs.append(None)
+                co.append(None)
+            meta["size"] = end
+
+    def _obj_truncate(self, okey: str, meta: dict, length: int) -> None:
+        self._fold_wal(okey, meta)
+        if length < meta["size"]:
+            keep = -(-length // BLOCK) if length else 0
+            self._freed.extend(b for b in meta["extents"][keep:]
+                               if b >= 0)
+            cs = self._csums(meta)
+            co = self._comps(meta)
+            meta["extents"] = meta["extents"][:keep]
+            meta["csum"] = cs[:keep]
+            meta["comp"] = co[:keep]
+            # zero the tail of the boundary block (COW)
+            if length % BLOCK and meta["extents"] \
+                    and meta["extents"][-1] >= 0:
+                tail = length % BLOCK
+                self._patch_block(meta, len(meta["extents"]) - 1, tail,
+                                  bytes(BLOCK - tail), okey=okey)
+        meta["size"] = length
+
+    # -- transactions ---------------------------------------------------------
+
+    def _apply_one(self, op, cache, coll_exists, get, ensure,
+                   drop) -> None:
+        """Apply a single transaction op against the batch cache."""
+        if op.op == OP_MKCOLL:
+            cache[("__coll__", op.cid)] = {}
+        elif op.op == OP_RMCOLL:
+            # purge the collection's objects too (MemStore
+            # drops the whole dict; the backends must agree)
+            prefix = f"{op.cid}\x00"
+            for k in self._db.get_range("obj"):
+                if k.startswith(prefix):
+                    drop(op.cid, k[len(prefix):])
+            for (cid, oid), m in list(cache.items()):
+                if cid == op.cid and m is not None:
+                    drop(cid, oid)
+            cache[("__coll__", op.cid)] = None
+        elif op.op == OP_TOUCH:
+            ensure(op.cid, op.oid)
+        elif op.op == OP_WRITE:
+            m = ensure(op.cid, op.oid)
+            self._obj_write(_okey(op.cid, op.oid), m,
+                            op.offset, op.data)
+        elif op.op == OP_ZERO:
+            m = ensure(op.cid, op.oid)
+            self._obj_zero(_okey(op.cid, op.oid), m,
+                           op.offset, op.length)
+        elif op.op == OP_TRUNCATE:
+            m = ensure(op.cid, op.oid)
+            self._obj_truncate(_okey(op.cid, op.oid), m,
+                               op.length)
+        elif op.op == OP_REMOVE:
+            drop(op.cid, op.oid)
+        elif op.op == OP_OMAP_SETKEYS:
+            m = ensure(op.cid, op.oid)
+            for k, v in op.keys.items():
+                m["omap"][k] = v.hex()
+        elif op.op == OP_OMAP_RMKEYS:
+            m = ensure(op.cid, op.oid)
+            for k in op.rmkeys:
+                m["omap"].pop(k, None)
+        elif op.op == OP_SETATTR:
+            m = ensure(op.cid, op.oid)
+            m["attrs"][op.name] = op.data.hex()
+        elif op.op == OP_COLL_MOVE:
+            # metadata-only move: extents stay where they
+            # are, the object record changes collections
+            if not coll_exists(op.dest):
+                raise KeyError(f"no collection {op.dest!r}")
+            m = get(op.cid, op.oid)
+            if m is not None:
+                # fold before moving: wal keys are addressed
+                # by the SOURCE collection
+                self._fold_wal(_okey(op.cid, op.oid), m)
+                prev = get(op.dest, op.oid)
+                if prev is not None:   # overwrite: free old + its WAL
+                    self._freed.extend(
+                        b for b in prev["extents"] if b >= 0)
+                    self._purge_wal(_okey(op.dest, op.oid), prev)
+                cache[(op.dest, op.oid)] = m
+                cache[(op.cid, op.oid)] = None
+        elif op.op == OP_CLONE:
+            m = get(op.cid, op.oid)
+            if m is None:   # missing src: no-op (MemStore)
+                return
+            prev = get(op.cid, op.dest)
+            if prev is not None:   # overwrite: free old + its WAL
+                self._freed.extend(
+                    b for b in prev["extents"] if b >= 0)
+                self._purge_wal(_okey(op.cid, op.dest), prev)
+            self._fold_wal(_okey(op.cid, op.oid), m)
+            cs = self._csums(m)
+            co = self._comps(m)
+            dst = self._new_meta()
+            dst["size"] = m["size"]
+            dst["attrs"] = dict(m["attrs"])
+            dst["omap"] = dict(m["omap"])
+            for bi, src in enumerate(m["extents"]):
+                if src < 0:
+                    dst["extents"].append(-1)
+                    dst["csum"].append(None)
+                    dst["comp"].append(None)
+                    continue
+                # copy the STORED payload (compressed body stays
+                # compressed — no decode/re-encode round-trip)
+                stored = self._stored_read(src, cs[bi], co[bi])
+                nb = self._alloc.allocate(1)[0]
+                self._write_block(nb, stored, pad=co[bi] is None)
+                dst["extents"].append(nb)
+                dst["comp"].append(co[bi])
+                if src in self._pending_csum:
+                    # source was written THIS batch: its crc is still
+                    # pending; the clone owes the same digest
+                    self._pending_csum[nb] = stored
+                    dst["csum"].append(None)
+                else:
+                    dst["csum"].append(cs[bi])
+            cache[(op.cid, op.dest)] = dst
+
+
+    def queue_transactions(self, txns, on_commit=None) -> None:
+        # commit span on the calling op's trace: a traced write shows
+        # objectstore commit time next to network fan-out and device
+        # time (no-op context when the thread is untraced)
+        from ceph_tpu_torch.common import tracing
+        with tracing.span("bluestore commit", daemon="bluestore",
+                          txns=len(txns)):
+            self._queue_transactions(txns, on_commit)
+
+    def _queue_transactions(self, txns, on_commit=None) -> None:
+        import time as _time
+        t_start = _time.perf_counter()
+        with self._lock:
+            kvt = self._db.get_transaction()
+            cache: dict[tuple, dict | None] = {}
+            # per-batch state starts clean and is DISCARDED on failure:
+            # an aborted transaction's deferred writes or freed blocks
+            # must never leak into the next commit (blocks the aborted
+            # batch COW-allocated leak until the next mount's rebuild)
+            self._freed = []
+            self._wal_pending = {}
+            self._wal_rms = []
+            self._pending_csum = {}
+            self._comp_cache.clear()
+            # bind the batch's engine once: every block this batch
+            # stages rides (or skips) the channel consistently, and
+            # engine-thread callers collapse to the scalar path here
+            self._batch_eng = self._batch_engine()
+
+            def coll_exists(cid):
+                if ("__coll__", cid) in cache:
+                    return cache[("__coll__", cid)] is not None
+                return self._db.get("coll", cid) is not None
+
+            def get(cid, oid):
+                key = (cid, oid)
+                if key not in cache:
+                    cache[key] = self._meta(cid, oid)
+                return cache[key]
+
+            def ensure(cid, oid):
+                if not coll_exists(cid):
+                    raise KeyError(f"no collection {cid!r}")
+                m = get(cid, oid)
+                if m is None:
+                    m = self._new_meta()
+                    cache[(cid, oid)] = m
+                return m
+
+            def drop(cid, oid):
+                m = get(cid, oid)
+                if m is not None:
+                    self._freed.extend(b for b in m["extents"]
+                                       if b >= 0)
+                    self._purge_wal(_okey(cid, oid), m)
+                cache[(cid, oid)] = None
+
+            def apply_ops():
+                for t in txns:
+                    for op in t.ops:
+                        self._apply_one(op, cache, coll_exists, get,
+                                        ensure, drop)
+
+            try:
+                t_apply = _time.perf_counter()
+                apply_ops()
+                self.perf.tinc("apply_lat",
+                               _time.perf_counter() - t_apply)
+                # settle the batch's checksum debt (one coalesced
+                # device digest; a card fault fails the batch) BEFORE
+                # the fsync and KV build below read the final metas
+                self._flush_pending_csums(cache)
+            except Exception:
+                self._freed = []
+                self._wal_pending = {}
+                self._wal_rms = []
+                self._pending_csum = {}
+                self._comp_cache.clear()
+                self._block_dirty = False
+                raise
+            # data before metadata: fsync the block file, then ONE
+            # atomic KV commit referencing it.  Displaced blocks return
+            # to the allocator only after the commit — a crash (or an
+            # exception above) leaves old metadata over untouched old
+            # blocks; blocks this batch allocated then leak in-memory
+            # only, and the next mount's rebuild reclaims them.  A batch
+            # of pure deferred writes touched no block, so it pays no
+            # data fsync at all (the KV commit carries the WAL bytes).
+            if self._block_dirty:
+                self._f.flush()
+                os.fsync(self._f.fileno())
+                self._block_dirty = False
+            # the KV mutations come from the FINAL cache state, never
+            # eagerly per-op: a KV transaction applies sets before rms,
+            # so a remove+recreate of one key in a batch (recovery's
+            # replace-wholesale push) must collapse to a single set
+            for (cid, oid), m in cache.items():
+                if cid == "__coll__":
+                    if m is not None:
+                        kvt.set("coll", oid, b"1")
+                    else:
+                        kvt.rmkey("coll", oid)
+                elif m is not None:
+                    self._put_meta(kvt, cid, oid, m)
+                else:
+                    kvt.rmkey("obj", _okey(cid, oid))
+            new_wal_keys: dict[str, list[str]] = {}
+            for okey, entries in self._wal_pending.items():
+                for seq, bi, boff, data in entries:
+                    k = self._wal_key(okey, seq)
+                    kvt.set("wal", k, _WAL_HDR.pack(bi, boff) + data)
+                    new_wal_keys.setdefault(okey, []).append(k)
+            for key in self._wal_rms:
+                kvt.rmkey("wal", key)
+            self._db.submit_transaction(kvt)
+            # index maintenance AFTER the commit landed
+            for key in self._wal_rms:
+                okey = key.rsplit("\x00", 1)[0]
+                lst = self._wal_index.get(okey)
+                if lst and key in lst:
+                    lst.remove(key)
+            for okey, keys in new_wal_keys.items():
+                self._wal_index.setdefault(okey, []).extend(keys)
+            self._wal_pending = {}
+            self._wal_rms = []
+            self._alloc.release(self._freed)
+            self._freed = []
+            self.perf.inc("txc", len(txns))
+            self.perf.tinc("commit_lat", _time.perf_counter() - t_start)
+        if on_commit:
+            on_commit()
+
+    def apply_transaction(self, txn: Transaction) -> None:
+        self.queue_transactions([txn])
+
+    # -- reads ----------------------------------------------------------------
+
+    def _get_checked(self, cid: str, oid: str) -> dict:
+        if self._db.get("coll", cid) is None:
+            raise KeyError(f"no collection {cid!r}")
+        m = self._meta(cid, oid)
+        if m is None:
+            raise KeyError(f"no object {cid}/{oid}")
+        return m
+
+    def read(self, cid, oid, offset=0, length=None) -> bytes:
+        """The object's bytes, every block verified against its crc: a
+        wide read's blocks in one ``bluestore_data`` digest, awaited after
+        the store lock is released (everything the read needs is copied
+        out under it), the rest by a scalar crc32 under it."""
+        with self._lock:
+            m = self._get_checked(cid, oid)
+            if length is None:
+                length = m["size"] - offset
+            end = min(offset + max(0, length), m["size"])
+            cs = m.get("csum") or []
+            co = m.get("comp") or []
+            span = (range(offset // BLOCK, -(-end // BLOCK)) if end > offset
+                    else range(0))
+            batch = (self._batch_read_submit(m, offset, end, cs, co)
+                     if span else None)
+            skip = set(batch[0]) if batch is not None else set()
+            blocks = {}
+            for bi in span:
+                if (bi not in skip and bi < len(m["extents"])
+                        and m["extents"][bi] >= 0):
+                    blocks[bi] = self._read_verified(
+                        m["extents"][bi], cs[bi] if bi < len(cs) else None,
+                        co[bi] if bi < len(co) else None)
+            wal = self._wal_entries(_okey(cid, oid), m)
+        if batch is not None:
+            blocks.update(self._batch_read_verify(m, cs, co, *batch))
+        return self._assemble(blocks, wal, offset, end)
+
+    def stat(self, cid, oid) -> dict:
+        with self._lock:
+            return {"size": self._get_checked(cid, oid)["size"]}
+
+    def exists(self, cid, oid) -> bool:
+        with self._lock:
+            return (self._db.get("coll", cid) is not None
+                    and self._meta(cid, oid) is not None)
+
+    def list_objects(self, cid) -> list[str]:
+        with self._lock:
+            if self._db.get("coll", cid) is None:
+                raise KeyError(f"no collection {cid!r}")
+            prefix = f"{cid}\x00"
+            out = []
+            for k in self._db.get_range("obj"):
+                if k.startswith(prefix):
+                    out.append(k[len(prefix):])
+            return sorted(out)
+
+    def list_collections(self) -> list[str]:
+        with self._lock:
+            return sorted(self._db.get_range("coll"))
+
+    def omap_get(self, cid, oid) -> dict:
+        with self._lock:
+            m = self._get_checked(cid, oid)
+            return {k: bytes.fromhex(v) for k, v in m["omap"].items()}
+
+    def getattr(self, cid, oid, name):
+        with self._lock:
+            m = self._get_checked(cid, oid)
+            v = m["attrs"].get(name)
+            return bytes.fromhex(v) if v is not None else None

@@ -358,15 +358,14 @@ class FileStore(MemStore):
 
 def create(store_type: str, path: str = "", ctx=None) -> ObjectStore:
     """ObjectStore::create (os/ObjectStore.h:85) analog.  ``ctx`` is the
-    daemon's CephTpuContext, which only bluestore reads; bluestore comes
-    with the bluestore_data channel (ROADMAP.md Queue 1 item 6.3)."""
+    daemon's CephTpuContext, which only bluestore reads: its conf, its
+    engines (the ``bluestore_data`` checksum channel) and its device (the
+    ``tpu_bitplane`` compressor's plane pack)."""
     if store_type == "memstore":
         return MemStore(path)
     if store_type == "filestore":
         return FileStore(path)
     if store_type == "bluestore":
-        raise NotImplementedError(
-            "objectstore 'bluestore' is not ported yet (ROADMAP.md Queue 1 "
-            "item 6.3, with the bluestore_data channel); use memstore or "
-            "filestore")
+        from .bluestore import BlueStoreLite
+        return BlueStoreLite(path, ctx=ctx)
     raise ValueError(f"unknown objectstore type {store_type!r}")

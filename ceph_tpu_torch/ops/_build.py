@@ -75,12 +75,15 @@ SIGNATURES = {
     # S, W, run (int*, in and out), spans (long long*, out); no stream: not
     # a launch, the split the launcher checks
     "scrub_digest_plan": [_I, _I, _P, _P],
+    # data, out, S, W, stream
+    "bitplane_pack_launch": [_P, _P, _I, _I, _P],
 }
 
 #: kernel name -> launches made by its wrapper since the last reset
 LAUNCHES = {"gf_matvec": 0, "straw2_root": 0, "straw2_leaf": 0,
             "firstn_consume": 0, "straw2_froot": 0, "ln_f32_table": 0,
-            "pg_finish_ladder": 0, "pg_osd_words": 0, "scrub_digest": 0}
+            "pg_finish_ladder": 0, "pg_osd_words": 0, "scrub_digest": 0,
+            "bitplane_pack": 0}
 
 _LOCK = lockdep.make_lock("ops._build")
 

@@ -512,16 +512,7 @@ def _operands(data, mats, invp, lens=None):
     return data, mats, invp, lens
 
 
-def scrub_digest_batched(data, mats, invp, lens=None) -> torch.Tensor:
-    """One batched digest call: data (S, W) uint8 zero-padded rows,
-    mats/invp from ``digest_operands``, ``lens`` (S,) the rows' lengths
-    (optional: every byte of each row past its length is zero, so the
-    kernel reads each row only up to its length; without them it reads
-    whole rows).  Returns (S, 2) uint32 on the data's device — col 0 crc32
-    (== shard_crc of the unpadded row), col 1 the packed GF Horner digest —
-    bit-exact with ``scrub_digest_ref``.  A CUDA tensor launches
-    ``csrc/digest.cu`` (and raises on a fault); a CPU tensor (or host
-    numpy) runs ``scrub_digest_plain`` over the whole padded rows."""
+def _digest_batched(kname: str, data, mats, invp, lens) -> torch.Tensor:
     data, mats, invp, lens = _operands(data, mats, invp, lens)
     s, w = data.shape
     if data.is_cuda:
@@ -533,6 +524,29 @@ def scrub_digest_batched(data, mats, invp, lens=None) -> torch.Tensor:
         def run():
             return scrub_digest_plain(data, mats, invp)
     return telemetry.timed_kernel(
-        "scrub_digest", run, batch=int(s),
+        kname, run, batch=int(s),
         bytes_in=int(s) * int(w) + int(s) * (32 * 4 + 4),
-        bytes_out=int(s) * 8, signature=("scrub_digest", int(s), int(w)))
+        bytes_out=int(s) * 8, signature=(kname, int(s), int(w)))
+
+
+def scrub_digest_batched(data, mats, invp, lens=None) -> torch.Tensor:
+    """One batched digest call: data (S, W) uint8 zero-padded rows,
+    mats/invp from ``digest_operands``, ``lens`` (S,) the rows' lengths
+    (optional: every byte of each row past its length is zero, so the
+    kernel reads each row only up to its length; without them it reads
+    whole rows).  Returns (S, 2) uint32 on the data's device — col 0 crc32
+    (== shard_crc of the unpadded row), col 1 the packed GF Horner digest —
+    bit-exact with ``scrub_digest_ref``.  A CUDA tensor launches
+    ``csrc/digest.cu`` (and raises on a fault); a CPU tensor (or host
+    numpy) runs ``scrub_digest_plain`` over the whole padded rows."""
+    return _digest_batched("scrub_digest", data, mats, invp, lens)
+
+
+def bluestore_digest_batched(data, mats, invp, lens=None) -> torch.Tensor:
+    """The objectstore's flavor of the batched digest: the same launch of
+    the same kernel (one checksum definition for store and scrub), timed
+    under the ``bluestore_data`` telemetry family so the store's write and
+    read path shows apart from background scrub.  BlueStore's rows are its
+    stored payloads: 4 KiB blocks, or compressed bodies shorter than their
+    row, whose ``lens`` the kernel reads up to."""
+    return _digest_batched("bluestore_data", data, mats, invp, lens)

@@ -1640,3 +1640,47 @@ def submit_scrub_digest(engine: DeviceDispatchEngine, blobs,
                          cost_tag=cost_tag if cost_tag is not None
                          else (BACKGROUND_BEST_EFFORT,
                                BACKGROUND_BEST_EFFORT))
+
+
+def submit_bluestore_data(engine: DeviceDispatchEngine, blobs,
+                          key=None, cost_tag=None) -> DispatchFuture:
+    """Submit a batch of STORED block payloads (raw 4 KiB blocks or
+    compressed bodies, so lengths vary) for checksumming through the
+    engine — the SIXTH kernel channel (``bluestore_data``), the
+    objectstore's write and read path.  Same contract as
+    ``submit_scrub_digest``: a DispatchFuture of (len(blobs), 2) uint32,
+    col 0 the crc32 of each blob (== ``zlib.crc32``), the bit-exact host
+    oracle ``scrub_digest_ref`` on the retry → breaker → oracle ladder, the
+    channel-tagged device-boundary failpoints
+    (``dispatch.launch:bluestore_data``), and a card fault that fans to
+    the futures at once.
+
+    The key is the padded width, so concurrent transaction batches —
+    different stores, different daemons on one context — coalesce into one
+    call.  The lengths ride the aux channel with the unpad operands, so the
+    kernel reads each payload only up to its length: a compressed body
+    pads to its batch's pow-2 width (``checksum_kernel.row_width``) but its
+    crc is of its stored bytes alone.  Each batch the host oracle serves
+    counts in ``telemetry.bluestore_stats()``'s ``csum_fallbacks``."""
+    from ceph_tpu_torch.ops import checksum_kernel as ck
+    lengths = np.array([len(b) for b in blobs], dtype=np.int32)
+    w = ck.row_width(int(lengths.max()) if len(blobs) else 0)
+    data = np.zeros((len(blobs), w), dtype=np.uint8)
+    for i, b in enumerate(blobs):
+        if len(b):
+            data[i, :len(b)] = np.frombuffer(b, dtype=np.uint8)
+    mats, invp = ck.digest_operands(lengths, w)
+    if key is None:
+        key = ("bluestore_data", w)
+
+    def fn(batch, lens, m, p):
+        return ck.bluestore_digest_batched(batch, m, p, lens=lens)
+
+    def host_oracle(batch, lens, m, p):
+        telemetry.bluestore_stats().inc("csum_fallbacks")
+        return ck.scrub_digest_ref(batch, lens)
+
+    return engine.submit(key, fn, data, aux=(lengths, mats, invp),
+                         label="bluestore_data", fallback=host_oracle,
+                         cost_tag=cost_tag if cost_tag is not None
+                         else ("_bluestore", "client"))

@@ -32,8 +32,12 @@ Surfaces: ``dump()`` (admin socket ``dump_kernel_stats``) and
 ``summary()`` (a one-line digest: launch-signature misses, p50/p99
 latency, occupancy); ``MappingStats`` (the shared PG mapping service,
 admin socket ``dump_mapping_stats``); ``ScrubStats`` (deep scrub and its
-verified repairs, admin socket ``dump_scrub_stats``).  The reference's
-``BlueStoreStats`` sink waits for the BlueStore channel that feeds it.
+verified repairs, admin socket ``dump_scrub_stats``); ``BlueStoreStats``
+(the objectstore's ``bluestore_data`` checksums, block compression and the
+KV journal's truncation ledger, admin socket ``dump_bluestore_stats``).
+The BlueStore paths time their kernels under two families of their own:
+``bluestore_data`` (the scrub digest kernel on stored payloads) and
+``bitplane_pack`` (the compressor's bit-plane transpose).
 """
 
 from __future__ import annotations
@@ -693,6 +697,63 @@ class DecodeDispatchStats(DispatchStats):
         return s
 
 
+class BlueStoreStats:
+    """Objectstore counters: the ``bluestore_data`` channel's write and
+    read checksums, block compression and the KV journal's truncation
+    ledger.
+
+    Process-global like the other sinks: every BlueStoreLite in the
+    process folds its accounting in, and ``bluestore_dump`` (admin socket
+    ``dump_bluestore_stats``) reads it.  ``csum_scalar_blocks`` counts the
+    written blocks the configuration sends to the host's crc32 (no
+    context, the knob off, a batch under ``bluestore_batched_csum_min``, a
+    commit on an engine's own thread); ``csum_fallbacks`` counts the digest batches the engine's
+    host oracle served (its retry, breaker and oracle ladder).  A card
+    fault is never counted here: it fails the transaction or the read."""
+
+    FIELDS = ("csum_batches", "csum_blocks", "csum_scalar_blocks",
+              "csum_fallbacks", "read_verify_batches",
+              "read_verify_blocks", "compress_blocks",
+              "compress_rejected", "compress_roundtrip_failures",
+              "decompress_errors", "csum_errors",
+              "kv_journal_truncated", "kv_journal_lost_bytes")
+
+    def __init__(self):
+        self._lock = lockdep.make_lock("BlueStoreStats::lock")
+        self._counts: dict[str, int] = {f: 0 for f in self.FIELDS}
+
+    def inc(self, name: str, n: int = 1) -> None:
+        with self._lock:
+            self._counts[name] = self._counts.get(name, 0) + int(n)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._counts = {f: 0 for f in self.FIELDS}
+
+    def dump(self) -> dict:
+        with self._lock:
+            return dict(self._counts)
+
+    def summary(self) -> dict:
+        """How the store's checksums were computed (batched card calls
+        against scalar blocks), what compression did, and whether
+        anything went wrong."""
+        with self._lock:
+            c = dict(self._counts)
+        return {
+            "csum_batches": c.get("csum_batches", 0),
+            "batched_csum_blocks": c.get("csum_blocks", 0),
+            "scalar_csum_blocks": c.get("csum_scalar_blocks", 0),
+            "csum_fallbacks": c.get("csum_fallbacks", 0),
+            "read_verify_batches": c.get("read_verify_batches", 0),
+            "read_verify_blocks": c.get("read_verify_blocks", 0),
+            "compress_blocks": c.get("compress_blocks", 0),
+            "compress_rejected": c.get("compress_rejected", 0),
+            "csum_errors": c.get("csum_errors", 0),
+            "kv_journal_truncated": c.get("kv_journal_truncated", 0),
+        }
+
+
 #: ledger bucket for work submitted WITHOUT a cost tag.  Untagged
 #: device time is attributed here — visibly — never dropped: the
 #: conservation property (sum over tenants == engine busy-seconds)
@@ -1097,6 +1158,7 @@ class KernelTelemetry:
         self.mapping = MappingStats()
         self.tenant = TenantDeviceStats()
         self.scrub = ScrubStats()
+        self.bluestore = BlueStoreStats()
         #: synchronize a CUDA event before closing each latency sample
         self.fence_for_timing = False
         #: master switch; off-path cost when False is one attribute read
@@ -1126,6 +1188,7 @@ class KernelTelemetry:
         self.mapping.clear()
         self.tenant.clear()
         self.scrub.clear()
+        self.bluestore.clear()
 
     def summary(self) -> dict:
         """Compact digest (bench.py prints this next to its JSON)."""
@@ -1223,6 +1286,21 @@ def scrub_dump() -> dict:
 
 def scrub_summary() -> dict:
     return _REG.scrub.summary()
+
+
+def bluestore_stats() -> BlueStoreStats:
+    """The process-global objectstore counters: every BlueStoreLite's
+    write, read and compression paths feed this; ``dump_bluestore_stats``
+    reads it."""
+    return _REG.bluestore
+
+
+def bluestore_dump() -> dict:
+    return _REG.bluestore.dump()
+
+
+def bluestore_summary() -> dict:
+    return _REG.bluestore.summary()
 
 
 def tenant_stats() -> TenantDeviceStats:

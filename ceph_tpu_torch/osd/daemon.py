@@ -474,6 +474,13 @@ class OSDDaemon(Dispatcher):
             "batches by stripe share, batch/request/stripe counts, "
             "queue-wait histograms, and share-of-device gauges "
             "(untagged work lands in the _untagged bucket)")
+        self.ctx.admin.register_command(
+            "dump_bluestore_stats",
+            lambda **kw: telemetry.bluestore_dump(),
+            "objectstore accounting: bluestore_data checksum batches "
+            "vs scalar blocks, batched read verification, "
+            "block-compression outcomes, and the KV journal truncation "
+            "ledger")
 
         #: background-integrity accounting (dump_scrub_stats / the
         #: MMgrReport scrub tail)

@@ -216,14 +216,54 @@ Runs ceph_tpu_torch (never JAX, never ceph_tpu) at the bench's full size:
              up to its length, in 32-byte sectors) and at or above the
              second, with the plain version's time; the phase's seconds
              (budget 90)
- 12. prints  the {"engine": ...} line, the {"mapping": ...} line, the
+ 12. bluestore  BlueStore on the card, after phase 10's cluster stops.
+             12a: one BlueStoreLite on a context on the card, in a temporary
+             directory, compression aggressive with tpu_bitplane at the
+             required ratio 0.875; 64 objects of 4 MiB made from a seed (a
+             third 7-bit ASCII text, a third small integers four fifths
+             zero, a third random) written in transactions of 4, read back
+             (each read's 1,024 blocks verified in one bluestore_data
+             digest), the store unmounted and mounted and everything read
+             again, then one bit of one stored block flipped in the block
+             file: its read raises IOError and csum_errors is 1.  Each
+             sub-step starts with the launch counts at 0 and prints MB/s by
+             the host clock, bitplane_pack and scrub_digest launches and
+             the store's counters; the write prints the stored bytes over
+             the logical bytes.  Checks: every bitplane_pack batch == the
+             plain version on the card, every bluestore_data batch == the
+             plain version and its crc column == zlib.crc32 of each stored
+             payload on the host, csum_scalar_blocks and csum_fallbacks 0,
+             every read == the bytes written, fault_digest() zero.  12b: a
+             MiniCluster of 6 OSDs on store_type="bluestore" (1 mon,
+             loopback), one EC pool jerasure reed_sol_van k=4 m=2, stripe
+             unit 4 KiB, pg_num 16, compression aggressive tpu_bitplane
+             (`osd pool set`); 16 objects of 4 MiB, 16 in flight: write,
+             read, one OSD killed and marked down and every object read
+             degraded (the card's busy share from torch.profiler), the OSD
+             restarted on its own path (its store remounts and replays its
+             KV journal) until every object's 6 shards sit with matching
+             hinfo, one scrub_all_pgs pass on every OSD at once, clean.
+             Each sub-step prints MB/s and its gf_matvec, scrub_digest and
+             bitplane_pack launches and batched against scalar csum blocks
+             (commits on an engine's own thread are scalar by design).
+             Checks: csum_batches > 0, every read == the bytes written,
+             every batch == its plain version as in 12a, fault_digest()
+             zero, no engine thread alive after stop().  Then
+             bitplane_pack alone at (1,024, 4,096) random bytes and at one
+             of 12a's batches, held against the plain version, timed by
+             graph replay and issued, beside its bound (each input byte read
+             once, each plane byte written once) and the plain version's
+             time; the phase's seconds (budget 120)
+ 13. prints  the {"engine": ...} line, the {"mapping": ...} line, the
              {"cluster": ...} line, the {"scrub": ...} line, the
-             {"kernels": [...]} line (gf_matvec's
+             {"bluestore": ...} line, the {"kernels": [...]} line (gf_matvec's
              row also carries the EC shapes of phase 7 as "ec_shapes" and
              its launches by cluster sub-phase as "cluster";
              pg_finish_ladder's its
              launches per epoch, each pool's shape and times, and the first
-             version's times; pg_osd_words's its launches per epoch), then
+             version's times; pg_osd_words's its launches per epoch;
+             scrub_digest's its bluestore_data launches by phase 12's
+             sub-step; bitplane_pack's its launches by sub-step), then
              {"ok": true, "device": ...}
 
 Exits non-zero, printing no result, without a card or without the package.
@@ -395,6 +435,19 @@ DIGEST_SHAPES = (("(32, 2^22) half omap", 32, 1 << 22, True),
                  ("(32, 2^19) half omap", 32, 1 << 19, True),
                  ("(32, 2^22) full rows", 32, 1 << 22, False),
                  ("(1024, 4096) full rows", 1024, 4096, False))
+
+# phase 12: BlueStore on the card.  12a: one store, rados bench's 4 MiB
+# objects in transactions of 4, compression aggressive with tpu_bitplane at
+# the default required ratio; 12b: a 6-OSD MiniCluster on BlueStore, one
+# EC pool k=4 m=2 (stripe unit 4 KiB) of 16 PGs, compression aggressive
+BS_OBJECTS, BS_OBJ_BYTES, BS_TXN_OBJECTS = 64, 4 << 20, 4
+BS_RATIO = 0.875
+BS_CLUSTER_OSDS, BS_K, BS_M, BS_PG_NUM = 6, 4, 2, 16
+BS_CLUSTER_OBJECTS = 16
+BS_VICTIM = 2                        # the OSD 12b kills and restarts
+BS_BUDGET_S = 120.0
+#: bitplane_pack alone: BlueStore's 4 MiB write, 1,024 blocks of 4 KiB
+PACK_SHAPE = (1024, 4096)
 
 
 def digest_batch(dev, rng, s: int, w: int, omap: bool) -> dict:
@@ -2267,6 +2320,564 @@ def digest_row(dev, tag: str, on_card: bool) -> dict:
             "shape": big["shape"], "shapes": shapes}
 
 
+def bluestore_payloads(dev, names, obj_bytes: int, seed: int) -> dict:
+    """Objects made from ``seed`` on ``dev``, in thirds by index: 7-bit
+    ASCII text (32..126), small integers 0..7 four fifths of them zero,
+    random bytes."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for i, name in enumerate(names):
+        kind = i % 3
+        if kind == 0:
+            row = torch.randint(32, 127, (obj_bytes,), dtype=torch.uint8,
+                                device=dev, generator=gen)
+        elif kind == 1:
+            row = torch.randint(0, 8, (obj_bytes,), dtype=torch.uint8,
+                                device=dev, generator=gen)
+            row *= (torch.rand(obj_bytes, device=dev, generator=gen)
+                    < 0.2).to(torch.uint8)
+        else:
+            row = torch.randint(0, 256, (obj_bytes,), dtype=torch.uint8,
+                                device=dev, generator=gen)
+        out[name] = row.cpu().numpy().tobytes()
+    return out
+
+
+class _BlueStoreTap:
+    """Phase 12's instrumentation: every bluestore_data digest batch (its
+    card tensors and host lengths) and every bitplane_pack batch (input and
+    planes), kept for the checks after each sub-step.  It wraps
+    ``checksum_kernel.bluestore_digest_batched`` (the channel's fn calls it
+    by module attribute) and ``compression_kernel.bitplane_planes_batched``
+    (``pack_planes`` calls it by module global); ``close()`` puts both
+    back."""
+
+    def __init__(self):
+        import threading
+
+        import numpy as np
+
+        from ceph_tpu_torch.ops import checksum_kernel as ck
+        from ceph_tpu_torch.ops import compression_kernel as bk
+        from ceph_tpu_torch.ops.dispatch import launch_host_aux
+        self._ck, self._bk = ck, bk
+        self._digest = ck.bluestore_digest_batched
+        self._planes = bk.bitplane_planes_batched
+        self._lock = threading.Lock()
+        self.digests: list = []
+        self.packs: list = []
+        tap = self
+
+        def digest(data, mats, invp, lens=None):
+            out = tap._digest(data, mats, invp, lens=lens)
+            aux = launch_host_aux()
+            host_lens = np.array(aux[0], dtype=np.int64) if aux else None
+            with tap._lock:
+                tap.digests.append((data, mats, invp, out, host_lens))
+            return out
+
+        def planes(batch):
+            out = tap._planes(batch)
+            with tap._lock:
+                tap.packs.append((batch, out))
+            return out
+
+        ck.bluestore_digest_batched = digest
+        bk.bitplane_planes_batched = planes
+
+    def reset(self) -> None:
+        with self._lock:
+            self.digests, self.packs = [], []
+
+    def close(self) -> None:
+        self._ck.bluestore_digest_batched = self._digest
+        self._bk.bitplane_planes_batched = self._planes
+
+    def check(self, where: str) -> tuple[int, int, int]:
+        """Every batch since the last reset: bitplane_pack == the plain
+        version on the card; the digest == the plain version on the card
+        and its crc column == zlib.crc32 of each stored payload (its row up
+        to its length) on the host.  Returns (digest batches, their rows,
+        pack batches); the largest difference goes to ``self.err``."""
+        import zlib
+
+        import torch
+        torch.cuda.synchronize()
+        err = 0
+        for batch, out in self.packs:
+            want = self._bk.bitplane_planes_plain(batch)
+            err = max(err, int((out.long() - want.long()).abs().max())
+                      if out.numel() else 0)
+        check(err == 0, f"{where}: bitplane_pack == plain torch on all "
+              f"{len(self.packs)} batches")
+        rows, bad = 0, []
+        for data, mats, invp, out, lens in self.digests:
+            want = self._ck.scrub_digest_plain(data, mats, invp)
+            e = int((out.view(torch.int32).long()
+                     - want.view(torch.int32).long()).abs().max())
+            err = max(err, e)
+            host = data.cpu().numpy()
+            crc = out.cpu().numpy()[:, 0]
+            bad += [i for i in range(host.shape[0])
+                    if zlib.crc32(host[i, :lens[i]].tobytes()) != crc[i]]
+            rows += host.shape[0]
+        check(err == 0 and not bad,
+              f"{where}: every bluestore_data batch ({len(self.digests)}, "
+              f"{rows} rows) == plain torch, its crc column == zlib.crc32 "
+              f"of each stored payload on the host ({bad[:4]})")
+        self.err = max(getattr(self, "err", 0), err)
+        return len(self.digests), rows, len(self.packs)
+
+
+def _stored_ratio(store, cid: str, names) -> float:
+    """Stored bytes over logical bytes: each extent's compressed length,
+    or a whole block."""
+    from ceph_tpu_torch.objectstore.bluestore import BLOCK
+    stored = logical = 0
+    for name in names:
+        meta = store._meta(cid, name)
+        logical += meta["size"]
+        co = meta.get("comp") or []
+        for bi, b in enumerate(meta["extents"]):
+            if b >= 0:
+                c = co[bi] if bi < len(co) else None
+                stored += c[1] if c else BLOCK
+    return stored / logical
+
+
+def _bs_counts(before: dict) -> dict:
+    """BlueStoreStats moved since ``before``."""
+    from ceph_tpu_torch.ops import telemetry
+    now = telemetry.bluestore_dump()
+    return {k: now[k] - before.get(k, 0) for k in now}
+
+
+def _family_calls(name: str) -> int:
+    from ceph_tpu_torch.ops import telemetry
+    return telemetry.dump().get(name, {}).get("calls", 0)
+
+
+def bluestore_phase(dev, tag: str, n_objects: int = BS_OBJECTS,
+                    obj_bytes: int = BS_OBJ_BYTES,
+                    cluster_objects: int = BS_CLUSTER_OBJECTS) -> tuple:
+    """Phase 12: BlueStore on the card (see the docstring).  Returns the
+    {"bluestore": ...} summary, the bitplane_pack kernels row, and
+    scrub_digest's launches for the bluestore_data channel by sub-step
+    (its telemetry family's calls: one launch each on the card)."""
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    from ceph_tpu_torch.common.context import CephTpuContext
+    from ceph_tpu_torch.objectstore import Transaction
+    from ceph_tpu_torch.objectstore.bluestore import BLOCK, BlueStoreLite
+    from ceph_tpu_torch.ops import _build, telemetry
+    from ceph_tpu_torch.tools.vstart import MiniCluster
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    telemetry.reset()
+    root = tempfile.mkdtemp(prefix="chip_smoke_bluestore_")
+    tap = _BlueStoreTap()
+    steps: dict = {}
+    pack_launches: dict = {}
+    digest_launches: dict = {}
+    sample_pack = None
+
+    def step(label: str, body, total_mb: float, extra=None) -> dict:
+        tap.reset()
+        before = telemetry.bluestore_dump()
+        fam = _family_calls("bluestore_data")
+        telemetry.dispatch_stats().clear()
+        telemetry.decode_dispatch_stats().clear()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        body()
+        if on_card:
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        rec = {"seconds": secs, "MB_s": total_mb / secs,
+               "bitplane_pack_launches": launches["bitplane_pack"],
+               "scrub_digest_launches": launches["scrub_digest"],
+               "gf_matvec_launches": launches["gf_matvec"],
+               "bluestore_data_calls": _family_calls("bluestore_data") - fam,
+               "bluestore_stats": _bs_counts(before),
+               "engine_phases": {
+                   side: {f: v for f, v in stats.phases.summary()[
+                       "kernels"].items()}
+                   for side, stats in (
+                       ("encode", telemetry.dispatch_stats()),
+                       ("decode", telemetry.decode_dispatch_stats()))}}
+        if extra is not None:
+            rec.update(extra())
+        if on_card:
+            rec["batches_checked"] = tap.check(label)
+        steps[label] = rec
+        pack_launches[label] = rec["bitplane_pack_launches"]
+        digest_launches[label] = rec["bluestore_data_calls"]
+        st = rec["bluestore_stats"]
+        print(f"bluestore {label}: {total_mb:.1f} MB in {secs:.3f} s = "
+              f"{rec['MB_s']:.1f} MB/s (host clock); launches bitplane_pack "
+              f"{rec['bitplane_pack_launches']}, scrub_digest "
+              f"{rec['scrub_digest_launches']} (bluestore_data calls "
+              f"{rec['bluestore_data_calls']}), gf_matvec "
+              f"{rec['gf_matvec_launches']}; csum blocks batched "
+              f"{st['csum_blocks']} in {st['csum_batches']} batches, scalar "
+              f"{st['csum_scalar_blocks']}; read-verify blocks "
+              f"{st['read_verify_blocks']}; compressed "
+              f"{st['compress_blocks']}, rejected {st['compress_rejected']}"
+              f"  {tag}")
+        for side, fams in rec["engine_phases"].items():
+            for f, v in fams.items():
+                print(f"bluestore {label}: {side} engines {f}: "
+                      f"{v['batches']} batches, seconds "
+                      + ", ".join(f"{ph} {x:.4f}" for ph, x in
+                                  v["seconds"].items()) + f"  {tag}")
+        return rec
+
+    # -- 12a: one store on the card's context --------------------------------
+    ctx = CephTpuContext("bluestore", device=dev)
+    ctx.conf.set("bluestore_compression_mode", "aggressive", source="cli")
+    ctx.conf.set("bluestore_compression_algorithm", "tpu_bitplane",
+                 source="cli")
+    ctx.conf.set("bluestore_compression_required_ratio", str(BS_RATIO),
+                 source="cli")
+    names = [f"bs_{i:04d}" for i in range(n_objects)]
+    payload = bluestore_payloads(dev, names, obj_bytes, 12)
+    total_mb = n_objects * obj_bytes / 1e6
+    cid = "1.0"
+    path = os.path.join(root, "store")
+    store = BlueStoreLite(path, ctx=ctx)
+    store.mkfs()
+    store.mount()
+    store.apply_transaction(Transaction().create_collection(cid))
+    print(f"bluestore 12a: one BlueStoreLite on the card's context, "
+          f"compression aggressive tpu_bitplane ratio {BS_RATIO}; "
+          f"{n_objects} objects of {obj_bytes} B (thirds: 7-bit text, "
+          f"small integers, random) in transactions of {BS_TXN_OBJECTS}  "
+          f"{tag}")
+    contexts = [ctx]
+    c = client = None
+    try:
+        def write():
+            for lo in range(0, n_objects, BS_TXN_OBJECTS):
+                t = Transaction()
+                for name in names[lo:lo + BS_TXN_OBJECTS]:
+                    t.write(cid, name, 0, payload[name])
+                store.apply_transaction(t)
+
+        def read_back(st):
+            def body():
+                for name in names:
+                    if st.read(cid, name) != payload[name]:
+                        raise SmokeFailure(f"12a: {name} read back != the "
+                                           f"bytes written")
+            return body
+
+        rec = step("12a_write", write, total_mb, lambda: {
+            "stored_over_logical": _stored_ratio(store, cid, names)})
+        if tap.packs:     # a small-integer object's batch, if there is one
+            sample_pack = tap.packs[min(1, len(tap.packs) - 1)][0]
+        print(f"bluestore 12a_write: stored bytes / logical bytes "
+              f"{rec['stored_over_logical']:.4f}  {tag}")
+        step("12a_read", read_back(store), total_mb)
+        t0 = time.perf_counter()
+        store.umount()
+        store = BlueStoreLite(path, ctx=ctx)
+        store.mount()
+        mount_s = time.perf_counter() - t0
+        rec = step("12a_remount_read", read_back(store), total_mb,
+                   lambda: {"umount_mount_seconds": mount_s})
+        print(f"bluestore 12a: umount + mount {mount_s:.3f} s  {tag}")
+        # one bit of one stored block flipped in the block file
+        victim = names[1]
+        meta = store._meta(cid, victim)
+        bi = len(meta["extents"]) // 2
+        comp = (meta.get("comp") or [None] * (bi + 1))[bi]
+        pos = meta["extents"][bi] * BLOCK + ((comp[1] if comp else BLOCK) // 2)
+        with open(store._block_path, "r+b") as f:
+            f.seek(pos)
+            byte = f.read(1)
+            f.seek(pos)
+            f.write(bytes([byte[0] ^ 0x10]))
+        before = telemetry.bluestore_dump()
+        try:
+            store.read(cid, victim)
+            raised = False
+        except IOError:
+            raised = True
+        errs = _bs_counts(before)["csum_errors"]
+        steps["12a_bit_flip"] = {"object": victim, "block": bi,
+                                 "compressed": comp is not None,
+                                 "raised_ioerror": raised,
+                                 "csum_errors": errs}
+        check(raised and errs == 1,
+              f"12a: one bit flipped in block {bi} of {victim} "
+              f"({'compressed' if comp else 'raw'}): the read raises IOError, "
+              f"csum_errors {errs}")
+        summary_a = telemetry.bluestore_summary()
+        print(f"bluestore 12a: BlueStoreStats.summary() {summary_a}  {tag}")
+        check(summary_a["scalar_csum_blocks"] == 0
+              and summary_a["csum_fallbacks"] == 0,
+              f"12a: no scalar csum block, no fallback batch "
+              f"({summary_a['scalar_csum_blocks']}, "
+              f"{summary_a['csum_fallbacks']})")
+        check(not on_card or (steps["12a_write"]["bitplane_pack_launches"] > 0
+                              and all(steps[k]["scrub_digest_launches"] > 0
+                                      for k in ("12a_write", "12a_read",
+                                                "12a_remount_read"))),
+              "12a: bitplane_pack launched by the writes, scrub_digest by "
+              "the writes and both reads")
+        assert_no_faults("12a", ctx.fault_digest())
+        store.umount()
+        store = None
+
+        # -- 12b: a MiniCluster on BlueStore -----------------------------------
+        telemetry.bluestore_stats().clear()
+        cnames = [f"bsc_{i:04d}" for i in range(cluster_objects)]
+        cpayload = bluestore_payloads(dev, cnames, obj_bytes, 13)
+        cmb = cluster_objects * obj_bytes / 1e6
+        t0 = time.perf_counter()
+        c = MiniCluster(n_osds=BS_CLUSTER_OSDS, ms_type="loopback",
+                        store_type="bluestore",
+                        base_path=os.path.join(root, "cluster"),
+                        device=dev).start()
+        c.wait_for_osd_count(BS_CLUSTER_OSDS, timeout=CLUSTER_OP_TIMEOUT)
+        client = c.client(timeout=CLUSTER_OP_TIMEOUT)
+        contexts += [c.mon.ctx, client.ctx] + [o.ctx
+                                               for o in c.osds.values()]
+        start_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pool = c.create_pool(client, pool_type="erasure", plugin="jerasure",
+                             technique="reed_sol_van", k=BS_K, m=BS_M,
+                             pg_num=BS_PG_NUM,
+                             epoch_timeout=CLUSTER_OP_TIMEOUT)
+        create_s = time.perf_counter() - t0
+        peer_s = _wait_active(c, pool, BS_PG_NUM, CLUSTER_OP_TIMEOUT)
+        t0 = time.perf_counter()
+        for var, val in (("compression_mode", "aggressive"),
+                         ("compression_algorithm", "tpu_bitplane")):
+            rc, out = client.mon_command({"prefix": "osd pool set",
+                                          "pool": str(pool), "var": var,
+                                          "val": val})
+            check(rc == 0, f"12b: osd pool set {var} {val}: {out}")
+        c.wait_for_epoch(c.mon.osdmap.epoch, timeout=CLUSTER_OP_TIMEOUT)
+        client.wait_for_epoch(c.mon.osdmap.epoch)
+        set_s = time.perf_counter() - t0
+        print(f"bluestore 12b: {BS_CLUSTER_OSDS} OSDs on bluestore "
+              f"(loopback, 1 mon) up in {start_s:.1f} s; pool {pool} "
+              f"jerasure reed_sol_van k={BS_K} m={BS_M} pg_num {BS_PG_NUM} "
+              f"created (its first map epoch) in {create_s:.1f} s, every PG "
+              f"active {peer_s:.1f} s later; compression aggressive "
+              f"tpu_bitplane set in {set_s:.1f} s; {cluster_objects} objects "
+              f"of {obj_bytes} B, {CLUSTER_IN_FLIGHT} in flight  {tag}")
+        io = client.open_ioctx(pool)
+
+        def check_read(name, comp_):
+            if comp_.reply.ops[0].data != cpayload[name]:
+                raise SmokeFailure(f"12b: {name} read back != the bytes "
+                                   f"written")
+
+        def read_all():
+            _rados_bench(cnames, io.aio_read, check_read)
+
+        step("12b_write", lambda: _rados_bench(
+            cnames, lambda n: io.aio_write_full(n, cpayload[n]),
+            lambda n, comp_: None), cmb)
+        step("12b_read", read_all, cmb)
+        c.kill_osd(BS_VICTIM)
+        rc, out = client.mon_command({"prefix": "osd down",
+                                      "id": str(BS_VICTIM)})
+        check(rc == 0, f"osd down {BS_VICTIM}: {out}")
+        c.wait_for_epoch(c.mon.osdmap.epoch, timeout=CLUSTER_OP_TIMEOUT)
+        client.wait_for_epoch(c.mon.osdmap.epoch)
+        rec = step("12b_degraded_read", read_all, cmb)
+        if on_card:     # the same reads again, under torch.profiler
+            busy = _busy(read_all, lambda: None)
+            rec.update(busy_share=busy["busy_share"],
+                       busy_window_ms=busy["window_ms"])
+            print(f"bluestore 12b_degraded_read: card busy share "
+                  + (f"{rec['busy_share']:.4f}" if rec["busy_share"]
+                     is not None else "not measured")
+                  + f" (window {rec['busy_window_ms']:.1f} ms)  {tag}")
+        check(not on_card or rec["gf_matvec_launches"] >= 1,
+              f"12b: degraded reads decode through gf_matvec "
+              f"({rec['gf_matvec_launches']} launches)")
+
+        def restart():
+            c.run_osd(BS_VICTIM)
+            c.wait_for_osd_count(BS_CLUSTER_OSDS, timeout=CLUSTER_OP_TIMEOUT)
+            c.wait_for_epoch(c.mon.osdmap.epoch, timeout=CLUSTER_OP_TIMEOUT)
+            deadline = time.time() + CLUSTER_RECOVERY_S
+            while True:
+                bad, _holes = _shard_placement(c, pool, cnames, deep=False)
+                if not bad:
+                    bad, _holes = _shard_placement(c, pool, cnames,
+                                                   deep=True)
+                    if not bad:
+                        return
+                if time.time() > deadline:
+                    raise SmokeFailure(
+                        f"12b: {len(bad)} shards not on their mapped OSDs "
+                        f"with a matching hinfo after {CLUSTER_RECOVERY_S} "
+                        f"s, e.g. {bad[:4]}")
+                time.sleep(0.25)
+        step("12b_restart", restart, cmb)
+        contexts.append(c.osds[BS_VICTIM].ctx)
+        check(isinstance(c.osds[BS_VICTIM].store, BlueStoreLite),
+              f"12b: osd.{BS_VICTIM} restarted on its own path: its store "
+              f"remounted, every object's {BS_K + BS_M} shards on their "
+              f"OSDs with matching hinfo")
+        osds = list(c.osds.values())
+        aggs = [None] * len(osds)
+
+        def scrub():
+            def one(i):
+                aggs[i] = osds[i].scrub_all_pgs()
+            th = [threading.Thread(target=one, args=(i,))
+                  for i in range(len(osds))]
+            for t in th:
+                t.start()
+            for t in th:
+                t.join()
+        rec = step("12b_scrub", scrub, cmb, lambda: {
+            "pgs": sum(a["pgs"] for a in aggs),
+            "clean": all(a["clean"] for a in aggs),
+            "inconsistent": sorted(o for a in aggs
+                                   for o in a["inconsistent"]),
+            "errors": [e for a in aggs for e in a.get("errors", ())]})
+        check(rec["clean"] and not rec["inconsistent"] and not rec["errors"]
+              and rec["pgs"] == BS_PG_NUM,
+              f"12b: one scrub_all_pgs pass over all {BS_PG_NUM} PGs is "
+              f"clean ({rec['inconsistent']}, {rec['errors'][:2]})")
+        summary_b = telemetry.bluestore_summary()
+        print(f"bluestore 12b: BlueStoreStats.summary() {summary_b} "
+              f"(commits on an engine's own thread take the scalar crc by "
+              f"design)  {tag}")
+        check(summary_b["csum_batches"] > 0,
+              f"12b: the OSDs' commits went through the bluestore_data "
+              f"channel ({summary_b['csum_batches']} batches, "
+              f"{summary_b['batched_csum_blocks']} blocks; scalar "
+              f"{summary_b['scalar_csum_blocks']})")
+        for ctx_ in contexts[1:]:
+            assert_no_faults(f"12: {ctx_.name}", ctx_.fault_digest())
+    finally:
+        tap.close()
+        if store is not None:
+            store.umount()
+        if c is not None:
+            c.stop()
+        for ctx_ in contexts:
+            ctx_.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    ctx_names = {ctx_.name for ctx_ in contexts}
+    c = client = contexts = ctx = None
+    gc.collect()
+    deadline = time.time() + 10
+    alive = []
+    while time.time() < deadline:
+        alive = [t.name for t in threading.enumerate() if t.is_alive()
+                 and t.name.split("-")[0] in ctx_names]
+        if not alive:
+            break
+        time.sleep(0.05)
+    check(not alive, f"12: no engine thread alive after stop() "
+          f"({alive[:4]})")
+    secs = time.perf_counter() - t_phase
+    print(f"bluestore: phase 12 took {secs:.1f} s (budget "
+          f"{BS_BUDGET_S:.0f} s)  {tag}")
+    row = bitplane_row(dev, tag, sample_pack, pack_launches,
+                       getattr(tap, "err", 0)) if on_card else None
+    summary = {"store": {"objects": n_objects, "object_bytes": obj_bytes,
+                         "txn_objects": BS_TXN_OBJECTS,
+                         "compression": ["aggressive", "tpu_bitplane",
+                                         BS_RATIO],
+                         "summary": summary_a},
+               "cluster": {"osds": BS_CLUSTER_OSDS, "k": BS_K, "m": BS_M,
+                           "pg_num": BS_PG_NUM, "objects": cluster_objects,
+                           "start_seconds": start_s,
+                           "pool_create_seconds": create_s,
+                           "peering_seconds": peer_s,
+                           "summary": summary_b},
+               "steps": steps, "phase_seconds": secs}
+    return summary, row, digest_launches
+
+
+def bitplane_row(dev, tag: str, sample, launches: dict, err: int) -> dict:
+    """bitplane_pack alone at PACK_SHAPE on random bytes, each input held
+    against the plain version on the card (exact): timed by graph replay
+    beside the launches issued from Python, cold (launches turn over 8
+    inputs and outputs, 128 MiB, past the 50 MB L2, as the bound assumes)
+    and warm (one input, in L2), beside its bound (each input byte read
+    once, each plane byte written once) and the plain version's time; and
+    warm at one of 12a's batches."""
+    import torch
+
+    from ceph_tpu_torch.ops import _build
+    from ceph_tpu_torch.ops import compression_kernel as bk
+    gen = torch.Generator(device=dev).manual_seed(14)
+    s, w = PACK_SHAPE
+    rot = 8
+    xs = [torch.randint(0, 256, PACK_SHAPE, dtype=torch.uint8, device=dev,
+                        generator=gen) for _ in range(rot)]
+    outs = [torch.empty((s, 8, w // 8), dtype=torch.uint8, device=dev)
+            for _ in range(rot)]
+
+    def launch(x, out):
+        _build.launch("bitplane_pack", "bitplane_pack_launch", x.data_ptr(),
+                      out.data_ptr(), x.shape[0], x.shape[1])
+
+    for x, out in zip(xs, outs):
+        launch(x, out)
+        e = int((out.long() - bk.bitplane_planes_plain(x).long()).abs().max())
+        err = max(err, e)
+    check(err == 0, f"bitplane_pack == plain torch on {rot} random "
+          f"{PACK_SHAPE} inputs and every phase-12 batch")
+    turn = {"i": 0}
+
+    def cold():
+        i = turn["i"] % rot
+        turn["i"] += 1
+        launch(xs[i], outs[i])
+
+    b_ms, b_by = bound(2 * s * w, 0)
+    row = {"name": "bitplane_pack", "route": "cuda",
+           "source": "ceph_tpu_torch/csrc/bitplane.cu",
+           "replaces": "ceph_tpu/ops/compression_kernel.py:61",
+           "launches": sum(launches.values()),
+           "launches_by_sub_step": launches, "max_abs_err": err,
+           "matches_plain": err == 0, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": None, "shape": f"{PACK_SHAPE} random, cold"}
+    g, h = paired_times(cold, 2 * rot)
+    row.update(ms=statistics.median(g), host_ms=statistics.median(h))
+    g, h = paired_times(lambda: launch(xs[0], outs[0]), 2 * rot)
+    row.update(warm_ms=statistics.median(g), warm_host_ms=statistics.median(h))
+    row["plain_ms"] = time_ms(lambda: bk.bitplane_planes_plain(xs[0]), 1,
+                              reps=5)
+    row["GB_s"] = 2 * s * w / row["ms"] / 1e6
+    print(f"bitplane_pack   {PACK_SHAPE} random: kernel {row['ms']:.4f} ms "
+          f"cold (graph replay over {rot} inputs; {row['host_ms']:.4f} "
+          f"issued) = {row['GB_s']:.1f} GB/s moved, {row['warm_ms']:.4f} ms "
+          f"warm ({row['warm_host_ms']:.4f} issued)  bound {b_ms:.4f} ms "
+          f"({b_by})  plain {row['plain_ms']:.3f} ms  {tag}")
+    check(row["ms"] >= b_ms, f"bitplane_pack cold: graph replay "
+          f"{row['ms']:.4f} ms at or above its bound {b_ms:.4f} ms")
+    if sample is not None:
+        out_s = torch.empty((sample.shape[0], 8, sample.shape[1] // 8),
+                            dtype=torch.uint8, device=dev)
+        g, h = paired_times(lambda: launch(sample, out_s), 2 * rot)
+        row.update(sample_shape=list(sample.shape),
+                   sample_ms=statistics.median(g),
+                   sample_host_ms=statistics.median(h))
+        print(f"bitplane_pack   a 12a batch {tuple(sample.shape)}: kernel "
+              f"{row['sample_ms']:.4f} ms warm (graph replay; "
+              f"{row['sample_host_ms']:.4f} issued)  {tag}")
+    return row
+
+
 def words_row(dev, m, launches: list) -> dict:
     """pg_osd_words at the map's OSD count: held against osd_words_plain,
     timed by graph replay, beside its bound (each OSD's three entries read,
@@ -3723,11 +4334,18 @@ def run() -> None:
     row_of["gf_matvec"]["cluster"] = gf_cluster
     kernels.append(scrub_row)
 
+    print("== 12. BlueStore on the card")
+    bluestore, pack_row, bs_digest = bluestore_phase(dev, tag)
+    scrub_row["bluestore_data_launches"] = bs_digest
+    kernels.append(pack_row)
+
+    print("== 13. results")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"engine": engine}))
     print(json.dumps({"mapping": mapping}))
     print(json.dumps({"cluster": cluster}))
     print(json.dumps({"scrub": scrub}))
+    print(json.dumps({"bluestore": bluestore}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -561,13 +561,10 @@ def test_unported_parts_raise_naming_their_item():
         with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
             call()
     from ceph_tpu_torch.msg.messenger import EntityName, Messenger
-    from ceph_tpu_torch.objectstore import create_objectstore
     from ceph_tpu_torch.tools.vstart import ProcCluster
     for mtype in ("async", "threaded", "ici", "ici-wire"):
         with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
             Messenger.create(EntityName("client", 1), mtype)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        create_objectstore("bluestore")
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         ProcCluster()
 

@@ -8,8 +8,8 @@ same sequence hold byte-equal files on disk, a FileStore directory written
 by the JAX package mounts and reads back in the port, transactions encode to
 the same bytes and each package decodes the other's, and
 ``convert.objectstore_from_reference`` carries a JAX MemStore's state into a
-port MemStore.  The tolerance is exact equality throughout.  Bluestore waits
-for the integrity channels and raises in the port.
+port MemStore.  The tolerance is exact equality throughout.  BlueStore's
+cases are in tests/test_torch_bluestore.py.
 """
 
 from __future__ import annotations
@@ -233,11 +233,6 @@ def test_filestore_torn_journal_tail_ignored(tmp_path):
     s2.mount()
     assert s2.read("c", "good") == b"ok"
     s2.umount()
-
-
-def test_bluestore_raises_until_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        port_os.create_objectstore("bluestore", "")
 
 
 # -- KV ---------------------------------------------------------------------
