@@ -42,6 +42,18 @@ called raw on the same operands at the paths' shapes:
         built alone) and this checkout at every run of DIGEST_RUNS
         (``digest_ab``), each output held equal to the plain version; with
         ptxas's registers and spills (-Xptxas -v) of every build
+  bitplane_pack at chip_smoke.PACK_SHAPES, each cold (inputs in turn over
+        64 MiB, past L2) and warm, and a ragged (37, 4,104) call on a data
+        pointer one byte off alignment; each checkout, bitplane.cu's design
+        variants (BITPLANE_VARIANTS: other kVec, cache hints, a capped
+        grid; each bitplane.cu with a few lines replaced, built alone),
+        ab_bitplane.cu's first version, staged design and two
+        floors (empty blocks; a copy without the transpose) and torch's
+        copy_ of the same bytes (``bitplane_ab``), each output that is the
+        planes held equal to the plain version before it is timed, also
+        behind a queued spin kernel (the card's time without the host's
+        submission of the replay); with ptxas's registers and spills of
+        every build and tools/sass_report's line of every kernel
 
 Launcher forms are known by their argument count: the root kernels' dividing
 form (root: xs, n, R, ids, w, S, ln_tab, pos, id; filter: xs, n, R, ids, w,
@@ -110,11 +122,18 @@ SHAPES = {
     # (label, half omap, S, W): chip_smoke.DIGEST_SHAPES
     "scrub_digest": [(label, omap, s, w)
                      for label, s, w, omap in cs.DIGEST_SHAPES],
+    # (label, S, W, inputs in turn, data pointer offset)
+    "bitplane_pack": [
+        *((f"({s}, {w}) {heat}", s, w, rot, 0)
+          for s, w in cs.PACK_SHAPES
+          for heat, rot in (("cold", cs.pack_rot(s, w)), ("warm", 1))),
+        (f"({cs.PACK_RAGGED[0]}, {cs.PACK_RAGGED[1]}) ragged, unaligned",
+         cs.PACK_RAGGED[0], cs.PACK_RAGGED[1], 1, cs.PACK_RAGGED[2])],
 }
 LAUNCHERS = ("straw2_root_launch", "straw2_froot_launch", "straw2_leaf_launch",
              "gf_matvec_launch", "firstn_consume_launch",
              "ln_f32_table_launch", "pg_finish_ladder_launch",
-             "scrub_digest_launch")
+             "scrub_digest_launch", "bitplane_pack_launch")
 
 
 def load_build(root: str, tag: str):
@@ -666,6 +685,189 @@ def digest_ab(libs, dev, rng, card: str) -> list:
     return rows
 
 
+_KVEC = "constexpr int kVec = {};"
+_PACK_LOAD = "const uint4 v = __ldg(reinterpret_cast<const uint4*>(in) + i);"
+_PACK_STORE = "*reinterpret_cast<uint32_t*>(o + j * P) = p[j];"
+#: bitplane_pack's design variants, each bitplane.cu with a few lines
+#: replaced (old, new; each old text must occur once) and built alone:
+#: (label, replacements).  The store variant replaces the kVec = 2 store
+BITPLANE_VARIANTS = (
+    ("kVec 1 (16 B a thread, 2-byte plane stores)",
+     [(_KVEC.format(2), _KVEC.format(1))]),
+    ("kVec 4 (64 B a thread, 8-byte plane stores)",
+     [(_KVEC.format(2), _KVEC.format(4))]),
+    ("loads with an L2 256-byte prefetch",
+     [(_PACK_LOAD,
+       "uint4 v;\n    asm(\"ld.global.nc.L2::256B.v4.u32 {%0, %1, %2, %3}, "
+       "[%4];\"\n        : \"=r\"(v.x), \"=r\"(v.y), \"=r\"(v.z), "
+       "\"=r\"(v.w)\n        : \"l\"(reinterpret_cast<const uint4*>(in) "
+       "+ i));")]),
+    ("streaming plane stores (st.global.cs)",
+     [(_PACK_STORE, "__stcs(reinterpret_cast<unsigned int*>(o + j * P), "
+                    "p[j]);")]),
+    ("grid rows capped at 512 (rows looped)",
+     [("constexpr int kGridRows = 65535;", "constexpr int kGridRows = 512;")]),
+)
+#: ab_bitplane.cu's launchers: (label, launcher, output is the planes)
+BITPLANE_AB = (
+    ("0 first version", "first_bitplane_launch", True),
+    ("staged (shared memory, 16-byte plane stores)",
+     "staged_bitplane_launch", True),
+    ("floor: empty blocks (the launch)", "empty_bitplane_launch", False),
+    ("floor: copy, no transpose (the bytes)", "copy_bitplane_launch", False),
+)
+def build_bitplane_variants() -> dict:
+    """bitplane_pack's designs beside this checkout's kernel, each built
+    alone (nvcc -Xptxas -v, all started together) into
+    ceph_tpu_torch/_build/: bitplane.cu with each of BITPLANE_VARIANTS's
+    lines replaced, and ab_bitplane.cu (BITPLANE_AB).  label -> (library,
+    launcher name, output is the planes).  Prints ptxas's registers and
+    spills and tools/sass_report's line of each library."""
+    import hashlib
+
+    from ceph_tpu_torch.ops import _build
+    from ceph_tpu_torch.tools import sass_report
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(_build._CSRC, "bitplane.cu")) as f:
+        body = f.read()
+    with open(os.path.join(here, "ab_bitplane.cu")) as f:
+        ab = f.read()
+    texts = {}
+    for label, replacements in BITPLANE_VARIANTS:
+        text = body
+        for old, new in replacements:
+            if text.count(old) != 1:
+                raise RuntimeError(f"bitplane variant {label}: {old!r} is "
+                                   f"not in bitplane.cu exactly once")
+            text = text.replace(old, new)
+        texts[label] = text
+    texts["ab_bitplane.cu"] = ab
+    os.makedirs(_build._OUT, exist_ok=True)
+    procs = {}
+    for label, text in texts.items():
+        h = hashlib.sha256((text + body + " ".join(_build.NVCC_FLAGS))
+                           .encode()).hexdigest()[:16]
+        src = os.path.join(_build._OUT, f"ab_bitplane_{h}.cu")
+        with open(src, "w") as f:
+            f.write(text)
+        out = os.path.join(_build._OUT, f"libab_bitplane_{h}.so")
+        tmp = f"{out}.{os.getpid()}.tmp"
+        procs[label] = (out, tmp, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build._CSRC,
+             "-Xptxas", "-v", "-shared", "-o", tmp, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    sos = {}
+    for label, (out, tmp, proc) in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"bitplane variant {label}: nvcc failed\n"
+                               f"{text}")
+        os.replace(tmp, out)
+        print(f"ptxas, bitplane {label}:\n{_ptxas_summary(text)}")
+        try:
+            print(sass_report.format_report(sass_report.report(out)))
+        except (OSError, subprocess.CalledProcessError) as e:
+            print(f"SASS of {label}: not measured ({e})")
+        sos[label] = ctypes.CDLL(out)
+    libs = {label: (sos[label], "bitplane_pack_launch", True)
+            for label, _r in BITPLANE_VARIANTS}
+    libs.update({label: (sos["ab_bitplane.cu"], launcher, checked)
+                 for label, launcher, checked in BITPLANE_AB})
+    for so, launcher, _checked in libs.values():
+        fn = getattr(so, launcher)
+        fn.argtypes = _build.SIGNATURES["bitplane_pack_launch"]
+        fn.restype = ctypes.c_int
+    return libs
+
+
+def bitplane_ab(libs, dev, card: str) -> list:
+    """bitplane_pack of every checkout (``libs``: this first), of the
+    designs of build_bitplane_variants and, as a yardstick, torch's copy_
+    of the same bytes (not the pack), at each of SHAPES's bitplane_pack
+    shapes: every output that is the planes held equal to the plain
+    version, then timed by graph replay (``ms``), issued (``host_ms``) and
+    by graph replay behind a queued spin kernel (``queued_ms``), median of
+    7 runs of two launches an input (at least 16), in turns (the order,
+    then reversed), each the mean of its two turns; beside the byte
+    bound."""
+    import statistics
+
+    import torch
+
+    from ceph_tpu_torch.ops import compression_kernel as bk
+    from ceph_tpu_torch.ops import _build
+    print("ptxas, this checkout's bitplane.cu:\n" + _ptxas_summary(
+        ptxas_lines(os.path.join(_build._CSRC, "bitplane.cu"), [])
+        .communicate()[0]))
+    variants = build_bitplane_variants()
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    calls = {lib.tag: (lib.so, "bitplane_pack_launch", True) for lib in libs
+             if "bitplane_pack_launch" in lib.launchers}
+    calls.update(variants)
+    copy_tag = "yardstick: torch copy_ of the bytes"
+    rows = []
+    for what, s, w, rot, offset in SHAPES["bitplane_pack"]:
+        xs, outs = cs.pack_operands(dev, s, w, rot, offset)
+        turn = {"i": 0}
+
+        def call(tag, x, out):
+            if tag == copy_tag:
+                out.view(-1).copy_(x.reshape(-1))
+                return
+            so, launcher, _checked = calls[tag]
+            err = getattr(so, launcher)(x.data_ptr(), out.data_ptr(), s, w,
+                                        stream())
+            if err:
+                raise RuntimeError(f"bitplane_pack {tag}: error {err}")
+
+        def timed(tag):
+            i = turn["i"] % rot
+            turn["i"] += 1
+            call(tag, xs[i], outs[i])
+
+        want = [bk.bitplane_planes_plain(x) for x in xs]
+        for tag, (_so, _launcher, checked) in calls.items():
+            if not checked:
+                continue
+            same = True
+            for x, out, ref in zip(xs, outs, want):
+                out.fill_(0xA5)
+                call(tag, x, out)
+                torch.cuda.synchronize()
+                same = same and torch.equal(out, ref)
+            cs.check(same, f"bitplane_pack {what}: {tag} == the plain "
+                     f"version on each of {rot} inputs")
+        del want
+        order = list(calls) + [copy_tag]
+        graph = {tag: [] for tag in order}
+        host = {tag: [] for tag in order}
+        queued = {tag: [] for tag in order}
+        iters = max(16, 2 * rot)
+        for tag in order + order[::-1]:
+            g, h = cs.paired_times(lambda tag=tag: timed(tag), iters)
+            graph[tag].append(statistics.median(g))
+            host[tag].append(statistics.median(h))
+            queued[tag].append(statistics.median(cs.queued_graph_times(
+                lambda tag=tag: timed(tag), iters)))
+        b_ms, b_by = cs.bound(2 * s * w, 0)
+        row = {"kernel": "bitplane_pack", "shape": what, "S": s, "W": w,
+               "inputs": rot, "offset": offset, "iters": iters,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "ms": {t: sum(v) / len(v) for t, v in graph.items()},
+               "host_ms": {t: sum(v) / len(v) for t, v in host.items()},
+               "queued_ms": {t: sum(v) / len(v) for t, v in queued.items()},
+               "runs": graph, "host_runs": host, "queued_runs": queued}
+        rows.append(row)
+        for tag in graph:
+            print(f"bitplane_pack {what:28s} {tag:46s} {row['ms'][tag]:.4f} "
+                  f"ms (graph replay; {row['queued_ms'][tag]:.4f} queued; "
+                  f"{row['host_ms'][tag]:.4f} issued)  "
+                  f"{b_ms / row['ms'][tag]:.0%} of its bound {b_ms:.4f} ms "
+                  f"({b_ms / row['queued_ms'][tag]:.0%} queued)  [{card}]")
+        del xs, outs
+    return rows
+
+
 def ladder_operands(dev, rng, n: int, w: int = 12, p: int = 4,
                     m_osd: int = 10000):
     """pg_finish_ladder's operands (finish_ladder's order) for a replicated
@@ -778,7 +980,8 @@ def main() -> int:
             print(f"SASS: not measured ({e})")
 
     rng = np.random.default_rng(0)
-    if any(k != "scrub_digest" for k in kernels):  # the CRUSH and EC operands
+    if any(k not in ("scrub_digest", "bitplane_pack")
+           for k in kernels):                # the CRUSH and EC operands
         m_flag, rid_flag, rw_flag = cs.bench_map()
         m_wide, rid_wide, rw_wide = cs.bench_map(cs.WIDE_HOSTS,
                                                  cs.WIDE_PER_HOST)
@@ -831,6 +1034,9 @@ def main() -> int:
                 print(f"ptxas, {lib.tag}'s digest.cu:\n"
                       f"{_ptxas_summary(text)}")
             results += digest_ab(libs, dev, np.random.default_rng(13), card)
+            continue
+        if kernel == "bitplane_pack":
+            results += bitplane_ab(libs, dev, card)
             continue
         for what, which, n, R in SHAPES[kernel]:
             outs = {}

@@ -249,11 +249,14 @@ Runs ceph_tpu_torch (never JAX, never ceph_tpu) at the bench's full size:
              Checks: csum_batches > 0, every read == the bytes written,
              every batch == its plain version as in 12a, fault_digest()
              zero, no engine thread alive after stop().  Then
-             bitplane_pack alone at (1,024, 4,096) random bytes and at one
-             of 12a's batches, held against the plain version, timed by
-             graph replay and issued, beside its bound (each input byte read
-             once, each plane byte written once) and the plain version's
-             time; the phase's seconds (budget 120)
+             bitplane_pack alone: its registers, spills and SASS calls
+             (no 64-bit divide), a ragged (37, 4,104) call on a data
+             pointer one byte off alignment, and (1,024, 4,096) and (256,
+             4,096) random bytes, cold (inputs in turn over 64 MiB) and
+             warm, and one of 12a's batches, held against the plain
+             version, timed by graph replay and issued, beside its bound
+             (each input byte read once, each plane byte written once) and
+             the plain version's time; the phase's seconds (budget 120)
  13. prints  the {"engine": ...} line, the {"mapping": ...} line, the
              {"cluster": ...} line, the {"scrub": ...} line, the
              {"bluestore": ...} line, the {"kernels": [...]} line (gf_matvec's
@@ -446,8 +449,13 @@ BS_CLUSTER_OSDS, BS_K, BS_M, BS_PG_NUM = 6, 4, 2, 16
 BS_CLUSTER_OBJECTS = 16
 BS_VICTIM = 2                        # the OSD 12b kills and restarts
 BS_BUDGET_S = 120.0
-#: bitplane_pack alone: BlueStore's 4 MiB write, 1,024 blocks of 4 KiB
-PACK_SHAPE = (1024, 4096)
+#: bitplane_pack alone: BlueStore's 4 MiB write (1,024 blocks of 4 KiB) and
+#: a 12b shard write of 1 MiB (256 blocks), each cold (inputs and outputs in
+#: turn over PACK_COLD_BYTES, past the 50 MB L2) and warm; and a ragged
+#: (S, W) on a data pointer PACK_RAGGED[2] bytes past a 16-byte boundary
+PACK_SHAPES = ((1024, 4096), (256, 4096))
+PACK_COLD_BYTES = 64 << 20
+PACK_RAGGED = (37, 4104, 1)
 
 
 def digest_batch(dev, rng, s: int, w: int, omap: bool) -> dict:
@@ -2806,69 +2814,139 @@ def bluestore_phase(dev, tag: str, n_objects: int = BS_OBJECTS,
     return summary, row, digest_launches
 
 
+def pack_operands(dev, s: int, w: int, rot: int, offset: int = 0,
+                  seed: int = 14) -> tuple[list, list]:
+    """``rot`` (s, w) uint8 inputs of random bytes on ``dev``, each starting
+    ``offset`` bytes into its own allocation, and ``rot`` (s, 8, w / 8)
+    outputs."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xs = [torch.randint(0, 256, (s * w + offset,), dtype=torch.uint8,
+                        device=dev, generator=gen)[offset:].view(s, w)
+          for _ in range(rot)]
+    outs = [torch.empty((s, 8, w // 8), dtype=torch.uint8, device=dev)
+            for _ in range(rot)]
+    return xs, outs
+
+
+def pack_rot(s: int, w: int) -> int:
+    """Inputs a cold pack turns over: PACK_COLD_BYTES of inputs and
+    outputs."""
+    return max(1, PACK_COLD_BYTES // (2 * s * w))
+
+
 def bitplane_row(dev, tag: str, sample, launches: dict, err: int) -> dict:
-    """bitplane_pack alone at PACK_SHAPE on random bytes, each input held
+    """bitplane_pack alone at PACK_SHAPES on random bytes, each input held
     against the plain version on the card (exact): timed by graph replay
-    beside the launches issued from Python, cold (launches turn over 8
-    inputs and outputs, 128 MiB, past the 50 MB L2, as the bound assumes)
-    and warm (one input, in L2), beside its bound (each input byte read
-    once, each plane byte written once) and the plain version's time; and
-    warm at one of 12a's batches."""
+    (also behind a queued spin kernel, ``queued_graph_times``) beside the
+    launches issued from Python, cold (launches turn over pack_rot inputs
+    and outputs, 64 MiB, past the 50 MB L2, as the bound assumes) and warm (one input, in L2), beside its bound (each input byte
+    read once, each plane byte written once) and the plain version's time;
+    warm at one of 12a's batches; a ragged call on an unaligned pointer
+    (PACK_RAGGED) held against the plain version; the kernel's registers,
+    spills and SASS calls (none a 64-bit divide)."""
     import torch
 
     from ceph_tpu_torch.ops import _build
     from ceph_tpu_torch.ops import compression_kernel as bk
-    gen = torch.Generator(device=dev).manual_seed(14)
-    s, w = PACK_SHAPE
-    rot = 8
-    xs = [torch.randint(0, 256, PACK_SHAPE, dtype=torch.uint8, device=dev,
-                        generator=gen) for _ in range(rot)]
-    outs = [torch.empty((s, 8, w // 8), dtype=torch.uint8, device=dev)
-            for _ in range(rot)]
+    from ceph_tpu_torch.tools import sass_report
 
     def launch(x, out):
         _build.launch("bitplane_pack", "bitplane_pack_launch", x.data_ptr(),
                       out.data_ptr(), x.shape[0], x.shape[1])
 
-    for x, out in zip(xs, outs):
-        launch(x, out)
-        e = int((out.long() - bk.bitplane_planes_plain(x).long()).abs().max())
-        err = max(err, e)
-    check(err == 0, f"bitplane_pack == plain torch on {rot} random "
-          f"{PACK_SHAPE} inputs and every phase-12 batch")
-    turn = {"i": 0}
+    def max_err(x, out):
+        return int((out.long() - bk.bitplane_planes_plain(x).long()).abs()
+                   .max())
 
-    def cold():
-        i = turn["i"] % rot
-        turn["i"] += 1
-        launch(xs[i], outs[i])
-
-    b_ms, b_by = bound(2 * s * w, 0)
+    try:
+        sass = {name: r for name, r in
+                sass_report.report(_build.build()).items()
+                if name.startswith("bitplane_pack_kernel")}
+    except (OSError, subprocess.CalledProcessError) as e:
+        sass = {}
+        print(f"bitplane_pack SASS and registers: not measured ({e})")
+    if sass:
+        print(sass_report.format_report(sass))
+        for name, r in sass.items():
+            check("u64 divide" not in r["calls"] and r.get("local") == 0,
+                  f"{name}: no 64-bit divide, no spills "
+                  f"({r.get('registers')} registers, calls: "
+                  f"{r['calls'] or 'none'})")
+    s, w, offset = PACK_RAGGED
+    (x,), (out,) = pack_operands(dev, s, w, 1, offset, seed=15)
+    launch(x, out)
+    e = max_err(x, out)
+    err = max(err, e)
+    check(e == 0 and x.data_ptr() % 16 == offset,
+          f"bitplane_pack == plain torch at ragged ({s}, {w}) on a data "
+          f"pointer {offset} byte(s) off 16-byte alignment")
     row = {"name": "bitplane_pack", "route": "cuda",
            "source": "ceph_tpu_torch/csrc/bitplane.cu",
            "replaces": "ceph_tpu/ops/compression_kernel.py:61",
            "launches": sum(launches.values()),
-           "launches_by_sub_step": launches, "max_abs_err": err,
-           "matches_plain": err == 0, "bound_ms": b_ms, "bound_by": b_by,
-           "library_ms": None, "shape": f"{PACK_SHAPE} random, cold"}
-    g, h = paired_times(cold, 2 * rot)
-    row.update(ms=statistics.median(g), host_ms=statistics.median(h))
-    g, h = paired_times(lambda: launch(xs[0], outs[0]), 2 * rot)
-    row.update(warm_ms=statistics.median(g), warm_host_ms=statistics.median(h))
-    row["plain_ms"] = time_ms(lambda: bk.bitplane_planes_plain(xs[0]), 1,
-                              reps=5)
-    row["GB_s"] = 2 * s * w / row["ms"] / 1e6
-    print(f"bitplane_pack   {PACK_SHAPE} random: kernel {row['ms']:.4f} ms "
-          f"cold (graph replay over {rot} inputs; {row['host_ms']:.4f} "
-          f"issued) = {row['GB_s']:.1f} GB/s moved, {row['warm_ms']:.4f} ms "
-          f"warm ({row['warm_host_ms']:.4f} issued)  bound {b_ms:.4f} ms "
-          f"({b_by})  plain {row['plain_ms']:.3f} ms  {tag}")
-    check(row["ms"] >= b_ms, f"bitplane_pack cold: graph replay "
-          f"{row['ms']:.4f} ms at or above its bound {b_ms:.4f} ms")
+           "launches_by_sub_step": launches, "library_ms": None,
+           "ragged": [s, w, offset], "ragged_max_abs_err": e,
+           "registers": {n: r.get("registers") for n, r in sass.items()},
+           "by_shape": []}
+    for s, w in PACK_SHAPES:
+        rot = pack_rot(s, w)
+        xs, outs = pack_operands(dev, s, w, rot)
+        for x, out in zip(xs, outs):
+            launch(x, out)
+            err = max(err, max_err(x, out))
+        check(err == 0, f"bitplane_pack == plain torch on {rot} random "
+              f"{(s, w)} inputs and every phase-12 batch")
+        turn = {"i": 0}
+
+        def cold(xs=xs, outs=outs, rot=rot):
+            i = turn["i"] % rot
+            turn["i"] += 1
+            launch(xs[i], outs[i])
+
+        b_ms, b_by = bound(2 * s * w, 0)
+        g, h = paired_times(cold, 2 * rot)
+        shape = {"S": s, "W": w, "inputs": rot, "ms": statistics.median(g),
+                 "host_ms": statistics.median(h), "bound_ms": b_ms,
+                 "bound_by": b_by}
+        shape["queued_ms"] = statistics.median(
+            queued_graph_times(cold, 2 * rot))
+        g, h = paired_times(lambda: launch(xs[0], outs[0]), 16)
+        shape.update(warm_ms=statistics.median(g),
+                     warm_host_ms=statistics.median(h),
+                     warm_queued_ms=statistics.median(queued_graph_times(
+                         lambda: launch(xs[0], outs[0]), 16)))
+        shape["share"] = b_ms / shape["ms"]
+        shape["GB_s"] = 2 * s * w / shape["ms"] / 1e6
+        if not row["by_shape"]:     # BlueStore's 4 MiB write heads the row
+            row.update(max_abs_err=err, matches_plain=err == 0, bound_ms=b_ms,
+                       bound_by=b_by, shape=f"{(s, w)} random, cold",
+                       ms=shape["ms"], host_ms=shape["host_ms"],
+                       queued_ms=shape["queued_ms"], warm_ms=shape["warm_ms"],
+                       warm_host_ms=shape["warm_host_ms"], GB_s=shape["GB_s"])
+            row["plain_ms"] = time_ms(
+                lambda: bk.bitplane_planes_plain(xs[0]), 1, reps=5)
+        row["by_shape"].append(shape)
+        print(f"bitplane_pack   {(s, w)} random: kernel {shape['ms']:.4f} ms "
+              f"cold (graph replay over {rot} inputs; "
+              f"{shape['queued_ms']:.4f} queued behind a spin kernel; "
+              f"{shape['host_ms']:.4f} issued) = {shape['GB_s']:.1f} GB/s "
+              f"moved, {shape['share']:.0%} of its bound, "
+              f"{shape['warm_ms']:.4f} ms warm ({shape['warm_queued_ms']:.4f} "
+              f"queued; {shape['warm_host_ms']:.4f} issued)  bound "
+              f"{b_ms:.4f} ms ({b_by})  {tag}")
+        check(shape["ms"] >= b_ms, f"bitplane_pack {(s, w)} cold: graph "
+              f"replay {shape['ms']:.4f} ms at or above its bound "
+              f"{b_ms:.4f} ms")
+        del xs, outs
+    row["max_abs_err"] = err
+    row["matches_plain"] = err == 0
+    print(f"bitplane_pack   plain {row['plain_ms']:.3f} ms at "
+          f"{PACK_SHAPES[0]}  {tag}")
     if sample is not None:
         out_s = torch.empty((sample.shape[0], 8, sample.shape[1] // 8),
                             dtype=torch.uint8, device=dev)
-        g, h = paired_times(lambda: launch(sample, out_s), 2 * rot)
+        g, h = paired_times(lambda: launch(sample, out_s), 16)
         row.update(sample_shape=list(sample.shape),
                    sample_ms=statistics.median(g),
                    sample_host_ms=statistics.median(h))
@@ -3006,6 +3084,30 @@ def paired_times(fn, iters: int, reps: int = 7
         graph += _event_times(g.replay, iters, 1)
         host += _event_times(issue, iters, 1)
     return graph, host
+
+
+#: cycles of the spin kernel queued ahead of a timed replay (~100 us at the
+#: H100's 1.98 GHz), so that the card is busy while the host submits it
+SPIN_CYCLES = 200_000
+
+
+def queued_graph_times(fn, iters: int, reps: int = 7) -> list[float]:
+    """``graph_times`` with a spin kernel (SPIN_CYCLES) queued ahead of each
+    timed replay: the card's time of the launches alone, without its wait
+    for the host to submit the replay."""
+    import torch
+    g = _capture(fn, iters)
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / iters)
+    return times
 
 
 def time_ms(fn, iters: int, reps: int = 7) -> float:
