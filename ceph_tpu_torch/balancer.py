@@ -1,0 +1,298 @@
+"""Upmap balancer — evens per-OSD PG counts with pg_upmap_items
+overrides (mgr balancer module in upmap mode +
+OSDMap::calc_pg_upmaps, OSDMap.cc:4420-4743).
+
+The optimizer is a pure function over an OSDMap: per pool, it measures
+the per-OSD placement histogram, then greedily relocates single
+replicas from the most-overfull OSD to the most-underfull one by
+emitting (from, to) exception pairs — the same mechanism the
+reference's `ceph osd pg-upmap-items` plumbs through
+OSDMap::_apply_upmap.  Failure-domain safety is preserved
+structurally: a move is only legal if the destination's CRUSH parent
+bucket is not already represented in the PG's mapping (unless the
+mapping never separated parents to begin with, i.e. a flat
+osd-failure-domain rule).
+
+The output is a plan: a list of mon commands ("osd pg-upmap-items" /
+"osd rm-pg-upmap-items") that the caller applies through the normal
+command path, mirroring how the mgr module executes its plans.
+
+Placements come from a context's shared PG mapping service
+(osd.mapping.SharedPGMappingService): ``service=`` names one, else
+``ctx=`` (default: the default context, on the card) lends its own,
+unless that context's ``osdmap_mapping_shared`` knob is off — then the
+scalar pipeline serves.  Candidate moves are scored in batches by
+``what_if_up`` (one ``pg_finish_ladder`` launch for all of an
+over-full OSD's candidate PGs); it answers None only where the service
+cannot serve the map or the fused tail is off, and the host ``up_of``
+scores then.  A fault of the card raises to the caller: no plan is
+ever computed on the host in its place.
+"""
+
+from __future__ import annotations
+
+from ceph_tpu_torch.osd.osdmap import CEPH_NOSD, CRUSH_ITEM_NONE, OSDMap
+
+
+def _service(osdmap: OSDMap, service=None, ctx=None):
+    """The mapping service the balancer reads, warmed to this map:
+    ``service``, else ``ctx``'s (the default context's when None) —
+    None when that context's osdmap_mapping_shared knob is off.  A card
+    fault while warming raises."""
+    if service is None:
+        if ctx is None:
+            from ceph_tpu_torch.common.context import default_context
+            ctx = default_context()
+        if not ctx.conf.get("osdmap_mapping_shared"):
+            return None
+        service = ctx.mapping_service()
+    service.warm(osdmap)
+    return service
+
+
+def crush_parent(osdmap: OSDMap, osd: int) -> int | None:
+    """The id of the bucket directly containing this osd (CrushWrapper
+    get_immediate_parent_id)."""
+    for b in osdmap.crush.buckets:
+        if b is not None and osd in b.items:
+            return b.id
+    return None
+
+
+def crush_parents(osdmap: OSDMap) -> dict[int, int]:
+    """item -> crush_parent(osdmap, item) for every item a bucket holds,
+    built in one pass (the first bucket holding an item wins, as in
+    crush_parent's scan)."""
+    out: dict[int, int] = {}
+    for b in osdmap.crush.buckets:
+        if b is not None:
+            for item in b.items:
+                out.setdefault(item, b.id)
+    return out
+
+
+def _candidate_osds(osdmap: OSDMap) -> list[int]:
+    """OSDs eligible to receive PGs: exist, up, in."""
+    return [o for o in range(osdmap.max_osd)
+            if osdmap.exists(o) and osdmap.is_up(o)
+            and not osdmap.is_out(o)]
+
+
+def _histogram(osdmap: OSDMap, pool_id: int, svc
+               ) -> dict[int, list[tuple[int, int]]]:
+    pool = osdmap.pools[pool_id]
+    out: dict[int, list[tuple[int, int]]] = {}
+    for ps in range(pool.pg_num):
+        up, _p, _a, _ap = (svc.lookup(osdmap, pool_id, ps) if svc
+                           else osdmap.pg_to_up_acting_osds(pool_id, ps))
+        for pos, o in enumerate(up):
+            if o not in (CEPH_NOSD, CRUSH_ITEM_NONE):
+                out.setdefault(o, []).append((ps, pos))
+    return out
+
+
+def pool_pg_histogram(osdmap: OSDMap, pool_id: int, service=None, *,
+                      ctx=None) -> dict[int, list[tuple[int, int]]]:
+    """osd -> [(pgid_ps, position)] placements for one pool, read from
+    the shared mapping cache (scalar per-PG pipeline when its context's
+    osdmap_mapping_shared knob is off)."""
+    return _histogram(osdmap, pool_id, _service(osdmap, service, ctx))
+
+
+def _move_is_safe(parents: dict[int, int], up: list[int], frm: int,
+                  to: int) -> bool:
+    """Structural failure-domain check: the mapping after frm->to must
+    not co-locate two members under one CRUSH parent, unless the
+    current mapping already does (flat map / osd failure domain).
+    ``parents`` is crush_parents(osdmap)."""
+    if to in up:
+        return False
+    others = [o for o in up
+              if o not in (frm, CEPH_NOSD, CRUSH_ITEM_NONE)]
+    owners = [parents.get(o) for o in others]
+    separated = len(set(owners + [parents.get(frm)])) \
+        == len(others) + 1
+    if not separated:
+        return True          # rule never isolated parents; osd-distinct ok
+    return parents.get(to) not in owners
+
+
+def calc_pg_upmaps(osdmap: OSDMap, pool_ids: list[int] | None = None,
+                   max_deviation: int = 1,
+                   max_optimizations: int = 256, *, service=None,
+                   ctx=None
+                   ) -> dict[tuple[int, int], list[tuple[int, int]]]:
+    """Compute pg_upmap_items changes that flatten per-pool PG counts
+    to within max_deviation of the mean (OSDMap::calc_pg_upmaps).
+
+    Returns {pgid: pairs}; an empty pairs list means "remove the
+    existing entry".  The osdmap is not modified.
+    """
+    m = osdmap
+    changes: dict[tuple[int, int], list[tuple[int, int]]] = {}
+    cands = _candidate_osds(m)
+    if len(cands) < 2:
+        return changes
+    svc = _service(m, service, ctx)
+    parents = crush_parents(m)
+    budget = max_optimizations
+    for pool_id in (pool_ids if pool_ids is not None
+                    else sorted(m.pools)):
+        pool = m.pools[pool_id]
+        hist = _histogram(m, pool_id, svc)
+        counts = {o: len(hist.get(o, [])) for o in cands}
+        total = sum(counts.values())
+        mean = total / len(cands)
+        # pairs we've planned this run, composed over what's in the map
+        planned: dict[int, list[tuple[int, int]]] = {
+            ps: list(m.pg_upmap_items.get((pool_id, ps), []))
+            for ps in range(pool.pg_num)}
+
+        def up_of(ps: int) -> list[int]:
+            raw = svc.raw_row(m, pool_id, ps) if svc else None
+            if raw is None:
+                raw = list(m._pg_to_raw_osds(pool, ps))
+            for frm, to in planned[ps]:
+                if frm in raw and to not in raw and m.exists(to) \
+                        and not m.is_out(to):
+                    raw[raw.index(frm)] = to
+            up, _ = m._raw_to_up_osds(pool, raw)
+            return up
+
+        # ps -> up under the CURRENT planned pairs (the map itself
+        # never changes inside this optimization), batch-filled
+        # through the fused ladder and invalidated per moved PG — so
+        # the whole over-full OSD's candidate set costs ONE device
+        # call up front and each later iteration re-evaluates only
+        # what a move actually changed (host up_of serves where
+        # what_if_up answers None: bit-identical by the ladder contract)
+        ups_cache: dict[int, list[int]] = {}
+
+        def fill_ups(cand_list):
+            missing = [ps for ps, _pos in cand_list
+                       if ps not in ups_cache]
+            if svc is None or not missing:
+                return
+            got = svc.what_if_up(
+                m, pool_id, [(ps, planned[ps]) for ps in missing])
+            if got is not None:
+                ups_cache.update(zip(missing, got))
+
+        while budget > 0:
+            over = max(cands, key=lambda o: counts[o])
+            under = min(cands, key=lambda o: counts[o])
+            # iterate until BOTH tails are inside the deviation target
+            # (OSDMap::calc_pg_upmaps loops on max deviation, with
+            # retries; stopping when either side looked fine left the
+            # other tail unbalanced)
+            if counts[over] - mean <= max_deviation \
+                    and mean - counts[under] <= max_deviation:
+                break
+            moved = False
+            over_cands = sorted(hist.get(over, []))
+            fill_ups(over_cands)
+            for ps, _pos in over_cands:
+                up = ups_cache.get(ps)
+                if up is None:
+                    up = up_of(ps)
+                if over not in up:
+                    continue
+                # prefer the most-underfull legal destination
+                for to in sorted(cands, key=lambda o: counts[o]):
+                    if counts[to] >= mean or to == over:
+                        continue
+                    if not _move_is_safe(parents, up, over, to):
+                        continue
+                    # compose: if `over` itself arrived via an earlier
+                    # pair (x -> over), rewrite that pair to (x -> to);
+                    # otherwise add a fresh (over -> to) pair
+                    src = next((f for (f, t) in planned[ps]
+                                if t == over), None)
+                    pairs = [p for p in planned[ps] if p[1] != over]
+                    pairs.append((src if src is not None else over, to))
+                    pairs = [p for p in pairs if p[0] != p[1]]
+                    planned[ps] = pairs
+                    ups_cache.pop(ps, None)   # pairs moved: re-score
+                    changes[(pool_id, ps)] = pairs
+                    counts[over] -= 1
+                    counts[to] += 1
+                    hist[over] = [e for e in hist.get(over, [])
+                                  if e[0] != ps]
+                    hist.setdefault(to, []).append((ps, _pos))
+                    moved = True
+                    budget -= 1
+                    break
+                if moved:
+                    break
+            if not moved:
+                break
+    # drop no-op changes (identical to what the map already has)
+    return {pgid: pairs for pgid, pairs in changes.items()
+            if pairs != m.pg_upmap_items.get(pgid, [])}
+
+
+def plan_commands(osdmap: OSDMap, **kw) -> list[dict]:
+    """Render calc_pg_upmaps output as mon commands (the balancer
+    module's execute() shape)."""
+    cmds = []
+    for (pool_id, ps), pairs in sorted(calc_pg_upmaps(osdmap,
+                                                      **kw).items()):
+        if pairs:
+            flat: list[int] = []
+            for f, t in pairs:
+                flat += [f, t]
+            cmds.append({"prefix": "osd pg-upmap-items",
+                         "pgid": f"{pool_id}.{ps}", "id_pairs": flat})
+        else:
+            cmds.append({"prefix": "osd rm-pg-upmap-items",
+                         "pgid": f"{pool_id}.{ps}"})
+    return cmds
+
+
+def reweight_by_utilization(osdmap: OSDMap, oload: int = 120,
+                            max_change: float = 0.05,
+                            max_osds: int = 4, *, service=None,
+                            ctx=None) -> list[tuple[int, float]]:
+    """The classic alternative to upmap: nudge the reweight of the most
+    overloaded OSDs down (mon `osd reweight-by-utilization`,
+    OSDMonitor::reweight_by_utilization semantics with PG count standing
+    in for byte utilization).
+
+    Only OSDs loaded above oload% of the mean are touched, each by at
+    most max_change of full weight, at most max_osds per invocation —
+    the reference's gradual, bounded adjustment so one run can never
+    destabilize the cluster.  Returns [(osd, new_weight_float)] with
+    weights in [0, 1] (16.16-scaled by the caller / mon command).
+    """
+    cands = _candidate_osds(osdmap)
+    if len(cands) < 2:
+        return []
+    svc = _service(osdmap, service, ctx)
+    counts: dict[int, int] = {o: 0 for o in cands}
+    for pool_id in osdmap.pools:
+        for o, placements in _histogram(osdmap, pool_id, svc).items():
+            if o in counts:
+                counts[o] += len(placements)
+    mean = sum(counts.values()) / len(cands)
+    if mean <= 0:
+        return []
+    threshold = mean * oload / 100.0
+    over = sorted((o for o in cands if counts[o] > threshold),
+                  key=lambda o: -counts[o])[:max_osds]
+    out = []
+    for o in over:
+        cur = osdmap.osd_weight[o] / 0x10000
+        target = cur * mean / counts[o]
+        new = max(cur - max_change, target, 0.0)
+        if new < cur:
+            out.append((o, round(new, 4)))
+    return out
+
+
+def spread(osdmap: OSDMap, pool_id: int, *, service=None,
+           ctx=None) -> tuple[int, int]:
+    """(min, max) per-OSD PG count over candidate osds — the balancer
+    score."""
+    hist = pool_pg_histogram(osdmap, pool_id, service, ctx=ctx)
+    counts = [len(hist.get(o, [])) for o in _candidate_osds(osdmap)]
+    return (min(counts), max(counts)) if counts else (0, 0)

@@ -189,6 +189,17 @@ register_options([
            "tenants fold into the _overflow bucket (a tenant-name "
            "flood cannot grow the table without bound; overflow work "
            "stays counted, so conservation holds)"),
+    Option("mgr_slo_fast_window_s", OPT_FLOAT, 300.0,
+           "fast burn-rate window of the mgr slo module: QOS_SLO_BURN "
+           "fires only while the fast AND slow windows both burn at "
+           ">= 1.0, and clears once the fast window recovers"),
+    Option("mgr_slo_slow_window_s", OPT_FLOAT, 3600.0,
+           "slow burn-rate window of the mgr slo module (the "
+           "sustained-violation proof; see mgr_slo_fast_window_s)"),
+    Option("mgr_slo_max_samples", OPT_INT, 2048,
+           "rolling counter samples the mgr slo module retains for "
+           "windowed burn evaluation (also time-bounded by the slow "
+           "window)"),
     Option("crush_backend", OPT_STR, "cuda",
            "bulk placement backend of the PG mapping service: cuda "
            "(BatchMapper and the fused tail on the context's device; "

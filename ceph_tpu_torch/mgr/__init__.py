@@ -1,7 +1,8 @@
-"""Manager package, ported one slice at a time: the two messages the mon
-and the OSD speak (MMgrReport, MMgrBeacon).  MgrDaemon and the module
-host come later."""
+"""Manager daemon package: the module host (daemon), the MgrModule
+framework (module), and the module ecosystem (modules/)."""
 
-from ceph_tpu_torch.mgr.daemon import MMgrBeacon, MMgrReport
+from ceph_tpu_torch.mgr.daemon import MgrDaemon, MMgrBeacon, MMgrReport
+from ceph_tpu_torch.mgr.module import MgrModule, ModuleHost
 
-__all__ = ["MMgrBeacon", "MMgrReport"]
+__all__ = ["MgrDaemon", "MMgrBeacon", "MMgrReport", "MgrModule",
+           "ModuleHost"]

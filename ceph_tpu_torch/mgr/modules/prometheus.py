@@ -1,0 +1,832 @@
+"""Prometheus exporter module (src/pybind/mgr/prometheus analog).
+
+Serves the text exposition format (0.0.4) over HTTP on the module's
+configured port.  Every family carries ``# HELP``/``# TYPE`` headers;
+histogram-typed perf counters are emitted as real histogram families
+(``_bucket{le=...}`` / ``_sum`` / ``_count``), time-avg counters as
+summary sum+count pairs, and values are never integer-truncated.
+
+Three data sources feed one scrape:
+
+  * cluster aggregates the mgr already maintains (health, osdmap, pg
+    states, df);
+  * the TYPED per-daemon perf dumps riding MMgrReport v3 — every
+    registered set (osd, messenger, bluestore, ...) of every reporting
+    daemon;
+  * the process-global device-kernel telemetry registry
+    (ceph_tpu_torch.ops.telemetry): latency/batch-occupancy histograms, byte
+    counters and launch-signature counts for the EC and CRUSH kernels,
+    and ``ceph_kernel_launches_total{kernel=...}``, the launches of each
+    of the port's hand CUDA kernels (ops._build.LAUNCHES: gf_matvec,
+    the straw2 kernels, pg_finish_ladder, scrub_digest, ...).  In
+    the in-process MiniCluster every daemon shares that registry; in a
+    multi-process deployment each daemon serves its own via the admin
+    socket (``dump_kernel_stats``) and a sidecar relabels per daemon.
+"""
+
+from __future__ import annotations
+
+import http.server
+import socketserver
+import threading
+
+from ceph_tpu_torch.mgr.module import MgrModule
+from ceph_tpu_torch.ops import telemetry
+
+
+def _num(v) -> str:
+    """Exposition value: ints stay integral, floats keep precision
+    (the old exporter's int(val) silently corrupted time-avg floats)."""
+    if isinstance(v, bool):
+        return str(int(v))
+    if isinstance(v, int):
+        return str(v)
+    f = float(v)
+    return str(int(f)) if f.is_integer() and abs(f) < 1e15 else repr(f)
+
+
+def _esc(v) -> str:
+    return (str(v).replace("\\", "\\\\").replace('"', '\\"')
+            .replace("\n", "\\n"))
+
+
+def _labels(d: dict | None) -> str:
+    if not d:
+        return ""
+    inner = ",".join(f'{k}="{_esc(v)}"' for k, v in d.items())
+    return "{" + inner + "}"
+
+
+class Exposition:
+    """Accumulates samples grouped by family so each family is emitted
+    contiguously under exactly one HELP/TYPE header pair (the format's
+    grouping requirement)."""
+
+    def __init__(self):
+        self._order: list[str] = []
+        self._fam: dict[str, tuple[str, str, list[str]]] = {}
+
+    def _family(self, name: str, typ: str, help_: str) -> list[str]:
+        fam = self._fam.get(name)
+        if fam is None:
+            fam = (typ, help_, [])
+            self._fam[name] = fam
+            self._order.append(name)
+        return fam[2]
+
+    def sample(self, name: str, typ: str, help_: str, value,
+               labels: dict | None = None, suffix: str = "") -> None:
+        self._family(name, typ, help_).append(
+            f"{name}{suffix}{_labels(labels)} {_num(value)}")
+
+    def gauge(self, name, help_, value, labels=None):
+        self.sample(name, "gauge", help_, value, labels)
+
+    def counter(self, name, help_, value, labels=None):
+        self.sample(name, "counter", help_, value, labels)
+
+    def summary(self, name, help_, count, sum_, labels=None):
+        rows = self._family(name, "summary", help_)
+        rows.append(f"{name}_sum{_labels(labels)} {_num(sum_)}")
+        rows.append(f"{name}_count{_labels(labels)} {_num(count)}")
+
+    def histogram(self, name, help_, bounds, buckets, sum_, labels=None):
+        """bounds: bucket upper limits; buckets: PER-BUCKET counts with
+        one overflow bucket appended (len(bounds)+1)."""
+        rows = self._family(name, "histogram", help_)
+        acc = 0
+        for le, n in zip(bounds, buckets):
+            acc += n
+            lab = dict(labels or {})
+            lab["le"] = _num(le)
+            rows.append(f"{name}_bucket{_labels(lab)} {acc}")
+        total = acc + buckets[len(bounds)]
+        lab = dict(labels or {})
+        lab["le"] = "+Inf"
+        rows.append(f"{name}_bucket{_labels(lab)} {total}")
+        rows.append(f"{name}_sum{_labels(labels)} {_num(sum_)}")
+        rows.append(f"{name}_count{_labels(labels)} {total}")
+
+    def render(self) -> str:
+        out = []
+        for name in self._order:
+            typ, help_, rows = self._fam[name]
+            out.append(f"# HELP {name} {help_}")
+            out.append(f"# TYPE {name} {typ}")
+            out.extend(rows)
+        return "\n".join(out) + "\n"
+
+
+class Module(MgrModule):
+    NAME = "prometheus"
+    MODULE_OPTIONS = [{"name": "server_port", "default": 0}]
+
+    def __init__(self, mgr):
+        super().__init__(mgr)
+        self._httpd: socketserver.ThreadingTCPServer | None = None
+        self._port = 0
+
+    # -- payload --------------------------------------------------------------
+
+    #: health summary -> exposition value
+    HEALTH_VALUES = {"HEALTH_OK": 0, "HEALTH_WARN": 1, "HEALTH_ERR": 2}
+
+    def scrape_text(self) -> str:
+        exp = Exposition()
+        self._scrape_cluster(exp)
+        self._scrape_daemon_perf(exp)
+        self._scrape_slow_ops(exp)
+        self._scrape_qos(exp)
+        self._scrape_tenant_usage(exp)
+        self._scrape_slo(exp)
+        self._scrape_scrub(exp)
+        self._scrape_bluestore(exp)
+        self._scrape_fault_feed(exp)
+        self._scrape_kernels(exp)
+        self._scrape_dispatch(exp)
+        self._scrape_decode_dispatch(exp)
+        self._scrape_mapping(exp)
+        self._scrape_phase_profile(exp)
+        return exp.render()
+
+    def _scrape_cluster(self, exp: Exposition) -> None:
+        exp.gauge("ceph_health_status",
+                  "cluster health (0=OK 1=WARN 2=ERR)",
+                  self.HEALTH_VALUES.get(
+                      self.get("health")["status"], 1))
+        m = self.get_osdmap()
+        exp.gauge("ceph_osd_up", "osds up",
+                  sum(1 for o in range(m.max_osd) if m.is_up(o)))
+        exp.gauge("ceph_osd_in", "osds in (weight > 0)",
+                  sum(1 for o in range(m.max_osd)
+                      if m.exists(o) and m.osd_weight[o] > 0))
+        exp.gauge("ceph_osdmap_epoch", "current osdmap epoch", m.epoch)
+        for state, n in sorted(self.get("pg_summary").items()):
+            exp.gauge("ceph_pg_states", "pg count by state", n,
+                      {"state": state})
+        df = self.get("df")
+        exp.gauge("ceph_cluster_total_objects",
+                  "objects across reporting osds", df["total_objects"])
+        exp.gauge("ceph_cluster_bytes_used",
+                  "bytes used across reporting osds",
+                  df["total_bytes_used"])
+        # legacy flat family (the OSD's own u64 counters) kept for
+        # existing dashboards; floats pass through untruncated
+        for osd, counters in sorted(self.get("counters").items()):
+            for name, val in sorted(counters.items()):
+                exp.counter("ceph_osd_perf", "osd u64 perf counters",
+                            val, {"ceph_daemon": f"osd.{osd}",
+                                  "counter": name})
+
+    def _scrape_daemon_perf(self, exp: Exposition) -> None:
+        """Typed perf dumps from MMgrReport v3: one family per counter
+        type, labelled by daemon / set / counter."""
+        for osd, sets in sorted(self.get("perf_reports").items()):
+            daemon = f"osd.{osd}"
+            for set_name, counters in sorted(sets.items()):
+                for cname, val in sorted(counters.items()):
+                    lab = {"ceph_daemon": daemon, "set": set_name,
+                           "counter": cname}
+                    if isinstance(val, dict) and "buckets" in val:
+                        exp.histogram(
+                            "ceph_daemon_perf_hist",
+                            "histogram-typed daemon perf counters",
+                            val["bounds"], val["buckets"],
+                            val.get("sum", 0.0), lab)
+                    elif isinstance(val, dict) and "avgcount" in val:
+                        exp.summary(
+                            "ceph_daemon_perf_latency",
+                            "time-avg daemon perf counters (seconds)",
+                            val["avgcount"], val["sum"], lab)
+                    else:
+                        exp.counter(
+                            "ceph_daemon_perf_counter",
+                            "u64 daemon perf counters", val, lab)
+
+    def _scrape_slow_ops(self, exp: Exposition) -> None:
+        """Per-daemon slow-op counts from the MMgrReport v4 tail (the
+        insights feed); absent on hosts without the view (unit stubs)."""
+        try:
+            feed = self.get("insights_feed")
+        except Exception:
+            return
+        for osd, entry in sorted(feed.items()):
+            exp.gauge("ceph_daemon_slow_ops",
+                      "slow ops retained in the daemon's historic ring",
+                      len(entry.get("slow_ops", [])),
+                      {"ceph_daemon": f"osd.{osd}"})
+            exp.gauge("ceph_daemon_slow_traces",
+                      "tail-retained slow traces reported by daemon",
+                      len(entry.get("slow_traces", [])),
+                      {"ceph_daemon": f"osd.{osd}"})
+
+    def _scrape_qos(self, exp: Exposition) -> None:
+        """Per-tenant dmclock accounting from the MMgrReport v4 qos
+        tail: phase-served counters, lane backlog, and cumulative
+        queue-wait per (daemon, lane) — the multi-tenant fairness
+        story (reservation floors show up as the reservation phase
+        share, caps as the limit phase).  Absent on hosts without the
+        feed (unit stubs)."""
+        try:
+            feed = self.get("qos_feed")
+        except Exception:
+            return
+        for osd, entry in sorted(feed.items()):
+            daemon = f"osd.{osd}"
+            ev = entry.get("evicted", {})
+            # the eviction rollup rides the SAME families as one more
+            # pseudo-lane ("evicted" cannot collide — real lanes carry
+            # the client. prefix): without it, sum-over-lanes
+            # dashboards would undercount exactly in the
+            # millions-of-one-shot-clients regime eviction targets.
+            # The rollup has no backlog (only empty lanes evict).
+            rows = sorted(entry.get("lanes", {}).items())
+            rows.append(("evicted", {"served": ev.get("served", {}),
+                                     "wait_sum_s":
+                                         ev.get("wait_sum_s", 0.0)}))
+            for lane, row in rows:
+                lab = {"ceph_daemon": daemon, "qos_class": lane}
+                for phase, n in sorted(row.get("served", {}).items()):
+                    exp.counter(
+                        "ceph_qos_served_total",
+                        "ops served per dmclock phase per lane "
+                        "(reservation = floor honored, weight = "
+                        "excess share, limit = work-conserving "
+                        "fallback past every cap)",
+                        n, {**lab, "phase": phase})
+                if "backlog" in row:
+                    exp.gauge("ceph_qos_backlog",
+                              "ops queued in the lane at report time",
+                              row.get("backlog", 0), lab)
+                exp.counter("ceph_qos_wait_seconds_total",
+                            "cumulative dmclock queue wait "
+                            "(throttle time) per lane",
+                            row.get("wait_sum_s", 0.0), lab)
+            exp.counter("ceph_qos_evicted_lanes_total",
+                        "idle dynamic lanes evicted by the "
+                        "osd_qos_idle_client_timeout sweep",
+                        ev.get("classes", 0), {"ceph_daemon": daemon})
+
+    def _scrape_tenant_usage(self, exp: Exposition) -> None:
+        """ceph_tenant_*: the tenant device-time ledger from the
+        MMgrReport tenant_usage tail — per (daemon, tenant, engine,
+        channel) attributed device-seconds and the per-tenant
+        share-of-device gauge.  Tenant names are user-supplied strings;
+        the label layer escapes them per the exposition spec.  Absent
+        on hosts without the feed (unit stubs)."""
+        try:
+            feed = self.get("tenant_feed")
+        except Exception:
+            return
+        for osd, digest in sorted(feed.items()):
+            daemon = f"osd.{osd}"
+            for tenant, trec in sorted(
+                    (digest.get("tenants") or {}).items()):
+                exp.gauge(
+                    "ceph_tenant_device_share",
+                    "tenant's share of this daemon's attributed "
+                    "device-seconds (the _untagged bucket keeps the "
+                    "shares summing to 1)",
+                    trec.get("share", 0.0),
+                    {"ceph_daemon": daemon, "tenant": tenant})
+                for eng, chans in sorted(
+                        (trec.get("engines") or {}).items()):
+                    for ch, row in sorted(chans.items()):
+                        lab = {"ceph_daemon": daemon, "tenant": tenant,
+                               "engine": eng, "channel": ch}
+                        exp.counter(
+                            "ceph_tenant_device_seconds_total",
+                            "device busy seconds (compute x devices) "
+                            "apportioned to the tenant by stripe "
+                            "share of each coalesced batch",
+                            row.get("device_seconds", 0.0), lab)
+                        exp.counter(
+                            "ceph_tenant_requests_total",
+                            "dispatch requests attributed to the "
+                            "tenant", row.get("requests", 0), lab)
+
+    def _scrape_slo(self, exp: Exposition) -> None:
+        """ceph_slo_burn_rate{tenant,objective}: the slo module's
+        fast-window burn per declared objective (>= 1.0 while the
+        objective is violated over the window)."""
+        try:
+            if not self.get_osdmap().slo_db:
+                return
+            gauges = self.mgr._module("slo").burn_gauges()
+        except Exception:
+            return
+        for tenant, per in sorted(gauges.items()):
+            for obj, burn in sorted(per.items()):
+                exp.gauge(
+                    "ceph_slo_burn_rate",
+                    "fast-window SLO burn rate per tenant objective "
+                    "(1.0 = at the objective boundary)",
+                    burn, {"tenant": tenant, "objective": obj})
+
+    def _scrape_scrub(self, exp: Exposition) -> None:
+        """ceph_scrub_*: per-daemon background-integrity counters from
+        the MMgrReport v5 scrub tail — how much each OSD's deep scrub
+        checked, how the digests were computed (batched device calls
+        vs scalar fallbacks), and the found/repaired/unverified
+        ledger.  A non-zero ceph_scrub_repair_unverified_total is the
+        alert: a repair was fired whose re-fetched digest never
+        matched."""
+        try:
+            feed = self.get("scrub_feed")
+        except Exception:
+            return
+        families = {
+            "sweeps": ("ceph_scrub_sweeps_total",
+                       "full scrub_all_pgs sweeps completed"),
+            "pgs_scrubbed": ("ceph_scrub_pgs_total",
+                             "PG deep-scrub chunks completed"),
+            "objects_scrubbed": ("ceph_scrub_objects_total",
+                                 "objects deep-scrubbed"),
+            "digest_batches": ("ceph_scrub_digest_batches_total",
+                               "coalesced scrub_digest device batches"),
+            "digest_objects": ("ceph_scrub_digest_objects_total",
+                               "object/omap rows digested in batched "
+                               "device calls"),
+            "scalar_fallbacks": ("ceph_scrub_scalar_fallbacks_total",
+                                 "scrub maps that fell back to the "
+                                 "scalar shard_crc loop"),
+            "inconsistent": ("ceph_scrub_inconsistent_total",
+                             "inconsistent objects/shards found"),
+            "repaired": ("ceph_scrub_repaired_total",
+                         "repairs whose re-fetched digest VERIFIED"),
+            "repair_unverified": ("ceph_scrub_repair_unverified_total",
+                                  "repairs fired but never verified "
+                                  "within osd_scrub_verify_timeout"),
+            "missing_peer_scrubs": ("ceph_scrub_missing_peer_total",
+                                    "scrubs with a replica map "
+                                    "missing (PG not reported clean)"),
+        }
+        for osd, entry in sorted(feed.items()):
+            lab = {"ceph_daemon": f"osd.{osd}"}
+            for key, (fam, help_) in families.items():
+                exp.counter(fam, help_, entry.get(key, 0), lab)
+
+    def _scrape_bluestore(self, exp: Exposition) -> None:
+        """ceph_bluestore_*: the process-global objectstore write/read
+        path ledger — how block checksums were computed (coalesced
+        bluestore_data device batches vs scalar crc32), the block
+        compression outcome mix, and the error counters that should
+        alert (csum_errors, decompress_errors, kv_journal_truncated).
+        Process-local like the ceph_kernel_* families: one daemon per
+        process attributes cleanly; a shared process aggregates."""
+        families = {
+            "csum_batches": ("ceph_bluestore_csum_batches_total",
+                             "coalesced bluestore_data digest batches "
+                             "at commit"),
+            "csum_blocks": ("ceph_bluestore_csum_blocks_total",
+                            "blocks checksummed in batched device "
+                            "calls"),
+            "csum_scalar_blocks": (
+                "ceph_bluestore_csum_scalar_blocks_total",
+                "blocks checksummed by the scalar zlib.crc32 path "
+                "(knob off, small batch, engine-thread caller, or "
+                "fallback)"),
+            "csum_fallbacks": ("ceph_bluestore_csum_fallbacks_total",
+                               "batched digest calls that failed over "
+                               "to scalar crc32"),
+            "read_verify_batches": (
+                "ceph_bluestore_read_verify_batches_total",
+                "wide reads whose block verification rode one "
+                "device digest call"),
+            "read_verify_blocks": (
+                "ceph_bluestore_read_verify_blocks_total",
+                "blocks verified in batched read digests"),
+            "compress_blocks": ("ceph_bluestore_compress_blocks_total",
+                                "blocks committed compressed (ratio "
+                                "met, round-trip verified)"),
+            "compress_rejected": (
+                "ceph_bluestore_compress_rejected_total",
+                "blocks stored raw: ratio not met or plugin error"),
+            "compress_roundtrip_failures": (
+                "ceph_bluestore_compress_roundtrip_failures_total",
+                "compressed blocks that failed byte-identical "
+                "round-trip verification and were stored raw"),
+            "decompress_errors": (
+                "ceph_bluestore_decompress_errors_total",
+                "reads that hit a corrupt compressed body (EIO)"),
+            "csum_errors": ("ceph_bluestore_csum_errors_total",
+                            "read-time block checksum mismatches "
+                            "(EIO)"),
+            "kv_journal_truncated": (
+                "ceph_bluestore_kv_journal_truncated_total",
+                "KV journal replays that stopped at a short/corrupt "
+                "frame (transactions past it are LOST)"),
+            "kv_journal_lost_bytes": (
+                "ceph_bluestore_kv_journal_lost_bytes_total",
+                "unreplayed journal bytes past replay stop points"),
+        }
+        dump = telemetry.bluestore_dump()
+        for key, (fam, help_) in families.items():
+            exp.counter(fam, help_, dump.get(key, 0))
+
+    def _scrape_fault_feed(self, exp: Exposition) -> None:
+        """Per-daemon circuit-breaker states from the MMgrReport v4
+        faults tail.  The process-local ``ceph_kernel_breaker_state``
+        family below reads the shared (last-writer-wins) stats sink —
+        fine for one daemon per process, but it cannot attribute
+        degradation across daemons; this family carries each daemon's
+        OWN engine ground truth (ctx.fault_digest overlay), so alerts
+        on an open breaker name the right daemon.  Absent on hosts
+        without the feed (unit stubs)."""
+        try:
+            feed = self.get("faults_feed")
+        except Exception:
+            return
+        for osd, digest in sorted(feed.items()):
+            for engine, d in sorted(digest.items()):
+                if not isinstance(d, dict):
+                    continue
+                for ch, st in sorted(d.get("breaker_states",
+                                           {}).items()):
+                    exp.gauge(
+                        "ceph_kernel_daemon_breaker_state",
+                        "per-daemon per-channel circuit-breaker state "
+                        "from the shipped faults digest: 0 closed "
+                        "(device path live), 1 open (host oracle), "
+                        "2 half-open (probe in flight)",
+                        st, {"ceph_daemon": f"osd.{osd}",
+                             "engine": engine, "channel": ch})
+
+    def _scrape_kernels(self, exp: Exposition) -> None:
+        reg = telemetry.registry()
+        # the two offload kernels always appear (zero-valued before
+        # first use) so dashboards and the format test can rely on the
+        # families existing
+        reg.kernel("ec_encode")
+        reg.kernel("ec_decode")
+        reg.kernel("crush_map")
+        for kname, d in sorted(telemetry.dump().items()):
+            p = f"ceph_kernel_{kname}"
+            lat = d["latency_seconds"]
+            bat = d["batch_size"]
+            exp.histogram(f"{p}_latency_seconds",
+                          f"wall time per {kname} device call "
+                          "(fenced = device time; see "
+                          "kernel_fence_for_timing)",
+                          lat["bounds"], lat["buckets"], lat["sum"])
+            exp.histogram(f"{p}_batch_size",
+                          f"batch occupancy per {kname} device call",
+                          bat["bounds"], bat["buckets"], bat["sum"])
+            exp.counter(f"{p}_calls_total",
+                        "completed device calls", d["calls"])
+            exp.counter(f"{p}_traced_total",
+                        "executions inlined under an outer jit trace",
+                        d["traced"])
+            exp.counter(f"{p}_jit_miss_total",
+                        "jit compile-cache misses (retrace+compile)",
+                        d["jit_misses"])
+            exp.counter(f"{p}_jit_hit_total",
+                        "calls served by a cached executable",
+                        d["jit_hits"])
+            exp.counter(f"{p}_bytes_in_total",
+                        "host to device operand bytes", d["bytes_in"])
+            exp.counter(f"{p}_bytes_out_total",
+                        "device to host result bytes", d["bytes_out"])
+        from ceph_tpu_torch.ops import _build
+        for kname, n in sorted(_build.LAUNCHES.items()):
+            exp.counter("ceph_kernel_launches_total",
+                        "launches of each hand CUDA kernel by its wrapper "
+                        "(the count restarts when the process resets it)",
+                        n, {"kernel": kname})
+
+    def _scrape_dispatch(self, exp: Exposition) -> None:
+        """The cross-op coalescing engine (ops.dispatch): how many
+        requests share each device call, how long they queue for the
+        privilege, and how deep the pipeline runs."""
+        d = telemetry.dispatch_dump()
+        self._emit_coalesce(exp, d, "ceph_kernel_coalesce")
+        self._emit_mesh(exp, d, "encode")
+        self._emit_faults(exp, d, "encode")
+
+    @staticmethod
+    def _emit_faults(exp: Exposition, d: dict, engine: str) -> None:
+        """ceph_kernel_fallback_* / ceph_kernel_breaker_*: the
+        degraded-mode story per dispatch engine — how often the device
+        path failed and was retried, how much traffic the bit-exact
+        host oracle served, each channel's circuit-breaker state
+        (0 closed / 1 open / 2 half-open mid-probe), breaker
+        transitions, background-probe outcomes, and engine run-loop
+        deaths/restarts under thread supervision."""
+        f = d.get("faults", {})
+        lab = {"engine": engine}
+        p = "ceph_kernel_fallback"
+        exp.counter(f"{p}_retries_total",
+                    "device re-attempts of failed coalesced batches "
+                    "(bounded exponential backoff + jitter)",
+                    f.get("retries", 0), lab)
+        exp.counter(f"{p}_retry_successes_total",
+                    "re-attempts that healed the batch on the device",
+                    f.get("retry_successes", 0), lab)
+        exp.counter(f"{p}_batches_total",
+                    "coalesced batches served by the bit-exact host "
+                    "oracle instead of the device",
+                    f.get("fallback_batches", 0), lab)
+        exp.counter(f"{p}_stripes_total",
+                    "stripes those host-oracle batches carried",
+                    f.get("fallback_stripes", 0), lab)
+        for outcome, key in (("success", "probe_successes"),
+                             ("failure", "probe_failures")):
+            exp.counter(f"{p}_probes_total",
+                        "background device-path probes while a "
+                        "breaker was open",
+                        f.get(key, 0), lab | {"outcome": outcome})
+        exp.counter(f"{p}_thread_deaths_total",
+                    "engine run-loop deaths observed by thread "
+                    "supervision",
+                    f.get("thread_deaths", 0), lab)
+        exp.counter(f"{p}_thread_restarts_total",
+                    "run-loops revived (in-flight batches re-fanned)",
+                    f.get("thread_restarts", 0), lab)
+        for transition, key in (("open", "breaker_opens"),
+                                ("close", "breaker_closes")):
+            exp.counter("ceph_kernel_breaker_transitions_total",
+                        "channel circuit-breaker transitions "
+                        "(open = device path abandoned for the host "
+                        "oracle, close = device path healed)",
+                        f.get(key, 0), lab | {"transition": transition})
+        states = f.get("breaker_states", {})
+        for ch in sorted(states):
+            exp.gauge("ceph_kernel_breaker_state",
+                      "per-channel circuit-breaker state: 0 closed "
+                      "(device path live), 1 open (host oracle), "
+                      "2 half-open (probe in flight)",
+                      states[ch], lab | {"channel": ch})
+        if not states:
+            # the family must exist even before any breaker has ever
+            # tripped, so dashboards and the format test can rely on it
+            exp.gauge("ceph_kernel_breaker_state",
+                      "per-channel circuit-breaker state: 0 closed "
+                      "(device path live), 1 open (host oracle), "
+                      "2 half-open (probe in flight)",
+                      0, lab | {"channel": "none"})
+
+    @staticmethod
+    def _emit_mesh(exp: Exposition, d: dict, engine: str) -> None:
+        """ceph_kernel_mesh_*: the multi-device fan-out story per
+        dispatch engine — mesh shape, how many flushes went out
+        sharded, how many devices each flush landed on, and per-device
+        shard occupancy.  mesh_devices 0 = no mesh configured (single
+        device or kernel_mesh_devices=1)."""
+        p = "ceph_kernel_mesh"
+        lab = {"engine": engine}
+        exp.gauge(f"{p}_devices",
+                  "devices in the engine's kernel mesh "
+                  "(0 = single-device engine)", d["mesh_devices"], lab)
+        exp.gauge(f"{p}_dp", "mesh data-parallel axis extent",
+                  d["mesh_dp"], lab)
+        exp.gauge(f"{p}_ec", "mesh erasure-shard axis extent",
+                  d["mesh_ec"], lab)
+        exp.counter(f"{p}_sharded_flushes_total",
+                    "coalesced flushes placed across more than one "
+                    "device", d["sharded_flushes"], lab)
+        du = d["devices_used"]
+        exp.histogram(f"{p}_flush_devices",
+                      "devices each coalesced flush landed on (mass "
+                      "above 1 is the multi-chip path at work)",
+                      du["bounds"], du["buckets"], du["sum"], lab)
+        ss = d["shard_stripes"]
+        exp.histogram(f"{p}_shard_stripes",
+                      "stripes per device shard per sharded flush "
+                      "(per-chip occupancy after the batch splits)",
+                      ss["bounds"], ss["buckets"], ss["sum"], lab)
+
+    def _scrape_decode_dispatch(self, exp: Exposition) -> None:
+        """The decode-side engine (heterogeneous-matrix batched GF
+        decode): the same coalescing families under
+        ceph_kernel_decode_coalesce_*, plus the heterogeneity story —
+        distinct erasure patterns per device call and the registered
+        pattern-table size."""
+        d = telemetry.decode_dispatch_dump()
+        p = "ceph_kernel_decode_coalesce"
+        self._emit_coalesce(exp, d, p)
+        self._emit_mesh(exp, d, "decode")
+        self._emit_faults(exp, d, "decode")
+        pat = d["patterns"]
+        exp.histogram(f"{p}_patterns",
+                      "distinct erasure patterns per coalesced decode "
+                      "call (mass above 1 is heterogeneous-matrix "
+                      "batching at work)",
+                      pat["bounds"], pat["buckets"], pat["sum"])
+        exp.gauge(f"{p}_pattern_table",
+                  "recovery patterns registered in the stacked "
+                  "matrix table (high-water)", d["pattern_table_size"])
+
+    @staticmethod
+    def _scrape_mapping(exp: Exposition) -> None:
+        """The shared PG mapping service (osd.mapping): how often an
+        epoch actually recomputes vs reuses cached pool tables, how
+        many PGs each epoch really changed, burst epoch-skips, and the
+        cache-hit story for mapping reads."""
+        d = telemetry.mapping_dump()
+        p = "ceph_kernel_mapping"
+        exp.counter(f"{p}_epoch_updates_total",
+                    "map epochs computed by the shared mapping "
+                    "service", d["epoch_updates"])
+        exp.counter(f"{p}_epoch_skips_total",
+                    "map epochs never computed: burst coalescing "
+                    "(only the newest queued target runs) and "
+                    "multi-epoch catch-up jumps both count",
+                    d["epoch_skips"])
+        exp.counter(f"{p}_pools_recomputed_total",
+                    "pool raw tables rebuilt on device",
+                    d["pools_recomputed"])
+        exp.counter(f"{p}_pools_reused_total",
+                    "pool raw tables carried over unchanged "
+                    "(signature hit)", d["pools_reused"])
+        exp.counter(f"{p}_full_rescans_total",
+                    "consumer scans that could not be served a delta "
+                    "(first map, chain gap)", d["full_rescans"])
+        exp.counter(f"{p}_lookups_total",
+                    "mapping reads served from the cache",
+                    d["lookups"])
+        exp.counter(f"{p}_lookup_fallbacks_total",
+                    "mapping reads that fell back to the scalar "
+                    "oracle (epoch/object mismatch)",
+                    d["lookup_fallbacks"])
+        lat = d["update_latency_seconds"]
+        exp.histogram(f"{p}_update_latency_seconds",
+                      "per-epoch mapping update wall time "
+                      "(incremental recompute + device diff + delta)",
+                      lat["bounds"], lat["buckets"], lat["sum"])
+        ch = d["changed_pgs"]
+        exp.histogram(f"{p}_changed_pgs",
+                      "exact changed-PG count per computed epoch "
+                      "(the O(changed) map-consumption bound)",
+                      ch["bounds"], ch["buckets"], ch["sum"])
+        exp.gauge(f"{p}_cached_pgs",
+                  "PGs resident in the cached raw tables",
+                  d["cached_pgs"])
+        exp.gauge(f"{p}_cached_pools",
+                  "pools resident in the cached raw tables",
+                  d["cached_pools"])
+        exp.counter(f"{p}_fused_epochs_total",
+                    "computed epochs that published complete fused "
+                    "(device-resident) up/acting tables",
+                    d.get("fused_epochs", 0))
+        exp.counter(f"{p}_unfused_epochs_total",
+                    "computed epochs served by the host pipeline "
+                    "tail (fused ladder off or unavailable)",
+                    d.get("unfused_epochs", 0))
+        exp.counter(f"{p}_fused_lookups_total",
+                    "mapping reads answered by a packed fused-row "
+                    "slice (subset of the cache lookups)",
+                    d.get("fused_lookups", 0))
+        exp.gauge(f"{p}_host_tail_share",
+                  "host-tail share of the total mapping epoch cost "
+                  "(device + delta + host_tail) — collapses toward 0 "
+                  "when the fused placement ladder serves the tail",
+                  d.get("host_tail_share", 0.0))
+        for phase, h in sorted(d["phase_seconds"].items()):
+            exp.histogram(
+                f"{p}_phase_seconds",
+                "per-epoch mapping cost split: device remap vs "
+                "changed-PG candidate extraction (delta) vs the host "
+                "pipeline tail (state/affinity/upmap filtering)",
+                h["bounds"], h["buckets"], h["sum"], {"phase": phase})
+
+    @staticmethod
+    def _scrape_phase_profile(exp: Exposition) -> None:
+        """The pipeline phase profiler (ops.telemetry.PhaseStats):
+        where each flushed batch's submit→delivery wall-clock went,
+        per engine × kernel family × phase, with first-call jit cost
+        in its own compile families and the device-utilization story
+        (busy seconds, utilization gauge, shard imbalance).  Ring-less
+        dump — the scrape reads only aggregates; the mapping phase
+        split is emitted by _scrape_mapping, which already holds the
+        mapping dump."""
+        prof = telemetry.pipeline_profile_dump(include_recent=False)
+        for engine in ("encode", "decode"):
+            d = prof[engine]
+            lab = {"engine": engine}
+            for kernel, per in sorted(d["phases"].items()):
+                for phase, h in sorted(per.items()):
+                    exp.histogram(
+                        "ceph_kernel_phase_seconds",
+                        "seconds each pipeline phase contributed per "
+                        "coalesced batch (phases sum to the batch's "
+                        "submit-to-delivery wall-clock; compile "
+                        "batches report launch/compute in the "
+                        "compile families instead)",
+                        h["bounds"], h["buckets"], h["sum"],
+                        {**lab, "kernel": kernel, "phase": phase})
+            for kernel, c in sorted(d["compile"].items()):
+                klab = {**lab, "kernel": kernel}
+                exp.counter("ceph_kernel_compile_seconds_total",
+                            "jit trace+compile seconds attributed to "
+                            "first-call batches per (kernel, bucket, "
+                            "mesh), separate from steady-state "
+                            "compute", c["seconds"], klab)
+                exp.counter("ceph_kernel_compile_events_total",
+                            "first-call batches that paid a jit "
+                            "trace+compile", c["events"], klab)
+            exp.counter("ceph_kernel_util_busy_seconds_total",
+                        "device-busy integral: compute seconds times "
+                        "devices each flush landed on",
+                        d["busy_seconds"], lab)
+            exp.gauge("ceph_kernel_util_utilization",
+                      "device-busy fraction of the profiling window "
+                      "(busy seconds / wall / devices)",
+                      d["utilization"], lab)
+            exp.gauge("ceph_kernel_util_devices",
+                      "widest flush fan-out the profiler observed",
+                      d["devices_seen"], lab)
+            si = d["shard_imbalance"]
+            exp.histogram("ceph_kernel_util_shard_imbalance",
+                          "padded-lane share per sharded flush (rows "
+                          "are contiguous, so padding concentrates in "
+                          "the tail shards — mass near 0 means even "
+                          "per-chip work)",
+                          si["bounds"], si["buckets"], si["sum"], lab)
+
+    @staticmethod
+    def _emit_coalesce(exp: Exposition, d: dict, p: str) -> None:
+        exp.counter(f"{p}_submits_total",
+                    "requests submitted to the dispatch engine",
+                    d["submits"])
+        exp.counter(f"{p}_device_calls_total",
+                    "coalesced device calls dispatched", d["batches"])
+        exp.counter(f"{p}_completed_total",
+                    "requests delivered by the completion thread",
+                    d["completed"])
+        exp.counter(f"{p}_stripes_total",
+                    "stripes dispatched (pre-padding)",
+                    d["stripes_out"])
+        exp.counter(f"{p}_padded_stripes_total",
+                    "zero stripes added by power-of-two shape "
+                    "bucketing", d["padded_stripes"])
+        co = d["coalesce"]
+        exp.histogram(f"{p}_requests",
+                      "requests coalesced per device call (mass above "
+                      "1 is amortized dispatch latency)",
+                      co["bounds"], co["buckets"], co["sum"])
+        qd = d["queue_delay_seconds"]
+        exp.histogram(f"{p}_queue_delay_seconds",
+                      "submit-to-dispatch wait per request (idle "
+                      "flushes keep the single-op path near zero)",
+                      qd["bounds"], qd["buckets"], qd["sum"])
+        dep = d["queue_depth"]
+        exp.histogram(f"{p}_queue_depth",
+                      "engine backlog observed at each flush",
+                      dep["bounds"], dep["buckets"], dep["sum"])
+        for reason, n in sorted(d["flush_reasons"].items()):
+            exp.counter(f"{p}_flush_total",
+                        "batch flushes by reason (idle = no-wait "
+                        "single-op path; full/timeout = coalescing)",
+                        n, {"reason": reason})
+        exp.gauge(f"{p}_in_flight",
+                  "device calls currently outstanding", d["in_flight"])
+        exp.gauge(f"{p}_in_flight_max",
+                  "high-water mark of outstanding device calls",
+                  d["max_in_flight_seen"])
+
+    # -- lifecycle ------------------------------------------------------------
+
+    def start_server(self, port: int | None = None) -> int:
+        """Bind + serve; returns the bound port (GET /metrics)."""
+        if self._httpd is not None:
+            return self._port
+        if port is None:
+            port = int(self.get_module_option("server_port", 0))
+        module = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):
+                if self.path not in ("/metrics", "/"):
+                    self.send_response(404)
+                    self.end_headers()
+                    return
+                body = module.scrape_text().encode()
+                self.send_response(200)
+                self.send_header("Content-Type",
+                                 "text/plain; version=0.0.4")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *a):
+                pass
+
+        class Server(socketserver.ThreadingTCPServer):
+            allow_reuse_address = True
+            daemon_threads = True
+
+        self._httpd = Server(("127.0.0.1", port), Handler)
+        self._port = self._httpd.server_address[1]
+        t = threading.Thread(target=self._httpd.serve_forever,
+                             name="mgr-prometheus-http", daemon=True)
+        t.start()
+        return self._port
+
+    def start(self) -> None:
+        self.start_server()
+
+    def stop(self) -> None:
+        if self._httpd is not None:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+            self._httpd = None

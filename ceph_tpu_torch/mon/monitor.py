@@ -1472,9 +1472,18 @@ class Monitor(Dispatcher):
                 return self._cmd_osd_weight(int(cmd["id"]),
                                             int(w * 0x10000))
             if prefix == "osd reweight-by-utilization":
-                return ("osd reweight-by-utilization needs "
-                        "ceph_tpu_torch/balancer.py, not ported yet "
-                        "(ROADMAP.md Queue 1 item 7)"), -95
+                from ceph_tpu_torch.balancer import reweight_by_utilization
+                plan = reweight_by_utilization(
+                    self.osdmap, oload=int(cmd.get("oload", 120)),
+                    ctx=self.ctx)
+
+                def fn(m: OSDMap):
+                    for o, w in plan:
+                        m.osd_weight[o] = int(w * 0x10000)
+                if plan and not self._mutate(fn):
+                    return "commit failed", -11
+                return json.dumps({"reweighted": [
+                    {"osd": o, "weight": w} for o, w in plan]}), 0
             if prefix == "osd out":
                 return self._cmd_osd_weight(int(cmd["id"]), 0)
             if prefix == "osd in":

@@ -757,9 +757,24 @@ class OSDDaemon(Dispatcher):
         from ceph_tpu_torch.mgr import MMgrReport
         states: dict[str, int] = {}
         n_obj = n_bytes = 0
+        # the states of the PGs this OSD serves on its current map: a PG
+        # remapped away (an upmap, a reweight) leaves a stale local object
+        # in state "inactive" that must not read as degraded in the mgr's
+        # health forever (the mon's MPGStats summary judges by the current
+        # map too)
         with self._lock:
-            for pg in self.pgs.values():
-                states[pg.state] = states.get(pg.state, 0) + 1
+            pgids = list(self.pgs)
+        for pgid in pgids:
+            pool = self.osdmap.pools.get(pgid[0])
+            if pool is None or not (0 <= pgid[1] < pool.pg_num):
+                continue
+            up, _up_primary, acting, _primary = self._pg_mapping(*pgid)
+            if self.osd_id not in up and self.osd_id not in acting:
+                continue
+            with self._lock:
+                pg = self.pgs.get(pgid)
+                if pg is not None:
+                    states[pg.state] = states.get(pg.state, 0) + 1
         per_cid: dict[str, tuple[int, int]] = {}
         for cid in self.store.list_collections():
             c_obj = c_bytes = 0

@@ -1094,8 +1094,11 @@ class SharedPGMappingService:
         if not candidates:
             return []
         mapping = self._mapping
-        if (mapping is None or not mapping.fused
-                or mapping.backend == "scalar"):
+        # the live knobs, not the mapping's copy of them from its last
+        # update: an operator switching the fused tail off (or the backend
+        # to scalar) sends the next what-if to the host at once
+        if (mapping is None or not self._fused_enabled()
+                or self._backend() == "scalar"):
             return None
         t = self._tables_for(osdmap)
         if t is None:

@@ -7,9 +7,9 @@ and a connected RadosClient factory — the surface the standalone QA tier
 drives (SURVEY.md §4 tier 3).
 
 Every daemon and client builds its own context on ``device`` (the CUDA card
-by default; the tests pass ``device="cpu"``).  The mgr and MDS daemons,
-cephx and the multi-process ``ProcCluster`` are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP.md item.
+by default; the tests pass ``device="cpu"``), the mgr's included.  The MDS
+daemons, cephx and the multi-process ``ProcCluster`` are not ported yet and
+raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -46,6 +46,10 @@ class MiniCluster:
         self.heartbeats = heartbeats
         self.mons: dict[int, Monitor] = {}
         self.monmap: list[str] = []
+        #: the mgr OSDs started afterwards report to (mgr.0, else the first
+        #: started), and every running mgr by id
+        self.mgr = None
+        self.mgrs: dict = {}
         self.osds: dict[int, OSDDaemon] = {}
         self.clients: list[RadosClient] = []
         self._n_initial = n_osds
@@ -191,8 +195,29 @@ class MiniCluster:
         raise TimeoutError(f"replaced mon.{mon_id} did not rejoin")
 
     def run_mgr(self, mgr_id: int = 0):
-        raise NotImplementedError(
-            "the mgr daemon is not ported yet (ROADMAP.md Queue 1 item 7)")
+        """Start a manager; OSDs started AFTERWARDS stream reports to
+        the one the mon names active (restart existing ones to pick it
+        up).  Additional mgr_ids are standbys the mon promotes when the
+        active's session dies."""
+        from ceph_tpu_torch.mgr import MgrDaemon
+        addr = ("127.0.0.1:0" if self._is_wire()
+                else f"{self._ns}mgr.{mgr_id}")
+        mgr = MgrDaemon(self.mon_host, ms_type=self.ms_type,
+                        addr=addr, auth_key=self.auth_key,
+                        mgr_id=mgr_id, device=self.device)
+        mgr.init()
+        self.mgrs[mgr_id] = mgr
+        if mgr_id == 0 or self.mgr is None:
+            self.mgr = mgr
+        return mgr
+
+    def kill_mgr(self, mgr_id: int = 0):
+        mgr = self.mgrs.pop(mgr_id, None)
+        if mgr is None:
+            return
+        if self.mgr is mgr:
+            self.mgr = next(iter(self.mgrs.values()), None)
+        mgr.shutdown()
 
     def run_mds(self, metadata_pool: int, data_pool: int):
         raise NotImplementedError(
@@ -209,8 +234,9 @@ class MiniCluster:
         osd = OSDDaemon(osd_id, self.mon_host, store_type=self.store_type,
                         store_path=path, ms_type=self.ms_type, addr=addr,
                         heartbeats=self.heartbeats,
-                        auth_key=self.auth_key, conf=self.osd_conf,
-                        device=self.device)
+                        auth_key=self.auth_key,
+                        mgr_addr=self.mgr.addr if self.mgr else None,
+                        conf=self.osd_conf, device=self.device)
         osd.init()
         self.osds[osd_id] = osd
         return osd
@@ -234,6 +260,8 @@ class MiniCluster:
         for osd in list(self.osds.values()):
             osd.shutdown()
         self.osds.clear()
+        for mgr_id in list(self.mgrs):
+            self.kill_mgr(mgr_id)
         for mon in list(self.mons.values()):
             mon.shutdown()
         self.mons.clear()

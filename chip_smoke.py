@@ -257,14 +257,61 @@ Runs ceph_tpu_torch (never JAX, never ceph_tpu) at the bench's full size:
              version, timed by graph replay and issued, beside its bound
              (each input byte read once, each plane byte written once) and
              the plain version's time; the phase's seconds (budget 120)
- 13. prints  the {"engine": ...} line, the {"mapping": ...} line, the
+ 13. mgr     the manager on the card, after phase 12.  13a: a MiniCluster of
+             6 OSDs on memstore over loopback, 1 mon, mgr.0 and mgr.1 started
+             before the OSDs (every context on the card; the mgrs' contexts
+             with osdmap_mapping_min_pgs 64, so that their mapping service
+             places the pools below on the card); a replicated pool of size 3
+             and pg_num 256 and an erasure pool jerasure reed_sol_van k=4 m=2
+             (stripe unit 4 KiB) of pg_num 64 (OSDs x 100 / size to a power
+             of two, under mon_max_pg_per_osd 250); then sub-steps, each with
+             the launch counts at 0 just before it and read just after: (1)
+             16 rados bench objects of 4 MiB into each pool, 16 in flight,
+             iostat polled through client.mgr_command meanwhile; (2) pg
+             dump, df and iostat through mgr_command once the reports have
+             landed; (3) the Prometheus scrape of serve_prometheus(0) over
+             HTTP on 127.0.0.1; (4) balancer optimize through mgr_command,
+             its commands sent to the mon, which makes new epochs; (5) osd
+             reweight-by-utilization on the mon; (6) mgr.0 killed, mgr.1
+             promoted and answering pg dump; (7) every object read back.
+             Checks: pg dump's rows == each primary OSD's own PG (state, up,
+             log head and size); df counts every replica and shard the map
+             places; iostat showed writes; the scrape parses, its gf_matvec
+             launches equal the count since the reset and the EC engines'
+             ec_encode + ec_decode calls equal the writes' gf_matvec
+             launches; balancer optimize launched pg_finish_ladder for its
+             what_if_up batches, every batch == ladder_plain on the card on
+             the same operands, the plan == the plan on the same map with
+             osdmap_mapping_fused off on the mgr's context, command for
+             command, and neither pool's (min, max) PGs an OSD is wider
+             after the upmap epochs; every read == the bytes written;
+             HEALTH_OK from the mon and mgr.1; every context's
+             fault_digest() zero; no engine thread alive after stop().
+             13b: the balancer at full width on phase 9's map at e4 in
+             phase 9's context's mapping service: calc_pg_upmaps at its
+             defaults (max_deviation 1, max_optimizations 256) for pool 1
+             (replicated size 3, 262,144 PGs, W = 3), then pool 2 (k=8 m=4
+             chooseleaf indep, 16,384 PGs, W = 12); each prints its seconds
+             split into the histogram, the what_if_up calls and the host
+             loop, pg_finish_ladder's launches and candidates a launch, the
+             kernel at the median what-if batch by graph replay beside its
+             bound and ladder_plain's time, and its changes; checks: every
+             what_if_up batch == ladder_plain on the card, the plan == the
+             same call with osdmap_mapping_fused off (every score from up_of
+             on the host); then both plans applied as a new epoch
+             (update_to), neither pool's spread wider, a seeded 256 of the
+             moved PGs' up/acting == the scalar oracle in worker processes,
+             fault_digest() zero; the phase's seconds (budget 120)
+ 14. prints  the {"engine": ...} line, the {"mapping": ...} line, the
              {"cluster": ...} line, the {"scrub": ...} line, the
-             {"bluestore": ...} line, the {"kernels": [...]} line (gf_matvec's
-             row also carries the EC shapes of phase 7 as "ec_shapes" and
-             its launches by cluster sub-phase as "cluster";
-             pg_finish_ladder's its
-             launches per epoch, each pool's shape and times, and the first
-             version's times; pg_osd_words's its launches per epoch;
+             {"bluestore": ...} line, the {"mgr": ...} line, the
+             {"kernels": [...]} line (gf_matvec's row also carries the EC
+             shapes of phase 7 as "ec_shapes" and its launches by cluster
+             sub-phase as "cluster"; pg_finish_ladder's its launches per
+             epoch, each pool's shape and times, the first version's times,
+             its balancer launches by phase 13 sub-step and pool as
+             "manager_launches" and its time at each pool's median what-if
+             batch as "what_if"; pg_osd_words's its launches per epoch;
              scrub_digest's its bluestore_data launches by phase 12's
              sub-step; bitplane_pack's its launches by sub-step), then
              {"ok": true, "device": ...}
@@ -456,6 +503,22 @@ BS_BUDGET_S = 120.0
 PACK_SHAPES = ((1024, 4096), (256, 4096))
 PACK_COLD_BYTES = 64 << 20
 PACK_RAGGED = (37, 4104, 1)
+
+# phase 13: the manager.  13a: a MiniCluster of 6 OSDs (memstore, loopback,
+# 1 mon) with mgr.0 and mgr.1 started before the OSDs; a replicated pool of
+# size 3 and an erasure pool jerasure reed_sol_van k=4 m=2 (stripe unit
+# 4 KiB) at mon_target_pg_per_osd 100: 6 x 100 / 3 = 200 -> 256 PGs, and
+# 6 x 100 / 6 = 100 -> 64 (128 would put 256 PG replicas on an OSD, past
+# mon_max_pg_per_osd 250; these put 192); rados bench's 4 MiB objects, 16
+# a pool, 16 in flight.  The mgrs' contexts map pools of MGR_MIN_PGS PGs or
+# more on the card (osdmap_mapping_min_pgs).  13b: calc_pg_upmaps at its
+# defaults on phase 9's map at e4, and MGR_ORACLE moved PGs against the
+# scalar oracle
+MGR_OSDS, MGR_REP_PGS, MGR_EC_PGS, MGR_K, MGR_M = 6, 256, 64, 4, 2
+MGR_OBJECTS, MGR_OBJ_BYTES = 16, 4 << 20
+MGR_MIN_PGS = 64
+MGR_ORACLE = 256
+MGR_BUDGET_S = 120.0
 
 
 def digest_batch(dev, rng, s: int, w: int, omap: bool) -> dict:
@@ -1146,10 +1209,11 @@ def remap_split(recent: list) -> dict:
     return out
 
 
-def mapping_phase(dev, tag: str) -> tuple[dict, list]:
+def mapping_phase(dev, tag: str) -> tuple[dict, list, dict]:
     """Phase 9: the OSDMap and the shared PG mapping service on the card
     (see the module docstring); returns (summary, the kernel rows of
-    pg_finish_ladder and pg_osd_words)."""
+    pg_finish_ladder and pg_osd_words, {"ctx", "map"}: the phase's context,
+    not stopped, and its e4 map, for phase 13b)."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -1572,8 +1636,7 @@ def mapping_phase(dev, tag: str) -> tuple[dict, list]:
              "pools": {str(k): v for k, v in pools.items()},
              "first_version_ms": {k: v["ms"] for k, v in first.items()}}]
     rows.append(words_row(dev, m4, words_launches))
-    ctx.stop()
-    return summary, rows
+    return summary, rows, {"ctx": ctx, "map": m4}
 
 
 def _cluster_counters(osds) -> dict:
@@ -2995,6 +3058,671 @@ def words_row(dev, m, launches: list) -> dict:
           f"{row['host_ms']:.4f} issued)  plain {row['plain_ms']:.4f} ms  "
           f"bound {b_ms:.5f} ms ({b_by})  launches per epoch {launches}")
     return row
+
+
+class _WhatIfTap:
+    """Wraps SharedPGMappingService.what_if_up (every service of the
+    process: the mgr's in 13a, phase 9's in 13b) and the engine's
+    submit_finish_ladder: each what-if batch is recorded with its
+    candidates, seconds, pg_finish_ladder launches, whether the fused
+    ladder scored it, and the operands and future of each ladder it
+    submitted, to be held against ladder_plain afterwards."""
+
+    def __init__(self):
+        import threading
+
+        from ceph_tpu_torch.ops import dispatch
+        from ceph_tpu_torch.osd.mapping import SharedPGMappingService
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        self.batches: list[dict] = []
+        self._dispatch, self._cls = dispatch, SharedPGMappingService
+        self._real_submit = dispatch.submit_finish_ladder
+        self._real_what_if = SharedPGMappingService.what_if_up
+        tap = self
+
+        def submit(engine, operands, **kw):
+            fut = tap._real_submit(engine, operands, **kw)
+            rec = getattr(tap._local, "rec", None)
+            if rec is not None:
+                rec["ladders"].append((operands, fut))
+            return fut
+
+        def what_if_up(svc, osdmap, pool_id, candidates):
+            from ceph_tpu_torch.ops import _build
+            rec = {"pool": pool_id, "candidates": len(candidates),
+                   "ladders": []}
+            tap._local.rec = rec
+            l0 = _build.LAUNCHES["pg_finish_ladder"]
+            t0 = time.perf_counter()
+            try:
+                got = tap._real_what_if(svc, osdmap, pool_id, candidates)
+            finally:
+                tap._local.rec = None
+            rec["seconds"] = time.perf_counter() - t0
+            rec["launches"] = _build.LAUNCHES["pg_finish_ladder"] - l0
+            rec["scored"] = got is not None
+            with tap._lock:
+                tap.batches.append(rec)
+            return got
+
+        dispatch.submit_finish_ladder = submit
+        SharedPGMappingService.what_if_up = what_if_up
+
+    def close(self) -> None:
+        self._dispatch.submit_finish_ladder = self._real_submit
+        self._cls.what_if_up = self._real_what_if
+
+    def since(self, n: int) -> list[dict]:
+        with self._lock:
+            return list(self.batches[n:])
+
+    @staticmethod
+    def hold(recs, dev) -> tuple[int, int]:
+        """Each recorded ladder's packed rows == ladder_plain on ``dev`` on
+        the same operands: (ladders held, max abs err)."""
+        import numpy as np
+        import torch
+
+        from ceph_tpu_torch.ops import placement_kernel as pk
+        n, err = 0, 0
+        for rec in recs:
+            for op, fut in rec["ladders"]:
+                got = torch.from_numpy(np.asarray(fut.result(timeout=60)))
+                want = pk.ladder_plain(*on_card(op, dev),
+                                       erasure=op.erasure).cpu()
+                err = max(err, int((got.long() - want.long()).abs().max()))
+                n += 1
+        return n, err
+
+
+def parse_metrics(text: str) -> dict:
+    """Prometheus text exposition, strictly: {family: {"type", "help",
+    "samples": [(name, labels, value)]}}; a malformed line, or a sample
+    without its family's HELP and TYPE before it, raises."""
+    import re
+    sample_re = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? (\S+)$')
+    label_re = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+    declared: dict = {}
+    fams: dict = {}
+    for line in text.splitlines():
+        if not line:
+            continue
+        for key, head in (("help", "# HELP "), ("type", "# TYPE ")):
+            if line.startswith(head):
+                name, _, val = line[len(head):].partition(" ")
+                declared.setdefault(name, {})[key] = val
+                break
+        else:
+            m = sample_re.match(line)
+            if m is None or line.startswith("#"):
+                raise SmokeFailure(f"malformed exposition line {line!r}")
+            name = fam = m.group(1)
+            for suffix in ("_bucket", "_sum", "_count"):
+                base = name[:-len(suffix)]
+                if name.endswith(suffix) and declared.get(base, {}).get(
+                        "type") in ("histogram", "summary"):
+                    fam = base
+                    break
+            if set(declared.get(fam, {})) != {"help", "type"}:
+                raise SmokeFailure(f"sample {name} without HELP and TYPE")
+            fams.setdefault(fam, {**declared[fam], "samples": []})[
+                "samples"].append((name, dict(label_re.findall(
+                    m.group(2) or "")),
+                    float(m.group(3).replace("+Inf", "inf"))))
+    return fams
+
+
+def _spreads(bal, m, pools, **svc) -> dict:
+    return {pid: bal.spread(m, pid, **svc) for pid in pools}
+
+
+def mgr_cluster(dev, tag: str, steps: dict) -> dict:
+    """Phase 13a (see the module docstring): the manager on a MiniCluster
+    on the card.  Fills ``steps`` with each sub-step's seconds and launches;
+    returns the sub-phase's summary."""
+    import threading
+    import urllib.request
+
+    import torch
+
+    from ceph_tpu_torch import balancer as bal
+    from ceph_tpu_torch.client.rados import ceph_str_hash_rjenkins
+    from ceph_tpu_torch.ops import _build, telemetry
+    from ceph_tpu_torch.osd.osdmap import CEPH_NOSD, pg_to_pgid
+    from ceph_tpu_torch.osd.pg import STATE_ACTIVE
+    from ceph_tpu_torch.tools.vstart import MiniCluster
+    on_card = dev.type == "cuda"
+    names = {pid: [f"mgr_{pid}_{i:03d}" for i in range(MGR_OBJECTS)]
+             for pid in (1, 2)}
+    gen_ = torch.Generator(device=dev).manual_seed(13)
+    payload = {}
+    for pid in (1, 2):
+        block = torch.randint(0, 256, (MGR_OBJECTS, MGR_OBJ_BYTES),
+                              dtype=torch.uint8, device=dev,
+                              generator=gen_).cpu().numpy()
+        payload.update({n: row.tobytes() for n, row in zip(names[pid],
+                                                            block)})
+    mb = 2 * MGR_OBJECTS * MGR_OBJ_BYTES / 1e6
+    tap = _WhatIfTap()
+    c = MiniCluster(n_osds=0, ms_type="loopback", store_type="memstore",
+                    device=dev).start()
+    contexts = [c.mon.ctx]
+    out: dict = {"osds": MGR_OSDS}
+
+    def sub(label, body):
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        extra = body() or {}
+        if on_card:
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        steps[label] = {"seconds": secs, "launches": launches,
+                        **{k: v for k, v in extra.items()
+                           if not k.startswith("_")}}
+        print(f"13a {label}: {secs:.2f} s; launches {launches}; "
+              f"{json.dumps(steps[label])[:800]}  {tag}")
+        return {**steps[label], **extra}
+
+    try:
+        mgrs = [c.run_mgr(0), c.run_mgr(1)]
+        for mgr in mgrs:
+            mgr.ctx.conf.set("osdmap_mapping_min_pgs", MGR_MIN_PGS)
+        contexts += [mgr.ctx for mgr in mgrs]
+        for i in range(MGR_OSDS):
+            c.run_osd(i)
+        c.wait_for_osd_count(MGR_OSDS, timeout=CLUSTER_OP_TIMEOUT)
+        client = c.client(timeout=CLUSTER_OP_TIMEOUT)
+        contexts += [client.ctx] + [o.ctx for o in c.osds.values()]
+        deadline = time.time() + CLUSTER_OP_TIMEOUT
+        while (client.osdmap.mgr_db or {}).get("active_name") != "mgr.0" \
+                or not mgrs[0].is_active:
+            if time.time() > deadline:
+                raise SmokeFailure(f"13a: mgr.0 never named active "
+                                   f"({client.osdmap.mgr_db})")
+            time.sleep(0.05)
+        t0 = time.perf_counter()
+        rep = c.create_pool(client, pg_num=MGR_REP_PGS, size=3,
+                            epoch_timeout=CLUSTER_OP_TIMEOUT)
+        ec = c.create_pool(client, pool_type="erasure", plugin="jerasure",
+                           technique="reed_sol_van", k=MGR_K, m=MGR_M,
+                           pg_num=MGR_EC_PGS,
+                           epoch_timeout=CLUSTER_OP_TIMEOUT)
+        pools = {rep: MGR_REP_PGS, ec: MGR_EC_PGS}
+        for pid, pg_num in pools.items():
+            _wait_active(c, pid, pg_num, CLUSTER_OP_TIMEOUT)
+        check(sorted(pools) == [1, 2], f"13a: pools {sorted(pools)}")
+        out["pools_seconds"] = time.perf_counter() - t0
+        print(f"13a: {MGR_OSDS} OSDs (memstore, loopback, 1 mon), mgr.0 "
+              f"active and mgr.1 standby (started first, "
+              f"osdmap_mapping_min_pgs {MGR_MIN_PGS} on their contexts); "
+              f"pool 1 replicated size 3 pg_num {MGR_REP_PGS}, pool 2 "
+              f"jerasure reed_sol_van k={MGR_K} m={MGR_M} pg_num "
+              f"{MGR_EC_PGS}: created and every PG active in "
+              f"{out['pools_seconds']:.1f} s  {tag}")
+        ios = {pid: client.open_ioctx(pid) for pid in pools}
+        telemetry.reset()
+
+        # 1. rados bench's writes, iostat polled while they run
+        seen_wr = []
+        stop = threading.Event()
+
+        def watch():
+            # polled while the writes run and until a report window that
+            # holds them has landed (OSDs report every 0.5 s)
+            deadline = None
+            while not (stop.is_set() and (max(seen_wr, default=0) > 0
+                                          or time.time() > deadline)):
+                if stop.is_set() and deadline is None:
+                    deadline = time.time() + 10.0
+                rc, txt = client.mgr_command({"prefix": "iostat"})
+                if rc == 0:
+                    seen_wr.append(json.loads(txt)["total_wr_ops_s"])
+                time.sleep(0.25)
+
+        def write():
+            th = threading.Thread(target=watch, daemon=True)
+            th.start()
+            try:
+                secs = 0.0
+                for pid in pools:
+                    secs += _rados_bench(
+                        names[pid], lambda n, io=ios[pid]:
+                        io.aio_write_full(n, payload[n]),
+                        lambda n, comp_: None)
+            finally:
+                stop.set()
+                th.join(timeout=30)
+            return {"MB_s": mb / secs,
+                    "iostat_max_wr_ops_s": max(seen_wr, default=0.0)}
+        rec = sub("1_write", write)
+        writes_gf = rec["launches"].get("gf_matvec", 0)
+        check(rec["iostat_max_wr_ops_s"] > 0,
+              f"13a: iostat through mgr_command showed write operations "
+              f"while the writes ran (max {rec['iostat_max_wr_ops_s']} "
+              f"ops/s over {len(seen_wr)} polls)")
+        check(not on_card or writes_gf >= 1,
+              f"13a: the EC writes encoded through gf_matvec ({writes_gf})")
+
+        # 2. iostat, pg dump and df through the mgr's command tier, once
+        # the reports that follow the writes have landed: every replica and
+        # every shard the map places (chooseleaf indep on a pool as wide as
+        # the OSDs can leave a position without one)
+        m = c.mon.osdmap
+        want_objs = sum(
+            sum(1 for o in m.pg_to_up_acting_osds(pid, pg_to_pgid(
+                ceph_str_hash_rjenkins(n), m.pools[pid].pg_num))[0]
+                if o != CEPH_NOSD)
+            for pid in pools for n in names[pid])
+
+        def views():
+            want_rows = sum(pools.values())
+            deadline = time.time() + CLUSTER_OP_TIMEOUT
+            while True:
+                rc, txt = client.mgr_command({"prefix": "pg dump"})
+                rows = json.loads(txt)["pg_stats"] if rc == 0 else []
+                rc_d, df_txt = client.mgr_command({"prefix": "df"})
+                df = json.loads(df_txt) if rc_d == 0 else {}
+                if (len(rows) == want_rows
+                        and all(r["state"] == "active" for r in rows)
+                        and sum(r["num_objects"] for r in rows)
+                        == 2 * MGR_OBJECTS
+                        and df.get("total_objects") == want_objs):
+                    break
+                if time.time() > deadline:
+                    raise SmokeFailure(
+                        f"13a: the reports never settled: {len(rows)} pg "
+                        f"dump rows, df {df.get('total_objects')} of "
+                        f"{want_objs} replicas and shards")
+                time.sleep(0.1)
+            rc_i, io_txt = client.mgr_command({"prefix": "iostat"})
+            check(rc_i == 0, "13a: iostat answers")
+            return {"pg_rows": len(rows), "df": df,
+                    "iostat": json.loads(io_txt), "_rows": rows}
+        rec = sub("2_views", views)
+        rows = rec.pop("_rows")
+        bad = []
+        for row in rows:
+            pgid = tuple(int(x) for x in row["pgid"].split("."))
+            pg = c.osds[row["reported_by"]].pgs.get(pgid)
+            if (pg is None or pg.state != STATE_ACTIVE
+                    or row["up"] != list(pg.up)
+                    or tuple(row["log_head"]) != tuple(pg.log.head)
+                    or row["log_size"] != len(pg.log.entries)):
+                bad.append(row["pgid"])
+        check(not bad, f"13a: pg dump's {len(rows)} rows equal each "
+              f"primary OSD's own PG (state, up, log head and size) {bad[:4]}")
+        check(rec["df"]["total_objects"] == want_objs,
+              f"13a: df counts every object written: "
+              f"{rec['df']['total_objects']} stored == {want_objs} replicas "
+              f"and shards the map places ({MGR_OBJECTS} x 3 + "
+              f"{MGR_OBJECTS} x {MGR_K + MGR_M} less the map's holes)")
+
+        # 3. the Prometheus scrape over HTTP
+        def scrape():
+            port = mgrs[0].serve_prometheus(0)
+            body = urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/metrics", timeout=30).read()
+            fams = parse_metrics(body.decode())
+            val = {lab.get("kernel"): v for _n, lab, v in
+                   fams["ceph_kernel_launches_total"]["samples"]}
+            calls = sum(fams[f"ceph_kernel_{k}_calls_total"]["samples"][0][2]
+                        for k in ("ec_encode", "ec_decode"))
+            return {"bytes": len(body), "families": len(fams),
+                    "gf_matvec_launches": val["gf_matvec"],
+                    "ec_calls": calls}
+        rec = sub("3_scrape", scrape)
+        check(rec["gf_matvec_launches"] == _build.LAUNCHES["gf_matvec"]
+              and (rec["ec_calls"] == writes_gf or not on_card),
+              f"13a: the scrape parses ({rec['families']} families); its "
+              f"gf_matvec launches {rec['gf_matvec_launches']} equal the "
+              f"count since the sub-step's reset, and the EC engines' "
+              f"ec_encode + ec_decode calls {rec['ec_calls']} equal the "
+              f"writes' gf_matvec launches {writes_gf}")
+
+        # 4. balancer optimize through the mgr; the plan to the mon.  The
+        # map the module planned on is recorded, for its fused-off twin
+        planned_on = []
+        real_plan = bal.plan_commands
+
+        def plan_commands(osdmap, **kw):
+            planned_on.append(osdmap)
+            return real_plan(osdmap, **kw)
+
+        n0 = len(tap.batches)
+
+        def optimize():
+            bal.plan_commands = plan_commands
+            try:
+                rc, txt = client.mgr_command(
+                    {"prefix": "balancer optimize"})
+            finally:
+                bal.plan_commands = real_plan
+            check(rc == 0, f"13a: balancer optimize: rc {rc} {txt[:200]}")
+            return {"commands": json.loads(txt)["commands"]}
+        rec = sub("4_balancer", optimize)
+        cmds = rec["commands"]
+        check(len(planned_on) == 1, "13a: the module planned once")
+        m_plan = planned_on[0]
+        spread0 = _spreads(bal, m_plan, pools, ctx=mgrs[0].ctx)
+        recs = tap.since(n0)
+        wi_launches = sum(r["launches"] for r in recs)
+        held, err = tap.hold(recs, dev)
+        check(all(r["scored"] for r in recs) and held >= len(recs) >= 1
+              and (wi_launches >= 1 or not on_card),
+              f"13a: {len(recs)} what_if_up batches "
+              f"({[r['candidates'] for r in recs]} candidates), each "
+              f"scored by the fused ladder: pg_finish_ladder launched "
+              f"{wi_launches} times for the what-if")
+        check(err == 0, f"13a: every what_if_up batch ({held} ladders) == "
+              f"ladder_plain on the card on the same operands")
+        mgrs[0].ctx.conf.set("osdmap_mapping_fused", False)
+        try:
+            n1 = len(tap.batches)
+            twin = bal.plan_commands(m_plan, ctx=mgrs[0].ctx)
+            off = tap.since(n1)
+        finally:
+            mgrs[0].ctx.conf.set("osdmap_mapping_fused", True)
+        check(twin == cmds and not any(r["scored"] for r in off),
+              f"13a: the plan ({len(cmds)} commands) equals the plan with "
+              f"osdmap_mapping_fused off on the mgr's context, command for "
+              f"command (every score of {len(off)} batches from the host)")
+        epoch0 = c.mon.osdmap.epoch
+
+        def upmap():
+            for cmd in cmds:
+                rc, txt = client.mon_command(cmd)
+                if rc != 0:
+                    raise SmokeFailure(f"13a: {cmd}: rc {rc} {txt}")
+            c.wait_for_epoch(c.mon.osdmap.epoch, timeout=CLUSTER_OP_TIMEOUT)
+            for pid, pg_num in pools.items():
+                _wait_active(c, pid, pg_num, CLUSTER_OP_TIMEOUT)
+            deadline = time.time() + CLUSTER_OP_TIMEOUT
+            while mgrs[0].osdmap.epoch < c.mon.osdmap.epoch:
+                if time.time() > deadline:
+                    raise SmokeFailure("13a: the mgr never saw the upmap "
+                                       "epoch")
+                time.sleep(0.05)
+            return {"epochs": c.mon.osdmap.epoch - epoch0}
+        rec = sub("4_upmap_epoch", upmap)
+        spread1 = _spreads(bal, mgrs[0].osdmap, pools, ctx=mgrs[0].ctx)
+        check(not cmds or rec["epochs"] >= 1,
+              f"13a: the mon made {rec['epochs']} new epoch(s) of the plan")
+        check(all(spread1[p][1] - spread1[p][0] <= spread0[p][1]
+                  - spread0[p][0] for p in pools),
+              f"13a: neither pool's (min, max) PGs an OSD is wider after "
+              f"the upmap epoch: {spread0} -> {spread1}")
+        out.update(balancer_commands=len(cmds), what_if_batches=len(recs),
+                   what_if_candidates=[r["candidates"] for r in recs],
+                   what_if_launches=wi_launches,
+                   spread_before=spread0, spread_after=spread1)
+
+        # 5. osd reweight-by-utilization on the mon
+        def reweight():
+            rc, txt = client.mon_command(
+                {"prefix": "osd reweight-by-utilization"})
+            check(rc == 0, f"13a: osd reweight-by-utilization: {txt}")
+            plan = json.loads(txt)["reweighted"]
+            if plan:
+                c.wait_for_epoch(c.mon.osdmap.epoch,
+                                 timeout=CLUSTER_OP_TIMEOUT)
+                for pid, pg_num in pools.items():
+                    _wait_active(c, pid, pg_num, CLUSTER_OP_TIMEOUT)
+            return {"reweighted": plan}
+        rec = sub("5_reweight", reweight)
+        out["reweighted"] = rec["reweighted"]
+
+        # 6. mgr.0 killed: mgr.1 promoted, still answering pg dump
+        def failover():
+            c.kill_mgr(0)
+            deadline = time.time() + CLUSTER_OP_TIMEOUT
+            # the client re-targets once its map names the new active
+            while ((client.osdmap.mgr_db or {}).get("active_name")
+                   != "mgr.1" or not mgrs[1].is_active):
+                if time.time() > deadline:
+                    raise SmokeFailure(f"13a: mgr.1 never promoted "
+                                       f"({client.osdmap.mgr_db})")
+                time.sleep(0.05)
+            promoted = time.perf_counter()
+            while True:
+                rc, txt = client.mgr_command({"prefix": "pg dump"})
+                if rc == 0 and json.loads(txt)["num_pgs"] \
+                        == sum(pools.values()):
+                    return {"num_pgs": json.loads(txt)["num_pgs"],
+                            "refill_seconds":
+                                time.perf_counter() - promoted}
+                if time.time() > deadline:
+                    raise SmokeFailure(f"13a: mgr.1 not serving pg dump "
+                                       f"(rc {rc} {txt[:200]})")
+                time.sleep(0.1)
+        sub("6_failover", failover)
+
+        # 7. every object read back
+        def read():
+            def same(name, comp_):
+                if comp_.reply.ops[0].data != payload[name]:
+                    raise SmokeFailure(f"13a: {name} read back != the "
+                                       f"bytes written")
+            secs = sum(_rados_bench(names[pid], ios[pid].aio_read, same)
+                       for pid in pools)
+            return {"MB_s": mb / secs}
+        sub("7_read", read)
+
+        deadline = time.time() + CLUSTER_RECOVERY_S
+        t0 = time.perf_counter()
+        while True:
+            mon_h = json.loads(client.mon_command({"prefix": "health"})[1])
+            mgr_h = mgrs[1].health()
+            if mon_h["status"] == mgr_h["status"] == "HEALTH_OK":
+                break
+            if time.time() > deadline:
+                raise SmokeFailure(f"13a: health {mon_h} / {mgr_h}")
+            time.sleep(0.2)
+        out["health_ok_seconds"] = time.perf_counter() - t0
+        check(True, f"13a: HEALTH_OK from the mon and mgr.1 "
+              f"({out['health_ok_seconds']:.1f} s after the reads)")
+        for ctx_ in contexts:
+            assert_no_faults(f"13a: {ctx_.name}", ctx_.fault_digest())
+    finally:
+        tap.close()
+        c.stop()
+        for ctx_ in contexts:
+            ctx_.stop()
+    ctx_names = {ctx_.name for ctx_ in contexts}
+    c = client = contexts = mgrs = None
+    gc.collect()
+    deadline = time.time() + 10
+    alive = []
+    while time.time() < deadline:
+        alive = [t.name for t in threading.enumerate() if t.is_alive()
+                 and t.name.split("-")[0] in ctx_names]
+        if not alive:
+            break
+        time.sleep(0.05)
+    check(not alive, f"13a: no engine thread alive after stop() "
+          f"({alive[:4]})")
+    return out
+
+
+def mgr_balancer(dev, tag: str, mapped: dict, launches: dict) -> dict:
+    """Phase 13b: calc_pg_upmaps on phase 9's map at e4 in phase 9's
+    context's mapping service, pool by pool (see the module docstring).
+    Fills ``launches`` with pg_finish_ladder's what-if launches by pool."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from ceph_tpu_torch import balancer as bal
+    from ceph_tpu_torch.ops import _build
+    from ceph_tpu_torch.ops import placement_cuda as pc
+    from ceph_tpu_torch.ops import placement_kernel as pk
+    card = dev.type == "cuda"
+    ctx, m4 = mapped["ctx"], mapped["map"]
+    svc = ctx.mapping_service()
+    tap = _WhatIfTap()
+    out: dict = {"pools": {}}
+    changes: dict = {}
+    real_hist = bal._histogram
+    hist_s = [0.0]
+
+    def timed_hist(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real_hist(*a, **kw)
+        finally:
+            hist_s[0] += time.perf_counter() - t0
+
+    bal._histogram = timed_hist
+    try:
+        spread0 = _spreads(bal, m4, sorted(m4.pools), service=svc)
+        for pid in sorted(m4.pools):
+            pool = m4.pools[pid]
+            n0, hist_s[0] = len(tap.batches), 0.0
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            got = bal.calc_pg_upmaps(m4, pool_ids=[pid], service=svc)
+            secs = time.perf_counter() - t0
+            lad = _build.LAUNCHES["pg_finish_ladder"]
+            recs = tap.since(n0)
+            wi_s = sum(r["seconds"] for r in recs)
+            split = {"seconds": secs, "histogram_s": hist_s[0],
+                     "what_if_s": wi_s,
+                     "host_loop_s": secs - hist_s[0] - wi_s}
+            held, err = tap.hold(recs, dev)
+            ctx.conf.set("osdmap_mapping_fused", False)
+            try:
+                n1 = len(tap.batches)
+                t1 = time.perf_counter()
+                twin = bal.calc_pg_upmaps(m4, pool_ids=[pid], service=svc)
+                twin_s = time.perf_counter() - t1
+                off = tap.since(n1)
+            finally:
+                ctx.conf.set("osdmap_mapping_fused", True)
+            cands = sorted(r["candidates"] for r in recs)
+            print(f"13b pool {pid} (pg_num {pool.pg_num}, W={pool.size}): "
+                  f"plan {secs:.3f} s = histogram "
+                  f"{split['histogram_s']:.3f} + what_if_up {wi_s:.3f} "
+                  f"({len(recs)} calls) + host loop "
+                  f"{split['host_loop_s']:.3f}; pg_finish_ladder launches "
+                  f"{lad}, candidates a launch median "
+                  f"{statistics.median(cands) if cands else 0} (min "
+                  f"{cands[0] if cands else 0}, max "
+                  f"{cands[-1] if cands else 0}); {len(got)} changes; the "
+                  f"fused-off twin {twin_s:.3f} s  {tag}")
+            check(all(r["scored"] for r in recs) and held >= len(recs)
+                  and (lad >= max(1, len(recs)) or not card),
+                  f"13b pool {pid}: every what_if_up batch scored by the "
+                  f"fused ladder ({len(recs)} batches, {lad} launches)")
+            check(err == 0, f"13b pool {pid}: every what_if_up batch "
+                  f"({held} ladders) == ladder_plain on the card")
+            check(twin == got and not any(r["scored"] for r in off),
+                  f"13b pool {pid}: the plan ({len(got)} changes) equals "
+                  f"the plan with osdmap_mapping_fused off (every score "
+                  f"from up_of on the host)")
+            row = {"pg_num": pool.pg_num, "W": pool.size, "changes": len(got),
+                   "split": split, "launches": lad,
+                   "candidates": {"batches": len(cands),
+                                  "median": statistics.median(cands)
+                                  if cands else 0,
+                                  "min": cands[0] if cands else 0,
+                                  "max": cands[-1] if cands else 0},
+                   "fused_off_seconds": twin_s}
+            if card and recs:
+                mid = [r for r in recs
+                       if r["candidates"] == cands[len(cands) // 2]][0]
+                op, fut = mid["ladders"][0]
+                packed = np.asarray(fut.result(timeout=60))
+                t = on_card(op, dev)
+                words = pc.osd_words(*t[9:12])
+                buf = torch.empty((op.raw.shape[0], 2 * op.width + 4),
+                                  dtype=torch.int32, device=dev)
+                g, h = paired_times(
+                    lambda: launch_ladder(t, words, op.erasure, buf), 20)
+                plain_ms = time_ms(lambda: pk.ladder_plain(
+                    *t, erasure=op.erasure), 1, reps=5)
+                b_ms, b_by = ladder_bound(op, packed)
+                ms, host = statistics.median(g), statistics.median(h)
+                check(torch.equal(buf.cpu(), torch.from_numpy(packed)),
+                      f"13b pool {pid}: the raw launch wrote the batch's "
+                      f"rows")
+                row["kernel"] = {"shape": f"N={op.raw.shape[0]} "
+                                 f"W={op.width} P={op.items.shape[1]}",
+                                 "ms": ms, "host_ms": host,
+                                 "plain_ms": plain_ms, "bound_ms": b_ms,
+                                 "bound_by": b_by}
+                print(f"13b pool {pid}: pg_finish_ladder at the median "
+                      f"what-if batch {row['kernel']['shape']}: {ms:.4f} ms "
+                      f"(graph replay; {host:.4f} issued)  plain "
+                      f"{plain_ms:.4f} ms  bound {b_ms:.5f} ms ({b_by})  "
+                      f"{tag}")
+            launches[f"13b pool {pid}"] = lad
+            out["pools"][str(pid)] = row
+            changes.update(got)
+    finally:
+        bal._histogram = real_hist
+        tap.close()
+    m6 = m4.copy()
+    m6.epoch = 6
+    for pgid, pairs in changes.items():
+        if pairs:
+            m6.pg_upmap_items[pgid] = pairs
+        else:
+            m6.pg_upmap_items.pop(pgid, None)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    svc.update_to(m6)
+    upd_s = time.perf_counter() - t0
+    spread1 = _spreads(bal, m6, sorted(m6.pools), service=svc)
+    print(f"13b: the plans applied as epoch 6 (update_to {upd_s:.3f} s, "
+          f"launches {({k: v for k, v in _build.LAUNCHES.items() if v})}); "
+          f"(min, max) PGs an OSD by pool {spread0} -> {spread1}  {tag}")
+    check(all(spread1[p][1] - spread1[p][0] <= spread0[p][1] - spread0[p][0]
+              for p in m6.pools),
+          f"13b: neither pool's spread is wider after the epoch")
+    rng = np.random.default_rng(1317)
+    moved = sorted(changes)
+    keys = [moved[i] for i in sorted(rng.choice(
+        len(moved), min(MGR_ORACLE, len(moved)), replace=False))]
+    ctx_mp = multiprocessing.get_context("spawn")
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
+                             mp_context=ctx_mp) as pool_exec:
+        oracle = scalar_oracle(pool_exec, m6, keys)
+    bad = [k for k in keys if svc.lookup(m6, *k) != oracle[k]]
+    check(keys and not bad, f"13b: the moved PGs' up/acting == "
+          f"pg_to_up_acting_osds on a seeded {len(keys)} of {len(moved)} "
+          f"(oracle {time.perf_counter() - t0:.1f} s) {bad[:3]}")
+    assert_no_faults("13b", ctx.fault_digest())
+    out.update(spread_before=spread0, spread_after=spread1,
+               update_to_seconds=upd_s, oracle_checked=len(keys))
+    return out
+
+
+def mgr_phase(dev, tag: str, mapped: dict) -> tuple[dict, dict]:
+    """Phase 13: the manager (13a) and the balancer at full width (13b);
+    returns the {"mgr": ...} summary and pg_finish_ladder's balancer
+    launches by sub-step and pool.  Stops phase 9's context."""
+    t_phase = time.perf_counter()
+    steps: dict = {}
+    launches: dict = {}
+    try:
+        print("-- 13a. the manager on a MiniCluster")
+        cluster = mgr_cluster(dev, tag, steps)
+        launches.update({f"13a {k}": v["launches"].get("pg_finish_ladder", 0)
+                         for k, v in steps.items()})
+        print("-- 13b. the balancer on phase 9's map")
+        full = mgr_balancer(dev, tag, mapped, launches)
+    finally:
+        mapped["ctx"].stop()
+    secs = time.perf_counter() - t_phase
+    print(f"mgr: phase 13 took {secs:.1f} s (budget {MGR_BUDGET_S:.0f} s)  "
+          f"{tag}")
+    return ({"cluster": cluster, "steps": steps, "balancer": full,
+             "phase_seconds": secs, "budget_seconds": MGR_BUDGET_S},
+            launches)
 
 
 def card_line() -> str:
@@ -4428,7 +5156,7 @@ def run() -> None:
     engine = engine_phase(dev, tag, xs_np)
 
     print("== 9. the OSDMap and the shared PG mapping service")
-    mapping, ladder_rows = mapping_phase(dev, tag)
+    mapping, ladder_rows, mapped = mapping_phase(dev, tag)
     kernels.extend(ladder_rows)
 
     print("== 10. the OSD data path on a MiniCluster")
@@ -4441,13 +5169,21 @@ def run() -> None:
     scrub_row["bluestore_data_launches"] = bs_digest
     kernels.append(pack_row)
 
-    print("== 13. results")
+    print("== 13. the manager: MgrDaemon on a MiniCluster, the balancer")
+    mgr, mgr_launches = mgr_phase(dev, tag, mapped)
+    ladder_rows[0]["manager_launches"] = mgr_launches
+    ladder_rows[0]["what_if"] = {
+        pid: row.get("kernel") for pid, row in
+        mgr["balancer"]["pools"].items()}
+
+    print("== 14. results")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"engine": engine}))
     print(json.dumps({"mapping": mapping}))
     print(json.dumps({"cluster": cluster}))
     print(json.dumps({"scrub": scrub}))
     print(json.dumps({"bluestore": bluestore}))
+    print(json.dumps({"mgr": mgr}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -556,8 +556,7 @@ def test_unported_parts_raise_naming_their_item():
         MiniCluster(n_osds=1, ms_type="loopback", cephx=True,
                     device="cpu")
     c = MiniCluster(n_osds=1, ms_type="loopback", device="cpu")
-    for call in (lambda: c.run_mgr(), lambda: c.run_mds(1, 2),
-                 lambda: c.run_fs_mds()):
+    for call in (lambda: c.run_mds(1, 2), lambda: c.run_fs_mds()):
         with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
             call()
     from ceph_tpu_torch.msg.messenger import EntityName, Messenger
@@ -570,10 +569,29 @@ def test_unported_parts_raise_naming_their_item():
 
 
 def test_reweight_by_utilization_names_the_missing_module(cluster):
+    """The mon's `osd reweight-by-utilization` (once refused for want of
+    the balancer) answers 0 and sets the weights the JAX package's mon
+    computes on the same map (its handler's reweight_by_utilization on
+    the map decoded there), in a new epoch."""
+    from ceph_tpu.balancer import reweight_by_utilization as ref_rbu
+    from ceph_tpu.osd.map_codec import decode_osdmap as ref_decode
+    from ceph_tpu_torch.osd.map_codec import encode_osdmap
     client = cluster.client()
-    rc, out = client.mon_command({"prefix":
-                                  "osd reweight-by-utilization"})
-    assert rc != 0 and "balancer.py" in out
+    cluster.create_pool(client, pg_num=16, size=2)
+    before = cluster.mon.osdmap
+    ref_map = ref_decode(encode_osdmap(before))
+    want = ref_rbu(ref_map, oload=101)
+    assert want, "the pool's PG counts are uneven enough to reweight"
+    rc, out = client.mon_command({"prefix": "osd reweight-by-utilization",
+                                  "oload": 101})
+    assert rc == 0, out
+    assert json.loads(out) == {"reweighted": [
+        {"osd": o, "weight": w} for o, w in want]}
+    for o, w in want:
+        ref_map.osd_weight[o] = int(w * 0x10000)
+    after = cluster.mon.osdmap
+    assert after.epoch > before.epoch
+    assert list(after.osd_weight) == list(ref_map.osd_weight)
 
 
 class _FaultyService:

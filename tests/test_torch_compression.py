@@ -220,7 +220,13 @@ def test_corrupt_input_raises_typed_error():
 
 def test_registry_roundtrip():
     data = b"compressible " * 1000
-    assert compressor.names() == ref_comp.names()
+    # the JAX package's own plugins: a test that ran earlier in this
+    # process may have left one of its own in that registry
+    # (tests/test_services.py registers "rot13" and keeps it)
+    builtin = sorted(n for n in ref_comp.names()
+                     if ref_comp._FACTORIES[n].__module__
+                     == ref_comp.__name__)
+    assert compressor.names() == builtin
     for name in compressor.names():
         kw = {"device": "cpu"} if name == "tpu_bitplane" else {}
         c = compressor.create(name, **kw)
