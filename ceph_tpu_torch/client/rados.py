@@ -163,10 +163,6 @@ class RadosClient(Dispatcher):
                  ms_type: str = "async", timeout: float = 10.0,
                  auth_key=None, cephx: tuple[str, str] | None = None,
                  device=None):
-        if cephx is not None:
-            raise NotImplementedError(
-                "cephx needs ceph_tpu_torch/auth, not ported yet "
-                "(ROADMAP.md Queue 1 item 7)")
         with RadosClient._id_lock:
             self.client_id = RadosClient._next_client_id
             RadosClient._next_client_id += 1
@@ -246,10 +242,31 @@ class RadosClient(Dispatcher):
         self.name = EntityName("client", self.client_id)
         self.msgr = Messenger.create(self.name, ms_type)
         self.msgr.set_auth(auth_key)
-        self.auth_entity = None
+        if cephx is not None:
+            # per-entity credentials: entity-secret proof to mons,
+            # mon-granted tickets to every service
+            from ceph_tpu_torch.auth.cephx import TicketKeyring
+            from ceph_tpu_torch.auth.handshake import CephxConfig
+            entity, secret = cephx
+            self.auth_entity = entity
+            self.msgr.set_auth_cephx(CephxConfig(
+                entity=entity, key=secret,
+                keyring=TicketKeyring(self._fetch_ticket)))
+        else:
+            self.auth_entity = None
         self.msgr.set_policy("osd", ConnectionPolicy.stateful_peer())
         self.msgr.set_policy("mon", ConnectionPolicy.stateful_peer())
         self.msgr.add_dispatcher_tail(self)
+
+    def _fetch_ticket(self, service: str):
+        """TicketKeyring callback: one mon round trip per refresh."""
+        from ceph_tpu_torch.auth.cephx import ticket_from_json
+        try:
+            rc, out = self.mon_command({"prefix": "auth get-ticket",
+                                        "service": service})
+        except (OSError, TimeoutError):
+            return None
+        return ticket_from_json(out) if rc == 0 else None
 
     # -- lifecycle ------------------------------------------------------------
 

@@ -13,3 +13,14 @@ throttle       byte/op budgets (messenger policies, the OSD's front door)
 moncmd         a daemon's mon command round trip, clog  the cluster log,
 op_tracker     in-flight and historic ops
 """
+
+
+def free_port() -> int:
+    """Allocate an ephemeral localhost TCP port (bind/close; the usual
+    harness-grade race window applies)."""
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port

@@ -25,12 +25,13 @@ from .perf_counters import PerfCountersCollection
 
 
 class CephTpuContext:
-    def __init__(self, name: str = "client", *, device=None):
+    def __init__(self, name: str = "client", admin_path: str | None = None,
+                 *, device=None):
         self.name = name
         self.device = resolve(device)
         self.conf = Config()
         self.perf = PerfCountersCollection()
-        self.admin = AdminSocket()
+        self.admin = AdminSocket(admin_path)
         self.admin.register_command(
             "perf dump", lambda **kw: self.perf.dump(),
             "dump perf counters")

@@ -16,9 +16,7 @@ is what makes failover a pure promotion (MgrMonitor.cc:47-120).
 The mgr builds its own CephTpuContext on ``device`` (the card by
 default, ``device="cpu"`` in the tests), as the mon does; the balancer
 module reads that context's shared PG mapping service, whose what-if
-scoring runs the fused placement tail (``pg_finish_ladder``).  Only the
-loopback messenger and no cephx are ported: cephx and the TCP stacks
-raise ``NotImplementedError`` naming their ROADMAP.md item.
+scoring runs the fused placement tail (``pg_finish_ladder``).
 """
 
 from __future__ import annotations
@@ -235,10 +233,6 @@ class MgrDaemon(Dispatcher):
                  addr: str = "127.0.0.1:0", auth_key=None,
                  cephx: tuple[str, str] | None = None, mgr_id: int = 0,
                  device=None):
-        if cephx is not None:
-            raise NotImplementedError(
-                "cephx needs ceph_tpu_torch/auth, not ported yet "
-                "(ROADMAP.md Queue 1 item 7)")
         self.mon_addr = mon_addr
         self.mgr_id = mgr_id
         self.name = EntityName("mgr", mgr_id)
@@ -291,14 +285,30 @@ class MgrDaemon(Dispatcher):
         self._store_cache: dict[str, tuple[float, object]] = {}
         self.msgr = Messenger.create(self.name, ms_type)
         self.msgr.set_auth(auth_key)
+        self._cephx = cephx
+        self._rotating: dict[int, str] = {}
+        self._rotating_at = 0.0
         from ceph_tpu_torch.common.moncmd import MonCommander
         self.mon_cmd = MonCommander(
             self.msgr, [x for x in mon_addr.split(",") if x],
             osdmap_fn=lambda: self.osdmap)
+        if cephx is not None:
+            from ceph_tpu_torch.auth.cephx import TicketKeyring
+            from ceph_tpu_torch.auth.handshake import CephxConfig
+            self.msgr.set_auth_cephx(CephxConfig(
+                entity=cephx[0], key=cephx[1],
+                keyring=TicketKeyring(self.mon_cmd.fetch_ticket),
+                service="mgr", rotating=lambda: self._rotating))
         self.msgr.set_policy("osd", ConnectionPolicy.stateful_server())
         self.msgr.set_policy("mon", ConnectionPolicy.stateful_peer())
         self.msgr.add_dispatcher_tail(self)
         self._addr = addr
+
+    def _refresh_rotating(self) -> None:
+        keys = self.mon_cmd.fetch_rotating("mgr")
+        if keys is not None:
+            self._rotating = keys
+            self._rotating_at = time.time()
 
     def _subscribe(self) -> None:
         from ceph_tpu_torch.common.moncmd import mon_targets
@@ -316,13 +326,18 @@ class MgrDaemon(Dispatcher):
                 modules=sorted(self.host.modules)))
 
     def _renew_tick(self) -> None:
-        """Timer thread — NEVER the dispatch thread.  Renews the map
-        subscription + beacon: pushes ride the mon-side session, so a
-        dropped session must be re-established."""
+        """Timer thread — NEVER the dispatch thread: the rotating
+        refresh blocks on a mon ack only the dispatch thread delivers.
+        Also renews the map subscription + beacon: pushes ride the
+        mon-side session, so a dropped session must be
+        re-established."""
         if getattr(self, "_stopped", False):
             return
         try:
             self._subscribe()
+            if self._cephx is not None \
+                    and time.time() - self._rotating_at > 55.0:
+                self._refresh_rotating()
             if self._active:
                 # module ticks run on the WORKER: a slow tick (mon
                 # round-trips during an election) must never delay the
@@ -348,6 +363,8 @@ class MgrDaemon(Dispatcher):
                                         name=f"{self.name}-work",
                                         daemon=True)
         self._worker.start()
+        if self._cephx is not None:
+            self._refresh_rotating()
         self._renew_tick()
 
     def shutdown(self) -> None:

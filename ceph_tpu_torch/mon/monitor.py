@@ -264,10 +264,6 @@ class Monitor(Dispatcher):
                  addr: str = "127.0.0.1:0", auth_key=None,
                  cephx_keyring: dict | None = None,
                  cephx_rotation: float = 3600.0, device=None):
-        if cephx_keyring is not None:
-            raise NotImplementedError(
-                "cephx needs ceph_tpu_torch/auth, not ported yet "
-                "(ROADMAP.md Queue 1 item 7)")
         #: the mon's context runs on ``device`` (the card by default):
         #: it validates EC profiles at pool create with the port's codecs
         self.ctx = ctx or CephTpuContext(f"mon.{mon_id}", device=device)
@@ -342,6 +338,14 @@ class Monitor(Dispatcher):
         #: paxos-replicated auth_db is authoritative
         self._cephx_seed = dict(cephx_keyring or {})
         self.cephx_rotation = cephx_rotation
+        if cephx_keyring is not None:
+            from ceph_tpu_torch.auth.cephx import TicketKeyring
+            from ceph_tpu_torch.auth.handshake import CephxConfig
+            self.msgr.set_auth_cephx(CephxConfig(
+                entity=f"mon.{mon_id}",
+                key=self._cephx_seed.get(f"mon.{mon_id}", ""),
+                keyring=TicketKeyring(self._self_ticket),
+                auth_lookup=self._auth_lookup))
         self.msgr.add_dispatcher_tail(self)
         self._addr = addr
         self.ctx.admin.register_command(
@@ -993,10 +997,31 @@ class Monitor(Dispatcher):
             return False
         return p.propose_and_wait(blob)
 
+    def _auth_lookup(self, entity: str):
+        """Entity secret for the handshake: the committed auth_db once
+        it exists, the static seed keyring before bootstrap (the
+        reference's mon keyring file)."""
+        db = self.osdmap.auth_db
+        if db:
+            key = db.get(entity)
+            return key if isinstance(key, str) else None
+        return self._cephx_seed.get(entity)
+
+    def _self_ticket(self, service: str):
+        """The mon dials services too (map pushes): it grants itself a
+        ticket from its own key server."""
+        svc_state = self.osdmap.auth_db.get("__svc__")
+        if svc_state is None:
+            return None
+        ks = self._keyserver({"__svc__": svc_state})
+        if service not in ks.SERVICES:
+            return None
+        return ks.grant(service, f"mon.{self.mon_id}")
+
     def _keyserver(self, auth_db: dict):
-        raise NotImplementedError(
-            "the cephx key server needs ceph_tpu_torch/auth, not ported "
-            "yet (ROADMAP.md Queue 1 item 7)")
+        from ceph_tpu_torch.auth.cephx import KeyServer
+        return KeyServer(auth_db.setdefault("__svc__", {}),
+                         rotation_period=self.cephx_rotation)
 
     def _do_bootstrap(self) -> None:
         p = self.paxos

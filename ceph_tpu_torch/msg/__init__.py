@@ -8,7 +8,11 @@ message    Message base + type registry (the port's own registry;
            ceph_tpu_torch.messages holds the concrete types)
 messenger  Messenger/Connection/Dispatcher/Policy abstraction
            (msg/Messenger.h:120, msg/Policy.h); ``Messenger.create``
-           builds the loopback stack only (the TCP and ici stacks raise)
+           builds the TCP and loopback stacks (the ici stacks raise)
+event_tcp  the default TCP stack ("async"): one selector loop and one
+           dispatch thread a messenger (AsyncMessenger's event centers)
+async_tcp  the thread-per-connection TCP stack ("threaded") and the
+           v1-lite handshake both stacks speak, cephx included
 loopback   the in-process stack: one delivery thread a messenger, every
            frame encoded and decoded
 """

@@ -1,0 +1,918 @@
+"""Event-driven TCP messenger stack (the AsyncMessenger proper).
+
+The reference's default messenger is an epoll event loop
+(src/msg/async/EventEpoll.h, AsyncMessenger.cc): a small fixed number of
+threads own every socket, connections are non-blocking state machines,
+and nothing scales with connection count.  This stack is its analog on
+``selectors`` (epoll on Linux):
+
+* ONE event-loop thread per messenger owns the listener and every
+  connection socket: accept, non-blocking connect, the handshake state
+  machine, frame reads and buffered writes all run there.
+* ONE dispatch thread drains decoded messages in arrival order and walks
+  the dispatcher chain — handlers may block or send without stalling
+  socket I/O.  (The reference similarly separates the event centers from
+  the DispatchQueue.)
+
+So a daemon costs 2 messenger threads regardless of peer count, where
+the threaded stack (`async_tcp`, kept as the "threaded" type) spawns
+2 threads per connection.
+
+Wire format: byte-for-byte the v1-lite protocol of the threaded stack
+(banner | name | auth mode+nonce | optional HMAC proofs | compression
+byte | [u32 len][u8 comp] frames) — the two stacks interoperate on the
+same cluster, which is also how this one is tested.
+
+Policy semantics match msg/Policy.h via the threaded stack: stateful
+dialing connections reconnect with backoff and resend their backlog
+(messages are re-framed at flush time, so a renegotiated compression
+mode applies); lossy or accepted connections drop on failure and fire
+ms_handle_reset.  Inbound-byte backpressure: when decoded-but-not-yet-
+dispatched bytes exceed the high watermark the loop stops reading from
+all sockets until the dispatcher drains below the low watermark (the
+DispatchQueue throttle analog).
+"""
+
+from __future__ import annotations
+
+import collections
+import errno
+import hashlib
+import hmac
+import os
+import queue
+import selectors
+import socket
+import struct
+import threading
+import time
+import zlib
+
+from ceph_tpu_torch.auth.handshake import (
+    AUTH_CEPHX_ENTITY, AUTH_CEPHX_TICKET, accept_ticket, entity_proof,
+    proof as _sess_proof, ticket_for)
+
+from .async_tcp import (
+    AUTH_CEPHX, AUTH_NONE, BANNER, COMP_NONE, COMP_THRESHOLD, COMP_ZLIB,
+    MAX_FRAME)
+from .message import Message
+from .messenger import Connection, ConnectionPolicy, EntityName, Messenger
+
+_LEN = struct.Struct("<I")
+
+from .features import FEAT_FRAME as _FEAT  # noqa: E402
+
+# connection states
+_CONNECTING = "connecting"
+_HANDSHAKE = "handshake"
+_OPEN = "open"
+_CLOSED = "closed"
+_WAIT_RECONNECT = "wait-reconnect"
+
+_RECONNECT_DELAY = 0.1
+
+
+class EventConnection(Connection):
+    """Non-blocking connection state machine; all socket work happens on
+    the owning messenger's event-loop thread."""
+
+    def __init__(self, messenger: "EventMessenger", peer_addr: str,
+                 peer_name: EntityName | None, policy: ConnectionPolicy,
+                 sock: socket.socket | None = None,
+                 accepted: bool = False):
+        super().__init__(messenger, peer_addr)
+        self.peer_name = peer_name
+        self.policy = policy
+        self.accepted = accepted
+        self.comp = COMP_NONE
+        self.sock = sock
+        self.state = _HANDSHAKE if sock is not None else _CONNECTING
+        #: unsent messages (framed lazily at flush time)
+        self.backlog: collections.deque[Message] = collections.deque()
+        #: framed-but-unflushed (bytes, msg) pairs; msg None = handshake
+        #: bytes (regenerated on reconnect, never resent)
+        self.out_frames: collections.deque = collections.deque()
+        self.out_off = 0
+        self.inbuf = bytearray()
+        self._down = False
+        # handshake scratch
+        self.hs_stage = "banner"
+        self.hs_nonce = b""
+        self.hs_peer_mode = AUTH_NONE
+        self.hs_session: bytes | None = None   # cephx session/entity key
+        self.hs_peer_nonce = b""
+        self.hs_my_mode = AUTH_NONE
+        self.hs_eff = AUTH_NONE
+        #: authenticated cephx identity (e.g. "client.admin") — distinct
+        #: from the transport-level peer_name instance
+        self.auth_entity: str | None = None
+        self.reconnect_at = 0.0
+        #: interest cache: last mask set on the selector (0 = not
+        #: registered) — skips no-op epoll_ctl syscalls
+        self._cur_want = 0
+        #: handshake must finish by this deadline or the conn is torn
+        #: down (the threaded stack's 10s guard: a stalled peer must
+        #: not leak an fd)
+        self.hs_deadline = (time.monotonic() + 10.0
+                            if sock is not None else 0.0)
+        if sock is not None:
+            sock.setblocking(False)
+
+    # -- public (any thread) --------------------------------------------------
+
+    def send_message(self, msg: Message) -> None:
+        if self._down:
+            return
+        from ceph_tpu_torch.common import tracing
+        from ceph_tpu_torch.msg.features import FEATURE_TRACE, FEATURE_TRACE_SPANS
+        if self.features & FEATURE_TRACE:
+            # NEVER emit the trace header extension against a peer
+            # that did not negotiate it (features.py's invariant)
+            tracing.stamp(msg, str(self.messenger.my_name))
+            if not self.features & FEATURE_TRACE_SPANS:
+                # peer predates the v2 (trace_id, parent_span_id)
+                # extension: fall back to the v1 bare-u64 frame
+                msg.parent_span_id = 0
+        m = self.messenger
+        with m._lock:
+            if self._down:
+                return
+            self.backlog.append(msg)
+        m.wakeup()
+
+    def mark_down(self) -> None:
+        self._down = True
+        self.messenger.defer(self._close_now)
+        self.messenger.wakeup()
+
+    def is_connected(self) -> bool:
+        return self.state == _OPEN and not self._down
+
+    # -- event-loop side ------------------------------------------------------
+
+    def _close_now(self, reset: bool = False) -> None:
+        """Loop thread: tear the socket down; maybe schedule reconnect."""
+        m = self.messenger
+        if self.sock is not None:
+            try:
+                m.sel.unregister(self.sock)
+            except (KeyError, ValueError):
+                pass
+            try:
+                self.sock.close()
+            except OSError:
+                pass
+            self.sock = None
+        self._cur_want = 0
+        m._accepting.discard(self)
+        self.inbuf.clear()
+        # salvage framed-but-unflushed messages back onto the backlog in
+        # order (the threaded stack's resend granularity: whole frames)
+        salvage = [om for _, om in self.out_frames if om is not None]
+        self.out_frames.clear()
+        self.out_off = 0
+        if salvage:
+            with self.messenger._lock:
+                self.backlog.extendleft(reversed(salvage))
+        self.hs_stage = "banner"
+        self.hs_session = None
+        self.auth_entity = None
+        if self._down:
+            self.state = _CLOSED
+            return
+        if reset and (self.policy.lossy or self.accepted):
+            # lossy/accepted sessions die with their socket
+            self._down = True
+            self.state = _CLOSED
+            m.notify_reset(self)
+            m.reap(self)
+            return
+        if reset:
+            if not self.policy.resend_on_reconnect:
+                self.backlog.clear()
+            self.state = _WAIT_RECONNECT
+            self.reconnect_at = time.monotonic() + _RECONNECT_DELAY
+        else:
+            self.state = _CLOSED
+
+    def _start_connect(self) -> None:
+        """Loop thread: begin a non-blocking dial."""
+        host, port = self.peer_addr.rsplit(":", 1)
+        s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        s.setblocking(False)
+        self.sock = s
+        self.state = _CONNECTING
+        # fresh deadline per dial: covers both the TCP connect and the
+        # handshake (a redial must not inherit an expired deadline)
+        self.hs_deadline = time.monotonic() + 10.0
+        try:
+            rc = s.connect_ex((host, int(port)))
+        except OSError:
+            self._close_now(reset=True)
+            return
+        if rc not in (0, errno.EINPROGRESS, errno.EWOULDBLOCK):
+            self._close_now(reset=True)
+            return
+        self.messenger.sel.register(
+            s, selectors.EVENT_READ | selectors.EVENT_WRITE, self)
+        self._cur_want = selectors.EVENT_READ | selectors.EVENT_WRITE
+
+    def _on_connected(self) -> None:
+        err = self.sock.getsockopt(socket.SOL_SOCKET, socket.SO_ERROR)
+        if err:
+            self._close_now(reset=True)
+            return
+        self.state = _HANDSHAKE
+        self.hs_stage = "banner"
+        self.hs_deadline = time.monotonic() + 10.0
+        self._emit_handshake_head()
+        self._update_interest()
+
+    # -- handshake state machine ---------------------------------------------
+    # Outgoing bytes per direction (matching async_tcp._handshake):
+    #   banner | [len]name | [feat16] | [mode][nonce16] |
+    #   (proof32 if both cephx) | [comp1] — each side's stream is fixed
+    #   once the peer's auth mode is known, so both sides can emit
+    #   eagerly and parse statefully.  feat16 = (supported u64,
+    #   required u64); unmet requirements abort the handshake.
+
+    def _emit_handshake_head(self) -> None:
+        m = self.messenger
+        me = str(m.my_name).encode()
+        self.hs_nonce = os.urandom(16)
+        if m.cephx is not None:
+            my_mode = (m.cephx.acceptor_mode() if self.accepted
+                       else m.cephx.initiator_mode(
+                           self.peer_name.type if self.peer_name
+                           else ""))
+        else:
+            my_mode = AUTH_CEPHX if m.auth_key else AUTH_NONE
+        self.hs_my_mode = my_mode
+        # stream: banner | name | feat | mode+nonce.  The feat frame's
+        # required bits depend on the PEER type: an initiator that knows
+        # who it dialed emits everything eagerly; an acceptor (or a dial
+        # to an unnamed peer) defers feat+mode+nonce until the peer's
+        # name arrives so the frames stay in stream order
+        self.out_frames.append((BANNER + _LEN.pack(len(me)) + me, None))
+        if not self.accepted and self.peer_name is not None:
+            self._emit_feat_auth(self.peer_name.type)
+
+    def _emit_feat_auth(self, peer_type: str) -> None:
+        m = self.messenger
+        self.hs_my_req = m.required_for(peer_type)
+        self.out_frames.append(
+            (_FEAT.pack(m.local_features, self.hs_my_req)
+             + bytes([self.hs_my_mode]) + self.hs_nonce, None))
+
+    def _hs_step(self) -> bool:
+        """Consume handshake bytes from inbuf; True on progress.
+        Raises ConnectionError on protocol/auth failure."""
+        m = self.messenger
+        if self.hs_stage == "banner":
+            if len(self.inbuf) < len(BANNER):
+                return False
+            got = bytes(self.inbuf[:len(BANNER)])
+            del self.inbuf[:len(BANNER)]
+            if got != BANNER:
+                raise ConnectionError(f"bad banner {got!r}")
+            self.hs_stage = "name"
+        if self.hs_stage == "name":
+            if len(self.inbuf) < _LEN.size:
+                return False
+            plen = _LEN.unpack(bytes(self.inbuf[:_LEN.size]))[0]
+            if plen > 256:
+                raise ConnectionError("oversized name frame")
+            if len(self.inbuf) < _LEN.size + plen:
+                return False
+            name = bytes(self.inbuf[_LEN.size:_LEN.size + plen])
+            del self.inbuf[:_LEN.size + plen]
+            peer = EntityName.parse(name.decode())
+            if self.peer_name is None:
+                self.peer_name = peer
+            if self.accepted:
+                self.policy = m.policy_for(peer.type)
+                self._emit_feat_auth(peer.type)
+            elif not hasattr(self, "hs_my_req"):
+                # dialed without a known peer name: the feat+auth frames
+                # were deferred to now
+                self._emit_feat_auth(peer.type)
+            self.hs_stage = "feat"
+        if self.hs_stage == "feat":
+            if len(self.inbuf) < _FEAT.size:
+                return False
+            pf, pr = _FEAT.unpack(bytes(self.inbuf[:_FEAT.size]))
+            del self.inbuf[:_FEAT.size]
+            from ceph_tpu_torch.msg.features import check_compat
+            self.features = check_compat(
+                str(self.peer_name), m.local_features, self.hs_my_req,
+                pf, pr)
+            self.hs_stage = "auth"
+        if self.hs_stage == "auth":
+            if len(self.inbuf) < 17:
+                return False
+            self.hs_peer_mode = self.inbuf[0]
+            self.hs_peer_nonce = bytes(self.inbuf[1:17])
+            del self.inbuf[:17]
+            if m.cephx is not None:
+                self._hs_cephx_start()
+            else:
+                if m.auth_required and self.hs_peer_mode != AUTH_CEPHX:
+                    raise ConnectionError(
+                        f"peer {self.peer_name} refused authentication")
+                both = (m.auth_key is not None
+                        and self.hs_peer_mode == AUTH_CEPHX)
+                if both:
+                    me = str(m.my_name).encode()
+                    self.out_frames.append((
+                        hmac.new(m.auth_key, self.hs_peer_nonce + me,
+                                 hashlib.sha256).digest(), None))
+                    self.hs_stage = "proof"
+                else:
+                    self.out_frames.append((bytes([m.comp_mode]), None))
+                    self.hs_stage = "comp"
+        if self.hs_stage == "cred":        # acceptor: [len][credential]
+            if len(self.inbuf) < _LEN.size:
+                return False
+            clen = _LEN.unpack(bytes(self.inbuf[:_LEN.size]))[0]
+            if clen > 4096:
+                raise ConnectionError("oversized auth credential")
+            if len(self.inbuf) < _LEN.size + clen:
+                return False
+            cred = bytes(self.inbuf[_LEN.size:_LEN.size + clen])
+            del self.inbuf[:_LEN.size + clen]
+            self._hs_cephx_cred(cred)      # sets hs_session or raises
+            self.hs_stage = "proof"
+        if self.hs_stage == "proof":
+            if len(self.inbuf) < 32:
+                return False
+            peer_proof = bytes(self.inbuf[:32])
+            del self.inbuf[:32]
+            if self.hs_session is not None:     # cephx ticket/entity
+                # initiator proved over MY nonce + the auth identity;
+                # I prove back over ITS nonce + my transport name
+                ident = (self.auth_entity if self.accepted
+                         else str(self.peer_name))
+                want = hmac.new(self.hs_session,
+                                self.hs_nonce + ident.encode(),
+                                hashlib.sha256).digest()
+                if not hmac.compare_digest(peer_proof, want):
+                    raise ConnectionError(
+                        f"peer {self.peer_name} failed cephx proof")
+                if self.accepted:
+                    self.out_frames.append((hmac.new(
+                        self.hs_session,
+                        self.hs_peer_nonce + str(m.my_name).encode(),
+                        hashlib.sha256).digest(), None))
+            else:                               # legacy shared key
+                want = hmac.new(
+                    self.messenger.auth_key,
+                    self.hs_nonce + str(self.peer_name).encode(),
+                    hashlib.sha256).digest()
+                if not hmac.compare_digest(peer_proof, want):
+                    raise ConnectionError(
+                        f"peer {self.peer_name} failed authentication")
+            self.out_frames.append(
+                (bytes([self.messenger.comp_mode]), None))
+            self.hs_stage = "comp"
+        if self.hs_stage == "comp":
+            if len(self.inbuf) < 1:
+                return False
+            peer_comp = self.inbuf[0]
+            del self.inbuf[:1]
+            from ceph_tpu_torch.msg.features import FEATURE_WIRE_COMPRESSION
+            my_comp = (self.messenger.comp_mode
+                       if self.features & FEATURE_WIRE_COMPRESSION
+                       else COMP_NONE)
+            self.comp = min(my_comp, peer_comp)
+            self.state = _OPEN
+            if self.accepted:
+                self.messenger.register_accepted(self)
+            self.hs_stage = "done"
+        return True
+
+    # -- cephx handshake halves ------------------------------------------------
+
+    def _hs_cephx_start(self) -> None:
+        """Head exchanged under a cephx config: initiator emits its
+        credential + proof; acceptor waits for them."""
+        m = self.messenger
+        cfg = m.cephx
+        if not self.accepted:
+            eff = self.hs_my_mode
+            if eff == AUTH_CEPHX_TICKET:
+                t = ticket_for(cfg, self.peer_name.type
+                               if self.peer_name else "")
+                if t is None:
+                    raise ConnectionError(
+                        f"no ticket for service "
+                        f"{self.peer_name.type if self.peer_name else '?'}")
+                self.hs_session = t.session_key
+                blob = t.blob()
+                pf = _sess_proof(self.hs_session, self.hs_peer_nonce,
+                                 t.entity)
+                self.out_frames.append(
+                    (_LEN.pack(len(blob)) + blob + pf, None))
+                self.hs_stage = "proof"
+            elif eff == AUTH_CEPHX_ENTITY:
+                self.hs_session = cfg.key.encode()
+                ent = cfg.entity.encode()
+                pf = entity_proof(cfg.key, self.hs_peer_nonce,
+                                  cfg.entity)
+                self.out_frames.append(
+                    (_LEN.pack(len(ent)) + ent + pf, None))
+                self.hs_stage = "proof"
+            else:
+                self.out_frames.append((bytes([m.comp_mode]), None))
+                self.hs_stage = "comp"
+        else:
+            eff = self.hs_peer_mode
+            if eff in (AUTH_CEPHX_TICKET, AUTH_CEPHX_ENTITY):
+                self.hs_eff = eff
+                self.hs_stage = "cred"
+            elif eff == AUTH_NONE and not cfg.required:
+                self.out_frames.append((bytes([m.comp_mode]), None))
+                self.hs_stage = "comp"
+            else:
+                raise ConnectionError(
+                    f"peer {self.peer_name} auth mode {eff} "
+                    "not acceptable")
+
+    def _hs_cephx_cred(self, cred: bytes) -> None:
+        cfg = self.messenger.cephx
+        if self.hs_eff == AUTH_CEPHX_TICKET:
+            got = accept_ticket(cfg, cred)
+            if got is None:
+                raise ConnectionError(
+                    f"peer {self.peer_name} presented an invalid/"
+                    "expired ticket")
+            self.auth_entity, self.hs_session = got
+        else:
+            entity = cred.decode()
+            key = None
+            if cfg.auth_lookup is not None:
+                key = cfg.auth_lookup(entity)
+            elif entity == cfg.entity:
+                key = cfg.key
+            if key is None:
+                raise ConnectionError(
+                    f"unknown or revoked entity {entity!r}")
+            self.auth_entity = entity
+            self.hs_session = key.encode()
+
+    # -- frame I/O ------------------------------------------------------------
+
+    def _frame(self, msg: Message) -> bytes:
+        payload = msg.encode()
+        comp = COMP_NONE
+        if self.comp == COMP_ZLIB and len(payload) >= COMP_THRESHOLD:
+            z = zlib.compress(payload, 1)
+            if len(z) < len(payload):
+                comp, payload = COMP_ZLIB, z
+        return _LEN.pack(len(payload)) + bytes([comp]) + payload
+
+    def _fill_out_frames(self) -> None:
+        m = self.messenger
+        pending = sum(len(b) for b, _ in self.out_frames)
+        while pending < 256 << 10:
+            with m._lock:
+                if not self.backlog:
+                    return
+                msg = self.backlog.popleft()
+            b = self._frame(msg)
+            self.out_frames.append((b, msg))
+            pending += len(b)
+
+    def _on_writable(self) -> None:
+        if self.state == _CONNECTING:
+            self._on_connected()
+            return
+        if self.state == _OPEN:
+            self._fill_out_frames()
+        while self.out_frames:
+            head, _msg = self.out_frames[0]
+            try:
+                n = self.sock.send(head[self.out_off:] if self.out_off
+                                   else head)
+            except (BlockingIOError, InterruptedError):
+                break
+            except OSError:
+                self._close_now(reset=True)
+                return
+            self.out_off += n
+            if self.out_off >= len(head):
+                self.out_frames.popleft()
+                self.out_off = 0
+                # count at FLUSH, not frame-build: fault-salvaged
+                # messages re-frame on reconnect and must only count
+                # per actual wire traversal (handshake frames carry no
+                # message and are not message traffic)
+                if _msg is not None:
+                    self.messenger.count_sent(len(head))
+            else:
+                break
+            if self.state == _OPEN:
+                self._fill_out_frames()
+        self._update_interest()
+
+    def _on_readable(self) -> None:
+        try:
+            data = self.sock.recv(256 << 10)
+        except (BlockingIOError, InterruptedError):
+            return
+        except OSError:
+            self._close_now(reset=True)
+            return
+        if not data:
+            self._close_now(reset=True)
+            return
+        self.inbuf += data
+        try:
+            if self.state == _HANDSHAKE:
+                while self.state == _HANDSHAKE and self._hs_step():
+                    pass
+                # a handshake step may queue outgoing bytes (auth proof,
+                # compression offer) from within this READ event; the
+                # write interest must follow or the handshake deadlocks
+                # with both sides read-waiting
+                self._update_interest()
+            if self.state == _OPEN:
+                self._drain_frames()
+        except ConnectionError:
+            self._close_now(reset=True)
+
+    def _drain_frames(self) -> None:
+        m = self.messenger
+        while True:
+            if len(self.inbuf) < _LEN.size + 1:
+                return
+            flen = _LEN.unpack(bytes(self.inbuf[:_LEN.size]))[0]
+            if flen > MAX_FRAME:
+                raise ConnectionError(
+                    f"oversized frame ({flen} bytes) from {self.peer_name}")
+            total = _LEN.size + 1 + flen
+            if len(self.inbuf) < total:
+                return
+            comp = self.inbuf[_LEN.size]
+            data = bytes(self.inbuf[_LEN.size + 1:total])
+            del self.inbuf[:total]
+            if comp == COMP_ZLIB:
+                d = zlib.decompressobj()
+                data = d.decompress(data, MAX_FRAME)
+                if d.unconsumed_tail:
+                    raise ConnectionError(
+                        f"decompressed frame exceeds cap from "
+                        f"{self.peer_name}")
+            m.enqueue_dispatch(self, data, wire_len=total)
+
+    def _update_interest(self) -> None:
+        if self.sock is None:
+            return
+        want = selectors.EVENT_READ if not self.messenger.paused else 0
+        with self.messenger._lock:
+            pending = bool(self.backlog)
+        # backlog counts only once OPEN: mid-handshake it cannot be
+        # framed yet, and write interest with nothing to write busy-spins
+        if self.out_frames or self.state == _CONNECTING or (
+                pending and self.state == _OPEN):
+            want |= selectors.EVENT_WRITE
+        if want == self._cur_want:
+            return
+        sel = self.messenger.sel
+        try:
+            if want:
+                sel.modify(self.sock, want, self)
+            else:
+                # fully quiesced (paused + nothing to write): drop from
+                # the selector; unpausing re-registers via refresh
+                sel.unregister(self.sock)
+            self._cur_want = want
+        except (KeyError, ValueError):
+            if want:
+                try:
+                    sel.register(self.sock, want, self)
+                    self._cur_want = want
+                except (KeyError, ValueError, OSError):
+                    pass
+
+
+class EventMessenger(Messenger):
+    """selectors-based messenger: 2 threads total (event loop + dispatch)."""
+
+    is_wire = True
+
+    #: stop reading sockets when this many decoded bytes sit undispatched
+    DISPATCH_HIGH = 256 << 20
+    DISPATCH_LOW = 192 << 20
+
+    def __init__(self, name: EntityName):
+        super().__init__(name)
+        self.sel = selectors.DefaultSelector()
+        self._listener: socket.socket | None = None
+        self._conns: dict[str, EventConnection] = {}
+        self._stop = False
+        self.auth_key: bytes | None = None
+        self.auth_required = False
+        #: per-entity cephx config (tickets / entity secrets); when set
+        #: it supersedes the legacy shared-key handshake
+        self.cephx = None
+        self.comp_mode = COMP_NONE
+        self.paused = False
+        #: accepted connections still mid-handshake (not yet in _conns):
+        #: tracked so deadlines and shutdown reach them
+        self._accepting: set = set()
+        self._deferred: collections.deque = collections.deque()
+        self._dispatch_q: queue.Queue = queue.Queue()
+        self._dispatch_bytes = 0
+        self._wake_r, self._wake_w = socket.socketpair()
+        self._wake_r.setblocking(False)
+        # non-blocking on both ends: a full pair means a wakeup is already
+        # pending, and a sender (the loop thread itself included) must
+        # never block on it
+        self._wake_w.setblocking(False)
+        self._loop_thread: threading.Thread | None = None
+        self._dispatch_thread: threading.Thread | None = None
+        self._started = False
+
+    # -- config ---------------------------------------------------------------
+
+    def set_compression(self, mode: str | int) -> None:
+        if isinstance(mode, str):
+            mode = {"none": COMP_NONE, "zlib": COMP_ZLIB}[mode]
+        self.comp_mode = int(mode)
+
+    def set_auth(self, key: bytes | str | None,
+                 required: bool = True) -> None:
+        if isinstance(key, str):
+            key = key.encode()
+        self.auth_key = key
+        self.auth_required = bool(key) and required
+
+    def set_auth_cephx(self, config) -> None:
+        self.cephx = config
+
+    # -- loop plumbing --------------------------------------------------------
+
+    def wakeup(self) -> None:
+        try:
+            self._wake_w.send(b"x")
+        except OSError:     # full (BlockingIOError) or closed
+            pass
+
+    def defer(self, fn, *args) -> None:
+        """Run fn(*args) on the event-loop thread."""
+        self._deferred.append((fn, args))
+        self.wakeup()
+
+    def enqueue_dispatch(self, con: EventConnection, data: bytes,
+                         wire_len: int = 0) -> None:
+        with self._lock:
+            self._dispatch_bytes += len(data)
+            if self._dispatch_bytes >= self.DISPATCH_HIGH:
+                self.paused = True
+        self._dispatch_q.put((con, data, wire_len))
+
+    def register_accepted(self, con: EventConnection) -> None:
+        """Handshake done on an accepted session: index it so redials
+        replace (and reap) the prior session from the same peer."""
+        key = f"accepted:{con.peer_name}"
+        with self._lock:
+            self._accepting.discard(con)
+            old = self._conns.get(key)
+            self._conns[key] = con
+        if old is not None and old is not con:
+            old.mark_down()
+
+    def reap(self, con: EventConnection) -> None:
+        if not con._down and not con.accepted:
+            return
+        with self._lock:
+            for key, c in list(self._conns.items()):
+                if c is con:
+                    del self._conns[key]
+
+    # -- lifecycle ------------------------------------------------------------
+
+    def bind(self, addr: str) -> None:
+        host, port = addr.rsplit(":", 1)
+        s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        s.bind((host, int(port)))
+        s.listen(256)
+        s.setblocking(False)
+        self.my_addr = f"{host}:{s.getsockname()[1]}"
+        self._listener = s
+
+    def start(self) -> None:
+        if self._started:
+            return
+        self._started = True
+        self._loop_thread = threading.Thread(
+            target=self._loop, name=f"ms-ev:{self.my_name}", daemon=True)
+        self._dispatch_thread = threading.Thread(
+            target=self._dispatch_loop, name=f"ms-disp:{self.my_name}",
+            daemon=True)
+        self._loop_thread.start()
+        self._dispatch_thread.start()
+
+    def shutdown(self) -> None:
+        self._stop = True
+        self.wakeup()
+        self._dispatch_q.put(None)
+        for t in (self._loop_thread, self._dispatch_thread):
+            if t is not None and t is not threading.current_thread():
+                t.join(timeout=5)
+        with self._lock:
+            conns = list(self._conns.values()) + list(self._accepting)
+            self._conns.clear()
+            self._accepting.clear()
+        for c in conns:
+            c._down = True
+            if c.sock is not None:
+                try:
+                    c.sock.close()
+                except OSError:
+                    pass
+        if self._listener is not None:
+            try:
+                self._listener.close()
+            except OSError:
+                pass
+        for s in (self._wake_r, self._wake_w):
+            try:
+                s.close()
+            except OSError:
+                pass
+
+    def connect_to(self, addr: str, peer_name: EntityName) -> Connection:
+        # clients may call before start() (mon bootstrap does); lazily
+        # spin the threads up
+        self.start()
+        key = f"{addr}/{peer_name}"
+        with self._lock:
+            con = self._conns.get(key)
+            if con is not None and not con._down:
+                return con
+            policy = self.policy_for(peer_name.type)
+            con = EventConnection(self, addr, peer_name, policy)
+            self._conns[key] = con
+        self.defer(con._start_connect)
+        return con
+
+    # -- event loop -----------------------------------------------------------
+
+    def _loop(self) -> None:
+        from ceph_tpu_torch.common.logging import get_logger
+        sel = self.sel
+        sel.register(self._wake_r, selectors.EVENT_READ, "wake")
+        if self._listener is not None:
+            sel.register(self._listener, selectors.EVENT_READ, "accept")
+        while not self._stop:
+            try:
+                self._loop_once(sel)
+            except Exception:
+                # the loop thread IS the transport: it must survive any
+                # per-tick failure
+                get_logger("ms").exception(
+                    "%s: event loop tick failed", self.my_name)
+        try:
+            sel.close()
+        except OSError:
+            pass
+
+    def _loop_once(self, sel) -> None:
+            while self._deferred:
+                fn, args = self._deferred.popleft()
+                try:
+                    fn(*args)
+                except Exception:
+                    from ceph_tpu_torch.common.logging import get_logger
+                    get_logger("ms").exception(
+                        "%s: deferred event failed", self.my_name)
+            timeout = self._next_timer()
+            try:
+                events = sel.select(timeout)
+            except OSError:
+                return
+            now = time.monotonic()
+            for skey, mask in events:
+                tag = skey.data
+                if tag == "wake":
+                    try:
+                        self._wake_r.recv(4096)
+                    except OSError:
+                        pass
+                    continue
+                if tag == "accept":
+                    self._accept_ready()
+                    continue
+                con: EventConnection = tag
+                try:
+                    if mask & selectors.EVENT_WRITE:
+                        con._on_writable()
+                    if (mask & selectors.EVENT_READ
+                            and con.sock is not None):
+                        con._on_readable()
+                except Exception:
+                    from ceph_tpu_torch.common.logging import get_logger
+                    get_logger("ms").exception(
+                        "%s: connection event failed", self.my_name)
+                    con._close_now(reset=True)
+            self._run_timers(now)
+            self._refresh_writers()
+
+    def _refresh_writers(self) -> None:
+        """Pick up messages queued from other threads: any connection
+        with a pending backlog (or newly unpaused reads) re-registers;
+        stalled handshakes are torn down at their deadline."""
+        now = time.monotonic()
+        with self._lock:
+            conns = list(self._conns.values()) + list(self._accepting)
+        for con in conns:
+            if con.sock is not None and con.state in (
+                    _OPEN, _HANDSHAKE, _CONNECTING):
+                if (con.state in (_HANDSHAKE, _CONNECTING)
+                        and now >= con.hs_deadline > 0):
+                    # the threaded stack's handshake timeout: a peer
+                    # that stalls mid-handshake must not leak the fd
+                    con._close_now(reset=True)
+                    continue
+                con._update_interest()
+            elif con.state in (_CLOSED, _WAIT_RECONNECT) and not con._down:
+                with self._lock:
+                    pending = bool(con.backlog)
+                if pending and (con.state == _CLOSED
+                                or now >= con.reconnect_at):
+                    if not con.accepted:
+                        con._start_connect()
+
+    def _next_timer(self) -> float:
+        with self._lock:
+            waits = [c.reconnect_at for c in self._conns.values()
+                     if c.state == _WAIT_RECONNECT and c.backlog]
+        if not waits:
+            return 0.2
+        return max(0.0, min(min(waits) - time.monotonic(), 0.2))
+
+    def _run_timers(self, now: float) -> None:
+        pass  # reconnects handled by _refresh_writers
+
+    def _accept_ready(self) -> None:
+        while True:
+            try:
+                sock, addr = self._listener.accept()
+            except (BlockingIOError, InterruptedError):
+                return
+            except OSError:
+                return
+            con = EventConnection(self, f"{addr[0]}:0", None,
+                                  self._default_policy, sock=sock,
+                                  accepted=True)
+            con._emit_handshake_head()
+            try:
+                self.sel.register(
+                    sock, selectors.EVENT_READ | selectors.EVENT_WRITE,
+                    con)
+                con._cur_want = (selectors.EVENT_READ
+                                 | selectors.EVENT_WRITE)
+                with self._lock:
+                    self._accepting.add(con)
+            except (KeyError, ValueError, OSError):
+                try:
+                    sock.close()
+                except OSError:
+                    pass
+
+    # -- dispatch thread ------------------------------------------------------
+
+    def _dispatch_loop(self) -> None:
+        from ceph_tpu_torch.common.logging import get_logger
+        from ceph_tpu_torch.ops.dispatch import card_fault
+        while True:
+            item = self._dispatch_q.get()
+            if item is None or self._stop:
+                return
+            con, data, wire_len = item
+            try:
+                msg = Message.decode(data)
+                # on-wire size (header + possibly-compressed payload):
+                # matches the sender's flush-time count_sent
+                msg.wire_bytes = wire_len or len(data)
+                msg.connection = con
+                self.deliver(msg)
+            except Exception as e:
+                # a handler bug is logged; a card fault is not absorbed:
+                # it ends the dispatch thread and raises in it
+                if card_fault(e):
+                    raise
+                get_logger("ms").exception(
+                    "%s: dispatch failed for frame from %s",
+                    self.my_name, con.peer_name)
+            finally:
+                with self._lock:
+                    self._dispatch_bytes -= len(data)
+                    unpause = (self.paused
+                               and self._dispatch_bytes <= self.DISPATCH_LOW)
+                    if unpause:
+                        self.paused = False
+                if unpause:
+                    self.wakeup()

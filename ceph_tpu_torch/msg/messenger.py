@@ -136,14 +136,22 @@ class Messenger:
 
     @staticmethod
     def create(name: EntityName, mtype: str = "async", **kw) -> "Messenger":
+        if mtype == "async":
+            # the event-driven stack is the default AsyncMessenger, like
+            # the reference (epoll event centers); the thread-per-
+            # connection stack stays available as "threaded"
+            from .event_tcp import EventMessenger
+            return EventMessenger(name, **kw)
+        if mtype == "threaded":
+            from .async_tcp import AsyncMessenger
+            return AsyncMessenger(name, **kw)
         if mtype == "loopback":
             from .loopback import LoopbackMessenger
             return LoopbackMessenger(name, **kw)
-        if mtype in ("async", "threaded", "ici", "ici-wire"):
+        if mtype in ("ici", "ici-wire"):
             raise NotImplementedError(
                 f"messenger type {mtype!r} is not ported yet (ROADMAP.md "
-                f"Queue 1 item 7: the TCP stacks and the ici stack); "
-                f"use ms_type='loopback'")
+                f"Queue 1 item 7.6: the ici stack); use 'async'")
         raise ValueError(f"unknown messenger type {mtype!r}")
 
     # -- dispatcher chain (Messenger.h:337-352) -------------------------------

@@ -22,6 +22,7 @@ place that shows which kernels a run went through.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -141,6 +142,17 @@ def build() -> str:
     if os.path.exists(out):
         return out
     os.makedirs(_OUT, exist_ok=True)
+    # one build for every process on the checkout (the daemons of a
+    # ProcCluster meet a cold _build/ together): the first to take the
+    # lock compiles, the others wait on it and load its result
+    with open(os.path.join(_OUT, "build.lock"), "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(out):
+            _compile(out)
+    return out
+
+
+def _compile(out: str) -> None:
     nvcc = _nvcc()
     tmp = f"{out}.{os.getpid()}.tmp"
     objs, procs = [], []
@@ -166,7 +178,6 @@ def build() -> str:
             if os.path.exists(obj):
                 os.remove(obj)
     os.replace(tmp, out)
-    return out
 
 
 def lib() -> ctypes.CDLL:

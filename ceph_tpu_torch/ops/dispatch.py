@@ -334,7 +334,7 @@ _PERMANENT_ERRORS = (ValueError, TypeError, KeyError, IndexError,
                      AttributeError)
 
 
-def _card_fault(exc: BaseException) -> bool:
+def card_fault(exc: BaseException) -> bool:
     """A fault of the card or of its kernels: a kernel that did not build
     or launch, or a CUDA runtime error (``torch.AcceleratorError``; a
     RuntimeError reading "CUDA error" from releases before it).  A sticky
@@ -351,7 +351,7 @@ def _card_fault(exc: BaseException) -> bool:
 
 
 def _permanent(exc: BaseException) -> bool:
-    return isinstance(exc, _PERMANENT_ERRORS) or _card_fault(exc)
+    return isinstance(exc, _PERMANENT_ERRORS) or card_fault(exc)
 
 
 _launching = threading.local()
@@ -1247,7 +1247,7 @@ class DeviceDispatchEngine:
         """The failure ladder for one device-path batch: bounded
         retries with exponential backoff + jitter (transient errors
         only), then the channel's bit-exact host oracle, then fan the
-        error.  A card fault (``_card_fault``), first or met on a retry,
+        error.  A card fault (``card_fault``), first or met on a retry,
         fans at once.  Runs on the completion thread — holding the FIFO
         head during recovery is exactly the delivery-order contract.
         Returns (host_result, exc, how) with how in
@@ -1276,7 +1276,7 @@ class DeviceDispatchEngine:
                 self.stats.record_retry(True)
                 self._record_device_ok(channel)
                 return host, None, "retry"
-        if _card_fault(exc):
+        if card_fault(exc):
             return None, exc, None
         if transient:
             self._record_device_failure(channel, reqs)
@@ -1394,7 +1394,7 @@ class DeviceDispatchEngine:
                     # a card fault must not keep the channel on the host
                     # oracle: the breaker re-closes and the next batch
                     # meets the fault on the card and fans it
-                    fatal = _card_fault(e)
+                    fatal = card_fault(e)
                 self.stats.record_probe(ok)
                 with self._cv:
                     if b.state == telemetry.BREAKER_HALF_OPEN:

@@ -232,10 +232,6 @@ class OSDDaemon(Dispatcher):
                  mgr_addr: str | None = None,
                  cephx: tuple[str, str] | None = None,
                  conf: dict | None = None, device=None):
-        if cephx is not None:
-            raise NotImplementedError(
-                "cephx needs ceph_tpu_torch/auth, not ported yet "
-                "(ROADMAP.md Queue 1 item 7)")
         self.osd_id = osd_id
         self.whoami = EntityName("osd", osd_id)
         #: the daemon's context runs on ``device`` (the card by default):
@@ -327,6 +323,7 @@ class OSDDaemon(Dispatcher):
             lambda _n, v: setattr(self, "_map_shared", bool(v)))
 
         self._auth_key = auth_key
+        self._cephx = cephx
         self.msgr = Messenger.create(self.whoami, ms_type)
         self.msgr.set_auth(auth_key)
         from ceph_tpu_torch.common.moncmd import MonCommander, mon_targets
@@ -340,6 +337,16 @@ class OSDDaemon(Dispatcher):
             self.msgr,
             lambda: mon_targets(self.osdmap, self.mon_addrs),
             f"osd.{osd_id}")
+        if cephx is not None:
+            from ceph_tpu_torch.auth.cephx import TicketKeyring
+            from ceph_tpu_torch.auth.handshake import CephxConfig
+            #: gen -> service key; validates peer/client tickets
+            self._rotating: dict[int, str] = {}
+            self._rotating_at = 0.0
+            self.msgr.set_auth_cephx(CephxConfig(
+                entity=cephx[0], key=cephx[1],
+                keyring=TicketKeyring(self.mon_cmd.fetch_ticket),
+                service="osd", rotating=lambda: self._rotating))
         self.msgr.set_policy("client", ConnectionPolicy.lossy_client())
         self.msgr.set_policy("osd", ConnectionPolicy.stateful_peer())
         self.msgr.set_policy("mon", ConnectionPolicy.stateful_peer())
@@ -526,6 +533,17 @@ class OSDDaemon(Dispatcher):
             target=self._agent_loop, name=f"osd.{osd_id}-tier-agent",
             daemon=True)
         self._agent_thread.start()
+        #: decode-engine continuations (a decode's reply, recovery store
+        #: and push; a scrub chunk's map) run here, not on the engine's
+        #: completion thread: they take the OSD lock, and a thread holding
+        #: that lock may be waiting on a digest that only the completion
+        #: thread delivers (a local shard read or a shard commit on
+        #: BlueStore)
+        self._cont_q: "_queue.Queue" = _queue.Queue()
+        self._cont_thread = threading.Thread(
+            target=self._cont_loop, name=f"osd.{osd_id}-decode-cont",
+            daemon=True)
+        self._cont_thread.start()
         self.ctx.admin.register_command(
             "dump_reservations", lambda **kw: self.local_reserver.dump(),
             "recovery reservation slots")
@@ -675,6 +693,9 @@ class OSDDaemon(Dispatcher):
         self._load_pgs()
         self.msgr.bind(self._addr)
         self.msgr.start()
+        if self._cephx is not None:
+            # validation material BEFORE peers/clients connect
+            self._refresh_rotating()
         self._maybe_reboot()
         if self._heartbeats:
             self._schedule_heartbeat()
@@ -704,6 +725,10 @@ class OSDDaemon(Dispatcher):
                     ("dispatch", self.ctx._dispatch)]
                    if self._own_ctx else [])
         for ename, eng in engines:
+            if ename == "dispatch":
+                # the decode engine's last continuations, before the
+                # encode engine they may submit into stops
+                self._stop_continuations()
             if eng is None:
                 continue
             try:
@@ -724,6 +749,8 @@ class OSDDaemon(Dispatcher):
                 dout("osd", 0, "osd.%d shutdown: %s engine "
                      "thread(s) still live past join timeout",
                      self.osd_id, ename)
+        if not engines:
+            self._stop_continuations()
         self.msgr.shutdown()
         # store LAST: a bluestore commit during the drain window above
         # runs its bluestore_data digest inline on a stopped engine
@@ -834,10 +861,25 @@ class OSDDaemon(Dispatcher):
             scrub=self._scrub_digest_report(),
             tenant_usage=telemetry.tenant_usage_digest()))
 
+    ROTATING_REFRESH = 60.0
+
+    def _refresh_rotating(self) -> None:
+        keys = self.mon_cmd.fetch_rotating("osd")
+        if keys is not None:
+            self._rotating = keys
+            self._rotating_at = time.time()
+
     def _tick(self) -> None:
         try:
             now = time.time()
             self._maybe_reboot()
+            if self._cephx is not None \
+                    and now - self._rotating_at > self.ROTATING_REFRESH:
+                self._rotating_at = now     # before: no retry storm
+                try:
+                    self._refresh_rotating()
+                except (OSError, TimeoutError):
+                    pass
             self._renew_map_subscription(now)
             self._agent_scan(now)
             self._maybe_auto_scrub(now)
@@ -2286,6 +2328,29 @@ class OSDDaemon(Dispatcher):
         # that followed the overlay would loop back into the cache
         return self._internal_client.open_ioctx(pool_id, direct=True)
 
+    def _on_decoded(self, fut, fn, *args) -> None:
+        """``fn(*args, fut)`` on the decode-continuation thread once the
+        decode engine has delivered ``fut``."""
+        fut.add_done_callback(lambda f: self._cont_q.put((fn, args + (f,))))
+
+    def _stop_continuations(self) -> None:
+        self._cont_q.put(None)
+        self._cont_thread.join(timeout=5.0)
+
+    def _cont_loop(self) -> None:
+        from ceph_tpu_torch.common.logging import dout
+        while True:
+            item = self._cont_q.get()
+            if item is None:
+                return
+            fn, args = item
+            try:
+                fn(*args)
+            except Exception as e:
+                # as the engine's own fan-out treats a continuation
+                dout("osd", 0, "osd.%d decode continuation failed: %r",
+                     self.osd_id, e)
+
     def _agent_loop(self) -> None:
         from ceph_tpu_torch.common.logging import get_logger
         while not self._stop:
@@ -3580,7 +3645,28 @@ class OSDDaemon(Dispatcher):
         result = 0
         logical, _, shard_s = oid.rpartition(":")
         with self._lock:
-            if entry is None or entry.version > pg.log.head:
+            # the entry may already be in our log, learned from the
+            # primary's log during peering, with this object marked
+            # missing at exactly its version: its shard write is then not
+            # a resend but the data the log lacks.  Dropped as a dup, an
+            # acked EC write could keep fewer than k shards
+            fill = (entry is not None and msg.truncate
+                    and self._is_dup_entry(pg, entry)
+                    and getattr(pg.missing.get(logical), "need", None)
+                    == entry.version)
+            if fill:
+                t = (Transaction().truncate(cid, oid, 0)
+                     .write(cid, oid, 0, msg.chunk)
+                     .setattr(cid, oid, "size", str(msg.obj_size).encode())
+                     .setattr(cid, oid, "hinfo", HashInfo.compute(msg.chunk))
+                     .setattr(cid, oid, "_v", enc_version(entry.version)))
+                pg.missing.pop(logical, None)
+                pg.info.last_complete = pg.complete_to()
+                t.touch(cid, PG.PGMETA).omap_setkeys(cid, PG.PGMETA, {
+                    "info": pg.encode_info(),
+                    "missing": pg.encode_missing()})
+                self.store.apply_transaction(t)
+            elif entry is None or entry.version > pg.log.head:
                 new_shard, base_ok = self._patched_shard(
                     msg.pgid, logical, int(shard_s), msg.chunk,
                     msg.offset, msg.shard_len, msg.truncate,
@@ -3913,8 +3999,7 @@ class OSDDaemon(Dispatcher):
                 f"ec_decode submitted ({arr.shape[0]} stripes, "
                 f"{len(targets)} targets)")
         cctx = (reqid, state, si, stripes, targets, size)
-        fut.add_done_callback(
-            lambda f, c=cctx: self._ec_decode_done(*c, f))
+        self._on_decoded(fut, self._ec_decode_done, *cctx)
         return True
 
     def _note_read_decode(self, state: dict, k: int) -> None:
@@ -3934,8 +4019,8 @@ class OSDDaemon(Dispatcher):
 
     def _ec_decode_done(self, reqid, state: dict, si, stripes, targets,
                         size: int, fut) -> None:
-        """Decode-engine completion continuation (runs on the decode
-        engine's completion thread): overlay the rebuilt rows and
+        """Decode-engine completion continuation (runs on the decode-
+        continuation thread, ``_on_decoded``): overlay the rebuilt rows and
         finish the gather — client reply, rmw overlay-and-drain, or
         recovery store/push."""
         err = fut.exception()
@@ -4354,7 +4439,7 @@ class OSDDaemon(Dispatcher):
             # analysis: allow[blocking] -- delivered engine futures carry host numpy; asarray here is a view, not d2h
             finish(np.asarray(f.result()), None)
 
-        fut.add_done_callback(cb)
+        self._on_decoded(fut, cb)
 
     def _scrub_map_lane(self, cid: str, pgid, done,
                         oids: list | None = None,

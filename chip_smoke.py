@@ -302,18 +302,51 @@ Runs ceph_tpu_torch (never JAX, never ceph_tpu) at the bench's full size:
              (update_to), neither pool's spread wider, a seeded 256 of the
              moved PGs' up/acting == the scalar oracle in worker processes,
              fault_digest() zero; the phase's seconds (budget 120)
- 14. prints  the {"engine": ...} line, the {"mapping": ...} line, the
+ 14. tcp     the daemons over TCP with cephx, and as OS processes, after
+             phase 13.  14a: phase 10's cluster (12 OSDs, the EC pool
+             jerasure reed_sol_van k=8 m=4 of 128 PGs, 64 rados bench
+             objects of 4 MiB, 16 in flight) on the event TCP stack
+             (ms_type "async") with cephx (MiniCluster(cephx=True): every
+             daemon's key provisioned, tickets on every data-path
+             connection), on BlueStore; writes, reads, one OSD killed and
+             marked down, degraded reads, each with the launch counts at 0
+             just before it and read just after, its MB/s printed beside
+             phase 10's on loopback.  Checks: every daemon on the event
+             stack with its cephx config, the mon's sessions carrying the
+             OSDs' and the client's identities; every read == the bytes
+             written; CLUSTER_SAMPLE objects' shards on the OSDs the map
+             names == their stripes and gf_matvec's plain version on the
+             card, hinfo matching; gf_matvec and scrub_digest launched by
+             the writes, gf_matvec by the degraded reads; every context's
+             fault_digest() zero.  14b: ProcCluster(device="cuda"): a mon
+             and 6 OSD processes (python -m ceph_tpu_torch.tools.daemon_main,
+             FileStore, spawned together), an EC pool k=4 m=2 of 16 PGs;
+             32 objects of 4 MiB written and read back, osd.1 killed by
+             SIGKILL and marked down, 8 more written, all 40 read, osd.1
+             restarted on its store until the mon reports HEALTH_OK for 2
+             s; each process's seconds from spawn to ready, the card's
+             memory (nvidia-smi's compute apps, and cudaMemGetInfo's growth
+             over the spawn), the restart-to-recovered seconds; after
+             stop() each OSD's FileStore is opened here and every object's
+             6 shards on the OSDs the map names are held against their
+             stripes and gf_matvec's plain version on the card, hinfo
+             matching.  The OSDs' MMgrReport perf payload carries their
+             encode submits, not the encode channel's calls, so no mgr is
+             spawned.  The phase's seconds (budget 120)
+ 15. prints  the {"engine": ...} line, the {"mapping": ...} line, the
              {"cluster": ...} line, the {"scrub": ...} line, the
-             {"bluestore": ...} line, the {"mgr": ...} line, the
-             {"kernels": [...]} line (gf_matvec's row also carries the EC
-             shapes of phase 7 as "ec_shapes" and its launches by cluster
-             sub-phase as "cluster"; pg_finish_ladder's its launches per
+             {"bluestore": ...} line, the {"mgr": ...} line, the {"tcp":
+             ...} line, the {"kernels": [...]} line (gf_matvec's row also
+             carries the EC shapes of phase 7 as "ec_shapes", its launches
+             by cluster sub-phase as "cluster" and by phase 14a's sub-step
+             as "tcp"; pg_finish_ladder's its launches per
              epoch, each pool's shape and times, the first version's times,
              its balancer launches by phase 13 sub-step and pool as
              "manager_launches" and its time at each pool's median what-if
              batch as "what_if"; pg_osd_words's its launches per epoch;
              scrub_digest's its bluestore_data launches by phase 12's
-             sub-step; bitplane_pack's its launches by sub-step), then
+             sub-step and by 14a's as "tcp_bluestore_data_launches";
+             bitplane_pack's its launches by sub-step), then
              {"ok": true, "device": ...}
 
 Exits non-zero, printing no result, without a card or without the package.
@@ -519,6 +552,17 @@ MGR_OBJECTS, MGR_OBJ_BYTES = 16, 4 << 20
 MGR_MIN_PGS = 64
 MGR_ORACLE = 256
 MGR_BUDGET_S = 120.0
+# phase 14: the daemons over TCP.  14a: phase 10's cluster (12 OSDs, the EC
+# pool k=8 m=4 of 128 PGs, rados bench's 4 MiB objects, 16 in flight) on
+# the event TCP stack with cephx, on BlueStore; 14b: the daemons as OS
+# processes (ProcCluster): a mon and 6 OSDs on FileStore, an EC pool
+# jerasure reed_sol_van k=4 m=2 (stripe unit 4 KiB) of 16 PGs, 32 objects,
+# then 8 more with osd.1 killed
+TCP_OBJECTS = 64
+TCP_PROC_OSDS, TCP_PROC_K, TCP_PROC_M, TCP_PROC_PG_NUM = 6, 4, 2, 16
+TCP_PROC_OBJECTS, TCP_PROC_MORE = 32, 8
+TCP_PROC_VICTIM = 1
+TCP_BUDGET_S = 120.0
 
 
 def digest_batch(dev, rng, s: int, w: int, omap: bool) -> dict:
@@ -1735,32 +1779,45 @@ def _data_holes(c, pool: int, names, k: int) -> list:
     return out
 
 
+def _check_shards(stores, osdmap, pool: int, name: str, full, k: int,
+                  what: str) -> int:
+    """One object's stored shards on the OSDs the map names == the shard
+    columns of ``full`` (its (stripes, k + m, su) stripes and parity),
+    each with a matching hinfo; ``stores`` maps an OSD id to its store.
+    Returns the shards held."""
+    from ceph_tpu_torch.client.rados import ceph_str_hash_rjenkins
+    from ceph_tpu_torch.osd.ec_util import HashInfo, StripeInfo
+    from ceph_tpu_torch.osd.osdmap import CEPH_NOSD, pg_to_pgid
+    si = StripeInfo(k, CLUSTER_STRIPE_UNIT)
+    pg = pg_to_pgid(ceph_str_hash_rjenkins(name), osdmap.pools[pool].pg_num)
+    held = 0
+    for s, osd_id in enumerate(osdmap.pg_to_up_acting_osds(pool, pg)[0]):
+        if osd_id == CEPH_NOSD:
+            continue
+        store = stores[osd_id]
+        blob = store.read(f"{pool}.{pg}", f"{name}:{s}")
+        if blob != si.shard_column(full, s).tobytes() or not \
+                HashInfo.matches(blob, store.getattr(
+                    f"{pool}.{pg}", f"{name}:{s}", "hinfo")):
+            raise SmokeFailure(f"{name} shard {s} on osd.{osd_id} != "
+                               f"{what} (or its hinfo)")
+        held += 1
+    return held
+
+
 def _oracle_shards(c, pool: int, name: str, payload: bytes, gen,
                    k: int) -> None:
     """One object's stored shards on the OSDs the map names == the numpy
     oracle's encode of its payload, each with a matching hinfo."""
     import numpy as np
 
-    from ceph_tpu_torch.client.rados import ceph_str_hash_rjenkins
     from ceph_tpu_torch.ops.gf_kernel import ec_encode_ref
-    from ceph_tpu_torch.osd.ec_util import HashInfo, StripeInfo
-    from ceph_tpu_torch.osd.osdmap import CEPH_NOSD, pg_to_pgid
-    si = StripeInfo(k, CLUSTER_STRIPE_UNIT)
-    stripes = si.split(np.frombuffer(payload, dtype=np.uint8))
+    from ceph_tpu_torch.osd.ec_util import StripeInfo
+    stripes = StripeInfo(k, CLUSTER_STRIPE_UNIT).split(
+        np.frombuffer(payload, dtype=np.uint8))
     full = np.concatenate([stripes, ec_encode_ref(gen[k:], stripes)], axis=1)
-    m = c.mon.osdmap
-    pg = pg_to_pgid(ceph_str_hash_rjenkins(name), m.pools[pool].pg_num)
-    up = m.pg_to_up_acting_osds(pool, pg)[0]
-    for s, osd_id in enumerate(up):
-        if osd_id == CEPH_NOSD:
-            continue
-        store = c.osds[osd_id].store
-        blob = store.read(f"{pool}.{pg}", f"{name}:{s}")
-        if blob != si.shard_column(full, s).tobytes() or not \
-                HashInfo.matches(blob, store.getattr(
-                    f"{pool}.{pg}", f"{name}:{s}", "hinfo")):
-            raise SmokeFailure(f"{name} shard {s} on osd.{osd_id} != the "
-                               f"numpy oracle's encode (or its hinfo)")
+    _check_shards({i: o.store for i, o in c.osds.items()}, c.mon.osdmap,
+                  pool, name, full, k, "the numpy oracle's encode")
 
 
 def cluster_phase(dev, tag: str, n_objects: int = CLUSTER_OBJECTS,
@@ -1776,7 +1833,6 @@ def cluster_phase(dev, tag: str, n_objects: int = CLUSTER_OBJECTS,
     import numpy as np
     import torch
 
-    from ceph_tpu_torch.ec import registry_instance
     from ceph_tpu_torch.ops import _build, telemetry
     from ceph_tpu_torch.ops import gf_kernel as gk
     from ceph_tpu_torch.osd.ec_util import StripeInfo
@@ -1790,14 +1846,7 @@ def cluster_phase(dev, tag: str, n_objects: int = CLUSTER_OBJECTS,
     telemetry.reset()
     mem0 = torch.cuda.memory_allocated() if on_card else 0
     names = [f"bench_{i:04d}" for i in range(n_objects)]
-    gen_ = torch.Generator(device=dev).manual_seed(10)
-    payload = {}
-    for lo in range(0, n_objects, 16):
-        block = torch.randint(0, 256, (min(16, n_objects - lo), obj_bytes),
-                              dtype=torch.uint8, device=dev,
-                              generator=gen_).cpu().numpy()
-        for j, row in enumerate(block):
-            payload[names[lo + j]] = row.tobytes()
+    payload = _payloads(dev, names, obj_bytes, 10)
     total_mb = n_objects * obj_bytes / 1e6
     c = MiniCluster(n_osds=CLUSTER_OSDS, ms_type="loopback",
                     store_type="memstore", device=dev).start()
@@ -1821,10 +1870,7 @@ def cluster_phase(dev, tag: str, n_objects: int = CLUSTER_OBJECTS,
               f"scalar rule engine and peers every PG)  {tag}")
         io = client.open_ioctx(pool)
         k = CLUSTER_K
-        gen = registry_instance().factory(
-            "jerasure", {"k": str(k), "m": str(CLUSTER_M),
-                         "technique": "reed_sol_van", "runtime": "cpu"},
-            device="cpu").generator
+        gen = _ec_generator(k, CLUSTER_M)
         print(f"cluster: {CLUSTER_OSDS} OSDs (memstore, loopback), 1 mon, "
               f"pool {pool} jerasure reed_sol_van k={k} m={CLUSTER_M} "
               f"pg_num {CLUSTER_PG_NUM} stripe_unit {CLUSTER_STRIPE_UNIT}; "
@@ -3725,6 +3771,377 @@ def mgr_phase(dev, tag: str, mapped: dict) -> tuple[dict, dict]:
             launches)
 
 
+def _plain_shards(stores, osdmap, pool: int, name: str, payload: bytes,
+                  tab, k: int, m: int, dev) -> int:
+    """One object's stored shards == its stripes and their parity by
+    gf_matvec's plain version on ``dev`` (``_check_shards``)."""
+    import numpy as np
+    import torch
+
+    from ceph_tpu_torch.ops import gf_kernel as gk
+    from ceph_tpu_torch.osd.ec_util import StripeInfo
+    stripes = torch.from_numpy(StripeInfo(k, CLUSTER_STRIPE_UNIT).split(
+        np.frombuffer(payload, dtype=np.uint8))).to(dev)
+    pidx = torch.zeros((stripes.shape[0],), dtype=torch.int32, device=dev)
+    parity = gk.gf_matvec_plain(tab, pidx, stripes, m)
+    full = torch.cat([stripes, parity], dim=1).cpu().numpy()
+    return _check_shards(stores, osdmap, pool, name, full, k,
+                         "its bytes by gf_matvec's plain version")
+
+
+def _ec_generator(k: int, m: int):
+    from ceph_tpu_torch.ec import registry_instance
+    return registry_instance().factory(
+        "jerasure", {"k": str(k), "m": str(m), "technique": "reed_sol_van",
+                     "runtime": "cpu"}, device="cpu").generator
+
+
+def _payloads(dev, names, obj_bytes: int, seed: int) -> dict:
+    import torch
+    gen_ = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for lo in range(0, len(names), 16):
+        block = torch.randint(0, 256, (min(16, len(names) - lo), obj_bytes),
+                              dtype=torch.uint8, device=dev,
+                              generator=gen_).cpu().numpy()
+        for j, row in enumerate(block):
+            out[names[lo + j]] = row.tobytes()
+    return out
+
+
+def tcp_cluster(dev, tag: str, loopback: dict | None,
+                n_objects: int = TCP_OBJECTS,
+                obj_bytes: int = CLUSTER_OBJ_BYTES) -> tuple[dict, dict]:
+    """14a: phase 10's cluster over the event TCP stack with cephx, on
+    BlueStore.  Returns its summary and gf_matvec's and scrub_digest's
+    launches by sub-step."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from ceph_tpu_torch.msg.event_tcp import EventMessenger
+    from ceph_tpu_torch.ops import _build
+    from ceph_tpu_torch.ops import gf_kernel as gk
+    from ceph_tpu_torch.tools.vstart import MiniCluster
+    on_card = dev.type == "cuda"
+    k, m = CLUSTER_K, CLUSTER_M
+    root = tempfile.mkdtemp(prefix="chip_smoke_tcp_")
+    names = [f"tcp_{i:04d}" for i in range(n_objects)]
+    payload = _payloads(dev, names, obj_bytes, 14)
+    total_mb = n_objects * obj_bytes / 1e6
+    tab = torch.from_numpy(gk.pack_rows(_ec_generator(k, m)[k:][None])) \
+        .to(dev)
+    steps: dict = {}
+    launches: dict = {}
+    t0 = time.perf_counter()
+    c = MiniCluster(n_osds=CLUSTER_OSDS, ms_type="async", cephx=True,
+                    store_type="bluestore",
+                    base_path=os.path.join(root, "cluster"),
+                    device=dev).start()
+    contexts = []
+    try:
+        c.wait_for_osd_count(CLUSTER_OSDS, timeout=CLUSTER_OP_TIMEOUT)
+        client = c.client(timeout=CLUSTER_OP_TIMEOUT)
+        contexts = [c.mon.ctx, client.ctx] + [o.ctx for o in c.osds.values()]
+        start_s = time.perf_counter() - t0
+        pool = c.create_pool(client, pool_type="erasure", plugin="jerasure",
+                             technique="reed_sol_van", k=k, m=m,
+                             pg_num=CLUSTER_PG_NUM,
+                             epoch_timeout=CLUSTER_OP_TIMEOUT)
+        peer_s = _wait_active(c, pool, CLUSTER_PG_NUM, CLUSTER_OP_TIMEOUT)
+        daemons = [*c.osds.values(), c.mon, client]
+        check(all(isinstance(d.msgr, EventMessenger) and d.msgr.cephx
+                  is not None for d in daemons),
+              f"14a: the mon, {CLUSTER_OSDS} OSDs and the client on the "
+              f"event TCP stack, each with cephx; started in {start_s:.1f} "
+              f"s, the pool's {CLUSTER_PG_NUM} PGs active {peer_s:.1f} s "
+              f"after its creation")
+        ents = {con.auth_entity for con in c.mon.msgr._conns.values()
+                if con.auth_entity}
+        check(sum(e.startswith("osd.") for e in ents) == CLUSTER_OSDS
+              and "client.admin" in ents,
+              f"14a: the mon's sessions carry the OSDs' and the client's "
+              f"cephx identities ({len(ents)})")
+        io = client.open_ioctx(pool)
+
+        def step(label, body):
+            _build.reset_launches()
+            secs = body()
+            if on_card:
+                torch.cuda.synchronize()
+            rec = {"seconds": secs, "MB_s": total_mb / secs,
+                   "gf_matvec_launches": _build.LAUNCHES["gf_matvec"],
+                   "scrub_digest_launches": _build.LAUNCHES["scrub_digest"]}
+            steps[label] = rec
+            launches[label] = {"gf_matvec": rec["gf_matvec_launches"],
+                               "scrub_digest": rec["scrub_digest_launches"]}
+            ref = ((loopback or {}).get("sub_phases", {})
+                   .get({"14a_write": "10a_write", "14a_read": "10b_read",
+                         "14a_degraded_read": "10c_degraded_read"}[label],
+                        {}).get("MB_s"))
+            print(f"tcp {label}: {total_mb:.1f} MB in {secs:.3f} s = "
+                  f"{rec['MB_s']:.1f} MB/s (host clock; phase 10 on "
+                  f"loopback and memstore: "
+                  + (f"{ref:.1f} MB/s" if ref else "not run")
+                  + f"); launches gf_matvec {rec['gf_matvec_launches']}, "
+                  f"scrub_digest {rec['scrub_digest_launches']}  {tag}")
+            return rec
+
+        def check_read(name, comp):
+            if comp.reply.ops[0].data != payload[name]:
+                raise SmokeFailure(f"14a: {name} read back != the bytes "
+                                   f"written")
+
+        def read_all():
+            return _rados_bench(names, io.aio_read, check_read)
+
+        step("14a_write", lambda: _rados_bench(
+            names, lambda n: io.aio_write_full(n, payload[n]),
+            lambda n, comp: None))
+        stores = {i: o.store for i, o in c.osds.items()}
+        sample = names[:: max(1, n_objects // CLUSTER_SAMPLE)][
+            :CLUSTER_SAMPLE]
+        held = sum(_plain_shards(stores, c.mon.osdmap, pool, n, payload[n],
+                                 tab, k, m, dev) for n in sample)
+        check(not on_card or (launches["14a_write"]["gf_matvec"] >= 1 and
+                              launches["14a_write"]["scrub_digest"] >= 1),
+              f"14a: the writes launched gf_matvec and scrub_digest; "
+              f"{len(sample)} sampled objects' {held} shards == their "
+              f"stripes and gf_matvec's plain version on the card, hinfo "
+              f"matching")
+        step("14a_read", read_all)
+        check(True, f"14a: all {n_objects} objects read back byte-equal")
+        c.kill_osd(CLUSTER_VICTIM)
+        rc, out = client.mon_command({"prefix": "osd down",
+                                      "id": str(CLUSTER_VICTIM)})
+        check(rc == 0, f"14a: osd down {CLUSTER_VICTIM}: {out}")
+        epoch = c.mon.osdmap.epoch
+        c.wait_for_epoch(epoch, timeout=CLUSTER_OP_TIMEOUT)
+        client.wait_for_epoch(epoch)
+        rec = step("14a_degraded_read", read_all)
+        check(not on_card or rec["gf_matvec_launches"] >= 1,
+              f"14a: degraded reads decode through gf_matvec "
+              f"({rec['gf_matvec_launches']} launches); all {n_objects} "
+              f"objects byte-equal")
+        for ctx in contexts:
+            assert_no_faults(f"14a: {ctx.name}", ctx.fault_digest())
+    finally:
+        c.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    summary = {"osds": CLUSTER_OSDS, "k": k, "m": m,
+               "pg_num": CLUSTER_PG_NUM, "objects": n_objects,
+               "object_bytes": obj_bytes, "in_flight": CLUSTER_IN_FLIGHT,
+               "ms_type": "async", "cephx": True, "store": "bluestore",
+               "start_seconds": start_s, "pool_peering_seconds": peer_s,
+               "sub_steps": steps}
+    return summary, launches
+
+
+def _card_memory() -> dict:
+    """pid -> MiB the card holds for it (nvidia-smi's compute apps)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60).stdout
+    mem = {}
+    for line in out.strip().splitlines():
+        pid, _, mib = line.partition(",")
+        if pid.strip().isdigit():
+            mem[int(pid)] = mib.strip()
+    return mem
+
+
+def _card_used_mib() -> float:
+    """MiB of the card in use, by every process (cudaMemGetInfo)."""
+    import torch
+    free, total = torch.cuda.mem_get_info()
+    return (total - free) / 2 ** 20
+
+
+def proc_cluster(dev, tag: str, n_objects: int = TCP_PROC_OBJECTS,
+                 more: int = TCP_PROC_MORE,
+                 obj_bytes: int = CLUSTER_OBJ_BYTES) -> dict:
+    """14b: daemons as processes (ProcCluster on ``dev``): a mon and
+    TCP_PROC_OSDS OSDs on FileStore, an EC pool; writes, reads, a SIGKILL,
+    more writes, reads, the restart until recovered; after stop() each
+    OSD's FileStore opened here and every object's shards held against
+    gf_matvec's plain version on ``dev``."""
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    from ceph_tpu_torch.objectstore import create_objectstore
+    from ceph_tpu_torch.ops import gf_kernel as gk
+    from ceph_tpu_torch.tools.vstart import ProcCluster
+    k, m = TCP_PROC_K, TCP_PROC_M
+    root = tempfile.mkdtemp(prefix="chip_smoke_proc_")
+    names = [f"proc_{i:04d}" for i in range(n_objects + more)]
+    payload = _payloads(dev, names, obj_bytes, 15)
+    tab = torch.from_numpy(gk.pack_rows(_ec_generator(k, m)[k:][None])) \
+        .to(dev)
+    pc = ProcCluster(n_osds=0, base_path=root, device=dev.type)
+    ready: dict = {}
+    steps: dict = {}
+    on_card = dev.type == "cuda"
+    used0 = _card_used_mib() if on_card else 0.0
+    try:
+        t0 = time.perf_counter()
+        pc.start()
+        ready["mon.0"] = time.perf_counter() - t0
+        errors: list = []
+
+        def spawn(i):
+            t = time.perf_counter()
+            try:
+                pc.run_osd(i)
+            except Exception as e:      # reported below, fails the phase
+                errors.append(e)
+            ready[f"osd.{i}"] = time.perf_counter() - t
+        threads = [threading.Thread(target=spawn, args=(i,))
+                   for i in range(TCP_PROC_OSDS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise SmokeFailure(f"14b: {errors[0]}")
+        client = pc.client(timeout=CLUSTER_OP_TIMEOUT)
+        pc.wait_for_osd_count(TCP_PROC_OSDS, timeout=CLUSTER_OP_TIMEOUT)
+        start_s = time.perf_counter() - t0
+        print(f"tcp 14b: a mon and {TCP_PROC_OSDS} OSD processes up in "
+              f"{start_s:.1f} s; seconds from spawn to ready: "
+              + ", ".join(f"{d} {s:.1f}" for d, s in sorted(ready.items()))
+              + f"  {tag}")
+        pool = pc.create_pool(client, pool_type="erasure", plugin="jerasure",
+                              technique="reed_sol_van", k=k, m=m,
+                              pg_num=TCP_PROC_PG_NUM)
+        io = client.open_ioctx(pool)
+
+        def check_read(name, comp):
+            if comp.reply.ops[0].data != payload[name]:
+                raise SmokeFailure(f"14b: {name} read back != the bytes "
+                                   f"written")
+
+        def step(label, objs, write: bool):
+            if write:
+                secs = _rados_bench(objs, lambda n: io.aio_write_full(
+                    n, payload[n]), lambda n, comp: None)
+            else:
+                secs = _rados_bench(objs, io.aio_read, check_read)
+            mb = len(objs) * obj_bytes / 1e6
+            steps[label] = {"objects": len(objs), "seconds": secs,
+                            "MB_s": mb / secs}
+            print(f"tcp {label}: {mb:.1f} MB in {secs:.3f} s = "
+                  f"{mb / secs:.1f} MB/s (host clock)  {tag}")
+
+        first, later = names[:n_objects], names[n_objects:]
+        step("14b_write", first, True)
+        step("14b_read", first, False)
+        mem = _card_memory() if on_card else {}
+        card_mib = {d: mem.get(p.pid, "not listed")
+                    for d, p in sorted(pc.procs.items())}
+        daemons_mib = (_card_used_mib() - used0) if on_card else None
+        print(f"tcp 14b: card memory by process (MiB, nvidia-smi "
+              f"--query-compute-apps): {card_mib}, listed pids "
+              f"{sorted(mem)} (" + ("each daemon's pid listed"
+                                    if all(v != "not listed" for v in
+                                           card_mib.values())
+                                    else "pids of another namespace: not "
+                                    "attributable") + "); the card's use "
+              f"grew by " + (f"{daemons_mib:.0f} MiB, "
+                             f"{daemons_mib / len(pc.procs):.0f} MiB a "
+                             f"daemon process" if on_card else
+                             "not measured")
+              + f" (cudaMemGetInfo before the spawn and after the reads)"
+              f"  {tag}")
+        victim = TCP_PROC_VICTIM
+        pc.kill_osd(victim)
+        rc, out = client.mon_command({"prefix": "osd down",
+                                      "id": str(victim)})
+        check(rc == 0, f"14b: osd.{victim} killed by SIGKILL, marked down: "
+              f"{out}")
+        step("14b_write_degraded", later, True)
+        step("14b_read_degraded", names, False)
+        check(True, f"14b: {len(later)} objects written with osd.{victim} "
+              f"down; all {len(names)} read back byte-equal")
+
+        def health():
+            rc_, out_ = client.mon_command({"prefix": "health"})
+            return json.loads(out_) if rc_ == 0 else {}
+
+        t_restart = time.perf_counter()
+        pc.run_osd(victim)
+        ready[f"osd.{victim} restart"] = time.perf_counter() - t_restart
+        pc.wait_for_osd_count(TCP_PROC_OSDS, timeout=CLUSTER_OP_TIMEOUT)
+        deadline = time.time() + CLUSTER_RECOVERY_S
+        ok_since = None
+        while True:
+            now = time.perf_counter()
+            if health().get("status") == "HEALTH_OK":
+                ok_since = ok_since or now
+                if now - ok_since >= 2.0:    # two OSD ticks of reports
+                    break
+            else:
+                ok_since = None
+            if time.time() > deadline:
+                raise SmokeFailure(f"14b: osd.{victim} restarted but the "
+                                   f"cluster not HEALTH_OK after "
+                                   f"{CLUSTER_RECOVERY_S} s: {health()}")
+            time.sleep(0.25)
+        recovered_s = ok_since - t_restart
+        print(f"tcp 14b: osd.{victim} restarted on its FileStore; "
+              f"HEALTH_OK {recovered_s:.1f} s after the restart (spawn to "
+              f"ready {ready[f'osd.{victim} restart']:.1f} s)  {tag}")
+        osdmap = client.osdmap
+        step("14b_read_recovered", names, False)
+    finally:
+        pc.stop()
+    try:
+        stores = {}
+        for i in range(TCP_PROC_OSDS):
+            st = create_objectstore("filestore", f"{root}/osd.{i}")
+            st.mount()
+            stores[i] = st
+        held = sum(_plain_shards(stores, osdmap, pool, n, payload[n], tab,
+                                 k, m, dev) for n in names)
+        check(held == len(names) * (k + m),
+              f"14b: after stop(), each OSD's FileStore opened here: all "
+              f"{held} shards of the {len(names)} objects on the OSDs the "
+              f"map names, == their stripes and gf_matvec's plain version "
+              f"on the card, hinfo matching (osd.{victim}'s recovered)")
+        for st in stores.values():
+            st.umount()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"osds": TCP_PROC_OSDS, "k": k, "m": m,
+            "pg_num": TCP_PROC_PG_NUM, "objects": len(names),
+            "object_bytes": obj_bytes, "in_flight": CLUSTER_IN_FLIGHT,
+            "store": "filestore", "spawn_to_ready_seconds": ready,
+            "start_seconds": start_s, "card_memory_MiB": card_mib,
+            "card_memory_growth_MiB": daemons_mib,
+            "restart_to_recovered_seconds": recovered_s,
+            "sub_steps": steps,
+            "launches": "not counted: the kernels launch in the OSD "
+                        "processes"}
+
+
+def tcp_phase(dev, tag: str, loopback: dict | None) -> tuple[dict, dict]:
+    """Phase 14: 14a and 14b (see the docstring).  Returns the {"tcp": ...}
+    summary and 14a's launches by sub-step."""
+    t_phase = time.perf_counter()
+    a, launches = tcp_cluster(dev, tag, loopback)
+    b = proc_cluster(dev, tag)
+    secs = time.perf_counter() - t_phase
+    print(f"tcp: phase 14 took {secs:.1f} s (budget {TCP_BUDGET_S:.0f} s)"
+          f"  {tag}")
+    return ({"14a_cluster_over_tcp": a, "14b_processes": b,
+             "phase_seconds": secs, "budget_seconds": TCP_BUDGET_S},
+            launches)
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5176,7 +5593,14 @@ def run() -> None:
         pid: row.get("kernel") for pid, row in
         mgr["balancer"]["pools"].items()}
 
-    print("== 14. results")
+    print("== 14. the daemons over TCP with cephx, and as processes")
+    tcp, tcp_launches = tcp_phase(dev, tag, cluster)
+    row_of["gf_matvec"]["tcp"] = {s: n["gf_matvec"]
+                                  for s, n in tcp_launches.items()}
+    scrub_row["tcp_bluestore_data_launches"] = {
+        s: n["scrub_digest"] for s, n in tcp_launches.items()}
+
+    print("== 15. results")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"engine": engine}))
     print(json.dumps({"mapping": mapping}))
@@ -5184,6 +5608,7 @@ def run() -> None:
     print(json.dumps({"scrub": scrub}))
     print(json.dumps({"bluestore": bluestore}))
     print(json.dumps({"mgr": mgr}))
+    print(json.dumps({"tcp": tcp}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

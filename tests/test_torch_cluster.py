@@ -551,21 +551,25 @@ def test_stop_leaves_no_engine_thread():
     assert not _engine_threads(names)
 
 
-def test_unported_parts_raise_naming_their_item():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        MiniCluster(n_osds=1, ms_type="loopback", cephx=True,
-                    device="cpu")
+def test_unported_parts_raise_naming_their_item(capsys, tmp_path):
+    from ceph_tpu_torch.msg.messenger import EntityName, Messenger
+    from ceph_tpu_torch.tools import daemon_main
+    from ceph_tpu_torch.tools.vstart import ProcCluster
     c = MiniCluster(n_osds=1, ms_type="loopback", device="cpu")
     for call in (lambda: c.run_mds(1, 2), lambda: c.run_fs_mds()):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 7.4"):
             call()
-    from ceph_tpu_torch.msg.messenger import EntityName, Messenger
-    from ceph_tpu_torch.tools.vstart import ProcCluster
-    for mtype in ("async", "threaded", "ici", "ici-wire"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    for mtype in ("ici", "ici-wire"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 7.6"):
             Messenger.create(EntityName("client", 1), mtype)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        ProcCluster()
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7.6"):
+        ProcCluster(ms_type="ici")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7.4"):
+        ProcCluster(base_path=str(tmp_path), device="cpu").run_rgw(1)
+    for argv, item in ((["--role", "rgw"], "7.4"), (["--role", "mds"], "7.4"),
+                       (["--role", "osd", "--ms-type", "ici"], "7.6")):
+        assert daemon_main.main(argv) != 0
+        assert f"Queue 1 item {item}" in capsys.readouterr().err
 
 
 def test_reweight_by_utilization_names_the_missing_module(cluster):

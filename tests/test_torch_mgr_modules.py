@@ -757,16 +757,22 @@ def test_prometheus_phase_util_compile_families():
 
 
 def test_unported_transports_raise_naming_their_item():
-    """The mgr runs on loopback without cephx: cephx and the TCP stacks
-    raise, naming their ROADMAP.md item; a loopback mgr builds its context
-    on the device it is given."""
+    """The mgr builds on both TCP stacks and with cephx; the ici stacks
+    raise, naming their ROADMAP.md item; a mgr builds its context on the
+    device it is given."""
     from ceph_tpu_torch.mgr import MgrDaemon
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        MgrDaemon("nowhere", ms_type="loopback", cephx=("mgr.0", "k"),
-                  device="cpu")
-    for mtype in ("async", "threaded"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    from ceph_tpu_torch.msg.async_tcp import AsyncMessenger
+    from ceph_tpu_torch.msg.event_tcp import EventMessenger
+    for mtype in ("ici", "ici-wire"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 7.6"):
             MgrDaemon("nowhere", ms_type=mtype, device="cpu")
+    for mtype, cls in (("async", EventMessenger),
+                       ("threaded", AsyncMessenger)):
+        mgr = MgrDaemon("nowhere", ms_type=mtype, cephx=("mgr.0", "k"),
+                        device="cpu")
+        assert isinstance(mgr.msgr, cls)
+        assert mgr.msgr.cephx.service == "mgr"
+        assert mgr.msgr.cephx.entity == "mgr.0"
     mgr = MgrDaemon("nowhere", ms_type="loopback", mgr_id=7, device="cpu")
     assert mgr.ctx.device == torch.device("cpu")
     assert mgr.ctx.name == "mgr.7"
