@@ -1,12 +1,15 @@
-/* Single-core CPU baseline: GF(2^8) erasure encode.
+/* Single-core CPU baseline kernels: GF(2^8) erasure encode and scalar CRUSH.
  *
- * Purpose: an honest CPU yardstick beside the card's kernel, and the codecs'
+ * Purpose: an honest CPU yardstick beside the card's kernels, and the codecs'
  * "native" runtime.  The encode uses the split-nibble table algorithm that
  * ISA-L / jerasure's SIMD paths use (reference semantics:
  * src/erasure-code/isa/ErasureCodeIsa.cc:118-130 ec_encode_data), expressed
  * with GCC vector extensions so -O3 -march=native lowers the 16-entry table
- * lookups to pshufb/vpshufb.  This is the encode half of the JAX package's
- * baseline (ceph_tpu/native/baseline.c), unchanged.
+ * lookups to pshufb/vpshufb.  The CRUSH side is a scalar straw2
+ * crush_do_rule with the firstn/indep retry ladders (reference semantics:
+ * src/crush/mapper.c:460-1105), the one-core number beside the card's straw2
+ * kernels.  Both halves are the JAX package's baseline
+ * (ceph_tpu/native/baseline.c), unchanged.
  *
  * Single-threaded by design: the baseline is "one CPU core".
  */
@@ -14,6 +17,9 @@
 #include <stdint.h>
 #include <stdlib.h>
 #include <string.h>
+#if defined(__x86_64__) || defined(__i386__)
+#include <cpuid.h>
+#endif
 
 /* ------------------------------------------------------------------ */
 /* GF(2^8), polynomial 0x11d (the ISA-L / jerasure w=8 field)          */
@@ -102,4 +108,627 @@ void ec_encode_c(const uint8_t *matrix, int k, int m,
     }
     free(lo);
     free(hi);
+}
+
+/* ------------------------------------------------------------------ */
+/* rjenkins1 hash family (semantics: src/crush/hash.c)                 */
+/* ------------------------------------------------------------------ */
+
+#define HASH_SEED 1315423911u
+
+#define MIX(a, b, c) do {                         \
+    a = a - b; a = a - c; a = a ^ (c >> 13);      \
+    b = b - c; b = b - a; b = b ^ (a << 8);       \
+    c = c - a; c = c - b; c = c ^ (b >> 13);      \
+    a = a - b; a = a - c; a = a ^ (c >> 12);      \
+    b = b - c; b = b - a; b = b ^ (a << 16);      \
+    c = c - a; c = c - b; c = c ^ (b >> 5);       \
+    a = a - b; a = a - c; a = a ^ (c >> 3);       \
+    b = b - c; b = b - a; b = b ^ (a << 10);      \
+    c = c - a; c = c - b; c = c ^ (b >> 15);      \
+} while (0)
+
+static uint32_t hash32_2(uint32_t a, uint32_t b) {
+    uint32_t hash = HASH_SEED ^ a ^ b;
+    uint32_t x = 231232, y = 1232;
+    MIX(a, b, hash);
+    MIX(x, a, hash);
+    MIX(b, y, hash);
+    return hash;
+}
+
+static uint32_t hash32_3(uint32_t a, uint32_t b, uint32_t c) {
+    uint32_t hash = HASH_SEED ^ a ^ b ^ c;
+    uint32_t x = 231232, y = 1232;
+    MIX(a, b, hash);
+    MIX(c, x, hash);
+    MIX(y, a, hash);
+    MIX(b, x, hash);
+    MIX(y, c, hash);
+    return hash;
+}
+
+static uint32_t hash32_4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+    uint32_t hash = HASH_SEED ^ a ^ b ^ c ^ d;
+    uint32_t x = 231232, y = 1232;
+    MIX(a, b, hash);
+    MIX(c, d, hash);
+    MIX(a, x, hash);
+    MIX(y, b, hash);
+    MIX(c, x, hash);
+    MIX(y, d, hash);
+    return hash;
+}
+
+/* ------------------------------------------------------------------ */
+/* CRUSH map (compact blob-parsed form) and scalar do_rule             */
+/* ------------------------------------------------------------------ */
+
+#define ALG_UNIFORM 1
+#define ALG_LIST 2
+#define ALG_TREE 3
+#define ALG_STRAW 4
+#define ALG_STRAW2 5
+
+#define ITEM_UNDEF 0x7ffffffe
+#define ITEM_NONE  0x7fffffff
+
+enum {
+    OP_NOOP = 0, OP_TAKE = 1, OP_CHOOSE_FIRSTN = 2, OP_CHOOSE_INDEP = 3,
+    OP_EMIT = 4, OP_CHOOSELEAF_FIRSTN = 6, OP_CHOOSELEAF_INDEP = 7,
+    OP_SET_CHOOSE_TRIES = 8, OP_SET_CHOOSELEAF_TRIES = 9,
+    OP_SET_CHOOSE_LOCAL_TRIES = 10, OP_SET_CHOOSE_LOCAL_FALLBACK_TRIES = 11,
+    OP_SET_CHOOSELEAF_VARY_R = 12, OP_SET_CHOOSELEAF_STABLE = 13,
+};
+
+typedef struct {
+    int present, id, type, alg, size;
+    int32_t *items;
+    int64_t *weights;      /* 16.16 fixed point */
+    int64_t *sums;         /* list alg cumulative weights */
+    /* tree alg: weights at binary-tree nodes, leaves at odd indices */
+    int n_nodes;
+    int64_t *node_weights;
+    /* workspace (bucket_perm_choose) */
+    uint32_t perm_x, perm_n;
+    int32_t *perm;
+} cbucket;
+
+typedef struct { int op, a1, a2; } cstep;
+typedef struct { int present, n_steps; cstep *steps; } crule;
+
+typedef struct {
+    int max_devices, n_buckets, n_rules;
+    int64_t tun[7]; /* local_tries, local_fallback, total_tries,
+                       descend_once, vary_r, stable, straw_calc */
+    cbucket *buckets;
+    crule *rules;
+    uint64_t rh[129], lh[129], ll[256];
+} cmap;
+
+static cbucket *map_bucket(cmap *m, int id) {
+    int idx = -1 - id;
+    if (idx < 0 || idx >= m->n_buckets || !m->buckets[idx].present)
+        return NULL;
+    return &m->buckets[idx];
+}
+
+void *crush_init(const int64_t *blob) {
+    const int64_t *p = blob;
+    if (*p++ != 0xCB02) return NULL;
+    cmap *m = calloc(1, sizeof(cmap));
+    m->max_devices = (int)*p++;
+    m->n_buckets = (int)*p++;
+    m->n_rules = (int)*p++;
+    for (int i = 0; i < 7; i++) m->tun[i] = *p++;
+    m->buckets = calloc(m->n_buckets ? m->n_buckets : 1, sizeof(cbucket));
+    for (int i = 0; i < m->n_buckets; i++) {
+        cbucket *b = &m->buckets[i];
+        b->present = (int)*p++;
+        if (!b->present) continue;
+        b->id = (int)*p++;
+        b->type = (int)*p++;
+        b->alg = (int)*p++;
+        b->size = (int)*p++;
+        b->items = malloc(sizeof(int32_t) * (b->size ? b->size : 1));
+        b->weights = malloc(sizeof(int64_t) * (b->size ? b->size : 1));
+        b->sums = malloc(sizeof(int64_t) * (b->size ? b->size : 1));
+        b->perm = malloc(sizeof(int32_t) * (b->size ? b->size : 1));
+        for (int j = 0; j < b->size; j++) b->items[j] = (int32_t)*p++;
+        for (int j = 0; j < b->size; j++) b->weights[j] = *p++;
+        int64_t acc = 0;
+        for (int j = 0; j < b->size; j++) {
+            acc += b->weights[j];
+            b->sums[j] = acc;
+        }
+        if (b->alg == ALG_TREE) {
+            b->n_nodes = (int)*p++;
+            b->node_weights = malloc(
+                sizeof(int64_t) * (b->n_nodes ? b->n_nodes : 1));
+            for (int j = 0; j < b->n_nodes; j++) b->node_weights[j] = *p++;
+        }
+    }
+    m->rules = calloc(m->n_rules ? m->n_rules : 1, sizeof(crule));
+    for (int i = 0; i < m->n_rules; i++) {
+        crule *r = &m->rules[i];
+        r->present = (int)*p++;
+        if (!r->present) continue;
+        r->n_steps = (int)*p++;
+        r->steps = malloc(sizeof(cstep) * (r->n_steps ? r->n_steps : 1));
+        for (int j = 0; j < r->n_steps; j++) {
+            r->steps[j].op = (int)*p++;
+            r->steps[j].a1 = (int)*p++;
+            r->steps[j].a2 = (int)*p++;
+        }
+    }
+    for (int i = 0; i < 129; i++) m->rh[i] = (uint64_t)*p++;
+    for (int i = 0; i < 129; i++) m->lh[i] = (uint64_t)*p++;
+    for (int i = 0; i < 256; i++) m->ll[i] = (uint64_t)*p++;
+    return m;
+}
+
+void crush_free(void *h) {
+    cmap *m = h;
+    if (!m) return;
+    for (int i = 0; i < m->n_buckets; i++) {
+        free(m->buckets[i].items);
+        free(m->buckets[i].weights);
+        free(m->buckets[i].sums);
+        free(m->buckets[i].node_weights);
+        free(m->buckets[i].perm);
+    }
+    for (int i = 0; i < m->n_rules; i++) free(m->rules[i].steps);
+    free(m->buckets);
+    free(m->rules);
+    free(m);
+}
+
+/* 2^44 * log2(x+1), 48-bit fixed point (semantics: mapper.c:248-290) */
+static int64_t crush_ln_c(cmap *m, uint32_t xin) {
+    uint32_t x = xin + 1;
+    int iexpon = 15;
+    if (!(x & 0x18000)) {
+        uint32_t t = x & 0x1ffff;
+        int bl = 0;
+        while (t >> bl) bl++;
+        int bits = 16 - bl;
+        x <<= bits;
+        iexpon = 15 - bits;
+    }
+    uint32_t index1 = (x >> 8) << 1;
+    int kk = ((int)index1 - 256) >> 1;
+    uint64_t rh = m->rh[kk], lhv = m->lh[kk];
+    uint64_t xl64 = ((uint64_t)x * rh) >> 48;
+    uint64_t llv = m->ll[xl64 & 0xff];
+    int64_t result = (int64_t)iexpon << 44;
+    result += (int64_t)((lhv + llv) >> 4);
+    return result;
+}
+
+static int32_t bucket_straw2_choose(cmap *m, cbucket *b, uint32_t x, uint32_t r) {
+    int high = 0;
+    int64_t high_draw = 0;
+    for (int i = 0; i < b->size; i++) {
+        int64_t draw;
+        if (b->weights[i]) {
+            uint32_t u = hash32_3(x, (uint32_t)b->items[i], r) & 0xffff;
+            int64_t ln = crush_ln_c(m, u) - 0x1000000000000LL;
+            draw = ln / b->weights[i];
+        } else {
+            draw = INT64_MIN;
+        }
+        if (i == 0 || draw > high_draw) {
+            high = i;
+            high_draw = draw;
+        }
+    }
+    return b->items[high];
+}
+
+static int32_t bucket_perm_choose(cbucket *b, uint32_t x, uint32_t r) {
+    int size = b->size;
+    uint32_t pr = r % (uint32_t)size;
+    if (b->perm_x != x || b->perm_n == 0) {
+        b->perm_x = x;
+        if (pr == 0) {
+            int32_t s = (int32_t)(hash32_3(x, (uint32_t)b->id, 0) % (uint32_t)size);
+            memset(b->perm, 0, sizeof(int32_t) * size);
+            b->perm[0] = s;
+            b->perm_n = 0xffff;
+            return b->items[s];
+        }
+        for (int i = 0; i < size; i++) b->perm[i] = i;
+        b->perm_n = 0;
+    } else if (b->perm_n == 0xffff) {
+        for (int i = 1; i < size; i++) b->perm[i] = i;
+        b->perm[b->perm[0]] = 0;
+        b->perm_n = 1;
+    }
+    for (uint32_t i = b->perm_n; i <= pr; i++) {
+        if ((int)i < size - 1) {
+            uint32_t j = hash32_3(x, (uint32_t)b->id, i) % (uint32_t)(size - i);
+            if (j) {
+                int32_t t = b->perm[i + j];
+                b->perm[i + j] = b->perm[i];
+                b->perm[i] = t;
+            }
+        }
+        b->perm_n = i + 1;
+    }
+    return b->items[b->perm[pr]];
+}
+
+static int32_t bucket_list_choose(cbucket *b, uint32_t x, uint32_t r) {
+    for (int i = b->size - 1; i >= 0; i--) {
+        uint64_t w = hash32_4(x, (uint32_t)b->items[i], r, (uint32_t)b->id)
+                     & 0xffff;
+        w = (w * (uint64_t)b->sums[i]) >> 16;
+        if ((int64_t)w < b->weights[i]) return b->items[i];
+    }
+    return b->items[0];
+}
+
+static int32_t bucket_straw_choose(cbucket *b, uint32_t x, uint32_t r) {
+    /* legacy straw: straws array == weights slot in the blob */
+    int high = 0;
+    uint64_t high_draw = 0;
+    for (int i = 0; i < b->size; i++) {
+        uint64_t draw = (uint64_t)(hash32_3(x, (uint32_t)b->items[i], r)
+                                   & 0xffff) * (uint64_t)b->weights[i];
+        if (i == 0 || draw > high_draw) {
+            high = i;
+            high_draw = draw;
+        }
+    }
+    return b->items[high];
+}
+
+static int32_t bucket_tree_choose(cbucket *b, uint32_t x, uint32_t r) {
+    /* descend from the root (num_nodes/2) to a leaf (odd node); leaf i
+       lives at node 2i+1 (mapper.c:195-222 semantics) */
+    if (b->n_nodes < 2 || b->size == 0)
+        return ITEM_NONE;  /* degenerate tree: terminal reject (callers
+                              already guard size==0; belt and braces —
+                              n=0 would loop forever below) */
+    uint32_t n = (uint32_t)b->n_nodes >> 1;
+    while (!(n & 1)) {
+        uint64_t w = (uint64_t)b->node_weights[n];
+        uint64_t t =
+            ((uint64_t)hash32_4(x, n, r, (uint32_t)b->id) * w) >> 32;
+        uint32_t half = (n & (~n + 1u)) >> 1;  /* 1 << (h-1) */
+        uint32_t left = n - half;
+        if (t < (uint64_t)b->node_weights[left]) n = left;
+        else n += half;
+    }
+    return b->items[n >> 1];
+}
+
+static int32_t crush_bucket_choose(cmap *m, cbucket *b, uint32_t x, uint32_t r) {
+    switch (b->alg) {
+    case ALG_UNIFORM: return bucket_perm_choose(b, x, r);
+    case ALG_LIST:    return bucket_list_choose(b, x, r);
+    case ALG_TREE:    return bucket_tree_choose(b, x, r);
+    case ALG_STRAW:   return bucket_straw_choose(b, x, r);
+    case ALG_STRAW2:  return bucket_straw2_choose(m, b, x, r);
+    default:          return ITEM_NONE; /* unknown alg: terminal reject */
+    }
+}
+
+static int is_out(cmap *m, const uint32_t *weight, int nweight,
+                  int32_t item, uint32_t x) {
+    if (item >= nweight) return 1;
+    uint32_t w = weight[item];
+    if (w >= 0x10000) return 0;
+    if (w == 0) return 1;
+    if ((hash32_2(x, (uint32_t)item) & 0xffff) < w) return 0;
+    return 1;
+}
+
+static int choose_firstn(cmap *m, cbucket *bucket, const uint32_t *weight,
+                         int nweight, uint32_t x, int numrep, int type,
+                         int32_t *out, int outpos, int out_size,
+                         int tries, int recurse_tries, int local_retries,
+                         int local_fallback_retries, int recurse_to_leaf,
+                         int vary_r, int stable, int32_t *out2, int parent_r) {
+    int rep;
+    int count = out_size;
+    for (rep = stable ? 0 : outpos; rep < numrep && count > 0; rep++) {
+        int ftotal = 0;
+        int skip_rep = 0;
+        int32_t item = 0;
+        int retry_descent = 1;
+        while (retry_descent) {
+            retry_descent = 0;
+            cbucket *in = bucket;
+            int flocal = 0;
+            int retry_bucket = 1;
+            while (retry_bucket) {
+                retry_bucket = 0;
+                uint32_t r = (uint32_t)(rep + parent_r + ftotal);
+                int reject = 0, collide = 0;
+                if (in->size == 0) {
+                    reject = 1;
+                } else {
+                    if (local_fallback_retries > 0
+                        && flocal >= (in->size >> 1)
+                        && flocal > local_fallback_retries)
+                        item = bucket_perm_choose(in, x, r);
+                    else
+                        item = crush_bucket_choose(m, in, x, r);
+                    if (item >= m->max_devices) { skip_rep = 1; break; }
+                    int itemtype = (item < 0)
+                        ? (map_bucket(m, item) ? map_bucket(m, item)->type : -1)
+                        : 0;
+                    if (itemtype != type) {
+                        if (item >= 0 || !map_bucket(m, item)) {
+                            skip_rep = 1;
+                            break;
+                        }
+                        in = map_bucket(m, item);
+                        retry_bucket = 1;
+                        continue;
+                    }
+                    for (int i = 0; i < outpos; i++)
+                        if (out[i] == item) { collide = 1; break; }
+                    if (!collide && recurse_to_leaf) {
+                        if (item < 0) {
+                            uint32_t sub_r = vary_r ? (r >> (vary_r - 1)) : 0;
+                            int got = choose_firstn(
+                                m, map_bucket(m, item), weight, nweight, x,
+                                stable ? 1 : outpos + 1, 0,
+                                out2, outpos, count,
+                                recurse_tries, 0, local_retries,
+                                local_fallback_retries, 0, vary_r, stable,
+                                NULL, (int)sub_r);
+                            if (got <= outpos) reject = 1;
+                        } else {
+                            out2[outpos] = item;
+                        }
+                    }
+                    if (!reject && !collide && itemtype == 0)
+                        reject = is_out(m, weight, nweight, item, x);
+                }
+                if (reject || collide) {
+                    ftotal++;
+                    flocal++;
+                    if (collide && flocal <= local_retries)
+                        retry_bucket = 1;
+                    else if (local_fallback_retries > 0
+                             && flocal <= in->size + local_fallback_retries)
+                        retry_bucket = 1;
+                    else if (ftotal < tries)
+                        retry_descent = 1;
+                    else
+                        skip_rep = 1;
+                }
+            }
+        }
+        if (skip_rep) continue;
+        out[outpos] = item;
+        outpos++;
+        count--;
+    }
+    return outpos;
+}
+
+static void choose_indep(cmap *m, cbucket *bucket, const uint32_t *weight,
+                         int nweight, uint32_t x, int left, int numrep,
+                         int type, int32_t *out, int outpos, int tries,
+                         int recurse_tries, int recurse_to_leaf,
+                         int32_t *out2, int parent_r) {
+    int endpos = outpos + left;
+    for (int rep = outpos; rep < endpos; rep++) {
+        out[rep] = ITEM_UNDEF;
+        if (out2) out2[rep] = ITEM_UNDEF;
+    }
+    for (int ftotal = 0; left > 0 && ftotal < tries; ftotal++) {
+        for (int rep = outpos; rep < endpos; rep++) {
+            if (out[rep] != ITEM_UNDEF) continue;
+            cbucket *in = bucket;
+            for (;;) {
+                uint32_t r = (uint32_t)(rep + parent_r);
+                if (in->alg == ALG_UNIFORM && in->size % numrep == 0)
+                    r += (uint32_t)((numrep + 1) * ftotal);
+                else
+                    r += (uint32_t)(numrep * ftotal);
+                if (in->size == 0) break;
+                int32_t item = crush_bucket_choose(m, in, x, r);
+                if (item >= m->max_devices) {
+                    out[rep] = ITEM_NONE;
+                    if (out2) out2[rep] = ITEM_NONE;
+                    left--;
+                    break;
+                }
+                int itemtype = (item < 0)
+                    ? (map_bucket(m, item) ? map_bucket(m, item)->type : -1)
+                    : 0;
+                if (itemtype != type) {
+                    if (item >= 0 || !map_bucket(m, item)) {
+                        out[rep] = ITEM_NONE;
+                        if (out2) out2[rep] = ITEM_NONE;
+                        left--;
+                        break;
+                    }
+                    in = map_bucket(m, item);
+                    continue;
+                }
+                int collide = 0;
+                for (int i = outpos; i < endpos; i++)
+                    if (out[i] == item) { collide = 1; break; }
+                if (collide) break;
+                if (recurse_to_leaf) {
+                    if (item < 0) {
+                        choose_indep(m, map_bucket(m, item), weight, nweight,
+                                     x, 1, numrep, 0, out2, rep,
+                                     recurse_tries, 0, 0, NULL, (int)r);
+                        if (out2[rep] == ITEM_NONE) break;
+                    } else {
+                        out2[rep] = item;
+                    }
+                }
+                if (type == 0 && is_out(m, weight, nweight, item, x)) break;
+                out[rep] = item;
+                left--;
+                break;
+            }
+        }
+    }
+    for (int rep = outpos; rep < endpos; rep++) {
+        if (out[rep] == ITEM_UNDEF) out[rep] = ITEM_NONE;
+        if (out2 && out2[rep] == ITEM_UNDEF) out2[rep] = ITEM_NONE;
+    }
+}
+
+static void reset_work(cmap *m) {
+    for (int i = 0; i < m->n_buckets; i++) {
+        m->buckets[i].perm_x = 0;
+        m->buckets[i].perm_n = 0;
+    }
+}
+
+/* Returns number of results (out must hold result_max entries), or -1 on
+ * result_max beyond the fixed working-set capacity — never a silent empty
+ * answer for an over-large request. */
+int crush_do_rule_c(void *h, int ruleno, uint32_t x, int32_t *out,
+                    int result_max, const uint32_t *weight, int nweight) {
+    cmap *m = h;
+    int32_t w[64], o[64], c[64], o_sub[64], c_sub[64];
+    if (result_max > 64) return -1;
+    if (ruleno < 0 || ruleno >= m->n_rules || !m->rules[ruleno].present)
+        return 0;
+    crule *rule = &m->rules[ruleno];
+    reset_work(m);
+
+    int wsize = 0, nres = 0;
+
+    int choose_tries = (int)m->tun[2] + 1;
+    int choose_leaf_tries = 0;
+    int local_retries = (int)m->tun[0];
+    int local_fallback_retries = (int)m->tun[1];
+    int vary_r = (int)m->tun[4];
+    int stable = (int)m->tun[5];
+
+    int32_t *wp = w, *op = o;
+
+    for (int si = 0; si < rule->n_steps; si++) {
+        cstep *st = &rule->steps[si];
+        switch (st->op) {
+        case OP_TAKE:
+            if ((st->a1 >= 0 && st->a1 < m->max_devices)
+                || map_bucket(m, st->a1)) {
+                wp[0] = st->a1;
+                wsize = 1;
+            }
+            break;
+        case OP_SET_CHOOSE_TRIES:
+            if (st->a1 > 0) choose_tries = st->a1;
+            break;
+        case OP_SET_CHOOSELEAF_TRIES:
+            if (st->a1 > 0) choose_leaf_tries = st->a1;
+            break;
+        case OP_SET_CHOOSE_LOCAL_TRIES:
+            if (st->a1 >= 0) local_retries = st->a1;
+            break;
+        case OP_SET_CHOOSE_LOCAL_FALLBACK_TRIES:
+            if (st->a1 >= 0) local_fallback_retries = st->a1;
+            break;
+        case OP_SET_CHOOSELEAF_VARY_R:
+            if (st->a1 >= 0) vary_r = st->a1;
+            break;
+        case OP_SET_CHOOSELEAF_STABLE:
+            if (st->a1 >= 0) stable = st->a1;
+            break;
+        case OP_CHOOSE_FIRSTN:
+        case OP_CHOOSELEAF_FIRSTN:
+        case OP_CHOOSE_INDEP:
+        case OP_CHOOSELEAF_INDEP: {
+            if (wsize == 0) break;
+            int firstn = (st->op == OP_CHOOSE_FIRSTN
+                          || st->op == OP_CHOOSELEAF_FIRSTN);
+            int recurse_to_leaf = (st->op == OP_CHOOSELEAF_FIRSTN
+                                   || st->op == OP_CHOOSELEAF_INDEP);
+            int osize = 0;
+            for (int i = 0; i < wsize; i++) {
+                int numrep = st->a1;
+                if (numrep <= 0) {
+                    numrep += result_max;
+                    if (numrep <= 0) continue;
+                }
+                cbucket *bucket = map_bucket(m, wp[i]);
+                if (!bucket) continue;
+                int placed;
+                if (firstn) {
+                    int recurse_tries = choose_leaf_tries ? choose_leaf_tries
+                        : (m->tun[3] ? 1 : choose_tries);
+                    placed = choose_firstn(
+                        m, bucket, weight, nweight, x, numrep, st->a2,
+                        o_sub, 0, result_max - osize, choose_tries,
+                        recurse_tries, local_retries, local_fallback_retries,
+                        recurse_to_leaf, vary_r, stable, c_sub, 0);
+                } else {
+                    placed = numrep < result_max - osize
+                        ? numrep : result_max - osize;
+                    choose_indep(m, bucket, weight, nweight, x, placed,
+                                 numrep, st->a2, o_sub, 0, choose_tries,
+                                 choose_leaf_tries ? choose_leaf_tries : 1,
+                                 recurse_to_leaf, c_sub, 0);
+                }
+                for (int j = 0; j < placed; j++) {
+                    op[osize + j] = o_sub[j];
+                    c[osize + j] = c_sub[j];
+                }
+                osize += placed;
+            }
+            if (recurse_to_leaf)
+                for (int j = 0; j < osize; j++) op[j] = c[j];
+            int32_t *t = wp; wp = op; op = t;
+            wsize = osize;
+            break;
+        }
+        case OP_EMIT:
+            for (int i = 0; i < wsize && nres < result_max; i++)
+                out[nres++] = wp[i];
+            wsize = 0;
+            break;
+        default:
+            break;
+        }
+    }
+    return nres;
+}
+
+/* Batch entry: the ParallelPGMapper workload on one core.  out is
+ * (nx, result_max) int32, NONE-padded.  Returns 0, or -1 on an over-large
+ * result_max (mirrors crush_do_rule_c). */
+int crush_batch_c(void *h, int ruleno, const uint32_t *xs, long nx,
+                  int result_max, const uint32_t *weight, int nweight,
+                  int32_t *out) {
+    if (result_max > 64) return -1;
+    for (long i = 0; i < nx; i++) {
+        int32_t *row = out + i * result_max;
+        int n = crush_do_rule_c(h, ruleno, xs[i], row, result_max,
+                                weight, nweight);
+        for (int j = n; j < result_max; j++) row[j] = ITEM_NONE;
+    }
+    return 0;
+}
+
+/* ------------------------------------------------------------------ */
+/* The CPU these numbers are of                                        */
+/* ------------------------------------------------------------------ */
+
+/* CPUID's brand string (leaves 0x80000002-0x80000004) into out[49]; empty
+ * where the CPU has none.  A sandboxed kernel may report "unknown" in
+ * /proc/cpuinfo, while the instruction still names the part. */
+void cpu_brand_c(char *out) {
+    memset(out, 0, 49);
+#if defined(__x86_64__) || defined(__i386__)
+    unsigned int r[12] = {0};
+    if (__get_cpuid_max(0x80000000u, NULL) < 0x80000004u)
+        return;
+    for (unsigned int i = 0; i < 3; i++)
+        __get_cpuid(0x80000002u + i, &r[4 * i], &r[4 * i + 1],
+                    &r[4 * i + 2], &r[4 * i + 3]);
+    memcpy(out, r, 48);
+#endif
 }

@@ -787,6 +787,8 @@ class DeviceDispatchEngine:
                 d, a = self._place_host(data, aux, place)
                 return self._materialize(fn(d, *a)), None
         except BaseException as e:     # noqa: BLE001 — delivered to waiter
+            if card_fault(e):
+                self.stats.record_card_fault()
             if fallback is not None and not _permanent(e):
                 try:
                     # analysis: allow[blocking] -- host-oracle result is already numpy
@@ -1277,6 +1279,7 @@ class DeviceDispatchEngine:
                 self._record_device_ok(channel)
                 return host, None, "retry"
         if card_fault(exc):
+            self.stats.record_card_fault()
             return None, exc, None
         if transient:
             self._record_device_failure(channel, reqs)

@@ -417,7 +417,7 @@ class DispatchStats:
                  "retries", "retry_successes", "fallback_batches",
                  "fallback_stripes", "breaker_opens", "breaker_closes",
                  "probe_successes", "probe_failures", "thread_deaths",
-                 "thread_restarts", "breaker_states")
+                 "thread_restarts", "card_faults", "breaker_states")
 
     def __init__(self):
         self._lock = lockdep.make_lock("DispatchStats::lock")
@@ -455,6 +455,7 @@ class DispatchStats:
         self.probe_failures = 0   # background probes that failed
         self.thread_deaths = 0    # engine run-loop deaths observed
         self.thread_restarts = 0  # run-loops revived by supervision
+        self.card_faults = 0      # batches that met a card fault (fanned)
         #: channel -> BREAKER_* (most recent transition per channel
         #: across every engine feeding this sink)
         self.breaker_states: dict[str, int] = {}
@@ -482,6 +483,7 @@ class DispatchStats:
             self.breaker_opens = self.breaker_closes = 0
             self.probe_successes = self.probe_failures = 0
             self.thread_deaths = self.thread_restarts = 0
+            self.card_faults = 0
             self.breaker_states = {}
         self.phases.clear()
 
@@ -549,6 +551,12 @@ class DispatchStats:
             else:
                 self.probe_failures += 1
 
+    def record_card_fault(self) -> None:
+        """A batch met a card fault (``dispatch.card_fault``) and fanned it
+        to its waiters: no retry, no oracle."""
+        with self._lock:
+            self.card_faults += 1
+
     def record_thread_death(self, restarted: bool) -> None:
         with self._lock:
             self.thread_deaths += 1
@@ -577,6 +585,7 @@ class DispatchStats:
             "probe_failures": self.probe_failures,
             "thread_deaths": self.thread_deaths,
             "thread_restarts": self.thread_restarts,
+            "card_faults": self.card_faults,
             "breaker_states": dict(self.breaker_states),
         }
 

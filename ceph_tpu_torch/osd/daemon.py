@@ -49,6 +49,7 @@ reported in the scrub's report; it never becomes host digests.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 
@@ -78,7 +79,7 @@ from ceph_tpu_torch.msg.messenger import (
 from ceph_tpu_torch.objectstore import Transaction, create_objectstore
 from ceph_tpu_torch.osd.map_codec import advance_map, encode_osdmap
 from ceph_tpu_torch.osd.osdmap import CEPH_NOSD, OSDMap, pg_to_pgid
-from ceph_tpu_torch.ops.dispatch import BACKGROUND_BEST_EFFORT
+from ceph_tpu_torch.ops.dispatch import BACKGROUND_BEST_EFFORT, card_fault
 from ceph_tpu_torch.qos.dmclock import (
     PHASE_LIMIT, PHASE_NAMES, PHASE_NONE, PHASE_RESERVATION, PHASE_WEIGHT)
 from ceph_tpu_torch.client.rados import ceph_str_hash_rjenkins
@@ -534,12 +535,16 @@ class OSDDaemon(Dispatcher):
             daemon=True)
         self._agent_thread.start()
         #: decode-engine continuations (a decode's reply, recovery store
-        #: and push; a scrub chunk's map) run here, not on the engine's
-        #: completion thread: they take the OSD lock, and a thread holding
-        #: that lock may be waiting on a digest that only the completion
-        #: thread delivers (a local shard read or a shard commit on
-        #: BlueStore)
+        #: and push; a scrub chunk's map) and a recovery re-encode's run
+        #: here, not on the engine's completion thread: they take the OSD
+        #: lock, and a thread holding that lock may be waiting on a digest
+        #: that only the completion thread delivers (a local shard read or
+        #: a shard commit on BlueStore).  A card fault ends this thread
+        #: (``_cont_loop``)
         self._cont_q: "_queue.Queue" = _queue.Queue()
+        #: the first card fault an EC continuation met (``_ec_card_fault``):
+        #: this daemon starts no recovery past it
+        self.card_fault_seen: BaseException | None = None
         self._cont_thread = threading.Thread(
             target=self._cont_loop, name=f"osd.{osd_id}-decode-cont",
             daemon=True)
@@ -1929,6 +1934,8 @@ class OSDDaemon(Dispatcher):
         ec = pool is not None and pool.is_erasure()
         window = int(self.ctx.conf.get("osd_recovery_max_active"))
         with self._lock:
+            if self.card_fault_seen is not None:
+                return
             if pg.state != STATE_RECOVERING:
                 self.local_reserver.cancel(pg.pgid)
                 return
@@ -2151,6 +2158,8 @@ class OSDDaemon(Dispatcher):
         if pool is None:
             return
         with self._lock:
+            if self.card_fault_seen is not None:
+                return
             if dest_osd == self.osd_id:
                 if oid in pg.recovering:
                     return
@@ -2329,8 +2338,8 @@ class OSDDaemon(Dispatcher):
         return self._internal_client.open_ioctx(pool_id, direct=True)
 
     def _on_decoded(self, fut, fn, *args) -> None:
-        """``fn(*args, fut)`` on the decode-continuation thread once the
-        decode engine has delivered ``fut``."""
+        """``fn(*args, fut)`` on the continuation thread once an engine has
+        delivered ``fut``."""
         fut.add_done_callback(lambda f: self._cont_q.put((fn, args + (f,))))
 
     def _stop_continuations(self) -> None:
@@ -2347,7 +2356,12 @@ class OSDDaemon(Dispatcher):
             try:
                 fn(*args)
             except Exception as e:
-                # as the engine's own fan-out treats a continuation
+                # a card fault is not absorbed: it ends this thread and
+                # raises in it (a daemon_main process then exits 70, as
+                # for the messengers' threads); a continuation's bug is
+                # logged, as the engine's own fan-out treats one
+                if card_fault(e):
+                    raise
                 dout("osd", 0, "osd.%d decode continuation failed: %r",
                      self.osd_id, e)
 
@@ -3925,26 +3939,27 @@ class OSDDaemon(Dispatcher):
         if stale:
             self._ec_gather(reqid, state)
             return
-        if self._ec_submit_decode(reqid, state):
-            # submit-and-continue: the decode rides the decode engine
-            # (coalescing with every other in-flight gather's decode —
-            # even under DIFFERENT erasure patterns) and the completion
-            # continuation finishes the read
-            return
-        try:
-            data = self._ec_decode_state(state)
-        except (ValueError, IOError):
-            # non-MDS codecs cannot decode from every k-subset: widen
-            # the gather by one shard and keep going.  IOError is the
-            # bitmatrix/shec spelling; a plain matrix codec whose
-            # chosen rows are singular raises ValueError from
-            # recovery_matrix (unreachable for the bundled MDS codecs,
-            # but a third-party generator must widen, not wedge)
-            with self._lock:
-                state["k"] = len(state["shards"]) + 1
-            self._ec_gather(reqid, state)
-            return
-        self._ec_read_finish(reqid, state, data)
+        with self._ec_card_fault(reqid, state):
+            if self._ec_submit_decode(reqid, state):
+                # submit-and-continue: the decode rides the decode engine
+                # (coalescing with every other in-flight gather's decode —
+                # even under DIFFERENT erasure patterns) and the completion
+                # continuation finishes the read
+                return
+            try:
+                data = self._ec_decode_state(state)
+            except (ValueError, IOError):
+                # non-MDS codecs cannot decode from every k-subset: widen
+                # the gather by one shard and keep going.  IOError is the
+                # bitmatrix/shec spelling; a plain matrix codec whose
+                # chosen rows are singular raises ValueError from
+                # recovery_matrix (unreachable for the bundled MDS codecs,
+                # but a third-party generator must widen, not wedge)
+                with self._lock:
+                    state["k"] = len(state["shards"]) + 1
+                self._ec_gather(reqid, state)
+                return
+            self._ec_read_finish(reqid, state, data)
 
     def _ec_submit_decode(self, reqid, state: dict) -> bool:
         """Submit the gather's reconstruction through the decode
@@ -4022,39 +4037,72 @@ class OSDDaemon(Dispatcher):
         """Decode-engine completion continuation (runs on the decode-
         continuation thread, ``_on_decoded``): overlay the rebuilt rows and
         finish the gather — client reply, rmw overlay-and-drain, or
-        recovery store/push."""
-        err = fut.exception()
-        if err is not None:
-            # device-side failure: re-enter the retry ladder exactly
-            # like the synchronous decode's IOError widen
-            dout("osd", 1, "osd.%d async ec decode failed for %s: %r",
-                 self.osd_id, state.get("oid"), err)
-            with self._lock:
-                if self._ec_reads.get(reqid) is not state:
-                    return
-                state["k"] = len(state["shards"]) + 1
-            self._ec_gather(reqid, state)
-            return
-        # analysis: allow[blocking] -- fut already delivered: engine futures carry host numpy
-        rec = np.asarray(fut.result())
-        for idx, d in enumerate(targets):
-            stripes[:, d, :] = rec[:, idx, :]
-        data = si.join(stripes).tobytes()[:size]
-        # re-join the op's trace: the completion thread has no trace
-        # context, but the reply / shard fan-out must stitch into the
-        # op's span tree (same rule as _ec_write_committed)
-        msg = state.get("msg")
-        tid = getattr(msg, "trace_id", 0) if msg is not None else 0
-        from ceph_tpu_torch.common import tracing
-        if tid and tracing.current() != tid:
-            prev = tracing.set_current(
-                tid, getattr(msg, "parent_span_id", 0))
-            try:
-                self._ec_read_finish(reqid, state, data)
-            finally:
-                tracing.set_current(prev)
-            return
-        self._ec_read_finish(reqid, state, data)
+        recovery store/push.  A card fault, the decode's or one met on the
+        way, is answered (``_ec_card_fault``) and raised."""
+        with self._ec_card_fault(reqid, state):
+            err = fut.exception()
+            if err is not None:
+                if card_fault(err):
+                    raise err
+                # any other device-side failure: re-enter the retry ladder
+                # exactly like the synchronous decode's IOError widen
+                dout("osd", 1, "osd.%d async ec decode failed for %s: %r",
+                     self.osd_id, state.get("oid"), err)
+                with self._lock:
+                    if self._ec_reads.get(reqid) is not state:
+                        return
+                    state["k"] = len(state["shards"]) + 1
+                self._ec_gather(reqid, state)
+                return
+            # analysis: allow[blocking] -- fut already delivered: engine futures carry host numpy
+            rec = np.asarray(fut.result())
+            for idx, d in enumerate(targets):
+                stripes[:, d, :] = rec[:, idx, :]
+            data = si.join(stripes).tobytes()[:size]
+            # re-join the op's trace: the completion thread has no trace
+            # context, but the reply / shard fan-out must stitch into the
+            # op's span tree (same rule as _ec_write_committed)
+            msg = state.get("msg")
+            tid = getattr(msg, "trace_id", 0) if msg is not None else 0
+            from ceph_tpu_torch.common import tracing
+            if tid and tracing.current() != tid:
+                prev = tracing.set_current(
+                    tid, getattr(msg, "parent_span_id", 0))
+                try:
+                    self._ec_read_finish(reqid, state, data)
+                finally:
+                    tracing.set_current(prev)
+                return
+            self._ec_read_finish(reqid, state, data)
+
+    @contextlib.contextmanager
+    def _ec_card_fault(self, reqid, state: dict):
+        """Around an EC gather's decode, a recovery's re-encode and what
+        follows them: a card fault raised inside ends the gather.  A
+        client read is answered -5 (as the write path answers an encode
+        error), an rmw gather fails its writes, and a recovery keeps its
+        object in ``pg.recovering``.  The fault is kept in
+        ``card_fault_seen``, and this daemon starts no recovery past it: a
+        sticky fault would otherwise meet every retry.  The fault is raised
+        on (``reqid`` None: a recovery re-encode, whose gather is done)."""
+        try:
+            yield
+        except Exception as err:
+            if card_fault(err):
+                dout("osd", 0, "osd.%d card fault in the EC path of %s: %r",
+                     self.osd_id, state.get("oid"), err)
+                with self._lock:
+                    if self.card_fault_seen is None:
+                        self.card_fault_seen = err
+                    live = (reqid is not None
+                            and self._ec_reads.get(reqid) is state)
+                    if live:
+                        del self._ec_reads[reqid]
+                        if state["kind"] == "rmw":
+                            self._rmw_fail(state)
+                if live and state["kind"] == "client":
+                    self._reply_err(state["msg"], -5)
+            raise
 
     def _ec_read_finish(self, reqid, state: dict, data: bytes) -> None:
         """Reconstructed object bytes in hand (synchronous decode or
@@ -4151,33 +4199,37 @@ class OSDDaemon(Dispatcher):
                                       stripes,
                                       cost_tag=("recovery", "recovery"))
             self.perf.inc("ec_dispatch_submits")
-            fut.add_done_callback(
-                lambda f, c=(state, data, si, stripes, n):
-                self._ec_recover_encoded(*c, f))
+            self._on_decoded(fut, self._ec_recover_encoded, state, data, si,
+                             stripes, n)
             return
         chunks = self._ec_encode_object(codec, si, data)
         self._ec_recover_store(state, data, chunks)
 
     def _ec_recover_encoded(self, state: dict, data: bytes, si,
                             stripes, n: int, fut) -> None:
-        """Encode-engine continuation for a recovery re-encode."""
-        err = fut.exception()
-        if err is not None:
-            # the pull itself succeeded; a failed re-encode just
-            # releases the recovering gate so the recovery window can
-            # retry the object (it is still missing)
-            dout("osd", 1, "osd.%d recovery re-encode failed for "
-                 "%s: %r", self.osd_id, state.get("oid"), err)
-            pg = self.pgs.get(state["pgid"])
-            if pg is not None:
-                with self._lock:
-                    pg.recovering.pop(state["oid"], None)
-            return
-        chunks = self._ec_shard_columns(si, stripes, fut.result(), n)
-        # keep the submit/commit pair convergent: operators read
-        # in-flight encodes as submits - commits
-        self.perf.inc("ec_dispatch_commits")
-        self._ec_recover_store(state, data, chunks)
+        """Encode-engine continuation for a recovery re-encode (on the
+        continuation thread).  A card fault, the encode's or the store's,
+        holds the recovery (``_ec_card_fault``) and is raised."""
+        with self._ec_card_fault(None, state):
+            err = fut.exception()
+            if err is not None:
+                if card_fault(err):
+                    raise err
+                # the pull itself succeeded; any other failed re-encode
+                # releases the recovering gate so the recovery window can
+                # retry the object (it is still missing)
+                dout("osd", 1, "osd.%d recovery re-encode failed for "
+                     "%s: %r", self.osd_id, state.get("oid"), err)
+                pg = self.pgs.get(state["pgid"])
+                if pg is not None:
+                    with self._lock:
+                        pg.recovering.pop(state["oid"], None)
+                return
+            chunks = self._ec_shard_columns(si, stripes, fut.result(), n)
+            # keep the submit/commit pair convergent: operators read
+            # in-flight encodes as submits - commits
+            self.perf.inc("ec_dispatch_commits")
+            self._ec_recover_store(state, data, chunks)
 
     def _ec_recover_store(self, state: dict, data: bytes,
                           chunks: dict) -> None:

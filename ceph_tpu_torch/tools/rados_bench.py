@@ -1,0 +1,162 @@
+"""`rados bench` analog (tools/rados/rados.cc:106-184 over
+common/obj_bencher.h semantics): write / sequential-read / random-read
+workloads with a bounded window of in-flight aio ops, reporting
+bandwidth, IOPS, and latency like the reference's per-run summary.
+
+Usage (mirrors `rados bench -p P SECONDS write -b SIZE -t N`):
+
+    python -m ceph_tpu_torch.tools.rados_bench --mon HOST -p POOL SECONDS \\
+        write|seq|rand [-b OBJ_SIZE] [-t CONCURRENT] [--run-name NAME] \\
+        [--n-objects N] [--device cuda|cpu]
+
+The client's context runs on the card (``--device cuda``, the default;
+without one the run raises); ``--device cpu`` runs the plain torch path.
+seq/rand runs read the objects a prior `write` run left behind (the
+reference stores a benchmark_last_metadata object for this; here the
+object naming is deterministic: <run-name>_<i>).  Each run prints one JSON
+line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import random
+import time
+
+
+class ObjBencher:
+    def __init__(self, ioctx, obj_size: int = 4 << 20,
+                 concurrent: int = 16, run_name: str = "benchmark_data",
+                 op_timeout: float = 30.0):
+        self.io = ioctx
+        self.obj_size = obj_size
+        self.concurrent = max(1, concurrent)
+        self.run_name = run_name
+        self.op_timeout = op_timeout
+
+    def _obj(self, i: int) -> str:
+        return f"{self.run_name}_{i}"
+
+    def payload(self) -> bytes:
+        """The bytes every written object holds."""
+        return (bytes(range(256)) * (self.obj_size // 256 + 1))[
+            :self.obj_size]
+
+    def _drive(self, seconds: float, submit) -> dict:
+        """Window-bounded aio loop shared by all workloads.  `submit(i)`
+        returns an AioCompletion for work item i."""
+        start = time.perf_counter()
+        deadline = start + seconds
+        in_flight: list[tuple[int, float, object]] = []
+        started = finished = errors = 0
+        lat_sum = 0.0
+        lat_max = 0.0
+        while True:
+            now = time.perf_counter()
+            stop = now >= deadline
+            # reap whatever is done (front-first keeps completion order
+            # roughly FIFO, like obj_bencher's slot scan)
+            still = []
+            for i, t0, c in in_flight:
+                if c.is_complete():
+                    lat = time.perf_counter() - t0
+                    lat_sum += lat
+                    lat_max = max(lat_max, lat)
+                    finished += 1
+                    if c.get_return_value() < 0:
+                        errors += 1
+                elif now - t0 > self.op_timeout:
+                    # a lost completion must not hang the bench forever
+                    c.cancel()
+                    finished += 1
+                    errors += 1
+                else:
+                    still.append((i, t0, c))
+            in_flight = still
+            if stop and not in_flight:
+                break
+            while not stop and len(in_flight) < self.concurrent:
+                c = submit(started)
+                in_flight.append((started, time.perf_counter(), c))
+                started += 1
+            time.sleep(0.0005)
+        elapsed = time.perf_counter() - start
+        done = finished - errors
+        return {
+            "seconds": round(elapsed, 3),
+            "total_writes_or_reads": finished,
+            "errors": errors,
+            "bandwidth_mb_s": round(done * self.obj_size / elapsed / 1e6, 2),
+            "iops_avg": round(done / elapsed, 2),
+            "latency_avg_s": round(lat_sum / finished, 5) if finished else 0,
+            "latency_max_s": round(lat_max, 5),
+            "object_size": self.obj_size,
+            "concurrent": self.concurrent,
+        }
+
+    def write_bench(self, seconds: float) -> dict:
+        payload = self.payload()
+        res = self._drive(
+            seconds,
+            lambda i: self.io.aio_write_full(self._obj(i), payload))
+        res["mode"] = "write"
+        return res
+
+    def seq_read_bench(self, seconds: float, n_objects: int) -> dict:
+        res = self._drive(
+            seconds,
+            lambda i: self.io.aio_read(self._obj(i % max(1, n_objects))))
+        res["mode"] = "seq"
+        return res
+
+    def rand_read_bench(self, seconds: float, n_objects: int) -> dict:
+        rng = random.Random(0)
+        res = self._drive(
+            seconds,
+            lambda i: self.io.aio_read(
+                self._obj(rng.randrange(max(1, n_objects)))))
+        res["mode"] = "rand"
+        return res
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="rados bench")
+    ap.add_argument("--mon", required=True, help="mon host:port")
+    ap.add_argument("-p", "--pool", type=int, required=True)
+    ap.add_argument("seconds", type=float)
+    ap.add_argument("mode", choices=["write", "seq", "rand"])
+    ap.add_argument("-b", "--block-size", type=int, default=4 << 20)
+    ap.add_argument("-t", "--concurrent", type=int, default=16)
+    ap.add_argument("--run-name", default="benchmark_data")
+    ap.add_argument("--n-objects", type=int, default=0,
+                    help="object count for seq/rand (from a prior write)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device of the client's context (default "
+                         "cuda; the CPU tests pass cpu)")
+    args = ap.parse_args(argv)
+    if args.mode != "write" and args.n_objects <= 0:
+        ap.error("seq/rand need --n-objects (the count a prior "
+                 "write run reported as total_writes_or_reads)")
+
+    from ceph_tpu_torch.client.rados import RadosClient
+    client = RadosClient(args.mon, device=args.device)
+    client.connect()
+    try:
+        io = client.open_ioctx(args.pool)
+        b = ObjBencher(io, obj_size=args.block_size,
+                       concurrent=args.concurrent, run_name=args.run_name)
+        if args.mode == "write":
+            res = b.write_bench(args.seconds)
+        elif args.mode == "seq":
+            res = b.seq_read_bench(args.seconds, args.n_objects)
+        else:
+            res = b.rand_read_bench(args.seconds, args.n_objects)
+        print(json.dumps(res), flush=True)
+        return 0
+    finally:
+        client.shutdown()
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -74,7 +74,13 @@ Runs ceph_tpu_torch (never JAX, never ceph_tpu) at the bench's full size:
              there; GF at the encode, the recovery and the mixed decode, and
              the encode on all-zero data (no shared-memory bank conflicts);
              the filter beside the exact root kernel on the same columns; the
-             consume kernel at the stage-2 launch and over its block sizes
+             consume kernel at the stage-2 launch and over its block sizes.
+             Beside the CRUSH rate, the one-core yardstick c_crush_mpps
+             (bench.py's): native.CrushBaseline, the scalar C crush_do_rule,
+             on the flagship map and rule, the first 8,192 of the same xs
+             and the same reweight after a 256-x warm call, with the host
+             CPU's model name (a rate of one host core, not of the card) and
+             the card's ratio to it; its rows == FastMapper's on the card
   7. ec      with every launch count at 0 again: the erasure-code plugin
              layer on the card (ceph_tpu_torch.ec, runtime cuda): the 14
              corpus profiles of tools.ec_non_regression encoded and compared
@@ -188,8 +194,21 @@ Runs ceph_tpu_torch (never JAX, never ceph_tpu) at the bench's full size:
              10a and 10d); gf_matvec == its plain version on one object's
              (128, 8, 4096) stripes; every context's fault_digest() zero;
              no engine thread alive after stop() (the threads and
-             torch.cuda.memory_allocated() printed).  The card's busy share
-             over degraded reads of 32 objects, from torch.profiler
+             torch.cuda.memory_allocated() printed).  10e, after phase 11
+             (every shard on the OSDs the map names): rados bench, the
+             port's tools.rados_bench.ObjBencher on the same pool at 4 MiB
+             objects, 16 in flight, run name bench10e: write_bench(5 s), then
+             seq_read_bench(3 s) and rand_read_bench(3 s) over what it wrote,
+             each with the launch counts at 0 just before it and read just
+             after, each result printed with its MB/s beside 10a's and 10b's.
+             Checks: errors 0 and ops > 0 in each; gf_matvec launched by the
+             write; 8 of its objects drawn with a seed read back == the bench
+             payload, their shards on the OSDs the map names == their
+             stripes and gf_matvec's plain version on the card, hinfo
+             matching; every context's fault_digest() zero.  The objects
+             stay (an EC pool takes no delete).  10e's seconds are printed
+             apart from phase 10's.  The card's busy share over degraded
+             reads of 32 objects, from torch.profiler
  11. scrub   deep scrub on phase 10's cluster before it stops (after 10d,
              12 OSDs up): a replicated pool at the defaults (size 3, pg_num
              32) takes 16 rados bench objects of 4 MiB; then three passes
@@ -330,15 +349,23 @@ Runs ceph_tpu_torch (never JAX, never ceph_tpu) at the bench's full size:
              stop() each OSD's FileStore is opened here and every object's
              6 shards on the OSDs the map names are held against their
              stripes and gf_matvec's plain version on the card, hinfo
-             matching.  The OSDs' MMgrReport perf payload carries their
-             encode submits, not the encode channel's calls, so no mgr is
-             spawned.  The phase's seconds (budget 120)
- 15. prints  the {"engine": ...} line, the {"mapping": ...} line, the
+             matching.  After HEALTH_OK and before stop(), rados bench's
+             CLI (python -m ceph_tpu_torch.tools.rados_bench, a process of
+             its own on the card) against the mon: 3 s of writes, 16 in
+             flight, then seq over the objects they wrote; each JSON line
+             parsed and printed, exit code 0 and errors 0.  The OSDs'
+             MMgrReport perf payload carries their encode submits, not the
+             encode channel's calls, so no mgr is spawned; the kernels of
+             14b launch in the OSD processes and are not counted.  The
+             phase's seconds (budget 120)
+ 15. prints  the {"crush_baseline": ...} line (phase 6's one-core C rate),
+             the {"engine": ...} line, the {"mapping": ...} line, the
              {"cluster": ...} line, the {"scrub": ...} line, the
              {"bluestore": ...} line, the {"mgr": ...} line, the {"tcp":
              ...} line, the {"kernels": [...]} line (gf_matvec's row also
              carries the EC shapes of phase 7 as "ec_shapes", its launches
-             by cluster sub-phase as "cluster" and by phase 14a's sub-step
+             by cluster sub-phase (10e's write, seq and rand included) as
+             "cluster" and by phase 14a's sub-step
              as "tcp"; pg_finish_ladder's its launches per
              epoch, each pool's shape and times, the first version's times,
              its balancer launches by phase 13 sub-step and pool as
@@ -504,6 +531,14 @@ CLUSTER_BUSY_OBJECTS = 32            # degraded reads under the profiler
 CLUSTER_OP_TIMEOUT = 300.0
 CLUSTER_RECOVERY_S = 300.0
 CLUSTER_BUDGET_S = 120.0
+#: 10e, rados bench on phase 10's cluster (the port's ObjBencher): seconds of
+#: writes, then of sequential and of random reads of what they wrote
+BENCH_RUN_NAME = "bench10e"
+BENCH_WRITE_S = 5.0
+BENCH_READ_S = 3.0
+#: the one-core C CRUSH yardstick (bench.py's c_crush_mpps): PGs, warm PGs
+C_CRUSH_PGS = 8192
+C_CRUSH_WARM = 256
 # phase 11: deep scrub on phase 10's cluster, plus a replicated pool at the
 # defaults osd_pool_default_size 3 and osd_pool_default_pg_num 32, holding
 # rados bench objects; a scrub chunk is osd_scrub_chunk_objects (16)
@@ -563,6 +598,8 @@ TCP_PROC_OSDS, TCP_PROC_K, TCP_PROC_M, TCP_PROC_PG_NUM = 6, 4, 2, 16
 TCP_PROC_OBJECTS, TCP_PROC_MORE = 32, 8
 TCP_PROC_VICTIM = 1
 TCP_BUDGET_S = 120.0
+#: 14b's rados bench CLI against the processes: seconds of writes and reads
+TCP_CLI_S = 3.0
 
 
 def digest_batch(dev, rng, s: int, w: int, omap: bool) -> dict:
@@ -1820,6 +1857,81 @@ def _oracle_shards(c, pool: int, name: str, payload: bytes, gen,
                   pool, name, full, k, "the numpy oracle's encode")
 
 
+def bench_phase(c, io, pool: int, contexts, dev, tag: str, obj_bytes: int,
+                subs: dict) -> dict:
+    """10e: rados bench (the port's ObjBencher) on phase 10's healed
+    cluster: write_bench, then seq_read_bench and rand_read_bench of what
+    it wrote, each with the launch counts at 0 just before it and read just
+    after; CLUSTER_SAMPLE of its objects, drawn with a seed, read back and
+    their shards held against their stripes and gf_matvec's plain version
+    on ``dev``.  The objects stay: an EC pool takes no delete (the OSD
+    answers -22, as the reference's does)."""
+    import numpy as np
+    import torch
+
+    from ceph_tpu_torch.ops import _build
+    from ceph_tpu_torch.ops import gf_kernel as gk
+    from ceph_tpu_torch.tools.rados_bench import ObjBencher
+    on_card = dev.type == "cuda"
+    t0 = time.perf_counter()
+    k, m = CLUSTER_K, CLUSTER_M
+    b = ObjBencher(io, obj_size=obj_bytes, concurrent=CLUSTER_IN_FLIGHT,
+                   run_name=BENCH_RUN_NAME, op_timeout=CLUSTER_OP_TIMEOUT)
+    runs: dict = {}
+    launches: dict = {}
+
+    def run(mode, body):
+        _build.reset_launches()
+        res = body()
+        if on_card:
+            torch.cuda.synchronize()
+        gf = _build.LAUNCHES["gf_matvec"]
+        res["gf_matvec_launches"] = gf
+        runs[mode] = res
+        launches[f"10e_{mode}"] = gf
+        print(f"cluster 10e {mode}: {json.dumps(res)}  {tag}")
+        check(res["errors"] == 0 and res["total_writes_or_reads"] > 0,
+              f"10e {mode}: {res['total_writes_or_reads']} ops, errors 0")
+        return res
+
+    w = run("write", lambda: b.write_bench(BENCH_WRITE_S))
+    n = w["total_writes_or_reads"]
+    check(not on_card or launches["10e_write"] >= 1,
+          f"10e: gf_matvec launched by the writes ({launches['10e_write']})")
+    run("seq", lambda: b.seq_read_bench(BENCH_READ_S, n))
+    run("rand", lambda: b.rand_read_bench(BENCH_READ_S, n))
+    print(f"cluster 10e: rados bench MB/s write "
+          f"{runs['write']['bandwidth_mb_s']:.1f}, seq "
+          f"{runs['seq']['bandwidth_mb_s']:.1f}, rand "
+          f"{runs['rand']['bandwidth_mb_s']:.1f}; beside 10a's write "
+          f"{subs['10a_write']['MB_s']:.1f} and 10b's read "
+          f"{subs['10b_read']['MB_s']:.1f} (host clock)  {tag}")
+    payload = b.payload()
+    tab = torch.from_numpy(gk.pack_rows(_ec_generator(k, m)[k:][None])) \
+        .to(dev)
+    rng = np.random.default_rng(21)
+    sample = [f"{BENCH_RUN_NAME}_{i}" for i in
+              sorted(rng.choice(n, min(CLUSTER_SAMPLE, n), replace=False))]
+    stores = {i: o.store for i, o in c.osds.items()}
+    held = 0
+    for name in sample:
+        if io.read(name) != payload:
+            raise SmokeFailure(f"10e: {name} read back != the bench payload")
+        held += _plain_shards(stores, c.mon.osdmap, pool, name, payload,
+                              tab, k, m, dev)
+    check(True, f"10e: {len(sample)} sampled bench objects read back "
+          f"byte-equal; their {held} shards on the OSDs the map names == "
+          f"their stripes and gf_matvec's plain version on the card, hinfo "
+          f"matching")
+    for ctx in contexts:
+        assert_no_faults(f"10e: {ctx.name}", ctx.fault_digest())
+    secs = time.perf_counter() - t0
+    print(f"cluster 10e: took {secs:.1f} s  {tag}")
+    return {"runs": runs, "objects": n, "sample": sample,
+            "shards_held": held, "launches": launches,
+            "phase_seconds": secs}
+
+
 def cluster_phase(dev, tag: str, n_objects: int = CLUSTER_OBJECTS,
                   obj_bytes: int = CLUSTER_OBJ_BYTES,
                   scrub: bool = True) -> tuple:
@@ -2011,6 +2123,12 @@ def cluster_phase(dev, tag: str, n_objects: int = CLUSTER_OBJECTS,
             print("== 11. deep scrub on the MiniCluster")
             scrubbed = scrub_phase(c, client, pool, names, dev, tag,
                                    obj_bytes)
+        # 10e after phase 11: an EC pool takes no delete, so the bench's
+        # objects stay, and phase 11 scrubs what it scrubbed before
+        bench = bench_phase(c, io, pool, contexts, dev, tag, obj_bytes,
+                            subs)
+        launches.update(bench["launches"])
+        subs["10e_rados_bench"] = bench
         # the card's busy share over degraded reads of a few objects
         if on_card:
             few = names[:CLUSTER_BUSY_OBJECTS]
@@ -2081,8 +2199,10 @@ def cluster_phase(dev, tag: str, n_objects: int = CLUSTER_OBJECTS,
     secs = time.perf_counter() - t_phase
     if scrubbed is not None:
         secs -= scrubbed[0]["phase_seconds"]
-    print(f"cluster: phase 10 took {secs:.1f} s (budget "
-          f"{CLUSTER_BUDGET_S:.0f} s)  {tag}")
+    bench_s = subs.get("10e_rados_bench", {}).get("phase_seconds", 0.0)
+    secs -= bench_s
+    print(f"cluster: phase 10 took {secs:.1f} s without 10e's "
+          f"{bench_s:.1f} s (budget {CLUSTER_BUDGET_S:.0f} s)  {tag}")
     summary = {"osds": CLUSTER_OSDS, "k": CLUSTER_K, "m": CLUSTER_M,
                "pg_num": CLUSTER_PG_NUM, "objects": n_objects,
                "pool_peering_seconds": peer_s,
@@ -4097,6 +4217,7 @@ def proc_cluster(dev, tag: str, n_objects: int = TCP_PROC_OBJECTS,
               f"ready {ready[f'osd.{victim} restart']:.1f} s)  {tag}")
         osdmap = client.osdmap
         step("14b_read_recovered", names, False)
+        cli = cli_bench(pc.mon_host, pool, dev, tag)
     finally:
         pc.stop()
     try:
@@ -4123,9 +4244,47 @@ def proc_cluster(dev, tag: str, n_objects: int = TCP_PROC_OBJECTS,
             "start_seconds": start_s, "card_memory_MiB": card_mib,
             "card_memory_growth_MiB": daemons_mib,
             "restart_to_recovered_seconds": recovered_s,
-            "sub_steps": steps,
+            "sub_steps": steps, "rados_bench_cli": cli,
             "launches": "not counted: the kernels launch in the OSD "
                         "processes"}
+
+
+def cli_bench(mon_host: str, pool: int, dev, tag: str) -> dict:
+    """14b's rados bench CLI: ``python -m ceph_tpu_torch.tools.rados_bench``
+    as a process of its own on ``dev`` against the daemon processes, a
+    write run of TCP_CLI_S seconds with CLUSTER_IN_FLIGHT in flight, then a
+    seq run over what it wrote; each JSON line parsed and printed, its exit
+    code 0 and errors 0.  Its launches are not counted: the kernels launch
+    in the OSD processes."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out: dict = {}
+    n = 0
+    for mode in ("write", "seq"):
+        cmd = [sys.executable, "-m", "ceph_tpu_torch.tools.rados_bench",
+               "--mon", mon_host, "-p", str(pool), str(TCP_CLI_S), mode,
+               "-t", str(CLUSTER_IN_FLIGHT), "--device", dev.type]
+        if mode == "seq":
+            cmd += ["--n-objects", str(n)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                              timeout=CLUSTER_OP_TIMEOUT)
+        secs = time.perf_counter() - t0
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        if proc.returncode != 0 or not lines:
+            raise SmokeFailure(f"14b: rados bench {mode} exited "
+                               f"{proc.returncode}: {proc.stderr[-2000:]}")
+        res = json.loads(lines[-1])
+        res["process_seconds"] = secs
+        out[mode] = res
+        print(f"tcp 14b: rados bench {mode} (CLI, its own process on "
+              f"{dev.type}, {secs:.1f} s from spawn to exit): "
+              f"{json.dumps(res)}  {tag}")
+        check(res["errors"] == 0 and res["total_writes_or_reads"] > 0,
+              f"14b: rados bench {mode} exited 0, "
+              f"{res['total_writes_or_reads']} ops, errors 0")
+        if mode == "write":
+            n = res["total_writes_or_reads"]
+    return out
 
 
 def tcp_phase(dev, tag: str, loopback: dict | None) -> tuple[dict, dict]:
@@ -4566,6 +4725,40 @@ def _ec_operand(codec, workload: str, data, lost):
             return codec.decode_chunks(chosen, src, list(lost))
     s, kk, b = src.shape
     return mat, src.reshape(s, kk * w, b // w).contiguous(), call
+
+
+def c_crush_row(crush_map, rid: int, reweight, xs_np, placements,
+                card_mpps: float, tag: str) -> dict:
+    """Phase 6's one-core yardstick (bench.py:1319-1327): the port's
+    native.CrushBaseline, the scalar C crush_do_rule, on the flagship map
+    and rule, the first C_CRUSH_PGS of the same xs and the same reweight,
+    after a C_CRUSH_WARM-x warm call; its rows == FastMapper's on the card.
+    A rate of one core of the host, not of the card."""
+    import numpy as np
+
+    from ceph_tpu_torch.native import CrushBaseline, cpu_name
+    cpu = cpu_name()
+    c_xs = np.ascontiguousarray(xs_np[:C_CRUSH_PGS], dtype=np.uint32)
+    rw = reweight.astype(np.uint32)
+    cb = CrushBaseline(crush_map)
+    try:
+        cb.do_rule_batch(rid, c_xs[:C_CRUSH_WARM], NUMREP, rw)
+        t0 = time.perf_counter()
+        rows = cb.do_rule_batch(rid, c_xs, NUMREP, rw)
+        secs = time.perf_counter() - t0
+    finally:
+        cb.close()
+    c_mpps = len(c_xs) / secs / 1e6
+    print(f"CRUSH C    {c_mpps:.4f} Mpps (c_crush_mpps: native.CrushBaseline,"
+          f" the scalar C crush_do_rule on one core of the host CPU, {cpu}; "
+          f"{len(c_xs)} PGs in {secs * 1e3:.1f} ms after a {C_CRUSH_WARM}-PG "
+          f"warm call); the card's flagship call over it "
+          f"{card_mpps / c_mpps:.1f}x  {tag}")
+    check(np.array_equal(rows, placements[:len(c_xs)].cpu().numpy()),
+          f"CrushBaseline's {len(c_xs)} rows == FastMapper's rows on the card")
+    return {"c_crush_mpps": c_mpps, "host_cpu": cpu, "pgs": len(c_xs),
+            "seconds": secs, "card_crush_mpps": card_mpps,
+            "card_over_c": card_mpps / c_mpps}
 
 
 def ec_phase(dev, tag: str, same, check_rng) -> list[dict]:
@@ -5233,6 +5426,8 @@ def run() -> None:
           f"({t_rec:.4f} ms per {data_bytes >> 20} MiB call) {tag}")
     print(f"CRUSH      {N_PGS / t_crush / 1e3:.4f} Mpps "
           f"({t_crush:.4f} ms per {N_PGS}-PG call) {tag}")
+    crush_baseline = c_crush_row(crush_map, rid, reweight, xs_np,
+                                 placements, N_PGS / t_crush / 1e3, tag)
     # where the flagship CRUSH call's time goes: the card's busy share
     prof = profile_window(lambda: fm.run(xs, rw, NUMREP))
     if prof["busy_ms"] > 0 and prof["device_ms"] > 0:
@@ -5602,6 +5797,7 @@ def run() -> None:
 
     print("== 15. results")
     print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"crush_baseline": crush_baseline}))
     print(json.dumps({"engine": engine}))
     print(json.dumps({"mapping": mapping}))
     print(json.dumps({"cluster": cluster}))

@@ -1,23 +1,29 @@
 """The port's fault-injected device runtime (ceph_tpu_torch.common.failpoint
 and the dispatch engine's supervised recovery), mirroring
-tests/test_failpoints.py's TestFailpointFramework, TestEngineRecovery and
-TestChannelBitExactness (encode, decode and crush channels) on the CPU.
+tests/test_failpoints.py's TestFailpointFramework, TestEngineRecovery,
+TestChannelBitExactness (encode, decode and crush channels),
+TestClientResendBackoff (the client's resend backoff, each case run on the
+port's client and the JAX package's) and TestVisibility (the MMgrReport
+faults tail, the mgr's KERNEL_DEGRADED, the prometheus fault families and
+fault_digest, each held against the JAX package's) on the CPU.
 
 Left out: the ladder channel's bit-exactness (``submit_finish_ladder``
-waits for the fused placement tail), TestClientResendBackoff, TestVisibility
-and ``test_device_chaos_storm``, which need the client, the mgr and the
-thrasher.
+waits for the fused placement tail) and ``test_device_chaos_storm``, which
+waits for the thrasher (ROADMAP.md Queue 1 item 7.1b).
 
 Degraded results are held against the device path's and against the
 reference package's kernels and oracles on the same seeded inputs, with
 exact equality.  A breaker's state is awaited by polling it under a
-deadline; nothing asserts on elapsed time.  Engines are stopped at teardown
-and failpoints cleared around every test.
+deadline, and a deferred resend by waiting for it; nothing asserts on
+elapsed time beyond the reference's bounds on a resend's due time.
+Engines are stopped at teardown and failpoints cleared around every test.
 """
 
 from __future__ import annotations
 
+import os
 import re
+import sys
 import threading
 import time
 
@@ -682,3 +688,387 @@ class TestChannelBitExactness:
         assert (degraded == device).all()
         assert (device == np.asarray(ref_ck.flat_firstn(
             xs, ids, weights, reweight, numrep=3))).all()
+
+
+# -- client resend backoff (tests/test_failpoints.py TestClientResendBackoff) --
+
+def _backoff_client(pkg: str):
+    """A client that never connects, of the port or of the JAX package."""
+    if pkg == "port":
+        from ceph_tpu_torch.client.rados import RadosClient, _Waiter
+        return RadosClient("client-backoff-test", ms_type="loopback",
+                           device="cpu"), _Waiter
+    from ceph_tpu.client.rados import RadosClient, _Waiter
+    return RadosClient("client-backoff-test", ms_type="loopback"), _Waiter
+
+
+def _op(waiter_cls, tid: int, resends: int = 0):
+    from types import SimpleNamespace
+    w = waiter_cls(SimpleNamespace(tid=tid, qos_tenant=""), 0, True)
+    w.resends = resends
+    return w
+
+
+def _resend_counters(c) -> dict:
+    obj = c.ctx.perf.dump()[f"objecter.{c.client_id}"]
+    return {k: obj[k] for k in ("op_resends", "op_resend_backoffs")}
+
+
+def _both(scenario) -> dict:
+    """``scenario(client, waiter_cls)`` on a port client and a JAX one;
+    the port's outcome, held equal to the JAX package's."""
+    out = {}
+    for pkg in ("port", "ref"):
+        c, waiter_cls = _backoff_client(pkg)
+        try:
+            out[pkg] = scenario(c, waiter_cls)
+        finally:
+            c.shutdown()
+    assert out["port"] == out["ref"], out
+    return out["port"]
+
+
+def _wait_for(cond, what: str) -> None:
+    assert _wait(cond), f"timed out waiting for {what}"
+
+
+class TestClientResendBackoff:
+    """The reference's cases on the port's client and the JAX one.  Each
+    deferred send is awaited as an event under a deadline; the delays are
+    read from the queued row's due time (computed, not measured), inside
+    the bounds the reference asserts."""
+
+    def test_first_resend_immediate_then_backoff(self):
+        def scenario(c, waiter_cls):
+            c.ctx.conf.set("client_resend_backoff_ms", 30.0)
+            sent: list[float] = []
+            c._send_op = lambda w: sent.append(time.monotonic())
+            w = _op(waiter_cls, 1)
+            c._waiters[1] = w
+            c._resend_op(w)                      # 1st: immediate
+            first = len(sent)
+            t0 = time.monotonic()
+            c._resend_op(w)                      # 2nd: deferred
+            t1 = time.monotonic()
+            deferred = len(sent)
+            with c._lock:
+                (due, _w), = c._resend_q
+            # jittered into [base/2, base] past the call
+            assert t0 + 0.015 <= due <= t1 + 0.030, (due - t0)
+            _wait_for(lambda: len(sent) >= 2, "the deferred resend")
+            assert sent[1] >= due
+            return {"first": first, "deferred": deferred,
+                    "sent": len(sent), **_resend_counters(c)}
+        got = _both(scenario)
+        assert got == {"first": 1, "deferred": 1, "sent": 2,
+                       "op_resends": 2, "op_resend_backoffs": 1}
+
+    def test_backoff_grows_and_caps(self):
+        def scenario(c, waiter_cls):
+            c.ctx.conf.set("client_resend_backoff_ms", 10.0)
+            c.ctx.conf.set("client_resend_backoff_max_ms", 25.0)
+            c._send_op = lambda w: None
+            w = _op(waiter_cls, 2, resends=9)    # deep retry history
+            c._waiters[2] = w
+            t0 = time.monotonic()
+            c._resend_op(w)
+            t1 = time.monotonic()
+            with c._lock:
+                (due, _w2), = c._resend_q
+            # capped: jittered delay in [cap/2, cap]
+            assert t0 + 0.0125 <= due <= t1 + 0.025, (due - t0)
+            return {"rows": 1, **_resend_counters(c)}
+        assert _both(scenario) == {"rows": 1, "op_resends": 1,
+                                   "op_resend_backoffs": 1}
+
+    def test_completed_ops_drop_from_resend_queue(self):
+        def scenario(c, waiter_cls):
+            c.ctx.conf.set("client_resend_backoff_ms", 20.0)
+            sent = []
+            c._send_op = lambda w: sent.append(w)
+            w = _op(waiter_cls, 3, resends=1)
+            c._waiters[3] = w
+            c._resend_op(w)
+            del c._waiters[3]                    # reply landed
+            # the timer fires and drains the queue without sending
+            _wait_for(lambda: c._resend_timer is None and not c._resend_q,
+                      "the resend timer's drain")
+            return {"sent": len(sent)}
+        assert _both(scenario) == {"sent": 0}    # never resent
+
+    def test_epoch_storm_coalesces_deferred_resends(self):
+        """A map storm while a resend is already deferred queues no
+        duplicate rows: N epochs -> at most one queued send (op_resends
+        counts sends scheduled, not epochs observed)."""
+        def scenario(c, waiter_cls):
+            c.ctx.conf.set("client_resend_backoff_ms", 30.0)
+            sent = []
+            c._send_op = lambda w: sent.append(time.monotonic())
+            w = _op(waiter_cls, 1)
+            c._waiters[1] = w
+            c._resend_op(w)                      # 1st: immediate
+            for _ in range(5):                   # epoch storm
+                c._resend_op(w)
+            with c._lock:
+                rows = len(c._resend_q)          # coalesced, not 6 rows
+            _wait_for(lambda: len(sent) >= 2, "the deferred resend")
+            # drained, and no trailing duplicate behind it
+            _wait_for(lambda: c._resend_timer is None and not c._resend_q,
+                      "the resend timer's drain")
+            out = {"rows": rows, "sent": len(sent), **_resend_counters(c)}
+            # drained: the next epoch defers a fresh (deduped) row
+            c._resend_op(w)
+            with c._lock:
+                out["rows_after"] = len(c._resend_q)
+            return out
+        assert _both(scenario) == {"rows": 1, "sent": 2, "op_resends": 2,
+                                   "op_resend_backoffs": 1,
+                                   "rows_after": 1}
+
+    def test_resend_error_does_not_strand_queue(self):
+        """A resend raising past OSError/TimeoutError (the op's pool
+        deleted under it) does not unwind the one shared timer thread
+        mid-fan: the other ready waiters are still sent."""
+        def scenario(c, waiter_cls):
+            c.ctx.conf.set("client_resend_backoff_ms", 10.0)
+            sent: list[int] = []
+
+            def send(w):
+                if w.msg.tid == 1:
+                    raise KeyError("pool gone")
+                sent.append(w.msg.tid)
+            c._send_op = send
+            for tid in (1, 2):
+                w = _op(waiter_cls, tid, resends=1)   # next resend defers
+                c._waiters[tid] = w
+                c._resend_op(w)
+            _wait_for(lambda: sent, "the second waiter's resend")
+            _wait_for(lambda: c._resend_timer is None and not c._resend_q,
+                      "the resend timer's drain")
+            return {"sent": sent}
+        assert _both(scenario) == {"sent": [2]}
+
+
+# -- visibility (tests/test_failpoints.py TestVisibility) ------------------------
+
+class _FaultFeedMgr:
+    """The MgrDaemon surface the prometheus module reads, with a faults
+    feed of osd.3 (encode breaker open) and osd.5 (closed)."""
+
+    class _Map:
+        max_osd = 1
+        epoch = 1
+        osd_weight = [0x10000]
+
+        def is_up(self, o):
+            return True
+
+        def exists(self, o):
+            return True
+
+    osdmap = _Map()
+
+    def get(self, name):
+        return {
+            "health": {"status": "HEALTH_OK"},
+            "pg_summary": {},
+            "df": {"total_objects": 0, "total_bytes_used": 0},
+            "counters": {},
+            "perf_reports": {},
+            "qos_feed": {},
+            "faults_feed": {
+                3: {"encode": {"breaker_states": {"ec_encode": 1}},
+                    "decode": {"breaker_states": {}}},
+                5: {"encode": {"breaker_states": {"ec_encode": 0}}}},
+        }[name]
+
+    def get_store(self, key, default=None):
+        return default
+
+
+def _scrape_with(module) -> dict:
+    sys.path.insert(0, os.path.dirname(__file__))
+    from test_kernel_telemetry import parse_exposition
+    mod = module.Module.__new__(module.Module)
+    mod.mgr = _FaultFeedMgr()
+    return parse_exposition(mod.scrape_text())
+
+
+class TestVisibility:
+    """The degraded-mode surfaces: the MMgrReport faults tail, the mgr's
+    KERNEL_DEGRADED health check, the prometheus fault families and
+    fault_digest, each held against the JAX package's on the same
+    inputs."""
+
+    def test_mgr_report_carries_faults_tail(self):
+        from ceph_tpu.mgr.daemon import MMgrReport as RefReport
+        from ceph_tpu.msg.encoding import Encoder as RefEncoder
+        from ceph_tpu_torch.mgr.daemon import MMgrReport
+        from ceph_tpu_torch.msg.encoding import Decoder, Encoder
+        faults = {"encode": {"breaker_states": {"ec_encode": 1},
+                             "fallback_batches": 3}}
+        enc = Encoder()
+        MMgrReport(osd_id=4, faults=faults).encode_payload(enc)
+        out = MMgrReport.__new__(MMgrReport)
+        out.decode_payload(Decoder(enc.tobytes()), MMgrReport.HEAD_VERSION)
+        assert out.faults == faults
+        ref = RefEncoder()
+        RefReport(osd_id=4, faults=faults).encode_payload(ref)
+        assert enc.tobytes() == ref.tobytes()
+
+    def test_mgr_health_kernel_degraded(self):
+        from ceph_tpu.mgr.daemon import MgrDaemon as RefMgr
+        from ceph_tpu.mgr.daemon import MMgrReport as RefReport
+        from ceph_tpu_torch.mgr.daemon import MgrDaemon, MMgrReport
+
+        def healths(mgr, report_cls):
+            degraded = report_cls(osd_id=1, faults={
+                "encode": {"breaker_states": {"ec_encode": 1}},
+                "decode": {"breaker_states": {}}})
+            healed = report_cls(osd_id=1, faults={
+                "encode": {"breaker_states": {"ec_encode": 0}}})
+            # no mon answers this mgr: the modules' options read their
+            # defaults instead of waiting out a mon command each
+            mgr.get_store = lambda key, default=None: default
+            out = []
+            # degraded; the breaker re-closed; a daemon that died
+            # mid-outage (stale report, never pruned)
+            for stamp, rep in ((time.time(), degraded),
+                               (time.time(), healed),
+                               (time.time() - 3600.0, degraded)):
+                with mgr._lock:
+                    mgr.reports[1] = (stamp, rep)
+                out.append(mgr.health())
+            return out
+        mgr = MgrDaemon("mgr-health-test", ms_type="loopback", device="cpu")
+        got = healths(mgr, MMgrReport)
+        assert got == healths(RefMgr("mgr-health-test", ms_type="loopback"),
+                              RefReport)
+        h = got[0]
+        checks = {c["check"]: c for c in h["checks"]}
+        assert "KERNEL_DEGRADED" in checks, h
+        assert checks["KERNEL_DEGRADED"]["severity"] == "warn"
+        assert checks["KERNEL_DEGRADED"]["daemons"] == {
+            "1": ["encode/ec_encode"]}
+        assert h["status"] == "HEALTH_WARN"
+        # breaker re-closes -> the warning clears
+        assert all(c["check"] != "KERNEL_DEGRADED"
+                   for c in got[1]["checks"]), got[1]
+        # stale: reads as STALE, not KERNEL_DEGRADED forever
+        checks = {c["check"] for c in got[2]["checks"]}
+        assert "KERNEL_DEGRADED" not in checks, got[2]
+        assert "MGR_STALE_REPORTS" in checks, got[2]
+
+    def test_prometheus_fault_families(self):
+        from ceph_tpu.mgr.modules import prometheus as ref_prometheus
+        from ceph_tpu.ops import telemetry as ref_telemetry
+        from ceph_tpu_torch.mgr.modules import prometheus
+        sinks = (telemetry.dispatch_stats(), ref_telemetry.dispatch_stats())
+        for stats, tel in zip(sinks, (telemetry, ref_telemetry)):
+            stats.record_retry(True)
+            stats.record_fallback(64)
+            stats.record_breaker("ec_encode", tel.BREAKER_OPEN)
+            stats.record_probe(False)
+        try:
+            fams = _scrape_with(prometheus)
+            ref = _scrape_with(ref_prometheus)
+            assert fams["ceph_kernel_fallback_batches_total"][
+                "type"] == "counter"
+            assert fams["ceph_kernel_fallback_stripes_total"][
+                "type"] == "counter"
+            assert fams["ceph_kernel_breaker_state"]["type"] == "gauge"
+            assert fams["ceph_kernel_breaker_transitions_total"][
+                "type"] == "counter"
+            probes = fams["ceph_kernel_fallback_probes_total"]
+            assert {s[1].get("outcome") for s in probes["samples"]} \
+                == {"success", "failure"}
+            state = [s for s in fams["ceph_kernel_breaker_state"]
+                     ["samples"]
+                     if s[1] == {"engine": "encode",
+                                 "channel": "ec_encode"}]
+            assert state and state[0][2] == 1.0
+            batches = [s for s in fams[
+                "ceph_kernel_fallback_batches_total"]["samples"]
+                if s[1] == {"engine": "encode"}]
+            assert batches[0][2] >= 1.0
+            # both engines emit the families, decode included
+            assert any(s[1].get("engine") == "decode" for s in fams[
+                "ceph_kernel_fallback_batches_total"]["samples"])
+            # the same families, with the same labels, as the reference
+            for fam in ("ceph_kernel_fallback_retries_total",
+                        "ceph_kernel_fallback_retry_successes_total",
+                        "ceph_kernel_fallback_batches_total",
+                        "ceph_kernel_fallback_stripes_total",
+                        "ceph_kernel_fallback_probes_total",
+                        "ceph_kernel_fallback_thread_deaths_total",
+                        "ceph_kernel_fallback_thread_restarts_total",
+                        "ceph_kernel_breaker_transitions_total",
+                        "ceph_kernel_breaker_state"):
+                assert fams[fam]["type"] == ref[fam]["type"], fam
+                assert sorted(str(s[1]) for s in fams[fam]["samples"]) \
+                    == sorted(str(s[1]) for s in ref[fam]["samples"]), fam
+        finally:
+            for stats in sinks:
+                stats.clear()
+
+    def test_fault_digest_shape(self):
+        from ceph_tpu.ops import telemetry as ref_telemetry
+        d = telemetry.fault_digest()
+        ref = ref_telemetry.fault_digest()
+        assert set(d) == set(ref) == {"encode", "decode"}
+        for name, eng in d.items():
+            assert {"retries", "fallback_batches", "breaker_opens",
+                    "breaker_closes", "probe_successes",
+                    "thread_deaths",
+                    "breaker_states"} <= set(eng)
+            # the reference's keys, and the card faults the engine fans
+            assert set(eng) == set(ref[name]) | {"card_faults"}
+
+    def test_prometheus_daemon_breaker_family(self):
+        """The mgr exports each daemon's shipped breaker map as
+        ceph_kernel_daemon_breaker_state{ceph_daemon,engine,channel}: the
+        process-local sink family cannot attribute degradation across
+        daemons; this one names the right daemon."""
+        from ceph_tpu.mgr.modules import prometheus as ref_prometheus
+        from ceph_tpu_torch.mgr.modules import prometheus
+        fams = _scrape_with(prometheus)
+        fam = fams["ceph_kernel_daemon_breaker_state"]
+        assert fam["type"] == "gauge"
+        states = {(s[1]["ceph_daemon"], s[1]["engine"],
+                   s[1]["channel"]): s[2] for s in fam["samples"]}
+        # per-daemon attribution: osd.3 open, osd.5 closed, no
+        # last-writer-wins masking across daemons
+        assert states[("osd.3", "encode", "ec_encode")] == 1.0
+        assert states[("osd.5", "encode", "ec_encode")] == 0.0
+        assert fam == _scrape_with(ref_prometheus)[
+            "ceph_kernel_daemon_breaker_state"]
+
+    def test_ctx_fault_digest_reads_own_engine_breakers(self):
+        """A context's digest reads breaker ground truth from its OWN
+        engines: the process-global sink's breaker_states is
+        last-writer-wins across every in-process daemon, and a daemon
+        that never built an engine must not inherit another daemon's
+        open breaker."""
+        from ceph_tpu_torch.common.context import CephTpuContext
+        sink = telemetry.dispatch_stats()
+        sink.record_breaker("ec_encode", telemetry.BREAKER_OPEN)
+        ctx = CephTpuContext("fault-digest-test", device="cpu")
+        try:
+            # the raw telemetry digest sees the (polluted) global sink
+            assert telemetry.fault_digest()["encode"][
+                "breaker_states"] == {"ec_encode": 1}
+            # no engine built: no breakers, nothing inherited
+            d = ctx.fault_digest()
+            assert d["encode"]["breaker_states"] == {}
+            assert d["decode"]["breaker_states"] == {}
+            # engine built but healthy: still its own (empty) map
+            ctx.dispatch_engine()
+            assert ctx.fault_digest()["encode"]["breaker_states"] == {}
+            # counters still flow from the shared sink
+            assert ctx.fault_digest()["encode"]["breaker_opens"] >= 1
+            # the admin payload rides the same per-context digest
+            assert ctx.admin.execute("dump_fault_stats")["encode"][
+                "breaker_states"] == {}
+        finally:
+            ctx.stop()
+            sink.clear()
